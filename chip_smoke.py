@@ -16,6 +16,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
              median times (CUDA events) beside the shape's bound; in
              bf16 the check must also refuse two controls, the plain
              version without its hidden-state or outer-product rounding;
+  densify_rows_grad, segment_sumsq, sparse_table_adam, fused_table_adam
+             the four table-update kernels at bench.py's shape (a 10.4M x 17
+             table, 425,984 (id, cotangent) pairs drawn as bench.py draws
+             its ids, bf16 moments, the clip active), each held against its
+             plain version on the card (TABLE_TOL), launched twice to show
+             the same bits, and timed (CUDA events) beside its bound, the
+             plain version and, where one PyTorch call computes the same
+             function, that call; then (long_runs) three of them again
+             with two fields missing (id 0) in every row, runs of 16384
+             equal ids, held to the plain versions and timed;
+  train      the DeepFM train step at bench.py's full width and config
+             (26 x 400k-id fields, d=16, DNN [512,256,128] with BatchNorm,
+             batch 16384, bf16 compute, dropout 0) through the port's
+             create_model and Trainer on the card: the default
+             (sparse-fused) path timed over 10 steps after warm-up, with a
+             torch.profiler step; 2 steps on it and 2 on the two-pass path
+             from the same weights must agree (TRAIN_TOL); at 20k ids per
+             field, in f32, the card's first-step gradients must agree
+             with the CPU's (GRAD_MAX_REL, GRAD_NORM_REL) while three
+             planted faults are refused, and with f32 moments the card's
+             2 steps must agree with the CPU's (plain versions) on both
+             paths; each path's kernels must have launched on it;
   serve      the port's serving path at full width: synthetic MovieLens
              at ML-100K scale, xDeepFM from
              configs/xdeepfm_movielens_cin_tuned.yaml with seeded random
@@ -25,7 +47,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the same checkpoint on the CPU, and every kernel's launch
              count must have risen;
   kernels    one line listing every ported kernel with its launch count
-             on the serve path and its numbers from the serving shape.
+             on the path that runs it (serve for the CIN stack, the
+             sparse-fused train step for segment_sumsq and
+             sparse_table_adam, the two-pass step for densify_rows_grad and
+             fused_table_adam) and its numbers at that path's shape.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, the script fails before printing any result.
@@ -34,6 +59,7 @@ checkout of the repository, the script fails before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -80,6 +106,62 @@ CIN_TOL = {
 }
 # Served probabilities against the same checkpoint on the CPU.
 SERVE_TOL = 1e-4
+
+# bench.py's DeepFM workload (bench.py:71-77, 91-113, 131-150)
+BENCH_BATCH = 16384
+BENCH_FIELDS = 26
+BENCH_VOCAB = 400_000
+SMALL_VOCAB = 20_000  # the card-against-CPU comparison
+D = 17  # d + 1 columns of the fused width-16 table
+LR, L2, CLIP = 1e-3, 1e-5, 1.0  # the config defaults bench.py keeps
+# Table kernels against their plain versions on the card. Both sides round
+# every f32 operation on its own (csrc/table_update.cuh) and sum each run
+# of pairs in stream order, so the densified gradient and the Adam moments
+# must match bit for bit; p may differ where a square root differs in its
+# last bit (rel 1e-6); scalar reductions (segment sums, sum p'^2) are
+# summed in another order (rel 1e-5).
+TABLE_TOL = {"dense_exact": True, "p_rel": 1e-6, "scalar_rel": 1e-5}
+# Train steps against each other (sparse-fused against two-pass on the
+# card; the card against the CPU at 20k ids in f32): each leaf under the
+# rule of deepfm_tpu_torch/training/parity.py (rtol 1e-5 / atol 1e-7, the
+# JAX package's own tolerance for its two paths, on all but 0.1 % of a
+# leaf; every element within 2 * lr per step; a table moment within one
+# bf16 step), and the losses to rel 1e-6 per step.
+# The card against the CPU at 20k ids (f32, TF32 off) is held in two ways.
+#   First-step gradients (before any Adam step): one train-mode forward and
+#   backward from the same weights on both devices, the tables' gradients
+#   densified by the kernel on the card and by its plain version on the
+#   CPU. Each leaf is held by two readings against its CPU gradient g: the
+#   largest difference over max|g| (GRAD_MAX_REL) and the difference's
+#   norm over ||g|| (GRAD_NORM_REL); a Dense bias feeding a train-mode
+#   BatchNorm, whose exact gradient is 0, is measured against its layer
+#   weight's gradient. At batch 16384 some activations sit within f32
+#   rounding of a ReLU kink, so the devices pass a different few through,
+#   and the train-mode BatchNorm spreads that over the batch. A dense leaf
+#   sums over the batch and moves by about 1e-3 of its max; a table row's
+#   gradient comes from one or two rows of the batch, so a flip moves it by
+#   a few % of the table's max (3.3e-2 measured on an H100), while the
+#   table's norm moves far less. The check must refuse three planted
+#   faults, the card's gradients with one DNN weight's sign flipped, with
+#   the table's largest-gradient row dropped, and with the table's gradient
+#   scaled by 1.05, or the phase fails.
+#   Two steps: after Adam's normalisation those gradient differences are
+#   steps that differ by up to lr, so there the 0.1 % share is dropped:
+#   every parameter is held to its band, the loss to rel 1e-5 per step, and
+#   the table rows the batch did not touch, whose update runs through the
+#   kernels with no gradient noise (decay, clip, Adam), to rtol / atol,
+#   moments included. That comparison keeps f32 moments: with bf16 ones the
+#   clip norm's last-bit difference flips a few moment roundings even in
+#   those rows (3.3e-6 on an untouched element, measured on an H100), which
+#   the bf16 checks above cover.
+TRAIN_TOL = {"loss_rel": 1e-6, "cpu_loss_rel": 1e-5}
+GRAD_MAX_REL = {"dense": 1e-2, "table": 0.1}
+GRAD_NORM_REL = 1e-2
+# Fields whose ids are all 0 (padding/OOV, a missing value) in the long-run
+# timing of the table kernels: each gives one run of BENCH_BATCH pairs.
+LONG_RUN_FIELDS = 2
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+DEVICE = "cuda"  # the card the table-kernel and train phases run on
 
 
 def emit(obj: dict) -> None:
@@ -308,6 +390,515 @@ def phase_cin_stack() -> dict:
     return results
 
 
+def mem_bound_ms(nbytes: float) -> float:
+    return 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+def table_inputs(dev, seed=7, missing_fields=0):
+    """bench.py's table update inputs on the card: ids drawn per field as
+    bench.py draws them (uniform in [1, vocab), so duplicates occur) and
+    offset into the fused table, cotangent rows, a table and bf16 moments
+    away from zero, and the scalars of an active clip. The first
+    ``missing_fields`` fields get id 0 (padding/OOV) in every row."""
+    import torch
+
+    rows = BENCH_FIELDS * BENCH_VOCAB
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    local = torch.randint(1, BENCH_VOCAB, (BENCH_BATCH, BENCH_FIELDS),
+                          generator=gen, device=dev)
+    local[:, :missing_fields] = 0
+    ids = (local + BENCH_VOCAB * torch.arange(BENCH_FIELDS, device=dev)).reshape(-1)
+    ct = torch.randn(ids.shape[0], D, generator=gen, device=dev) * 1e-3
+    p = (torch.rand(rows, D, generator=gen, device=dev) * 2 - 1) * 4e-3
+    mu = (torch.randn(rows, D, generator=gen, device=dev) * 1e-4).bfloat16()
+    nu = (torch.randn(rows, D, generator=gen, device=dev) * 1e-4).square().bfloat16()
+    args = (LR, 2 * L2, torch.tensor(2.0, device=dev), CLIP,
+            torch.tensor(4, dtype=torch.int32, device=dev))
+    return ids, ct, p, mu, nu, args
+
+
+def rel_err(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def phase_table_kernels() -> dict:
+    """The four table-update kernels at bench.py's shape."""
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.adam import (
+        fused_table_adam,
+        fused_table_adam_plain,
+    )
+    from deepfm_tpu_torch.ops.kernels.grad import (
+        densify_sorted,
+        segment_rows_plain,
+        sort_pairs,
+    )
+    from deepfm_tpu_torch.ops.kernels.sparse_adam import (
+        segment_sumsq,
+        segment_sumsq_plain,
+        sparse_table_adam,
+        sparse_table_adam_plain,
+    )
+
+    dev = torch.device(DEVICE)
+    ids, ct, p, mu, nu, args = table_inputs(dev)
+    rows, n = p.shape[0], ids.shape[0]
+    sids, cts = sort_pairs(ids, ct)
+    pair_bytes = n * (4 + 4 * D)
+    elems = rows * D
+    out, failures = {}, []
+
+    _, run_lengths = torch.unique_consecutive(sids, return_counts=True)
+    shape = {"rows": rows, "D": D, "pairs": n,
+             "unique_ids": run_lengths.numel(),
+             "max_run": int(run_lengths.max())}
+
+    def record(name, rec):
+        rec = {"phase": name, **shape, **rec}
+        emit(rec)
+        out[name] = rec
+        if not rec["ok"]:
+            failures.append(f"{name}: {rec}")
+
+    # densify_rows_grad: bit for bit, deterministic
+    got = densify_sorted(sids, cts, rows)
+    again = densify_sorted(sids, cts, rows)
+    want = segment_rows_plain(sids, cts, rows)
+    err = (got - want).abs().max().item()
+    record("densify_rows_grad", {
+        "max_abs_err": err, "bit_equal": bool(torch.equal(got, want)),
+        "deterministic": bool(torch.equal(got, again)),
+        "ok": bool(torch.equal(got, want) and torch.equal(got, again)),
+        "ms": time_ms(lambda: densify_sorted(sids, cts, rows), reps=20),
+        "plain_ms": time_ms(lambda: segment_rows_plain(sids, cts, rows), reps=5, warmup=1),
+        "library_ms": time_ms(lambda: torch.zeros(rows, D, device=dev).index_add_(0, ids, ct), reps=20),
+        "library": "torch.zeros(rows, D).index_add_(0, ids, ct) (unsorted, atomics)",
+        "bound_ms": mem_bound_ms(elems * 4 + pair_bytes), "bound_by": "bytes",
+    })
+    grad = got
+    del again, want
+
+    # segment_sumsq: rel 1e-5 against the plain version, deterministic
+    got = segment_sumsq(sids, cts)
+    want = segment_sumsq_plain(sids, cts)
+    rel = rel_err(got, want)
+    same = bool(torch.equal(got, segment_sumsq(sids, cts)))
+    record("segment_sumsq", {
+        "value": got.item(), "plain": want.item(),
+        "max_abs_err": abs(got.item() - want.item()), "rel_err": rel,
+        "deterministic": same, "ok": rel <= TABLE_TOL["scalar_rel"] and same,
+        "ms": time_ms(lambda: segment_sumsq(sids, cts), reps=50),
+        "plain_ms": time_ms(lambda: segment_sumsq_plain(sids, cts), reps=5, warmup=1),
+        "library_ms": None,
+        "library": "none: no single PyTorch call sums squares of segment sums",
+        "bound_ms": mem_bound_ms(pair_bytes), "bound_by": "bytes",
+    })
+
+    def fresh():
+        return [p.clone(), mu.clone(), nu.clone()]
+
+    def adam_check(name, kernel, plain, extra):
+        k, q, k2 = fresh(), fresh(), fresh()
+        rk = kernel(*k, *extra, *args)
+        rq = plain(*q, *extra, *args)
+        rk2 = kernel(*k2, *extra, *args)
+        p_err = (k[0] - q[0]).abs()
+        p_rel = (p_err / q[0].abs().clamp_min(1e-30)).max().item()
+        moments_equal = bool(torch.equal(k[1], q[1]) and torch.equal(k[2], q[2]))
+        det = all(torch.equal(a, b) for a, b in zip(k, k2))
+        rec = {"max_abs_err": p_err.max().item(), "p_max_rel_err": p_rel,
+               "p_share_differing": (p_err > 0).float().mean().item(),
+               "moments_bit_equal": moments_equal, "deterministic": det,
+               "moments": "bfloat16"}
+        ok = moments_equal and det and p_rel <= TABLE_TOL["p_rel"]
+        if len(rk) == 4:  # sparse: sum(p'^2)
+            rec["psq_rel_err"] = rel_err(rk[3], rq[3])
+            rec["deterministic"] = det = det and bool(torch.equal(rk[3], rk2[3]))
+            ok = ok and det and rec["psq_rel_err"] <= TABLE_TOL["scalar_rel"]
+        rec["ok"] = ok
+        del k2, rk2
+        rec["ms"] = time_ms(lambda: kernel(*k, *extra, *args), reps=20)
+        rec["plain_ms"] = time_ms(lambda: plain(*q, *extra, *args), reps=3, warmup=1)
+        return rec
+
+    rec = adam_check("sparse_table_adam", sparse_table_adam,
+                     sparse_table_adam_plain, (sids, cts))
+    record("sparse_table_adam", {
+        **rec, "library_ms": None,
+        "library": "none: no single PyTorch call densifies and applies Adam",
+        "bound_ms": mem_bound_ms(elems * (8 + 2 * 2 * 2) + pair_bytes),
+        "bound_by": "bytes",
+    })
+
+    rec = adam_check("fused_table_adam", fused_table_adam,
+                     fused_table_adam_plain, (grad,))
+    lib_p = p.clone().requires_grad_()
+    lib_p.grad = grad
+    lib = torch.optim.Adam([lib_p], lr=LR, weight_decay=2 * L2, fused=True)
+    record("fused_table_adam", {
+        **rec,
+        "library_ms": time_ms(lib.step, reps=20),
+        "library": "torch.optim.Adam(fused=True, weight_decay) step, f32 "
+                   "moments: no clip, other op order",
+        "bound_ms": mem_bound_ms(elems * (4 + 4 + 4 + 2 * 2 * 2)),
+        "bound_by": "bytes",
+    })
+    del lib, lib_p, grad, ids, ct, p, mu, nu, sids, cts
+    torch.cuda.empty_cache()
+
+    # the same kernels where LONG_RUN_FIELDS fields are missing in every
+    # row: each run of equal ids is walked by one thread, so its length
+    # (here BENCH_BATCH) is serial work; held to the plain versions too
+    ids, ct, p, mu, nu, args = table_inputs(dev, missing_fields=LONG_RUN_FIELDS)
+    sids, cts = sort_pairs(ids, ct)
+    _, run_lengths = torch.unique_consecutive(sids, return_counts=True)
+    got = densify_sorted(sids, cts, rows)
+    dense_equal = bool(torch.equal(got, segment_rows_plain(sids, cts, rows)))
+    del got
+    ssq_rel = rel_err(segment_sumsq(sids, cts), segment_sumsq_plain(sids, cts))
+    rec = adam_check("sparse_table_adam", sparse_table_adam,
+                     sparse_table_adam_plain, (sids, cts))
+    record("long_runs", {
+        "missing_fields": LONG_RUN_FIELDS, "max_run": int(run_lengths.max()),
+        "unique_ids": run_lengths.numel(),
+        "densify_rows_grad_bit_equal": dense_equal,
+        "segment_sumsq_rel_err": ssq_rel,
+        "sparse_table_adam": rec,
+        "densify_rows_grad_ms": time_ms(lambda: densify_sorted(sids, cts, rows), reps=10),
+        "segment_sumsq_ms": time_ms(lambda: segment_sumsq(sids, cts), reps=10),
+        "sparse_table_adam_ms": rec["ms"],
+        "ok": dense_equal and rec["ok"] and ssq_rel <= TABLE_TOL["scalar_rel"],
+    })
+    del ids, ct, p, mu, nu, sids, cts
+    torch.cuda.empty_cache()
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
+def bench_workload(vocab: int):
+    """bench.py's _workload at ``vocab`` ids per field, in the port's own
+    data classes: 26 sparse fields of width 16 and one dense field, one
+    batch of 16384 rows from numpy seed 0."""
+    import numpy as np
+
+    from deepfm_tpu_torch.data.packing import pack_features, pack_schema
+    from deepfm_tpu_torch.data.schema import (
+        DatasetSchema,
+        FeatureType,
+        FieldSchema,
+    )
+
+    fields = {}
+    for i in range(BENCH_FIELDS):
+        fields[f"cat_{i}"] = FieldSchema(
+            f"cat_{i}", FeatureType.SPARSE, vocab, 16, "user" if i % 2 else "item")
+    fields["dense_0"] = FieldSchema("dense_0", FeatureType.DENSE, 0, 16, "context")
+    packed = pack_schema(DatasetSchema(fields=fields))
+    rng = np.random.default_rng(0)
+    feats = {f"cat_{i}": rng.integers(1, vocab, BENCH_BATCH)
+             for i in range(BENCH_FIELDS)}
+    feats["dense_0"] = rng.normal(size=BENCH_BATCH).astype(np.float32)
+    labels = rng.integers(0, 2, BENCH_BATCH).astype(np.float32)
+    return packed, pack_features(packed, feats, labels)
+
+
+def bench_config(device: str, compute_dtype: str = "bfloat16", **training):
+    """bench.py's DeepFM config (bench.py:131-150) for the port."""
+    from deepfm_tpu_torch.config import config_from_dict
+
+    return config_from_dict({
+        "model_name": "deepfm",
+        "device": device,
+        "dnn": {"hidden_units": [512, 256, 128], "dropout": 0.0,
+                "use_batch_norm": True},
+        "training": {"batch_size": BENCH_BATCH, "compute_dtype": compute_dtype,
+                     **training},
+    })
+
+
+def train_counters():
+    from deepfm_tpu_torch.ops.kernels.adam import fused_table_adam
+    from deepfm_tpu_torch.ops.kernels.grad import densify_rows_grad
+    from deepfm_tpu_torch.ops.kernels.sparse_adam import (
+        segment_sumsq,
+        sparse_table_adam,
+    )
+
+    return {"densify_rows_grad": densify_rows_grad,
+            "segment_sumsq": segment_sumsq,
+            "sparse_table_adam": sparse_table_adam,
+            "fused_table_adam": fused_table_adam}
+
+
+def reset_counts() -> None:
+    for fn in train_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in train_counters().items()}
+
+
+def snapshot(trainer) -> dict:
+    """Host-independent copies of everything a step changes."""
+    st = trainer.state
+    out = {k: v.detach().clone()
+           for k, v in trainer.model.state_dict().items()}
+    for name, s in (st.table_opt or {}).items():
+        out[f"{name}.mu"] = s.mu.clone()
+        out[f"{name}.nu"] = s.nu.clone()
+    return out
+
+
+def first_step_grads(packed, arrays, device: str):
+    """The loss and every parameter's gradient at the seeded initial weights:
+    one train-mode forward and autograd backward on ``device``, the table's
+    gradient densified by the kernel (CUDA) or its plain version (CPU)."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.steps import weighted_bce
+
+    cfg = bench_config(device, compute_dtype="float32")
+    model = create_model("deepfm", packed, cfg, device="cpu").to(device)
+    model.train()
+    ids, dense, labels, weights = batch_on(arrays, torch.device(device))
+    loss = weighted_bce(model(ids, dense)[:, 0], labels, weights)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    return loss.item(), {n: g.detach().cpu() for n, g in zip(names, grads)}
+
+
+def grad_check(got: dict, want: dict) -> dict:
+    """Per leaf, max|got - want| over max|want| and ||got - want|| over
+    ||want|| (a BN-fed Dense bias over its layer weight's), held to
+    GRAD_MAX_REL and GRAD_NORM_REL."""
+    from deepfm_tpu_torch.training.parity import bn_fed_bias
+
+    max_rel, norm_rel, failed = {}, {}, []
+    for name, w in want.items():
+        scale_of = name
+        if bn_fed_bias(name):
+            scale_of = name[: -len("bias")] + "weight"
+        diff = got[name] - w
+        ref = want[scale_of]
+        max_rel[name] = diff.abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        norm_rel[name] = diff.norm().item() / max(ref.norm().item(), 1e-30)
+        kind = "table" if "table_w" in name else "dense"
+        if (not bool(got[name].isfinite().all())
+                or max_rel[name] > GRAD_MAX_REL[kind]
+                or norm_rel[name] > GRAD_NORM_REL):
+            failed.append(name)
+    return {"max_rel": max_rel, "norm_rel": norm_rel,
+            "worst_max_rel": max(max_rel.values()),
+            "worst_norm_rel": max(norm_rel.values()),
+            "failed_leaves": failed, "ok": not failed}
+
+
+def phase_grads_card_vs_cpu(small, small_arrays) -> dict:
+    """First-step gradients, the card against the CPU, and the three
+    planted faults the check must refuse."""
+    cpu_loss, want = first_step_grads(small, small_arrays, "cpu")
+    card_loss, got = first_step_grads(small, small_arrays, DEVICE)
+    out = grad_check(got, want)
+    out["loss_rel_err"] = rel_err(card_loss, cpu_loss)
+    table = "embedding.table_w16"
+    flipped = {**got, "dnn.dense_1.weight": -got["dnn.dense_1.weight"]}
+    dropped = {**got, table: got[table].clone()}
+    dropped[table][want[table].abs().amax(dim=1).argmax()] = 0.0
+    scaled = {**got, table: got[table] * 1.05}
+    controls = {}
+    for name, fault in (("dnn.dense_1.weight sign flipped", flipped),
+                        ("largest table row dropped", dropped),
+                        ("table gradient scaled by 1.05", scaled)):
+        c = grad_check(fault, want)
+        controls[name] = {"failed_leaves": c["failed_leaves"],
+                          "worst_max_rel": c["worst_max_rel"],
+                          "worst_norm_rel": c["worst_norm_rel"],
+                          "refused": not c["ok"]}
+    out["controls"] = controls
+    out["ok"] = (out["ok"] and out["loss_rel_err"] <= TRAIN_TOL["cpu_loss_rel"]
+                 and all(c["refused"] for c in controls.values()))
+    return out
+
+
+def step_profile(step) -> dict:
+    """torch.profiler over one warm train step: the device's busy share of
+    the host wall time and the device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    return {
+        "wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
+        "device_busy_share": device_us / wall_us if wall_us else None,
+        "device_kernels": sum(e.count for e in events),
+        "top_device_ms": {e.key[:70]: e.self_device_time_total / 1e3 for e in top},
+    }
+
+
+def batch_on(arrays, dev):
+    import torch
+
+    return (torch.from_numpy(arrays.ids).to(dev),
+            torch.from_numpy(arrays.dense).to(dev),
+            torch.from_numpy(arrays.labels).to(dev),
+            torch.ones(len(arrays.labels), device=dev))
+
+
+def phase_train() -> dict:
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.parity import (
+        ATOL,
+        OUTSIDE_SHARE,
+        RTOL,
+        compare_leaves,
+    )
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    failures = []
+    t0 = time.perf_counter()
+    packed, arrays = bench_workload(BENCH_VOCAB)
+    batch = batch_on(arrays, dev)
+    config = bench_config(DEVICE)
+    model = create_model("deepfm", packed, config, device=DEVICE)
+    trainer = Trainer(model, packed, config)
+    setup_s = time.perf_counter() - t0
+    if trainer.path != "sparse_fused":
+        fail(f"the default config took the {trainer.path} path")
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # --- the main path (sparse-fused): counts start at 0 here -------------
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer._train_step(*batch).item() for _ in range(2)]
+    fused_state = snapshot(trainer)
+    for _ in range(WARMUP_STEPS - 2):
+        trainer._train_step(*batch)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED_STEPS):
+        s0 = time.perf_counter()
+        loss = trainer._train_step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - s0)
+    profile = step_profile(lambda: trainer._train_step(*batch))
+    torch.cuda.synchronize()
+    fused_counts = read_counts()
+    # --- end of the main path ----------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last_loss = loss.item()
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # --- the two-pass path from the same weights: counts start at 0 -------
+    config2 = bench_config(DEVICE, fused_backward=False)
+    model2 = create_model("deepfm", packed, config2, device=DEVICE)
+    trainer2 = Trainer(model2, packed, config2)
+    reset_counts()
+    losses2 = [trainer2._train_step(*batch).item() for _ in range(2)]
+    torch.cuda.synchronize()
+    two_pass_counts = read_counts()
+    # --- end of the two-pass path -----------------------------------------
+    if trainer2.path != "two_pass":
+        failures.append(f"fused_backward: false took the {trainer2.path} path")
+    paths_cmp = compare_leaves(snapshot(trainer2), fused_state, LR, steps=2)
+    loss_rel = max(rel_err(a, b) for a, b in zip(losses, losses2))
+    if loss_rel > TRAIN_TOL["loss_rel"] or paths_cmp["failed_leaves"]:
+        failures.append(f"sparse-fused and two-pass differ: loss rel "
+                        f"{loss_rel}, {paths_cmp}")
+    del trainer2, model2, fused_state
+    torch.cuda.empty_cache()
+
+    # --- the card against the CPU at 20k ids per field, f32 ---------------
+    small, small_arrays = bench_workload(SMALL_VOCAB)
+    grads_cmp = phase_grads_card_vs_cpu(small, small_arrays)
+    if not grads_cmp["ok"]:
+        failures.append(f"first-step gradients: the card differs from the "
+                        f"CPU, or a planted fault passed: {grads_cmp}")
+    cpu_cmp = {}
+    for path, extra in (("sparse_fused", {}),
+                        ("two_pass", {"fused_backward": False})):
+        trainers = {}
+        for device in ("cpu", DEVICE):
+            cfg = bench_config(device, compute_dtype="float32",
+                               moments_dtype="float32", **extra)
+            m = create_model("deepfm", small, cfg, device="cpu")
+            trainers[device] = Trainer(m, small, cfg)
+        got_l, want_l = [], []
+        for _ in range(2):
+            got_l.append(trainers[DEVICE]._train_step(
+                *batch_on(small_arrays, dev)).item())
+            want_l.append(trainers["cpu"]._train_step(
+                *batch_on(small_arrays, torch.device("cpu"))).item())
+        cpu_model = trainers["cpu"].model
+        untouched = torch.ones(cpu_model.embedding.table_w16.shape[0],
+                               dtype=torch.bool)
+        untouched[cpu_model.embedding.local_ids(0, torch.from_numpy(
+            small_arrays.ids)).reshape(-1)] = False
+        cmp = compare_leaves(snapshot(trainers[DEVICE]),
+                             snapshot(trainers["cpu"]), LR, steps=2,
+                             share_limit=False, untouched=untouched)
+        cmp["loss_rel_err"] = max(rel_err(a, b) for a, b in zip(got_l, want_l))
+        cmp["losses_card"], cmp["losses_cpu"] = got_l, want_l
+        cpu_cmp[path] = cmp
+        if cmp["loss_rel_err"] > TRAIN_TOL["cpu_loss_rel"] or cmp["failed_leaves"]:
+            failures.append(f"{path}: the card differs from the CPU: {cmp}")
+        del trainers
+    torch.cuda.empty_cache()
+
+    for name in ("segment_sumsq", "sparse_table_adam"):
+        if fused_counts[name] < 1:
+            failures.append(f"{name} was not launched on the sparse-fused path")
+    for name in ("densify_rows_grad", "fused_table_adam"):
+        if two_pass_counts[name] < 1:
+            failures.append(f"{name} was not launched on the two-pass path")
+    finite = all(map(math.isfinite, losses + losses2 + [last_loss]))
+    if not finite:
+        failures.append("a loss is not finite")
+    step_ms = 1e3 * statistics.median(times)
+    out = {
+        "phase": "train", "model": "deepfm", "path": "sparse_fused",
+        "batch": BENCH_BATCH, "fields": BENCH_FIELDS, "vocab": BENCH_VOCAB,
+        "table_rows": BENCH_FIELDS * BENCH_VOCAB, "n_params": n_params,
+        "compute_dtype": "bfloat16", "moments_dtype": "bfloat16",
+        "setup_s": setup_s, "losses": losses, "losses_two_pass": losses2,
+        "last_loss": last_loss,
+        "step_ms_median": step_ms, "step_ms_min": 1e3 * min(times),
+        "step_ms_max": 1e3 * max(times), "timed_steps": TIMED_STEPS,
+        "step_ms_all": [1e3 * t for t in times],
+        "examples_per_s": BENCH_BATCH / (step_ms / 1e3),
+        "peak_memory_gb": peak_gb, "profile_step": profile,
+        "launches_sparse_fused": fused_counts,
+        "launches_two_pass": two_pass_counts,
+        "sparse_fused_vs_two_pass": {"loss_rel_err": loss_rel, **paths_cmp},
+        "card_vs_cpu_20k_f32": cpu_cmp,
+        "first_step_grads_card_vs_cpu_20k_f32": grads_cmp,
+        "tol": {**TRAIN_TOL, "grad_max_rel": GRAD_MAX_REL,
+                "grad_norm_rel": GRAD_NORM_REL, "rtol": RTOL, "atol": ATOL,
+                "outside_share": OUTSIDE_SHARE},
+        "ok": not failures,
+    }
+    emit(out)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
 def _http(method: str, url: str, payload=None):
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(
@@ -496,10 +1087,12 @@ def main() -> None:
 
     phase_build()
     cin = phase_cin_stack()
+    table = phase_table_kernels()
+    train = phase_train()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serve = phase_serve(Path(tmp))
     a = cin["serving"]
-    emit({"kernels": [{
+    kernels = [{
         "name": "cin_stack_fwd",
         "route": "cuda",
         "source": "deepfm_tpu_torch/csrc/cin_stack_fwd.cu",
@@ -511,7 +1104,33 @@ def main() -> None:
         "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"],
         "library_ms": a["library_ms"],
-    }]})
+    }]
+    # (name, source, replaces, the path whose launch counts it reports)
+    for name, source, replaces, path in (
+        ("segment_sumsq", "sparse_table_adam.cu",
+         "sparse_adam_kernel.py:295", "launches_sparse_fused"),
+        ("sparse_table_adam", "sparse_table_adam.cu",
+         "sparse_adam_kernel.py:429", "launches_sparse_fused"),
+        ("fused_table_adam", "fused_table_adam.cu",
+         "adam_kernel.py:111", "launches_two_pass"),
+        ("densify_rows_grad", "densify_rows_grad.cu",
+         "grad_kernel.py:237", "launches_two_pass"),
+    ):
+        rec = table[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"deepfm_tpu_torch/csrc/{source}",
+            "replaces": f"deepfm_tpu/ops/pallas/{replaces}",
+            "launches": train[path][name],
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+        })
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

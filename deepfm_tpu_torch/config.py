@@ -12,7 +12,11 @@ Sections the port does not read yet (``mesh``, ``benchmark``, most of
     an error on the GPU, which has no plain path;
   * ``pallas.cin_bf16_operands`` — bf16 operands for that kernel when the
     activations are bfloat16;
-  * ``pallas.table_layout`` — only the logical layout exists in the port.
+  * ``pallas.table_layout`` — only the logical layout exists in the port;
+  * ``training``: ``optimizer``, ``lr``, ``gradient_clip_norm``,
+    ``compute_dtype``, ``fused_table_adam``, ``fused_backward`` and
+    ``moments_dtype`` (training/trainer.py picks the step's path from
+    them), and ``feature.embedding_l2_reg``.
 """
 
 from __future__ import annotations
@@ -99,8 +103,9 @@ class TrainingConfig:
     gradient_clip_norm: float = 1.0
     ranking_ks: tuple[int, ...] = (1, 5, 10, 20)
     # Additions of the JAX package. The port reads compute_dtype
-    # ("float32" or "bfloat16" for the dense towers; params stay f32);
-    # the rest belongs to the training slices and is kept so configs parse.
+    # ("float32" or "bfloat16" for the dense towers; params stay f32),
+    # fused_table_adam, moments_dtype and fused_backward; resume and
+    # stage_budget_mb belong to later slices and are kept so configs parse.
     compute_dtype: str = "float32"
     resume: bool = False
     stage_budget_mb: int = 1024
@@ -142,8 +147,10 @@ class PallasConfig:
     in the hand-written CUDA kernel (off, the plain version runs on the
     CPU only: the port keeps no plain path on the GPU), and
     ``cin_bf16_operands`` feeds that kernel bf16 operands when the
-    activations are bfloat16. The other toggles name kernels of later
-    slices and are not read yet.
+    activations are bfloat16. ``use_grad_kernel`` is not read: the table
+    gather's backward is always the densify kernel (ops/kernels/grad.py),
+    which has no plain path on the GPU either. The other toggles name
+    kernels of later slices and are not read yet.
     """
 
     use_embedding_kernel: bool = False

@@ -1,7 +1,8 @@
 """CTR model registry and factory (port of ``deepfm_tpu/models/__init__.py``).
 
-This slice serves xDeepFM. The other models of the JAX registry come with
-later slices; asking for one raises and names the slice.
+The port has DeepFM (trained, ``training/trainer.py``) and xDeepFM
+(served). The other models of the JAX registry come with later slices;
+asking for one raises and names the slice.
 """
 
 from __future__ import annotations
@@ -13,14 +14,17 @@ from deepfm_tpu_torch.data.packing import PackedSchema, pack_schema
 from deepfm_tpu_torch.data.schema import DatasetSchema
 from deepfm_tpu_torch.device import resolve_device
 from deepfm_tpu_torch.models.base import CTRModel
+from deepfm_tpu_torch.models.deepfm import DeepFM
 from deepfm_tpu_torch.models.xdeepfm import xDeepFM
 
-MODEL_REGISTRY: dict[str, type[CTRModel]] = {"xdeepfm": xDeepFM}
+MODEL_REGISTRY: dict[str, type[CTRModel]] = {
+    "deepfm": DeepFM,
+    "xdeepfm": xDeepFM,
+}
 
 # models of the JAX registry that are not ported yet -> the slice that
 # brings each one
 LATER_SLICES = {
-    "deepfm": "the DeepFM training slice",
     "attention_deepfm": "the AttentionDeepFM slice",
     "lr": "the baselines slice",
     "fm": "the baselines slice",
@@ -73,6 +77,7 @@ def create_model(
 
 __all__ = [
     "CTRModel",
+    "DeepFM",
     "MODEL_REGISTRY",
     "create_model",
     "resolve_table_layout",

@@ -53,11 +53,17 @@ class CTRModel(nn.Module):
     ) -> torch.Tensor:
         raise NotImplementedError
 
-    def forward(self, ids: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        ids: torch.Tensor,
+        dense: torch.Tensor,
+        rows_override: dict[str, torch.Tensor] | None = None,
+    ) -> torch.Tensor:
         """Raw logit (B, 1) in f32. Train/eval behaviour (dropout, batch
-        statistics) follows ``self.training``."""
+        statistics) follows ``self.training``; ``rows_override`` feeds
+        pre-gathered table rows (``ops.embedding.gather_group_rows``)."""
         first_order, field_embeddings, flat_embeddings = self.embedding(
-            ids, dense
+            ids, dense, rows_override
         )
         logit = self._forward_components(
             first_order, field_embeddings, flat_embeddings

@@ -1,11 +1,11 @@
 """MLP tower: Linear -> (BatchNorm) -> activation -> dropout, stacked.
 
-Port of ``deepfm_tpu/ops/dnn.py``. BatchNorm uses batch statistics in
-training and running averages in eval, momentum 0.1 and eps 1e-5 (flax's
-``momentum=0.9`` is the weight of the old average, torch's 0.1 that of the
-new batch). Layers are named ``dense_{i}`` / ``bn_{i}`` as in the JAX
-tree; torch's Linear stores its weight ``(out, in)``, the transpose of
-flax's ``(in, out)`` kernel (``convert.params_from_jax`` transposes).
+Port of ``deepfm_tpu/ops/dnn.py``. BatchNorm follows
+``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` (``BatchNorm`` below):
+batch statistics in training, running averages in eval. Layers are named
+``dense_{i}`` / ``bn_{i}`` as in the JAX tree; torch's Linear stores its
+weight ``(out, in)``, the transpose of flax's ``(in, out)`` kernel
+(``convert.params_from_jax`` transposes).
 """
 
 from __future__ import annotations
@@ -23,6 +23,37 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "gelu": lambda x: nn.functional.gelu(x, approximate="none"),
     "tanh": torch.tanh,
 }
+
+
+class BatchNorm(nn.BatchNorm1d):
+    """``nn.BatchNorm1d``'s parameters and buffers with flax's arithmetic.
+
+    flax (``_compute_stats`` with ``use_fast_variance``) normalises with,
+    and averages into ``var``, the biased batch variance
+    max(E[x^2] - E[x]^2, 0) computed in f32, and updates the running
+    averages as 0.9 * old + 0.1 * batch. ``nn.BatchNorm1d`` would carry the
+    unbiased variance instead (a factor n / (n - 1) after one step) and
+    compute it another way. ``momentum`` keeps torch's meaning (the weight
+    of the new batch, 0.1).
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if self.training:
+            n = x.shape[0]
+            mean = x.sum(dim=0) / n
+            mean2 = (x * x).sum(dim=0) / n
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
+            keep = 1.0 - self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(
+                    keep * self.running_mean + self.momentum * mean)
+                self.running_var.copy_(
+                    keep * self.running_var + self.momentum * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
 
 
 def torch_linear(
@@ -67,7 +98,7 @@ class DNN(nn.Module):
             if use_batch_norm:
                 setattr(
                     self, f"bn_{i}",
-                    nn.BatchNorm1d(out_dim, eps=1e-5, momentum=0.1),
+                    BatchNorm(out_dim, eps=1e-5, momentum=0.1),
                 )
             in_dim = out_dim
 
@@ -84,6 +115,6 @@ class DNN(nn.Module):
             lin = getattr(self, f"dense_{i}")
             x = nn.functional.linear(x, lin.weight.to(cdt), lin.bias.to(cdt))
             if self.use_batch_norm:
-                x = getattr(self, f"bn_{i}")(x.float()).to(cdt)
+                x = getattr(self, f"bn_{i}")(x).to(cdt)
             x = self.dropout(self.act(x))
         return x

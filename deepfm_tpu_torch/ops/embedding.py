@@ -19,9 +19,16 @@ and keeps the JAX package's layout decisions:
     by the valid-slot count for the mean combiner;
   * dense fields are a broadcast multiply-add over a (n, d) weight block.
 
-The gather is plain torch indexing: the JAX package's default gather is
-XLA's own, not a Pallas kernel. The packed table layout belongs to a later
-slice (models/__init__.py raises for it).
+The forward gather is plain torch indexing: the JAX package's default
+gather is XLA's own, not a Pallas kernel. The table's gradient always comes
+from the densify kernel (``ops/kernels/grad.py::sparse_grad_lookup``; its
+plain version for a CPU table), as ``models/__init__.py`` injects it on
+the TPU for the logical layout. The
+trainer's sparse-fused path gathers the rows itself
+(``gather_group_rows``) and hands them back through ``rows_override``, so
+autograd yields the per-occurrence cotangents and never the dense table
+gradient. The packed table layout belongs to a later slice
+(models/__init__.py raises for it).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch import nn
 
 from deepfm_tpu_torch.data.packing import PackedSchema
 from deepfm_tpu_torch.ops.init import uniform_, xavier_bound
+from deepfm_tpu_torch.ops.kernels.grad import sparse_grad_lookup
 
 ROW_PAD = 128
 
@@ -131,10 +139,23 @@ class FeatureEmbedding(nn.Module):
                     uniform_(torch.empty(nf, d, fm_d), xavier_bound(d, fm_d), g)
                 ))
 
+    def local_ids(self, gi: int, ids: torch.Tensor) -> torch.Tensor:
+        """(B, S_g) row ids of width group ``gi`` in its fused table."""
+        group = self.packed.lookup_groups[gi]
+        ids_g = ids[:, group.slot_start : group.slot_end].long()
+        return ids_g + getattr(self, f"_offsets_{gi}")[None, :]
+
     def forward(
-        self, ids: torch.Tensor, dense: torch.Tensor
+        self,
+        ids: torch.Tensor,
+        dense: torch.Tensor,
+        rows_override: dict[str, torch.Tensor] | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """ids (B, num_slots) int, dense (B, num_dense) float -> three views."""
+        """ids (B, num_slots) int, dense (B, num_dense) float -> three views.
+
+        ``rows_override`` maps a table name to its pre-gathered (n, d+1)
+        f32 rows (``gather_group_rows``); the graph from there on is the
+        one the in-graph gather builds."""
         packed = self.packed
         cdt = self.compute_dtype
         field_raw: dict[str, torch.Tensor] = {}
@@ -144,10 +165,16 @@ class FeatureEmbedding(nn.Module):
         for gi, group in enumerate(packed.lookup_groups):
             d = group.width
             table = getattr(self, f"table_w{d}")
-            ids_g = ids[:, group.slot_start : group.slot_end].long()
+            ids_g = ids[:, group.slot_start : group.slot_end]
             mask = (ids_g != 0).to(cdt)  # (B, S_g)
-            local = ids_g + getattr(self, f"_offsets_{gi}")[None, :]
-            raw = table[local].to(cdt) * mask[:, :, None]  # (B, S_g, d+1)
+            name = f"table_w{d}"
+            if rows_override is not None and name in rows_override:
+                rows = rows_override[name]
+            else:
+                flat = self.local_ids(gi, ids).reshape(-1)
+                rows = sparse_grad_lookup(table, flat)
+            raw = rows.reshape(*ids_g.shape, d + 1).to(cdt)
+            raw = raw * mask[:, :, None]  # (B, S_g, d+1)
             emb = raw[:, :, :d]
             fo_vals = raw[:, :, d]
 
@@ -201,3 +228,23 @@ class FeatureEmbedding(nn.Module):
             [field_raw[n] for n in packed.field_order], dim=-1
         )
         return first_order, field_embeddings, flat_embeddings
+
+
+def gather_group_rows(
+    embedding: FeatureEmbedding, ids: torch.Tensor
+) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
+    """Gather each width group's raw table rows outside the loss graph.
+
+    Returns {table name: (rows (n, d+1) f32, flat row ids (n,) int64)}: the
+    same ids and the same gather as ``FeatureEmbedding.forward``, so
+    feeding the rows back through ``rows_override`` reproduces the forward,
+    and the loss gradient with respect to the rows is the (id, cotangent)
+    stream the sparse-fused table update consumes. Port of
+    ``deepfm_tpu/ops/embedding.py::gather_group_rows`` (logical layout).
+    """
+    out = {}
+    for gi, group in enumerate(embedding.packed.lookup_groups):
+        name = f"table_w{group.width}"
+        flat = embedding.local_ids(gi, ids).reshape(-1)
+        out[name] = (getattr(embedding, name).detach()[flat], flat)
+    return out

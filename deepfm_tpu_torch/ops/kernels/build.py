@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file becomes one shared library with a plain C
 interface, built for Hopper (``sm_90a``) into ``build/deepfm_tpu_torch/``
 at the root of the checkout. The library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded. ``build()`` starts one nvcc per source, all at once.
+source, of every header in ``csrc/`` (``*.cuh``, which the sources share)
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded. ``build()`` starts one nvcc per source, all at once.
 Importing this module compiles nothing.
 """
 
@@ -20,12 +21,19 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "deepfm_tpu_torch"
-SOURCES = ("cin_stack_fwd.cu",)
+SOURCES = (
+    "cin_stack_fwd.cu",
+    "densify_rows_grad.cu",
+    "fused_table_adam.cu",
+    "sparse_table_adam.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills, per kernel
 )
+# never --use_fast_math: the table-update kernels round every f32 operation
+# as PyTorch's separate elementwise ops do (see csrc/table_update.cuh)
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -44,7 +52,10 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    text = (CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = (CSRC_DIR / source).read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        text += header.name.encode() + header.read_bytes()
+    text += " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
@@ -91,3 +102,35 @@ def load(source: str) -> ctypes.CDLL:
             build((source,))
             lib = _libs[source] = ctypes.CDLL(str(library_path(source)))
         return lib
+
+
+def bind(source: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The library of ``source``, with the argtypes of each entry point in
+    ``signatures`` set once (every entry point returns a cudaError_t as a
+    C int) and ``<stem>_error_string`` bound for ``check``."""
+    lib = load(source)
+    with _lock:
+        if not getattr(lib, "_bound", False):
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            errs = getattr(lib, f"{Path(source).stem}_error_string")
+            errs.argtypes = [ctypes.c_int]
+            errs.restype = ctypes.c_char_p
+            lib._bound = True
+    return lib
+
+
+def check(lib: ctypes.CDLL, source: str, entry: str, err: int) -> None:
+    """Raise RuntimeError if a launch through ``entry`` returned an error."""
+    if err != 0:
+        msg = getattr(lib, f"{Path(source).stem}_error_string")(err).decode()
+        raise RuntimeError(f"{entry} launch failed: {msg}")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as a C pointer."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

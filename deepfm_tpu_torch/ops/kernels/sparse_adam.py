@@ -1,0 +1,192 @@
+"""Fused sparse backward-optimizer: two hand-written CUDA kernels and their
+plain versions.
+
+Replaces ``deepfm_tpu/ops/pallas/sparse_adam_kernel.py`` ::
+``sparse_table_adam_packed`` (``_sparse_adam_kernel``) and
+``segment_sumsq_pairs`` (``_segsumsq_kernel``). Source:
+``csrc/sparse_table_adam.cu``.
+
+``sparse_table_adam``: one pass per table that sums the sorted
+(id, cotangent) pairs into each row's gradient, applies decay + clip + Adam
+(``csrc/table_update.cuh``, shared with ``fused_table_adam``) in place, and
+returns sum(p'^2) for the next step's clip norm. The dense gradient never
+reaches device memory. It works on the logical (rows, d+1) table: the
+TPU's 7-rows-per-128-lane packing is a TPU layout artifact, and so are its
+f32-exact id limit and its width gate (128 // (d+1) > 1); neither applies
+here. What bounds it on an H100: bytes, p read and written plus mu and nu
+read and written (2.83 GB at bench.py's table with bf16 moments, about
+0.85 ms at 3.35 TB/s) and the pairs read once.
+
+``segment_sumsq``: sum over runs of equal sorted ids of ||sum of the run's
+rows||^2, the ||g||^2 term of the sparsely assembled clip norm
+sumsq(g + wd*p) = sumsq(g) + 2*wd*<g, p> + wd^2*sumsq(p). Bounded by
+reading the pairs once (31 MB, about 9 us). The TPU kernel's (c, c)
+pairwise Gram blocks are an MXU artifact; each run here is summed by one
+thread in stream order.
+
+Both reduce their scalar per block into partials and then in a fixed
+order, with no float atomics: the same inputs give the same bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from deepfm_tpu_torch.ops.kernels import build
+from deepfm_tpu_torch.ops.kernels.adam import (
+    adam_scalars,
+    adam_update_plain,
+    betas,
+    check_table,
+)
+from deepfm_tpu_torch.ops.kernels.grad import (
+    MAX_ROWS,
+    TILE_ROWS,
+    segment_rows_plain,
+    sort_pairs,
+)
+
+SOURCE = "sparse_table_adam.cu"
+SEGSQ_BLOCK = 256  # kThreads in csrc/table_update.cuh
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "sparse_table_adam_launch": [
+        _P, _P, _P, _I, _LL, _I, _P, _P, _LL, _P, _F, _F, _F, _F, _P, _P, _P,
+        _P,
+    ],
+    "segment_sumsq_launch": [_P, _P, _LL, _I, _P, _P, _P],
+}
+
+__all__ = [
+    "segment_sumsq",
+    "segment_sumsq_plain",
+    "sort_pairs",
+    "sparse_table_adam",
+    "sparse_table_adam_plain",
+]
+
+
+def _check_pairs(sids: torch.Tensor, cts: torch.Tensor) -> None:
+    if sids.dtype != torch.int32 or cts.dtype != torch.float32:
+        raise TypeError(
+            f"sorted ids must be int32 and rows float32, got {sids.dtype} / "
+            f"{cts.dtype}"
+        )
+    if cts.dim() != 2 or sids.shape != (cts.shape[0],) \
+            or sids.device != cts.device:
+        raise ValueError(
+            f"ids {tuple(sids.shape)} on {sids.device} do not match rows "
+            f"{tuple(cts.shape)} on {cts.device}"
+        )
+
+
+def segment_sumsq_plain(sids: torch.Tensor, cts: torch.Tensor) -> torch.Tensor:
+    """Plain version: each run summed in stream order, then the sum of the
+    squares of all run sums (f32 0-dim)."""
+    n = sids.shape[0]
+    if n == 0:
+        return torch.zeros((), dtype=torch.float32, device=cts.device)
+    first = torch.ones(n, dtype=torch.bool, device=sids.device)
+    first[1:] = sids[1:] != sids[:-1]
+    run = torch.cumsum(first.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    sums = segment_rows_plain(run, cts, int(run[-1]) + 1)
+    return torch.sum(sums * sums)
+
+
+def segment_sumsq(sids: torch.Tensor, cts: torch.Tensor) -> torch.Tensor:
+    """sum_r ||sum_{i: sids[i] == r} cts[i]||^2 for SORTED ids, as an f32
+    0-dim tensor. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (or raises)."""
+    if cts.device.type == "cpu":
+        return segment_sumsq_plain(sids, cts)
+    if cts.device.type != "cuda":
+        raise ValueError(f"unsupported device {cts.device}")
+    _check_pairs(sids, cts)
+    sids, cts = sids.contiguous(), cts.contiguous()
+    n, d = cts.shape
+    blocks = -(-n // SEGSQ_BLOCK)
+    partials = torch.empty(max(blocks, 1), dtype=torch.float32,
+                           device=cts.device)
+    out = torch.empty((), dtype=torch.float32, device=cts.device)
+    lib = build.bind(SOURCE, _SIGNATURES)
+    with torch.cuda.device(cts.device):
+        err = lib.segment_sumsq_launch(
+            sids.data_ptr(), cts.data_ptr(), n, d, partials.data_ptr(),
+            out.data_ptr(), build.stream_of(cts),
+        )
+    build.check(lib, SOURCE, "segment_sumsq", err)
+    segment_sumsq.launches += 1
+    return out
+
+
+segment_sumsq.launches = 0
+
+
+def sparse_table_adam_plain(param, mu, nu, sids, cts, lr, weight_decay,
+                            global_norm, clip_norm, step, b1: float = 0.9,
+                            b2: float = 0.999, eps: float = 1e-8):
+    """Plain version: densify (``segment_rows_plain``), the shared update,
+    and sum(p'^2); in place on param, mu and nu."""
+    sc = adam_scalars(lr, weight_decay, global_norm, clip_norm, step, b1, b2,
+                      eps, device=param.device)
+    grad = segment_rows_plain(sids, cts, param.shape[0])
+    p2, m2, v2 = adam_update_plain(param, grad, mu, nu, sc, b1, b2)
+    param.copy_(p2)
+    mu.copy_(m2)
+    nu.copy_(v2)
+    return param, mu, nu, torch.sum(p2 * p2)
+
+
+def sparse_table_adam(param, mu, nu, sids, cts, lr, weight_decay,
+                      global_norm, clip_norm, step, b1: float = 0.9,
+                      b2: float = 0.999, eps: float = 1e-8):
+    """One fused densify + decay + clip + Adam step over a logical table,
+    from its sorted (id, cotangent) pairs (``sort_pairs``), in place.
+
+    Returns (param, mu, nu, sumsq(param')) — the first three are the input
+    tensors. ``step`` counts completed steps; ``global_norm`` spans the full
+    decayed gradient tree; clip_norm <= 0 disables clipping. Ids outside
+    [0, rows) contribute nothing. A CPU table takes the plain version; a
+    CUDA table launches the kernel (or raises).
+    """
+    if param.device.type == "cpu":
+        return sparse_table_adam_plain(param, mu, nu, sids, cts, lr,
+                                       weight_decay, global_norm, clip_norm,
+                                       step, b1, b2, eps)
+    if param.device.type != "cuda":
+        raise ValueError(f"unsupported device {param.device}")
+    check_table(param, mu, nu)
+    _check_pairs(sids, cts)
+    rows, d = param.shape
+    if cts.shape[1] != d or cts.device != param.device:
+        raise ValueError(
+            f"rows {tuple(cts.shape)} on {cts.device} do not match the table "
+            f"{tuple(param.shape)} on {param.device}"
+        )
+    if rows > MAX_ROWS:
+        raise ValueError(f"tables of at most {MAX_ROWS} rows, got {rows}")
+    sids, cts = sids.contiguous(), cts.contiguous()
+    sc = adam_scalars(lr, weight_decay, global_norm, clip_norm, step, b1, b2,
+                      eps, device=param.device)
+    tiles = -(-rows // TILE_ROWS)
+    bounds = torch.empty(tiles + 1, dtype=torch.int64, device=param.device)
+    partials = torch.empty(max(tiles, 1), dtype=torch.float32,
+                           device=param.device)
+    psq = torch.empty((), dtype=torch.float32, device=param.device)
+    lib = build.bind(SOURCE, _SIGNATURES)
+    with torch.cuda.device(param.device):
+        err = lib.sparse_table_adam_launch(
+            param.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+            int(mu.dtype == torch.bfloat16), rows, d, sids.data_ptr(),
+            cts.data_ptr(), cts.shape[0], sc.data_ptr(), *betas(b1, b2),
+            bounds.data_ptr(), partials.data_ptr(), psq.data_ptr(),
+            build.stream_of(param),
+        )
+    build.check(lib, SOURCE, "sparse_table_adam", err)
+    sparse_table_adam.launches += 1
+    return param, mu, nu, psq
+
+
+sparse_table_adam.launches = 0

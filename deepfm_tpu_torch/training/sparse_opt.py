@@ -1,0 +1,31 @@
+"""Per-table Adam moments of the fused table paths.
+
+Port of ``deepfm_tpu/training/sparse_opt.py`` :: ``TableSlotState`` /
+``init_table_state``. The row-sparse ``lazy_adam`` update of that module
+is not ported yet (ROADMAP queue 1 item 6); the trainer refuses it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class TableSlotState(NamedTuple):
+    mu: torch.Tensor  # (rows, d+1)
+    nu: torch.Tensor  # (rows, d+1)
+
+
+def init_table_state(
+    table: torch.Tensor, moments_dtype: torch.dtype | None = None
+) -> TableSlotState:
+    """Zero Adam moments for one table on its device; ``moments_dtype``
+    overrides the storage type (``training.moments_dtype``: bf16 halves the
+    moments' share of the bytes the table update moves; the math stays
+    f32 in the kernels)."""
+    dt = table.dtype if moments_dtype is None else moments_dtype
+    return TableSlotState(
+        mu=torch.zeros(table.shape, dtype=dt, device=table.device),
+        nu=torch.zeros(table.shape, dtype=dt, device=table.device),
+    )

@@ -1,0 +1,163 @@
+"""The train step's three paths.
+
+Port of ``deepfm_tpu/training/steps.py`` on one device (the replicated,
+sharded and routed branches of the sparse-fused path wait for ROADMAP
+queue 1 item 10; ``lazy_adam`` for item 6). PyTorch's autograd does the
+model's backward. Paths (``Trainer.path``):
+
+  * ``plain``: the optimizer chain over every leaf, tables included;
+  * ``two_pass``: the table gradient is densified by the kernel
+    (``ops/kernels/grad.py``, the table lookup's backward), each table's
+    sumsq(g + wd*p) is reduced from it, and ``fused_table_adam`` updates
+    each table in place;
+  * ``sparse_fused``: the rows are gathered outside the loss graph and fed
+    back through ``rows_override``, so autograd yields the (id, cotangent)
+    pairs; they are sorted, each table's sumsq(g + wd*p) is assembled as
+    segment_sumsq(ct) + 2*wd*<ct, rows> + wd^2*sumsq(p) with sumsq(p)
+    carried from the last step, and ``sparse_table_adam`` densifies,
+    decays, clips and updates each table in one pass, returning the next
+    sumsq(p). The dense table gradient never exists.
+
+Both fused paths share ``chain_second_half``. Dropout draws from PyTorch's
+generator, so with dropout > 0 the masks differ from the JAX package's.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from deepfm_tpu_torch.ops.embedding import gather_group_rows
+from deepfm_tpu_torch.ops.kernels.adam import fused_table_adam
+from deepfm_tpu_torch.ops.kernels.sparse_adam import (
+    segment_sumsq,
+    sort_pairs,
+    sparse_table_adam,
+)
+from deepfm_tpu_torch.training.optim import (
+    clip_fn,
+    global_norm,
+    leaf_order,
+    sumsq,
+)
+from deepfm_tpu_torch.training.trainer import _is_table_name
+
+
+def weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """optax's ``sigmoid_binary_cross_entropy``,
+    -(y * log sigmoid(x) + (1 - y) * log sigmoid(-x)), weighted and divided
+    by max(sum(weights), 1)."""
+    per_row = (-labels * F.logsigmoid(logits)
+               - (1.0 - labels) * F.logsigmoid(-logits))
+    denom = torch.clamp_min(torch.sum(weights), 1.0)
+    return torch.sum(per_row * weights) / denom
+
+
+def build_train_step(trainer):
+    """The step closure for the trainer's resolved path."""
+    model = trainer.model
+    tx = trainer.tx
+    config = trainer.config
+    wd = 2.0 * config.feature.embedding_l2_reg
+    clip = config.training.gradient_clip_norm
+    params = dict(model.named_parameters())
+    order = leaf_order(params)
+
+    def forward_loss(ids, dense, labels, weights, rows_override=None):
+        model.train()
+        logits = model(ids, dense, rows_override)[:, 0]
+        return weighted_bce(logits, labels, weights)
+
+    def grads_of(loss, names, extra=()):
+        inputs = [params[n] for n in names] + list(extra)
+        got = torch.autograd.grad(loss, inputs, allow_unused=True)
+        grads = {n: torch.zeros_like(params[n]) if g is None else g
+                 for n, g in zip(names, got)}
+        return grads, got[len(names):]
+
+    def chain_second_half(grads, table_sq):
+        """The optax-chain tail of both fused paths: the decayed global
+        norm with each table's sumsq(g + wd*p) from ``table_sq``, in the
+        JAX tree's leaf order, then clip and the masked dense update (in
+        place). Returns the norm."""
+        def decayed(name):
+            g = grads[name]
+            return g + wd * params[name] if name.startswith("embedding.") \
+                else g
+
+        dense = {n: decayed(n) for n in order if not _is_table_name(n)}
+        gnorm = global_norm([
+            table_sq[n] if _is_table_name(n) else sumsq(dense[n])
+            for n in order
+        ])
+        if clip > 0:
+            trigger = gnorm < clip
+            dense = {n: clip_fn(g, gnorm, clip, trigger)
+                     for n, g in dense.items()}
+        tx.apply(dense, params, trainer.state.opt_state)
+        return gnorm
+
+    def plain_step(ids, dense, labels, weights):
+        loss = forward_loss(ids, dense, labels, weights)
+        grads, _ = grads_of(loss, order)
+        with torch.no_grad():
+            tx.update(grads, params, trainer.state.opt_state)
+        return loss
+
+    def two_pass_step(ids, dense, labels, weights):
+        state = trainer.state
+        loss = forward_loss(ids, dense, labels, weights)
+        grads, _ = grads_of(loss, order)
+        with torch.no_grad():
+            table_sq = {n: sumsq(grads[n] + wd * params[n])
+                        for n in trainer.table_names}
+            gnorm = chain_second_half(grads, table_sq)
+            lr = state.opt_state.lr
+            for n in trainer.table_names:
+                topt = state.table_opt[n]
+                fused_table_adam(params[n].data, topt.mu, topt.nu, grads[n],
+                                 lr, wd, gnorm, clip, state.step)
+        return loss
+
+    def sparse_fused_step(ids, dense, labels, weights):
+        state = trainer.state
+        gathered = gather_group_rows(model.embedding, ids)
+        rows_in = {k: rows.requires_grad_()
+                   for k, (rows, _) in gathered.items()}
+        loss = forward_loss(ids, dense, labels, weights, rows_in)
+        dense_names = [n for n in order if not _is_table_name(n)]
+        grads, cts = grads_of(loss, dense_names, rows_in.values())
+        with torch.no_grad():
+            pairs, table_sq = {}, {}
+            for (key, (rows, fids)), ct in zip(gathered.items(), cts):
+                name = f"embedding.{key}"
+                dotgp = torch.sum(ct * rows)
+                sids, sorted_ct = sort_pairs(fids, ct)
+                pairs[name] = (sids, sorted_ct)
+                table_sq[name] = (segment_sumsq(sids, sorted_ct)
+                                  + (2.0 * wd) * dotgp
+                                  + (wd * wd) * state.table_psq[name])
+            gnorm = chain_second_half(grads, table_sq)
+            lr = state.opt_state.lr
+            for name, (sids, sorted_ct) in pairs.items():
+                topt = state.table_opt[name]
+                *_, psq = sparse_table_adam(
+                    params[name].data, topt.mu, topt.nu, sids, sorted_ct,
+                    lr, wd, gnorm, clip, state.step,
+                )
+                state.table_psq[name] = psq
+        return loss
+
+    step_fn = {
+        "plain": plain_step,
+        "two_pass": two_pass_step,
+        "sparse_fused": sparse_fused_step,
+    }[trainer.path]
+
+    def train_step(ids, dense, labels, weights):
+        loss = step_fn(ids, dense, labels, weights)
+        trainer.state.step = trainer.state.step + 1
+        return loss.detach()
+
+    return train_step

@@ -1,0 +1,286 @@
+"""The port's DeepFM train step against the JAX package's.
+
+Both packages build DeepFM on the synthetic schema of the port's tests
+(widths 16 and 8: two tables, a projection and two dense groups), the JAX
+parameters are carried over with ``params_from_jax``, and both take two
+steps on the same numpy batch at dropout 0 and f32 compute. Each of the
+port's three paths is held against the JAX path with the same semantics:
+
+  * the plain chain (``fused_table_adam: false``) against JAX's CPU
+    default, the plain optax chain;
+  * two-pass (``fused_backward: false``) against JAX with
+    ``DEEPFM_TPU_FORCE_FUSED_ADAM=1`` and ``table_layout=logical``;
+  * sparse-fused (the defaults) against JAX with
+    ``DEEPFM_TPU_FORCE_FUSED_ADAM=1`` and ``table_layout=packed``, its
+    packed tables and moments unpacked for the comparison;
+
+with clip on (1.0, active) and off. Tolerances: those of the JAX
+package's own two-path test (tests/test_sparse_fused.py) — losses rel
+1e-6; parameters, table moments and BatchNorm statistics rtol 1e-5 / atol
+1e-7; psq rel 1e-5 — with the two allowances of
+``deepfm_tpu_torch/training/parity.py`` (Adam's normalisation turns the
+last-bit differences of two summation orders into steps of up to lr; a
+Dense bias feeding a train-mode BatchNorm has an exact gradient of 0).
+Within the JAX package both paths share one model gradient and never see
+this. Measured here on the CPU: at most 1 of 4352 table elements and 1 of
+1152 bf16 moments lie outside rtol / atol.
+"""
+
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, "tests")
+
+from torch_port_helpers import (  # noqa: E402
+    SYNTH_SPEC,
+    init_jax_model,
+    jax_predict,
+    random_features,
+    schema_pair,
+)
+
+from deepfm_tpu.config import config_from_dict as jax_config  # noqa: E402
+from deepfm_tpu.data.packing import pack_features as jax_pack  # noqa: E402
+from deepfm_tpu.data.packing import pack_schema as jax_pack_schema  # noqa: E402
+from deepfm_tpu.models import create_model as jax_create_model  # noqa: E402
+from deepfm_tpu.ops.dnn import DNN as JaxDNN  # noqa: E402
+from deepfm_tpu.training.trainer import Trainer as JaxTrainer  # noqa: E402
+from deepfm_tpu_torch.config import config_from_dict  # noqa: E402
+from deepfm_tpu_torch.convert import (  # noqa: E402
+    logical_table,
+    params_from_jax,
+    train_state_from_jax,
+)
+from deepfm_tpu_torch.data.packing import pack_features, pack_schema  # noqa: E402
+from deepfm_tpu_torch.models import create_model  # noqa: E402
+from deepfm_tpu_torch.ops.dnn import DNN  # noqa: E402
+from deepfm_tpu_torch.training.parity import compare_leaves  # noqa: E402
+from deepfm_tpu_torch.training.trainer import (  # noqa: E402
+    Trainer,
+    sparse_fused_eligible,
+)
+
+torch.set_num_threads(1)
+
+B = 32
+LR = 1e-3
+HIDDEN = [16, 8]
+# path -> (port training overrides, JAX training overrides, JAX layout,
+# JAX fused-kernel env)
+PATHS = {
+    "plain": ({"fused_table_adam": False}, {"fused_table_adam": False},
+              "logical", False),
+    "two_pass": ({"fused_backward": False}, {}, "logical", True),
+    "sparse_fused": ({}, {}, "packed", True),
+}
+
+
+def _data():
+    jschema, tschema = schema_pair(SYNTH_SPEC)
+    feats = random_features(SYNTH_SPEC, B, seed=3)
+    labels = np.random.default_rng(4).integers(0, 2, B).astype(np.float32)
+    jpacked, tpacked = jax_pack_schema(jschema), pack_schema(tschema)
+    return (jpacked, jax_pack(jpacked, feats, labels),
+            tpacked, pack_features(tpacked, feats, labels))
+
+
+def _raw(training, **extra):
+    tr = {"batch_size": B, "scheduler": "none", "lr": LR}
+    tr.update(training)
+    raw = {"model_name": "deepfm",
+           "dnn": {"hidden_units": HIDDEN, "dropout": 0.0},
+           "training": tr}
+    raw.update(extra)
+    return raw
+
+
+def _port_trainer(tpacked, training):
+    config = config_from_dict(_raw(training, device="cpu"))
+    model = create_model("deepfm", tpacked, config, device="cpu")
+    return Trainer(model, tpacked, config)
+
+
+def _jax_run(path, clip, tmp_path, monkeypatch, optimizer="adam"):
+    """Two JAX steps; returns the JAX trainer, the states after steps 1
+    and 2 (host copies) and the losses."""
+    _, jax_tr, layout, force = PATHS[path]
+    if force:
+        monkeypatch.setenv("DEEPFM_TPU_FORCE_FUSED_ADAM", "1")
+    jpacked, jarr, _, _ = _data()
+    config = jax_config(_raw(
+        {**jax_tr, "gradient_clip_norm": clip, "optimizer": optimizer},
+        output_dir=str(tmp_path), pallas={"table_layout": layout},
+    ))
+    trainer = JaxTrainer(jax_create_model("deepfm", jpacked, config),
+                         jpacked, config, jarr, jarr, jarr)
+    assert trainer.sparse_fused is (path == "sparse_fused")
+    assert trainer.fused_tables is (path != "plain")
+    batch = (jnp.asarray(jarr.ids), jnp.asarray(jarr.dense),
+             jnp.asarray(jarr.labels), jnp.ones((B,), jnp.float32))
+    states, losses = [jax.device_get(trainer.state)], []
+    state = trainer.state
+    for _ in range(2):
+        state, loss = trainer._train_step(state, *batch)
+        states.append(jax.device_get(state))
+        losses.append(float(loss))
+    return trainer, states, losses
+
+
+def _port_step(trainer, tarr):
+    return float(trainer._train_step(tarr.ids, tarr.dense, tarr.labels,
+                                     np.ones(B, np.float32)))
+
+
+def _assert_state_matches(trainer, jstate, tpacked, steps):
+    """The port's parameters, BN statistics, table moments and psq against
+    a JAX state (see the module docstring for the tolerances)."""
+    want = params_from_jax(jstate.params, jstate.batch_stats, tpacked,
+                           trainer.config)
+    got = dict(trainer.model.state_dict())
+    if jstate.table_opt is not None:
+        for name, s in jstate.table_opt.items():
+            mine = trainer.state.table_opt[f"embedding.{name}"]
+            for m in ("mu", "nu"):
+                w = logical_table(name, getattr(s, m), tpacked)
+                g = getattr(mine, m)
+                assert str(g.dtype).endswith(str(w.dtype))
+                want[f"{name}.{m}"] = w.astype(np.float32)
+                got[f"{name}.{m}"] = g
+    failed = compare_leaves(got, want, LR, steps)["failed_leaves"]
+    assert not failed, failed
+    if jstate.table_psq is not None:
+        for name, v in jstate.table_psq.items():
+            got_psq = float(trainer.state.table_psq[f"embedding.{name}"])
+            assert got_psq == pytest.approx(float(v), rel=1e-5)
+
+
+def test_deepfm_forward_matches_jax():
+    """Eval-mode scores with carried weights and moved BN statistics."""
+    jpacked, jarr, tpacked, tarr = _data()
+    jconfig = jax_config(_raw({}))
+    jmodel = jax_create_model("deepfm", jpacked, jconfig)
+    params, stats = init_jax_model(jmodel, jarr.ids, jarr.dense)
+    want = jax_predict(jmodel, params, stats, jarr.ids, jarr.dense)
+    config = config_from_dict(_raw({}, device="cpu"))
+    model = create_model("deepfm", tpacked, config, device="cpu")
+    model.load_state_dict(params_from_jax(params, stats, tpacked, config))
+    model.eval()
+    with torch.inference_mode():
+        got = model.predict(torch.from_numpy(tarr.ids),
+                            torch.from_numpy(tarr.dense))[:, 0].numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-5)
+
+
+def test_batchnorm_train_statistics_match_flax():
+    """One train-mode forward: outputs and batch_stats against flax's
+    BatchNorm (biased variance E[x^2] - E[x]^2, 0.9 * old + 0.1 * new).
+    ``nn.BatchNorm1d`` would carry the unbiased variance, 32/31 of it."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(1.0, 2.0, size=(B, 10)).astype(np.float32)
+    jdnn = JaxDNN(hidden_units=(12, 6), dropout=0.0, use_batch_norm=True)
+    variables = jdnn.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want, mutated = jdnn.apply(variables, jnp.asarray(x), train=True,
+                               mutable=["batch_stats"])
+    dnn = DNN(10, (12, 6), dropout=0.0, use_batch_norm=True)
+    sd = params_from_jax(variables["params"], variables["batch_stats"],
+                         None, None)
+    dnn.load_state_dict(sd)
+    dnn.train()
+    got = dnn(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    for name, stats in mutated["batch_stats"].items():
+        bn = getattr(dnn, name)
+        np.testing.assert_allclose(bn.running_mean.numpy(),
+                                   np.asarray(stats["mean"]), rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(bn.running_var.numpy(),
+                                   np.asarray(stats["var"]), rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("clip", [1.0, 0.0])
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_two_steps_match_jax(path, clip, tmp_path, monkeypatch):
+    _, jstates, jlosses = _jax_run(path, clip, tmp_path, monkeypatch)
+    _, _, tpacked, tarr = _data()
+    trainer = _port_trainer(tpacked, {**PATHS[path][0],
+                                      "gradient_clip_norm": clip})
+    assert trainer.path == path
+    train_state_from_jax(jstates[0], trainer)  # the same initial state
+    losses = [_port_step(trainer, tarr) for _ in range(2)]
+    assert losses == pytest.approx(jlosses, rel=1e-6)
+    assert int(trainer.state.step) == 2
+    _assert_state_matches(trainer, jstates[2], tpacked, steps=2)
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "sgd"])
+def test_plain_chain_optimizers_match_jax(optimizer, tmp_path, monkeypatch):
+    _, jstates, jlosses = _jax_run("plain", 1.0, tmp_path, monkeypatch,
+                                   optimizer=optimizer)
+    _, _, tpacked, tarr = _data()
+    trainer = _port_trainer(tpacked, {"optimizer": optimizer})
+    assert trainer.path == "plain"
+    train_state_from_jax(jstates[0], trainer)
+    losses = [_port_step(trainer, tarr) for _ in range(2)]
+    assert losses == pytest.approx(jlosses, rel=1e-6)
+    _assert_state_matches(trainer, jstates[2], tpacked, steps=2)
+
+
+def test_step_two_from_a_carried_jax_state(tmp_path, monkeypatch):
+    """JAX takes step 1 (sparse-fused, packed tables, bf16 moments); its
+    state is carried into the port, which takes step 2 as JAX does."""
+    _, jstates, jlosses = _jax_run("sparse_fused", 1.0, tmp_path,
+                                   monkeypatch)
+    _, _, tpacked, tarr = _data()
+    trainer = _port_trainer(tpacked, {})
+    train_state_from_jax(jstates[1], trainer)
+    assert int(trainer.state.step) == 1
+    assert trainer.state.table_opt["embedding.table_w16"].mu.dtype \
+        == torch.bfloat16
+    _assert_state_matches(trainer, jstates[1], tpacked, steps=0)
+    assert _port_step(trainer, tarr) == pytest.approx(jlosses[1], rel=1e-6)
+    _assert_state_matches(trainer, jstates[2], tpacked, steps=1)
+
+
+def test_paths_resolve_from_the_config():
+    _, _, tpacked, _ = _data()
+    cases = {
+        (): "sparse_fused",
+        (("fused_backward", False),): "two_pass",
+        (("fused_table_adam", False),): "plain",
+        (("optimizer", "adamw"),): "plain",
+        (("optimizer", "sgd"),): "plain",
+    }
+    for overrides, path in cases.items():
+        trainer = _port_trainer(tpacked, dict(overrides))
+        assert trainer.path == path, overrides
+        assert (trainer.state.table_psq is not None) is (path == "sparse_fused")
+        assert (trainer.state.table_opt is not None) is (path != "plain")
+    default = config_from_dict(_raw({}, device="cpu"))
+    assert sparse_fused_eligible(default, tpacked)
+    mu = _port_trainer(tpacked, {}).state.table_opt["embedding.table_w8"].mu
+    assert mu.dtype == torch.bfloat16
+    f32 = _port_trainer(tpacked, {"moments_dtype": "float32"})
+    assert f32.state.table_opt["embedding.table_w8"].mu.dtype == torch.float32
+
+
+def test_lazy_adam_is_refused():
+    _, _, tpacked, _ = _data()
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        _port_trainer(tpacked, {"optimizer": "lazy_adam"})
+
+
+def test_trainer_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without a GPU")
+    _, _, tpacked, _ = _data()
+    config = config_from_dict(_raw({}))
+    model = create_model("deepfm", tpacked, config, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(model, tpacked, config)

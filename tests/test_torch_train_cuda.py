@@ -1,0 +1,188 @@
+"""The table-update kernels and the train step on the card, against the
+port's own plain versions on the same inputs. Every test needs an NVIDIA
+GPU and skips without one; the file imports no JAX, so it runs on a GPU
+machine without it:
+
+    python -m pytest --noconftest tests/test_torch_train_cuda.py -m cuda
+
+Tolerances (the kernels round every f32 operation as PyTorch's separate
+elementwise ops do, csrc/table_update.cuh):
+
+  * densify: bit for bit (both add each run in stream order);
+  * sparse / fused table Adam: mu and nu bit for bit, p within 1e-6
+    relative (the same roundings; a square root may differ in its last
+    bit), psq and the segment sums rel 1e-5 (another summation order);
+  * every kernel gives the same bits on a second launch;
+  * the train step on the card against the CPU step: the rule of
+    ``deepfm_tpu_torch/training/parity.py`` (rtol 1e-5 / atol 1e-7 on all
+    but 0.1 % of a leaf, within 2 * lr per step everywhere; BN-fed biases
+    and their running means by their band), with TF32 off.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deepfm_tpu_torch.config import config_from_dict
+from deepfm_tpu_torch.data.packing import pack_features, pack_schema
+from deepfm_tpu_torch.data.schema import DatasetSchema, FeatureType, FieldSchema
+from deepfm_tpu_torch.models import create_model
+from deepfm_tpu_torch.ops.kernels import build
+from deepfm_tpu_torch.ops.kernels.adam import (
+    fused_table_adam,
+    fused_table_adam_plain,
+)
+from deepfm_tpu_torch.ops.kernels.grad import (
+    densify_rows_grad,
+    densify_rows_grad_plain,
+    sort_pairs,
+)
+from deepfm_tpu_torch.ops.kernels.sparse_adam import (
+    segment_sumsq,
+    segment_sumsq_plain,
+    sparse_table_adam,
+    sparse_table_adam_plain,
+)
+from deepfm_tpu_torch.training.parity import compare_leaves
+from deepfm_tpu_torch.training.trainer import Trainer
+
+torch.set_num_threads(1)
+
+D = 17
+LR, WD = 1e-3, 2e-5
+B = 64
+HIDDEN = [16, 8]
+PATHS = {
+    "plain": {"fused_table_adam": False},
+    "two_pass": {"fused_backward": False},
+    "sparse_fused": {},
+}
+
+
+def _cuda() -> torch.device:
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU launch")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _table(rows, seed):
+    rng = np.random.default_rng(seed)
+    p = rng.normal(size=(rows, D)).astype(np.float32) * 0.05
+    mu = rng.normal(size=(rows, D)).astype(np.float32) * 0.01
+    nu = (rng.normal(size=(rows, D)).astype(np.float32) * 0.01) ** 2
+    return p, mu, nu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_table_kernels_match_plain_on_cuda(moments):
+    dev = _cuda()
+    mdt = getattr(torch, moments)
+    # ragged tiles, one run across everything, all but unique ids
+    for rows, n, vocab in [(1000, 3000, 1000), (300, 4096, 1),
+                           (257, 37, 10), (5000, 2000, 5000)]:
+        rng = np.random.default_rng(rows)
+        ids = torch.from_numpy(rng.integers(0, vocab, n).astype(np.int32))
+        ct = torch.from_numpy(rng.normal(size=(n, D)).astype(np.float32))
+        ids, ct = ids.to(dev), ct.to(dev)
+        p, mu, nu = _table(rows, rows)
+        sids, cts = sort_pairs(ids, ct)
+
+        g = densify_rows_grad(ct, ids, rows)
+        assert torch.equal(g, densify_rows_grad_plain(ct, ids, rows))
+        assert torch.equal(g, densify_rows_grad(ct, ids, rows))
+        ssq = segment_sumsq(sids, cts)
+        assert float(ssq) == pytest.approx(
+            float(segment_sumsq_plain(sids, cts)), rel=1e-5)
+        assert torch.equal(ssq, segment_sumsq(sids, cts))
+
+        def fresh():
+            return [torch.from_numpy(p.copy()).to(dev),
+                    torch.from_numpy(mu.copy()).to(dev, mdt),
+                    torch.from_numpy(nu.copy()).to(dev, mdt)]
+
+        for clip in (0.0, 1.0):
+            args = (LR, WD, torch.tensor(3.0, device=dev), clip,
+                    torch.tensor(2, dtype=torch.int32, device=dev))
+            k, q, k2 = fresh(), fresh(), fresh()
+            *_, kpsq = sparse_table_adam(*k, sids, cts, *args)
+            *_, qpsq = sparse_table_adam_plain(*q, sids, cts, *args)
+            *_, kpsq2 = sparse_table_adam(*k2, sids, cts, *args)
+            assert torch.equal(k[1], q[1]) and torch.equal(k[2], q[2])
+            torch.testing.assert_close(k[0], q[0], rtol=1e-6, atol=0)
+            assert float(kpsq) == pytest.approx(float(qpsq), rel=1e-5)
+            assert all(torch.equal(a, b) for a, b in zip(k, k2))
+            assert torch.equal(kpsq, kpsq2)
+            k, q = fresh(), fresh()
+            fused_table_adam(*k, g, *args)
+            fused_table_adam_plain(*q, g, *args)
+            assert torch.equal(k[1], q[1]) and torch.equal(k[2], q[2])
+            torch.testing.assert_close(k[0], q[0], rtol=1e-6, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_without_its_kernel(tmp_path, monkeypatch):
+    """On the card a wrapper whose kernel cannot be built raises; it does
+    not fall back to the plain version."""
+    dev = _cuda()
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(build, "_libs", {})
+    ct = torch.ones(4, D, device=dev)
+    ids = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        densify_rows_grad(ct, ids, 8)
+
+
+def _schema():
+    fields = {
+        "user": FieldSchema("user", FeatureType.SPARSE, 50, 16, "g"),
+        "item": FieldSchema("item", FeatureType.SPARSE, 80, 16, "g"),
+        "tags": FieldSchema("tags", FeatureType.SEQUENCE, 12, 8, "g",
+                            max_length=4, combiner="mean"),
+        "price": FieldSchema("price", FeatureType.DENSE, 0, 8, "g"),
+    }
+    return pack_schema(DatasetSchema(fields=fields))
+
+
+def _batch(packed):
+    rng = np.random.default_rng(3)
+    feats = {"user": rng.integers(0, 50, B), "item": rng.integers(0, 80, B),
+             "tags": rng.integers(0, 12, (B, 4)),
+             "price": rng.normal(size=B).astype(np.float32)}
+    labels = rng.integers(0, 2, B).astype(np.float32)
+    return pack_features(packed, feats, labels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_card_step_matches_cpu_step(path):
+    _cuda()
+    packed = _schema()
+    arr = _batch(packed)
+    trainers = {}
+    for device in ("cpu", "cuda"):
+        config = config_from_dict({
+            "model_name": "deepfm", "device": device,
+            "dnn": {"hidden_units": HIDDEN, "dropout": 0.0},
+            "training": {"batch_size": B, "lr": LR, **PATHS[path]},
+        })
+        model = create_model("deepfm", packed, config, device="cpu", seed=1)
+        trainers[device] = Trainer(model, packed, config)
+        assert trainers[device].path == path
+    w = np.ones(B, np.float32)
+    for _ in range(2):
+        want, got = (float(t._train_step(arr.ids, arr.dense, arr.labels, w))
+                     for t in (trainers["cpu"], trainers["cuda"]))
+        assert got == pytest.approx(want, rel=1e-6)
+    failed = compare_leaves(trainers["cuda"].model.state_dict(),
+                            trainers["cpu"].model.state_dict(), LR,
+                            steps=2)["failed_leaves"]
+    assert not failed, failed
