@@ -16,6 +16,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              median times (CUDA events) beside the shape's bound; in
              bf16 the check must also refuse two controls, the plain
              version without its hidden-state or outer-product rounding;
+  cin_stack_bwd  the CIN-stack backward kernel against its plain version
+             on the card at bench.py's xDeepFM shape in f32 and bf16 and at
+             the ragged shape (CIN_BWD_TOL), launched twice to show the
+             same bits, timed beside its bound, its plain version and
+             autograd through the plain forward; in bf16 the check must
+             refuse the plain backward without its dcomp rounding;
+  attention  the attention-block forward and backward kernels against
+             their plain versions at bench.py's AttentionDeepFM shape in
+             bf16 and f32 and at a ragged batch (ATTN_TOL), each launched
+             twice, timed beside its bound, its plain version and
+             scaled_dot_product_attention around the same projections; in
+             bf16 the check must refuse the plain backward without its
+             [dq|dk|dv] rounding;
   densify_rows_grad, segment_sumsq, sparse_table_adam, fused_table_adam
              the four table-update kernels at bench.py's shape (a 10.4M x 17
              table, 425,984 (id, cotangent) pairs drawn as bench.py draws
@@ -38,17 +51,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
              planted faults are refused, and with f32 moments the card's
              2 steps must agree with the CPU's (plain versions) on both
              paths; each path's kernels must have launched on it;
+             then (train_models) xDeepFM and AttentionDeepFM at the same
+             width on the sparse-fused path, timed and profiled as DeepFM,
+             each of their kernels launched once per step (per block for
+             attention), and at 20k ids, batch GRAD_BATCH, f32, their
+             first-step gradients on the card against the CPU's, with a
+             planted fault per model that must be refused;
   serve      the port's serving path at full width: synthetic MovieLens
              at ML-100K scale, xDeepFM from
-             configs/xdeepfm_movielens_cin_tuned.yaml with seeded random
-             weights saved as the best checkpoint, the `serve` prologue,
-             the HTTP server on an ephemeral port, GET /health, POST
-             /score and GET /recommend; the served scores are held against
-             the same checkpoint on the CPU, and every kernel's launch
-             count must have risen;
+             configs/xdeepfm_movielens_cin_tuned.yaml and AttentionDeepFM
+             from configs/attention_deepfm_movielens.yaml, each with seeded
+             random weights saved as the best checkpoint, the `serve`
+             prologue, the HTTP server on an ephemeral port, GET /health,
+             POST /score and GET /recommend; the served scores are held
+             against the same checkpoint on the CPU, and the model's
+             kernel's launch count must have risen;
   kernels    one line listing every ported kernel with its launch count
-             on the path that runs it (serve for the CIN stack, the
-             sparse-fused train step for segment_sumsq and
+             on the path that runs it (serve for the CIN-stack forward,
+             the xDeepFM train step for the CIN-stack backward, the
+             AttentionDeepFM train step for the attention kernels, the
+             sparse-fused DeepFM step for segment_sumsq and
              sparse_table_adam, the two-pass step for densify_rows_grad and
              fused_table_adam) and its numbers at that path's shape.
 
@@ -106,6 +128,55 @@ CIN_TOL = {
 }
 # Served probabilities against the same checkpoint on the CPU.
 SERVE_TOL = 1e-4
+SERVE_CONFIGS = ("xdeepfm_movielens_cin_tuned.yaml",
+                 "attention_deepfm_movielens.yaml")
+
+# (name, B, F, D, layer_sizes, split_half, dtype) of the CIN-stack backward
+CIN_BWD_SHAPES = [
+    ("bench_f32", 16384, 27, 16, (128, 128), True, "float32"),
+    ("bench_bf16", 16384, 27, 16, (128, 128), True, "bfloat16"),
+    ("ragged", 1000, 13, 16, (10, 7), True, "float32"),
+]
+# (name, B, F, d, attention_dim, heads, dtype) of the attention block with
+# residual + LayerNorm (bench.py's AttentionDeepFM: 4 heads of 16, d=16)
+ATTN_SHAPES = [
+    ("bench_bf16", 16384, 27, 16, 64, 4, "bfloat16"),
+    ("bench_f32", 16384, 27, 16, 64, 4, "float32"),
+    ("ragged_bf16", 1000, 27, 16, 64, 4, "bfloat16"),
+]
+# A gradient kernel against its plain version, per output (dx0, each dW_i
+# and db_i; out, dx and each parameter's gradient), with scale = max|plain|:
+#   share_outside  the share of elements with |kernel - plain| >
+#                  atol_rel * scale + rtol * |plain|, at most outside_share;
+#   mean_rel_err   sum|kernel - plain| / sum|plain|, at most mean_rel;
+#   share_differing  (the output in the input's dtype, bf16 only) the share
+#                  of elements that differ at all, at most differ_share.
+# An output whose exact gradient is 0 (the attention key bias bk: the
+# softmax ignores a shift every key shares) is measured on wk's scale.
+# f32: the same sums in another order (CIN rtol 2e-4 / atol 1e-5, as the
+# forward; attention 1e-4 / 1e-5, tighter since nothing crosses a ReLU).
+# bf16: rtol one bf16 step. Kernel and plain version round f32 values that
+# differ in their last bits, so a bf16 rounding (dcomp, dall, the hidden
+# state, the bf16 output) may land one step apart, and a CIN comp within
+# rounding of 0 may take the other side of the ReLU mask, which moves a
+# whole row of dW a little; hence a share of elements outside and the mean
+# relative error. A dropped rounding point (the controls) moves every
+# element by about 2^-9: half of the bf16 dx0 and 7 % of the bf16 dx
+# elements differ, against 2e-4 and 6e-4 for the kernels, and the weight
+# gradients' mean relative error reads 1.1e-3 to 1.9e-3, against at most
+# 6e-6 (CIN) and 9e-5 (attention) for the kernels (an H100, bench shapes).
+CIN_BWD_TOL = {
+    "float32": {"rtol": 2e-4, "atol_rel": 1e-5, "outside_share": 1e-3,
+                "mean_rel": 1e-4, "differ_share": None},
+    "bfloat16": {"rtol": 2.0 ** -7, "atol_rel": 1e-3, "outside_share": 1e-2,
+                 "mean_rel": 1e-3, "differ_share": 1e-2},
+}
+ATTN_TOL = {
+    "float32": {"rtol": 1e-4, "atol_rel": 1e-5, "outside_share": 0.0,
+                "mean_rel": 1e-5, "differ_share": None},
+    "bfloat16": {"rtol": 2.0 ** -7, "atol_rel": 1e-3, "outside_share": 0.0,
+                 "mean_rel": 5e-4, "differ_share": 1e-2},
+}
 
 # bench.py's DeepFM workload (bench.py:71-77, 91-113, 131-150)
 BENCH_BATCH = 16384
@@ -161,6 +232,12 @@ GRAD_NORM_REL = 1e-2
 # timing of the table kernels: each gives one run of BENCH_BATCH pairs.
 LONG_RUN_FIELDS = 2
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+TRAIN_MODELS = ("xdeepfm", "attention_deepfm")
+GRAD_BATCH = 1024  # their first-step gradients, card against CPU
+# (leaf, factor) planted into the card's first-step gradients per model;
+# the check must refuse each
+GRAD_FAULTS = {"xdeepfm": ("cin.conv_1_kernel", 1.05),
+               "attention_deepfm": ("attention.block_0.wo", -1.0)}
 DEVICE = "cuda"  # the card the table-kernel and train phases run on
 
 
@@ -315,10 +392,28 @@ def cin_bound(bsz, f, d, layer_sizes, split_half, bf16):
     return 1e3 * t_bytes, "bytes", flops
 
 
-def phase_cin_stack() -> dict:
+def cin_inputs(gen, bsz, f, d, layer_sizes, split_half, dtype):
+    """x0 (B, F, D) ~ N(0, 1) in ``dtype`` and f32 weights and biases
+    uniform in +-(H*F)^-1/2 (the layers' init bound), on gen's device."""
     import torch
 
     from deepfm_tpu_torch.ops.cin import cin_layer_sizes
+
+    dev = gen.device
+    x0 = torch.randn(bsz, f, d, generator=gen, device=dev).to(dtype)
+    _, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    ws, bs, h = [], [], f
+    for i, m in enumerate(layer_sizes):
+        bound = (h * f) ** -0.5
+        ws.append((torch.rand(m, h * f, generator=gen, device=dev) * 2 - 1) * bound)
+        bs.append((torch.rand(m, generator=gen, device=dev) * 2 - 1) * bound)
+        h = next_sizes[i]
+    return x0, ws, bs
+
+
+def phase_cin_stack() -> dict:
+    import torch
+
     from deepfm_tpu_torch.ops.kernels.cin_stack import (
         cin_stack_forward,
         cin_stack_plain,
@@ -334,14 +429,7 @@ def phase_cin_stack() -> dict:
         dt = getattr(torch, dtype)
         bf16 = dt == torch.bfloat16
         tol = CIN_TOL[dtype]
-        x0 = torch.randn(bsz, f, d, generator=gen, device=dev).to(dt)
-        _, next_sizes = cin_layer_sizes(layers, split)
-        ws, bs, h = [], [], f
-        for i, m in enumerate(layers):
-            bound = (h * f) ** -0.5
-            ws.append((torch.rand(m, h * f, generator=gen, device=dev) * 2 - 1) * bound)
-            bs.append((torch.rand(m, generator=gen, device=dev) * 2 - 1) * bound)
-            h = next_sizes[i]
+        x0, ws, bs = cin_inputs(gen, bsz, f, d, layers, split, dt)
 
         def kernel():
             return cin_stack_forward(x0, ws, bs, layers, split, bf16_operands=True)
@@ -384,6 +472,300 @@ def phase_cin_stack() -> dict:
         emit(rec)
         results[name] = rec
         del x0, ws, bs, got, want
+        torch.cuda.empty_cache()
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
+def grad_compare(got: dict, want: dict, tol: dict, low: str,
+                 ref_of: dict | None = None) -> dict:
+    """Per output (name -> tensor) the error statistics of ``got`` against
+    ``want`` and whether they pass ``tol`` (see CIN_BWD_TOL); ``low`` names
+    the output in the input's dtype, ``ref_of`` maps an output whose exact
+    value is 0 to the output whose scale it is measured on."""
+    import torch
+
+    outs = {}
+    for name, w in want.items():
+        a, w = got[name].float(), w.float()
+        ref = want[(ref_of or {}).get(name, name)].float().abs()
+        err = (a - w).abs()
+        scale = ref.max().clamp_min(1e-30)
+        s = {
+            "max_abs_err": err.max().item(),
+            "max_err_over_scale": (err.max() / scale).item(),
+            "share_outside": (err > tol["atol_rel"] * scale
+                              + tol["rtol"] * w.abs()).float().mean().item(),
+            "mean_rel_err": (err.mean() / ref.mean().clamp_min(1e-30)).item(),
+            "share_differing": (err > 0).float().mean().item(),
+        }
+        ok = (bool(torch.isfinite(a).all())
+              and s["share_outside"] <= tol["outside_share"]
+              and s["mean_rel_err"] <= tol["mean_rel"])
+        if name == low and tol["differ_share"] is not None:
+            ok = ok and s["share_differing"] <= tol["differ_share"]
+        outs[name] = {**s, "ok": ok}
+    return {"outputs": outs, "ok": all(o["ok"] for o in outs.values())}
+
+
+def cin_bwd_bound(bsz, f, d, layer_sizes, split_half, bf16):
+    """(bound_ms, bound_by, flops) of the CIN-stack backward: per layer the
+    remat, dW and A = W^T dcomp products (2 * B*D*M*H*F operations each),
+    the outer product formed for the remat and dW and the two group sums;
+    bytes: x0, g, weights and biases read, dx0, dW and db written."""
+    from deepfm_tpu_torch.ops.cin import cin_layer_sizes
+
+    direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    es = 2 if bf16 else 4
+    flops, h = 0, f
+    nbytes = 2 * bsz * f * d * es + 4 * bsz * sum(direct_sizes)
+    for i, m in enumerate(layer_sizes):
+        flops += 3 * 2 * bsz * d * m * h * f + 2 * bsz * h * f * d \
+            + 2 * 2 * bsz * h * f * d
+        nbytes += m * h * f * (es + 4) + 2 * 4 * m
+        h = next_sizes[i]
+    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations", flops
+    return 1e3 * t_bytes, "bytes", flops
+
+
+def cin_grads_named(res) -> dict:
+    dx0, dws, dbs = res
+    return {"dx0": dx0, **{f"dW{i}": t for i, t in enumerate(dws)},
+            **{f"db{i}": t for i, t in enumerate(dbs)}}
+
+
+def phase_cin_stack_bwd() -> dict:
+    import torch
+
+    from deepfm_tpu_torch.ops.cin import cin_layer_sizes
+    from deepfm_tpu_torch.ops.kernels.cin_stack import (
+        cin_stack_backward,
+        cin_stack_backward_plain,
+        cin_stack_plain,
+        plan_backward,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    results, failures = {}, []
+    for k, (name, bsz, f, d, layers, split, dtype) in enumerate(CIN_BWD_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(2000 + k)
+        dt = getattr(torch, dtype)
+        bf16 = dt == torch.bfloat16
+        tol = CIN_BWD_TOL[dtype]
+        x0, ws, bs = cin_inputs(gen, bsz, f, d, layers, split, dt)
+        direct_sizes, _ = cin_layer_sizes(layers, split)
+        g = torch.randn(bsz, sum(direct_sizes), generator=gen, device=dev)
+        n = len(layers)
+
+        def kernel():
+            return cin_stack_backward(x0, ws, bs, g, layers, split, True)
+
+        def plain(**kw):
+            return cin_stack_backward_plain(x0, ws, bs, g, layers, split,
+                                            True, **kw)
+
+        def library():
+            leaves = [t.detach().requires_grad_() for t in (x0, *ws, *bs)]
+            out = cin_stack_plain(leaves[0], leaves[1:1 + n], leaves[1 + n:],
+                                  layers, split, True)
+            return torch.autograd.grad(out, leaves, g.to(out.dtype))
+
+        got, again = cin_grads_named(kernel()), cin_grads_named(kernel())
+        want = cin_grads_named(plain())
+        same_bits = all(torch.equal(got[o], again[o]) for o in got)
+        cmp = grad_compare(got, want, tol, "dx0")
+        if not (cmp["ok"] and same_bits):
+            failures.append(f"{name}: kernel outside tolerance {tol} or not "
+                            f"repeatable ({same_bits}): {cmp}")
+        controls = {}
+        if bf16:
+            ctl = grad_compare(cin_grads_named(plain(dcomp_round=False)),
+                               want, tol, "dx0")
+            controls["no_dcomp_round"] = ctl
+            if ctl["ok"]:
+                failures.append(f"{name}: the bf16 check passes a kernel "
+                                f"without the dcomp rounding: {ctl}")
+        del got, again, want
+        big = bsz >= 16384
+        ms = time_ms(kernel, reps=5 if big else 20)
+        plain_ms = time_ms(plain, reps=3 if big else 10, warmup=1)
+        library_ms = time_ms(library, reps=3 if big else 10, warmup=1)
+        bound_ms, bound_by, flops = cin_bwd_bound(bsz, f, d, layers, split, bf16)
+        tile_b, ntp, smem, splits = plan_backward(bsz, f, d, layers, split)
+        rec = {
+            "phase": "cin_stack_bwd", "shape": name, "B": bsz, "F": f, "D": d,
+            "layers": list(layers), "split_half": split, "dtype": dtype,
+            "tile_b": tile_b, "smem_bytes": smem, "dw_splits": splits,
+            **cmp, "same_bits": same_bits, "tol": tol, "controls": controls,
+            "max_abs_err": max(o["max_abs_err"] for o in cmp["outputs"].values()),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "autograd through cin_stack_plain (forward + backward)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            "tflops": flops / (ms * 1e-3) / 1e12,
+        }
+        emit(rec)
+        results[name] = rec
+        del x0, ws, bs, g
+        torch.cuda.empty_cache()
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
+def attn_params(gen, d, a) -> dict:
+    """An attention block's parameters, f32, uniform in the layers' init
+    bounds; LayerNorm scale and bias near 1 and 0."""
+    import torch
+
+    def u(shape, bound):
+        return (torch.rand(shape, generator=gen, device=gen.device) * 2 - 1) * bound
+
+    p = {}
+    for nm in "qkv":
+        p[f"w{nm}"], p[f"b{nm}"] = u((d, a), d ** -0.5), u((a,), d ** -0.5)
+    p["wo"], p["bo"] = u((a, d), a ** -0.5), u((d,), a ** -0.5)
+    p["ln_scale"], p["ln_bias"] = 1 + u((d,), 0.1), u((d,), 0.1)
+    return p
+
+
+def attention_library(x, p, heads):
+    """Yardstick only, never called by the port: the same block with
+    torch's scaled_dot_product_attention around the projections, in x's
+    dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    bsz, f, d = x.shape
+    a = p["wq"].shape[1]
+    dt = x.dtype
+    qkv = x @ torch.cat([p["wq"], p["wk"], p["wv"]], 1).to(dt) \
+        + torch.cat([p["bq"], p["bk"], p["bv"]]).to(dt)
+    q, k, v = (t.reshape(bsz, f, heads, a // heads).transpose(1, 2)
+               for t in qkv.split(a, dim=2))
+    ctx = F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
+    out = ctx.reshape(bsz, f, a) @ p["wo"].to(dt) + p["bo"].to(dt)
+    return F.layer_norm(out + x, (d,), p["ln_scale"].to(dt),
+                        p["ln_bias"].to(dt), eps=1e-5)
+
+
+def attn_bound(bsz, f, d, a, heads, bf16, backward):
+    """(bound_ms, bound_by, flops): the projections (QKV and output) and
+    the attention core (scores and context) of the forward; the backward
+    recomputes them and takes two products per forward product. Bytes: x
+    (and g) read, out (or dx and the parameter gradients) written."""
+    es = 2 if bf16 else 4
+    rows = bsz * f
+    fwd = 2 * rows * d * 4 * a + 2 * 2 * bsz * heads * f * f * (a // heads)
+    params = 4 * (4 * d * a + 3 * a + 3 * d)
+    if backward:
+        flops, nbytes = 3 * fwd, 3 * rows * d * es + 2 * params
+    else:
+        flops, nbytes = fwd, 2 * rows * d * es + params
+    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations", flops
+    return 1e3 * t_bytes, "bytes", flops
+
+
+def phase_attention() -> dict:
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.attention import (
+        attention_block_backward,
+        attention_block_backward_plain,
+        attention_block_forward,
+        attention_block_plain,
+        param_names,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    results, failures = {}, []
+    for k, (name, bsz, f, d, a, heads, dtype) in enumerate(ATTN_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(3000 + k)
+        dt = getattr(torch, dtype)
+        bf16 = dt == torch.bfloat16
+        tol = ATTN_TOL[dtype]
+        p = attn_params(gen, d, a)
+        x = torch.randn(bsz, f, d, generator=gen, device=dev).to(dt)
+        g = torch.randn(bsz, f, d, generator=gen, device=dev).to(dt)
+
+        def fwd():
+            return attention_block_forward(x, p, heads, True)
+
+        def bwd():
+            return attention_block_backward(x, p, g, heads, True)
+
+        def bwd_plain(**kw):
+            dx, dp = attention_block_backward_plain(x, p, g, heads, True, **kw)
+            return {"dx": dx, **dp}
+
+        def lib_fwd():
+            return attention_library(x, p, heads)
+
+        def lib_bwd():
+            leaves = [x.detach().requires_grad_(),
+                      *[p[n].detach().requires_grad_() for n in param_names(True)]]
+            out = attention_library(leaves[0], dict(zip(param_names(True),
+                                                        leaves[1:])), heads)
+            return torch.autograd.grad(out, leaves, g)
+
+        out, out2 = fwd(), fwd()
+        fcmp = grad_compare({"out": out}, {"out": attention_block_plain(
+            x, p, heads, True)}, tol, "out")
+        (dx, dp), (dx2, dp2) = bwd(), bwd()
+        got, again = {"dx": dx, **dp}, {"dx": dx2, **dp2}
+        bcmp = grad_compare(got, bwd_plain(), tol, "dx", ref_of={"bk": "wk"})
+        same_bits = torch.equal(out, out2) and all(
+            torch.equal(got[o], again[o]) for o in got)
+        if not (fcmp["ok"] and bcmp["ok"] and same_bits):
+            failures.append(f"{name}: a kernel is outside tolerance {tol} or "
+                            f"not repeatable ({same_bits}): {fcmp} {bcmp}")
+        controls = {}
+        if bf16:
+            ctl = grad_compare(bwd_plain(dall_round=False), bwd_plain(), tol,
+                               "dx", ref_of={"bk": "wk"})
+            controls["no_dall_round"] = ctl
+            if ctl["ok"]:
+                failures.append(f"{name}: the bf16 check passes a backward "
+                                f"without the [dq|dk|dv] rounding: {ctl}")
+        del out, out2, dx, dp, dx2, dp2, got, again
+        big = bsz >= 16384
+        reps = 20 if big else 50
+        rec = {"phase": "attention", "shape": name, "B": bsz, "F": f, "d": d,
+               "attention_dim": a, "heads": heads, "dtype": dtype,
+               "residual": True, "same_bits": same_bits, "tol": tol,
+               "controls": controls,
+               "library": "scaled_dot_product_attention around the same "
+                          "projections and layer_norm (autograd for the "
+                          "backward)"}
+        for kind, cmp, kern, plain, lib in (
+                ("forward", fcmp, fwd,
+                 lambda: attention_block_plain(x, p, heads, True), lib_fwd),
+                ("backward", bcmp, bwd, bwd_plain, lib_bwd)):
+            bound_ms, bound_by, flops = attn_bound(
+                bsz, f, d, a, heads, bf16, kind == "backward")
+            ms = time_ms(kern, reps=reps)
+            rec[kind] = {
+                **cmp,
+                "max_abs_err": max(o["max_abs_err"]
+                                   for o in cmp["outputs"].values()),
+                "ms": ms, "plain_ms": time_ms(plain, reps=5, warmup=1),
+                "library_ms": time_ms(lib, reps=reps),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "gflop": flops / 1e9, "tflops": flops / (ms * 1e-3) / 1e12,
+            }
+        emit(rec)
+        results[name] = rec
+        del x, g, p
         torch.cuda.empty_cache()
     if failures:
         fail("; ".join(failures))
@@ -604,12 +986,23 @@ def bench_workload(vocab: int):
     return packed, pack_features(packed, feats, labels)
 
 
-def bench_config(device: str, compute_dtype: str = "bfloat16", **training):
-    """bench.py's DeepFM config (bench.py:131-150) for the port."""
+def head_rows(arrays, n: int):
+    """The first ``n`` rows of a packed batch."""
+    import dataclasses
+
+    return dataclasses.replace(
+        arrays, ids=arrays.ids[:n], dense=arrays.dense[:n],
+        labels=arrays.labels[:n], weights=arrays.weights[:n])
+
+
+def bench_config(device: str, compute_dtype: str = "bfloat16",
+                 model_name: str = "deepfm", **training):
+    """bench.py's config (bench.py:131-150) for the port; the CIN and
+    attention sections keep their defaults, as bench.py does."""
     from deepfm_tpu_torch.config import config_from_dict
 
     return config_from_dict({
-        "model_name": "deepfm",
+        "model_name": model_name,
         "device": device,
         "dnn": {"hidden_units": [512, 256, 128], "dropout": 0.0,
                 "use_batch_norm": True},
@@ -618,27 +1011,41 @@ def bench_config(device: str, compute_dtype: str = "bfloat16", **training):
     })
 
 
-def train_counters():
+def kernel_counters():
+    """Every ported kernel's wrapper, whose ``launches`` counts its kernel's
+    launches."""
     from deepfm_tpu_torch.ops.kernels.adam import fused_table_adam
+    from deepfm_tpu_torch.ops.kernels.attention import (
+        attention_block_backward,
+        attention_block_forward,
+    )
+    from deepfm_tpu_torch.ops.kernels.cin_stack import (
+        cin_stack_backward,
+        cin_stack_forward,
+    )
     from deepfm_tpu_torch.ops.kernels.grad import densify_rows_grad
     from deepfm_tpu_torch.ops.kernels.sparse_adam import (
         segment_sumsq,
         sparse_table_adam,
     )
 
-    return {"densify_rows_grad": densify_rows_grad,
+    return {"cin_stack_fwd": cin_stack_forward,
+            "cin_stack_bwd": cin_stack_backward,
+            "attention_block_fwd": attention_block_forward,
+            "attention_block_bwd": attention_block_backward,
+            "densify_rows_grad": densify_rows_grad,
             "segment_sumsq": segment_sumsq,
             "sparse_table_adam": sparse_table_adam,
             "fused_table_adam": fused_table_adam}
 
 
 def reset_counts() -> None:
-    for fn in train_counters().values():
+    for fn in kernel_counters().values():
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in train_counters().items()}
+    return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
 def snapshot(trainer) -> dict:
@@ -652,7 +1059,7 @@ def snapshot(trainer) -> dict:
     return out
 
 
-def first_step_grads(packed, arrays, device: str):
+def first_step_grads(packed, arrays, device: str, model_name: str):
     """The loss and every parameter's gradient at the seeded initial weights:
     one train-mode forward and autograd backward on ``device``, the table's
     gradient densified by the kernel (CUDA) or its plain version (CPU)."""
@@ -661,8 +1068,8 @@ def first_step_grads(packed, arrays, device: str):
     from deepfm_tpu_torch.models import create_model
     from deepfm_tpu_torch.training.steps import weighted_bce
 
-    cfg = bench_config(device, compute_dtype="float32")
-    model = create_model("deepfm", packed, cfg, device="cpu").to(device)
+    cfg = bench_config(device, compute_dtype="float32", model_name=model_name)
+    model = create_model(model_name, packed, cfg, device="cpu").to(device)
     model.train()
     ids, dense, labels, weights = batch_on(arrays, torch.device(device))
     loss = weighted_bce(model(ids, dense)[:, 0], labels, weights)
@@ -675,13 +1082,11 @@ def grad_check(got: dict, want: dict) -> dict:
     """Per leaf, max|got - want| over max|want| and ||got - want|| over
     ||want|| (a BN-fed Dense bias over its layer weight's), held to
     GRAD_MAX_REL and GRAD_NORM_REL."""
-    from deepfm_tpu_torch.training.parity import bn_fed_bias
+    from deepfm_tpu_torch.training.parity import zero_gradient_reference
 
     max_rel, norm_rel, failed = {}, {}, []
     for name, w in want.items():
-        scale_of = name
-        if bn_fed_bias(name):
-            scale_of = name[: -len("bias")] + "weight"
+        scale_of = zero_gradient_reference(name) or name
         diff = got[name] - w
         ref = want[scale_of]
         max_rel[name] = diff.abs().max().item() / max(ref.abs().max().item(), 1e-30)
@@ -697,22 +1102,30 @@ def grad_check(got: dict, want: dict) -> dict:
             "failed_leaves": failed, "ok": not failed}
 
 
-def phase_grads_card_vs_cpu(small, small_arrays) -> dict:
-    """First-step gradients, the card against the CPU, and the three
-    planted faults the check must refuse."""
-    cpu_loss, want = first_step_grads(small, small_arrays, "cpu")
-    card_loss, got = first_step_grads(small, small_arrays, DEVICE)
+def phase_grads_card_vs_cpu(small, small_arrays,
+                            model_name: str = "deepfm") -> dict:
+    """First-step gradients, the card against the CPU, and the planted
+    faults the check must refuse: three for DeepFM, GRAD_FAULTS' one for
+    the other models."""
+    cpu_loss, want = first_step_grads(small, small_arrays, "cpu", model_name)
+    card_loss, got = first_step_grads(small, small_arrays, DEVICE, model_name)
     out = grad_check(got, want)
     out["loss_rel_err"] = rel_err(card_loss, cpu_loss)
-    table = "embedding.table_w16"
-    flipped = {**got, "dnn.dense_1.weight": -got["dnn.dense_1.weight"]}
-    dropped = {**got, table: got[table].clone()}
-    dropped[table][want[table].abs().amax(dim=1).argmax()] = 0.0
-    scaled = {**got, table: got[table] * 1.05}
+    if model_name == "deepfm":
+        table = "embedding.table_w16"
+        flipped = {**got, "dnn.dense_1.weight": -got["dnn.dense_1.weight"]}
+        dropped = {**got, table: got[table].clone()}
+        dropped[table][want[table].abs().amax(dim=1).argmax()] = 0.0
+        faults = (("dnn.dense_1.weight sign flipped", flipped),
+                  ("largest table row dropped", dropped),
+                  ("table gradient scaled by 1.05",
+                   {**got, table: got[table] * 1.05}))
+    else:
+        leaf, factor = GRAD_FAULTS[model_name]
+        faults = ((f"{leaf} scaled by {factor}",
+                   {**got, leaf: got[leaf] * factor}),)
     controls = {}
-    for name, fault in (("dnn.dense_1.weight sign flipped", flipped),
-                        ("largest table row dropped", dropped),
-                        ("table gradient scaled by 1.05", scaled)):
+    for name, fault in faults:
         c = grad_check(fault, want)
         controls[name] = {"failed_leaves": c["failed_leaves"],
                           "worst_max_rel": c["worst_max_rel"],
@@ -722,6 +1135,16 @@ def phase_grads_card_vs_cpu(small, small_arrays) -> dict:
     out["ok"] = (out["ok"] and out["loss_rel_err"] <= TRAIN_TOL["cpu_loss_rel"]
                  and all(c["refused"] for c in controls.values()))
     return out
+
+
+def device_events(prof) -> list:
+    """The profiler's device-side events (kernels, copies, fills). A CPU
+    op or autograd node also reports the device time of the kernels it
+    launched as its own, so only these events are summed."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
 def step_profile(step) -> dict:
@@ -735,7 +1158,7 @@ def step_profile(step) -> dict:
         step()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events = device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
     return {
@@ -899,6 +1322,99 @@ def phase_train() -> dict:
     return out
 
 
+def phase_train_models() -> dict:
+    """xDeepFM and AttentionDeepFM at bench.py's full width on the default
+    (sparse-fused) path, each model's steps its own main path; then their
+    first-step gradients on the card against the CPU."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    packed, arrays = bench_workload(BENCH_VOCAB)
+    batch = batch_on(arrays, dev)
+    small, small_arrays = bench_workload(SMALL_VOCAB)
+    small_arrays = head_rows(small_arrays, GRAD_BATCH)
+    results, failures = {}, []
+    for name in TRAIN_MODELS:
+        t0 = time.perf_counter()
+        config = bench_config(DEVICE, model_name=name)
+        model = create_model(name, packed, config, device=DEVICE)
+        trainer = Trainer(model, packed, config)
+        setup_s = time.perf_counter() - t0
+        if trainer.path != "sparse_fused":
+            failures.append(f"{name}: the default config took the "
+                            f"{trainer.path} path")
+        # --- this model's main path: counts start at 0 here --------------
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [trainer._train_step(*batch).item()
+                  for _ in range(WARMUP_STEPS)]
+        times = []
+        for _ in range(TIMED_STEPS):
+            s0 = time.perf_counter()
+            loss = trainer._train_step(*batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - s0)
+        profile = step_profile(lambda: trainer._train_step(*batch))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        # --- end of the main path ------------------------------------------
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = WARMUP_STEPS + TIMED_STEPS + 1
+        if name == "xdeepfm":
+            expected = {"cin_stack_fwd": steps, "cin_stack_bwd": steps}
+        else:
+            blocks = config.attention.num_layers
+            expected = {"attention_block_fwd": steps * blocks,
+                        "attention_block_bwd": steps * blocks}
+        for kernel, n in expected.items():
+            if counts[kernel] != n:
+                failures.append(f"{name}: {kernel} launched {counts[kernel]} "
+                                f"times in {steps} steps, expected {n}")
+        for kernel in ("segment_sumsq", "sparse_table_adam"):
+            if counts[kernel] < 1:
+                failures.append(f"{name}: {kernel} was not launched")
+        losses.append(loss.item())
+        if not all(map(math.isfinite, losses)):
+            failures.append(f"{name}: a loss is not finite: {losses}")
+        n_params = sum(p.numel() for p in model.parameters())
+        del trainer, model
+        torch.cuda.empty_cache()
+
+        grads = phase_grads_card_vs_cpu(small, small_arrays, name)
+        if not grads["ok"]:
+            failures.append(f"{name}: first-step gradients: the card differs "
+                            f"from the CPU, or a planted fault passed: {grads}")
+        step_ms = 1e3 * statistics.median(times)
+        rec = {
+            "phase": "train_models", "model": name, "path": "sparse_fused",
+            "batch": BENCH_BATCH, "fields": BENCH_FIELDS, "vocab": BENCH_VOCAB,
+            "n_params": n_params, "compute_dtype": "bfloat16",
+            "moments_dtype": "bfloat16", "setup_s": setup_s,
+            "losses": losses, "step_ms_median": step_ms,
+            "step_ms_min": 1e3 * min(times), "step_ms_max": 1e3 * max(times),
+            "timed_steps": TIMED_STEPS, "step_ms_all": [1e3 * t for t in times],
+            "examples_per_s": BENCH_BATCH / (step_ms / 1e3),
+            "peak_memory_gb": peak_gb, "profile_step": profile,
+            "launches": counts, "launches_expected": expected,
+            "first_step_grads_card_vs_cpu_20k_f32": {
+                "batch": GRAD_BATCH, **grads},
+            "tol": {"grad_max_rel": GRAD_MAX_REL,
+                    "grad_norm_rel": GRAD_NORM_REL,
+                    "cpu_loss_rel": TRAIN_TOL["cpu_loss_rel"]},
+        }
+        rec["ok"] = not [f for f in failures if f.startswith(name)]
+        emit(rec)
+        results[name] = rec
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
 def _http(method: str, url: str, payload=None):
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(
@@ -945,7 +1461,7 @@ def device_profile(predictor, arrays) -> dict:
         predictor.predict(arrays)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events = device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     return {
@@ -956,7 +1472,7 @@ def device_profile(predictor, arrays) -> dict:
     }
 
 
-def phase_serve(tmp: Path) -> dict:
+def phase_serve(tmp: Path, config_file: str) -> dict:
     import numpy as np
     import torch
 
@@ -964,29 +1480,30 @@ def phase_serve(tmp: Path) -> dict:
     from deepfm_tpu_torch.config import load_config
     from deepfm_tpu_torch.data.synthetic import generate_movielens_like
     from deepfm_tpu_torch.models import create_model
-    from deepfm_tpu_torch.ops.kernels.cin_stack import cin_stack_forward
     from deepfm_tpu_torch.serving import ScoringService, make_http_server
     from deepfm_tpu_torch.training.persistence import load_best, save_best
     from deepfm_tpu_torch.training.predict import Predictor
 
     t0 = time.perf_counter()
-    data_dir = generate_movielens_like(
-        tmp / "ml-100k", num_users=943, num_items=1682, num_rows=100_000,
-        seed=0,
-    )
+    data_dir = tmp / "ml-100k"
+    if not (data_dir / "u.data").exists():
+        generate_movielens_like(data_dir, num_users=943, num_items=1682,
+                                num_rows=100_000, seed=0)
     config = load_config(
-        REPO / "configs" / "xdeepfm_movielens_cin_tuned.yaml",
-        [f"data.data_dir={data_dir}", f"output_dir={tmp / 'run'}",
-         "device=cuda"],
+        REPO / "configs" / config_file,
+        [f"data.data_dir={data_dir}",
+         f"output_dir={tmp / Path(config_file).stem}", "device=cuda"],
     )
     # seeded random weights stand in for a trained checkpoint
     _, _, packed0, _, _, _ = _build_data(config)
     save_best(create_model(config.model_name, packed0, config, device="cpu"),
               config.output_dir)
     setup_s = time.perf_counter() - t0
+    kernel = {"xdeepfm": "cin_stack_fwd",
+              "attention_deepfm": "attention_block_fwd"}[config.model_name]
 
     # --- the main path: every kernel count starts at 0 here -------------
-    cin_stack_forward.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     adapter, packed, _, _, model, predictor = _restore_predictor(
         config, require=("serve", "score_id_pairs", "known_pair",
@@ -1013,7 +1530,7 @@ def phase_serve(tmp: Path) -> dict:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-    launches = {"cin_stack_fwd": cin_stack_forward.launches}
+    launches = {kernel: read_counts()[kernel]}
     # --- end of the main path --------------------------------------------
 
     failures = []
@@ -1053,11 +1570,11 @@ def phase_serve(tmp: Path) -> dict:
     profile = device_profile(predictor, cds.pack(packed))
     if max(score_err, rec_err) > SERVE_TOL:
         failures.append(f"served scores differ from the CPU by {score_err}/{rec_err}")
-    if launches["cin_stack_fwd"] < 1:
-        failures.append("the CIN-stack kernel was not launched on the serve path")
+    if launches[kernel] < 1:
+        failures.append(f"{kernel} was not launched on the serve path")
     out = {
         "phase": "serve", "model": config.model_name,
-        "config": "configs/xdeepfm_movielens_cin_tuned.yaml",
+        "config": f"configs/{config_file}",
         "users": 943, "items": 1682, "rows": 100_000,
         "n_params": health.get("n_params"), "score_rows": len(rows),
         "setup_s": setup_s, "prologue_s": prologue_s,
@@ -1087,24 +1604,44 @@ def main() -> None:
 
     phase_build()
     cin = phase_cin_stack()
+    cin_bwd = phase_cin_stack_bwd()
+    attn = phase_attention()
     table = phase_table_kernels()
     train = phase_train()
+    models = phase_train_models()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        serve = phase_serve(Path(tmp))
-    a = cin["serving"]
-    kernels = [{
-        "name": "cin_stack_fwd",
-        "route": "cuda",
-        "source": "deepfm_tpu_torch/csrc/cin_stack_fwd.cu",
-        "replaces": "deepfm_tpu/ops/pallas/cin_stack_kernel.py:646",
-        "launches": serve["launches"]["cin_stack_fwd"],
-        "max_abs_err": a["max_abs_err"],
-        "ms": a["ms"],
-        "plain_ms": a["plain_ms"],
-        "bound_ms": a["bound_ms"],
-        "bound_by": a["bound_by"],
-        "library_ms": a["library_ms"],
-    }]
+        serve = {cfg: phase_serve(Path(tmp), cfg) for cfg in SERVE_CONFIGS}
+    kernels = []
+    # (name, source, replaces, launches on its main path, its numbers at
+    # that path's shape)
+    for name, source, replaces, launches, rec in (
+        ("cin_stack_fwd", "cin_stack_fwd.cu", "cin_stack_kernel.py:646",
+         serve[SERVE_CONFIGS[0]]["launches"]["cin_stack_fwd"], cin["serving"]),
+        ("cin_stack_bwd", "cin_stack_bwd.cu", "cin_stack_kernel.py:742",
+         models["xdeepfm"]["launches"]["cin_stack_bwd"],
+         cin_bwd["bench_bf16"]),
+        ("attention_block_fwd", "attention_block.cu",
+         "attention_fmajor_kernel.py:435",
+         models["attention_deepfm"]["launches"]["attention_block_fwd"],
+         attn["bench_bf16"]["forward"]),
+        ("attention_block_bwd", "attention_block.cu",
+         "attention_fmajor_kernel.py:476",
+         models["attention_deepfm"]["launches"]["attention_block_bwd"],
+         attn["bench_bf16"]["backward"]),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"deepfm_tpu_torch/csrc/{source}",
+            "replaces": f"deepfm_tpu/ops/pallas/{replaces}",
+            "launches": launches,
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+        })
     # (name, source, replaces, the path whose launch counts it reports)
     for name, source, replaces, path in (
         ("segment_sumsq", "sparse_table_adam.cu",

@@ -1,8 +1,9 @@
 """CTR model registry and factory (port of ``deepfm_tpu/models/__init__.py``).
 
-The port has DeepFM (trained, ``training/trainer.py``) and xDeepFM
-(served). The other models of the JAX registry come with later slices;
-asking for one raises and names the slice.
+The port has DeepFM, xDeepFM and AttentionDeepFM, each trained by
+``training/trainer.py`` and served by ``serving.py``. The other models of
+the JAX registry come with later slices; asking for one raises and names
+the slice.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from deepfm_tpu_torch.config import ConfigError, ExperimentConfig
 from deepfm_tpu_torch.data.packing import PackedSchema, pack_schema
 from deepfm_tpu_torch.data.schema import DatasetSchema
 from deepfm_tpu_torch.device import resolve_device
+from deepfm_tpu_torch.models.attention_deepfm import AttentionDeepFM
 from deepfm_tpu_torch.models.base import CTRModel
 from deepfm_tpu_torch.models.deepfm import DeepFM
 from deepfm_tpu_torch.models.xdeepfm import xDeepFM
@@ -20,12 +22,12 @@ from deepfm_tpu_torch.models.xdeepfm import xDeepFM
 MODEL_REGISTRY: dict[str, type[CTRModel]] = {
     "deepfm": DeepFM,
     "xdeepfm": xDeepFM,
+    "attention_deepfm": AttentionDeepFM,
 }
 
 # models of the JAX registry that are not ported yet -> the slice that
 # brings each one
 LATER_SLICES = {
-    "attention_deepfm": "the AttentionDeepFM slice",
     "lr": "the baselines slice",
     "fm": "the baselines slice",
     "dnn": "the baselines slice",
@@ -76,6 +78,7 @@ def create_model(
 
 
 __all__ = [
+    "AttentionDeepFM",
     "CTRModel",
     "DeepFM",
     "MODEL_REGISTRY",

@@ -7,7 +7,9 @@ routing, sum-pooling over D and concatenation across layers.
 
 ``CIN`` always goes through ``cin_stack_forward``
 (``ops/kernels/cin_stack.py``): the whole stack runs in one hand-written
-CUDA kernel on a CUDA tensor, and in its plain version on a CPU tensor.
+CUDA kernel on a CUDA tensor, and in its plain version on a CPU tensor;
+where a gradient is needed the call goes through ``CinStackFn``, whose
+backward is the CIN-stack backward kernel (or its plain version).
 With ``use_kernel`` off (config ``pallas.use_cin_kernel: false``) the
 JAX package runs its plain jnp function; the port runs its plain version
 on the CPU as well, and refuses any other device, since there is no plain

@@ -1,0 +1,371 @@
+"""Field self-attention block: the hand-written CUDA kernels (forward and
+backward) and their plain versions.
+
+Replaces ``deepfm_tpu/ops/pallas/attention_fmajor_kernel.py`` ::
+``make_attention_block_fmajor`` → ``forward`` / ``_attn_fwd_kernel`` and
+``backward`` / ``_attn_bwd_kernel``. Source: ``csrc/attention_block.cu``
+(the design is in its head note).
+
+What it computes, per sample x (F, d) in the compute type (x's dtype):
+q/k/v = x · W + b in f32, a softmax over the F key fields per head in f32,
+the context in f32, ``out = cast(ctx) · wo + bo``, then with residual
+LayerNorm(out + x) · ln_scale + ln_bias (eps 1e-5), cast to x's dtype. The
+weights are cast to the compute type, the biases and LayerNorm parameters
+stay f32: the TPU kernel's rounding points. The JAX package's
+``block_oracle`` (its fallback where the kernel is ineligible) computes
+everything in bf16 instead; in f32 the two agree.
+
+The port keeps the ``(B, F, d)`` layout at every function: the TPU
+kernel's ``(F, d, B)`` transpose (batch on the 128-lane axis), its tile
+gate (B % 128, hd % 8, d % 8) and its VMEM budget are TPU artifacts. The
+kernels take any B, F, d and heads dividing a; they raise only where a
+block's shared memory would exceed 227 KB.
+
+What bounds them on an H100: bytes (x in, out or dx out, and g in) at
+bench.py's shape; the work (6.7 GFLOP forward, ~20 backward) is small, so
+a simple kernel is latency-bound (see the .cu file).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from deepfm_tpu_torch.ops.kernels import build
+
+SOURCE = "attention_block.cu"
+LN_EPS = 1e-5
+SMEM_PER_BLOCK = 232_448  # Hopper: at most 227 KB of shared memory a block
+# grid-stride blocks: the forward has no cross-sample sums; the backward's
+# block count fixes the partition of its parameter-gradient sums
+FWD_BLOCKS = 132 * 8
+BWD_BLOCKS = 132 * 2
+PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
+LN_NAMES = ("ln_scale", "ln_bias")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "attention_block_fwd": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "attention_block_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+}
+
+
+def head_scale(head_dim: int) -> float:
+    """1 / sqrt(hd), computed in f32 as the TPU kernel does."""
+    hd = torch.tensor(float(head_dim), dtype=torch.float32)
+    return float(1.0 / torch.sqrt(hd))
+
+
+def _geometry(x: torch.Tensor, p: dict, num_heads: int):
+    bsz, f, d = x.shape
+    a = p["wq"].shape[1]
+    if num_heads < 1 or a % num_heads != 0:
+        raise ValueError(
+            f"attention_dim ({a}) must be divisible by num_heads ({num_heads})"
+        )
+    return bsz, f, d, a, a // num_heads
+
+
+def _recompute(x: torch.Tensor, p: dict, num_heads: int):
+    """(xf, op, wqkv, q, k, v, w, ctx) of the forward, in f32."""
+    cdt = x.dtype
+
+    def op(t: torch.Tensor) -> torch.Tensor:
+        return t.to(cdt).float()
+
+    bsz, f, d, a, hd = _geometry(x, p, num_heads)
+    xf = x.float()
+    wqkv = op(torch.cat([p["wq"], p["wk"], p["wv"]], dim=1).float())
+    bqkv = torch.cat([p["bq"], p["bk"], p["bv"]]).float()
+    qkv = xf @ wqkv + bqkv
+    q, k, v = (t.reshape(bsz, f, num_heads, hd)
+               for t in torch.split(qkv, a, dim=2))
+    s = torch.einsum("bihe,bjhe->bhij", q, k) * head_scale(hd)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    ctx = torch.einsum("bhij,bjhe->bihe", w, v).reshape(bsz, f, a)
+    return xf, op, wqkv, q, k, v, w, ctx
+
+
+def _layer_norm_parts(y: torch.Tensor):
+    mean = y.mean(dim=-1, keepdim=True)
+    yc = y - mean
+    var = (yc * yc).mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + LN_EPS)
+    return yc * inv, inv
+
+
+def attention_block_plain(x: torch.Tensor, p: dict, num_heads: int,
+                          use_residual: bool) -> torch.Tensor:
+    """Plain version of the forward kernel, (B, F, d) -> (B, F, d) in x's
+    dtype, with the kernel's rounding points."""
+    xf, op, _, _, _, _, _, ctx = _recompute(x, p, num_heads)
+    out = op(ctx) @ op(p["wo"].float()) + p["bo"].float()
+    if use_residual:
+        yn, _ = _layer_norm_parts(out + xf)
+        out = yn * p["ln_scale"].float() + p["ln_bias"].float()
+    return out.to(x.dtype)
+
+
+def attention_block_backward_plain(x: torch.Tensor, p: dict, g: torch.Tensor,
+                                   num_heads: int, use_residual: bool,
+                                   dall_round: bool = True):
+    """Plain version of the backward kernel: (dx in x's dtype, {name:
+    gradient in the parameter's dtype}) for the output cotangent g.
+
+    ``dall_round=False`` leaves out the cast of [dq|dk|dv] to the compute
+    type before its two products: a control that chip_smoke.py's bf16
+    check must refuse."""
+    xf, op, wqkv, q, k, v, w, ctx = _recompute(x, p, num_heads)
+    bsz, f, d, a, hd = _geometry(x, p, num_heads)
+    gf = g.float()
+    grads = {}
+    if use_residual:
+        y = op(ctx) @ op(p["wo"].float()) + p["bo"].float() + xf
+        yn, inv = _layer_norm_parts(y)
+        grads["ln_scale"] = (gf * yn).sum(dim=(0, 1))
+        grads["ln_bias"] = gf.sum(dim=(0, 1))
+        dyn = gf * p["ln_scale"].float()
+        dout = inv * (dyn - dyn.mean(dim=-1, keepdim=True)
+                      - yn * (dyn * yn).mean(dim=-1, keepdim=True))
+        dx = dout
+    else:
+        dout = gf
+        dx = torch.zeros_like(xf)
+    grads["bo"] = dout.sum(dim=(0, 1))
+    grads["wo"] = torch.einsum("bfj,bfc->jc", op(ctx), op(dout))
+    dctx = (op(dout) @ op(p["wo"].float()).t()).reshape(bsz, f, num_heads, hd)
+    dw = torch.einsum("bihe,bjhe->bhij", dctx, v)
+    ds = w * (dw - (dw * w).sum(dim=-1, keepdim=True)) * head_scale(hd)
+    dq = torch.einsum("bhij,bjhe->bihe", ds, k)
+    dk = torch.einsum("bhij,bihe->bjhe", ds, q)
+    dv = torch.einsum("bhij,bihe->bjhe", w, dctx)
+    dall = torch.cat([t.reshape(bsz, f, a) for t in (dq, dk, dv)], dim=2)
+    dall_op = op(dall) if dall_round else dall
+    dwqkv = torch.einsum("bfj,bfc->cj", dall_op, xf)
+    dbqkv = dall.sum(dim=(0, 1))
+    for i, name in enumerate(("q", "k", "v")):
+        grads[f"w{name}"] = dwqkv[:, i * a:(i + 1) * a]
+        grads[f"b{name}"] = dbqkv[i * a:(i + 1) * a]
+    dx = dx + dall_op @ wqkv.t()
+    return dx.to(x.dtype), {n: t.to(p[n].dtype) for n, t in grads.items()}
+
+
+def _check(x: torch.Tensor, p: dict, use_residual: bool) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, F, d), got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    d = x.shape[2]
+    a = p["wq"].shape[1]
+    shapes = {"wq": (d, a), "wk": (d, a), "wv": (d, a), "bq": (a,),
+              "bk": (a,), "bv": (a,), "wo": (a, d), "bo": (d,)}
+    if use_residual:
+        shapes.update(ln_scale=(d,), ln_bias=(d,))
+    for name, shape in shapes.items():
+        t = p[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _smem_floats(f: int, d: int, a: int, h: int, backward: bool) -> int:
+    """The layout of csrc/attention_block.cu: the weights (and, in the
+    backward, their transposed copies and the gradient partials), then one
+    sample's tensors; score and qkv rows padded to an odd stride."""
+    weights = d * 3 * a + a * d + 3 * a
+    scores = f * h * (f | 1)
+    qkv = f * ((3 * a) | 1)
+    if not backward:
+        return weights + 3 * d + 2 * f * d + qkv + scores + f * a
+    return (2 * weights - 3 * a + 2 * d + n_grad(d, a) + 4 * f * d
+            + qkv + f * 3 * a + 2 * scores + 2 * f * a)
+
+
+def n_grad(d: int, a: int) -> int:
+    """Floats of one block's gradient partials: dWqkv, dbqkv, dWo, dbo,
+    dls, dlb."""
+    return d * 3 * a + 3 * a + a * d + 3 * d
+
+
+def plan(f: int, d: int, a: int, num_heads: int, backward: bool) -> int:
+    """Dynamic shared memory (bytes) of one block; raises ValueError where
+    it does not fit."""
+    smem = 4 * _smem_floats(f, d, a, num_heads, backward)
+    if smem > SMEM_PER_BLOCK:
+        kind = "backward" if backward else "forward"
+        raise ValueError(
+            f"attention block {kind} with F={f}, d={d}, a={a}, "
+            f"H={num_heads} needs {smem} bytes of shared memory per block; "
+            f"the limit is {SMEM_PER_BLOCK}"
+        )
+    return smem
+
+
+def _operands(x: torch.Tensor, p: dict, use_residual: bool):
+    """The weights in the compute type and the f32 vectors, contiguous."""
+    cdt, d = x.dtype, x.shape[2]
+    wqkv = torch.cat([p["wq"], p["wk"], p["wv"]], dim=1).to(cdt).contiguous()
+    bqkv = torch.cat([p["bq"], p["bk"], p["bv"]]).float().contiguous()
+    wo = p["wo"].to(cdt).contiguous()
+    bo = p["bo"].float().contiguous()
+    if use_residual:
+        ls = p["ln_scale"].float().contiguous()
+        lb = p["ln_bias"].float().contiguous()
+    else:
+        ls = torch.ones(d, dtype=torch.float32, device=x.device)
+        lb = torch.zeros(d, dtype=torch.float32, device=x.device)
+    return wqkv, bqkv, wo, bo, ls, lb
+
+
+def _forward_cuda(x, p, num_heads, use_residual) -> torch.Tensor:
+    _check(x, p, use_residual)
+    bsz, f, d, a, hd = _geometry(x, p, num_heads)
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if bsz == 0:
+        return out
+    smem = plan(f, d, a, num_heads, backward=False)
+    x = x.contiguous()
+    wqkv, bqkv, wo, bo, ls, lb = _operands(x, p, use_residual)
+    lib = build.bind(SOURCE, _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.attention_block_fwd(
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
+            bo.data_ptr(), ls.data_ptr(), lb.data_ptr(), out.data_ptr(),
+            bsz, f, d, a, num_heads, head_scale(hd), int(use_residual),
+            int(x.dtype == torch.bfloat16), min(bsz, FWD_BLOCKS), smem,
+            build.stream_of(x),
+        )
+    build.check(lib, SOURCE, "attention_block_fwd", err)
+    attention_block_forward.launches += 1
+    return out
+
+
+def _backward_cuda(x, p, g, num_heads, use_residual):
+    _check(x, p, use_residual)
+    bsz, f, d, a, hd = _geometry(x, p, num_heads)
+    if tuple(g.shape) != tuple(x.shape) or g.device != x.device:
+        raise ValueError(
+            f"g {tuple(g.shape)} on {g.device} does not match x "
+            f"{tuple(x.shape)} on {x.device}"
+        )
+    n = n_grad(d, a)
+    flat = torch.zeros(n, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if bsz > 0:
+        smem = plan(f, d, a, num_heads, backward=True)
+        x = x.contiguous()
+        gg = g.float().contiguous()
+        wqkv, bqkv, wo, bo, ls, _ = _operands(x, p, use_residual)
+        grid = min(bsz, BWD_BLOCKS)
+        part = torch.empty(grid, n, dtype=torch.float32, device=x.device)
+        lib = build.bind(SOURCE, _SIGNATURES)
+        with torch.cuda.device(x.device):
+            err = lib.attention_block_bwd(
+                x.data_ptr(), gg.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+                wo.data_ptr(), bo.data_ptr(), ls.data_ptr(), dx.data_ptr(),
+                part.data_ptr(), flat.data_ptr(), n, bsz, f, d, a, num_heads,
+                head_scale(hd), int(use_residual),
+                int(x.dtype == torch.bfloat16), grid, smem,
+                build.stream_of(x),
+            )
+        build.check(lib, SOURCE, "attention_block_bwd", err)
+        attention_block_backward.launches += 1
+    else:
+        dx.zero_()
+    dwqkv, dbqkv, dwo, dbo, dls, dlb = torch.split(
+        flat, [d * 3 * a, 3 * a, a * d, d, d, d])
+    dwqkv = dwqkv.reshape(d, 3 * a)
+    grads = {"wo": dwo.reshape(a, d), "bo": dbo}
+    for i, name in enumerate(("q", "k", "v")):
+        grads[f"w{name}"] = dwqkv[:, i * a:(i + 1) * a]
+        grads[f"b{name}"] = dbqkv[i * a:(i + 1) * a]
+    if use_residual:
+        grads["ln_scale"], grads["ln_bias"] = dls, dlb
+    return dx, {n_: t.to(p[n_].dtype) for n_, t in grads.items()}
+
+
+def attention_block_forward(x: torch.Tensor, p: dict, num_heads: int,
+                            use_residual: bool) -> torch.Tensor:
+    """One attention block, (B, F, d) -> (B, F, d), without an autograd
+    graph. A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (or raises)."""
+    if x.device.type == "cpu":
+        return attention_block_plain(x, p, num_heads, use_residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _forward_cuda(x, p, num_heads, use_residual)
+
+
+attention_block_forward.launches = 0
+
+
+def attention_block_backward(x: torch.Tensor, p: dict, g: torch.Tensor,
+                             num_heads: int, use_residual: bool):
+    """(dx in x's dtype, {name: gradient in the parameter's dtype}) of one
+    block for the output cotangent g. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (or raises)."""
+    if x.device.type == "cpu":
+        return attention_block_backward_plain(x, p, g, num_heads,
+                                              use_residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _backward_cuda(x, p, g, num_heads, use_residual)
+
+
+attention_block_backward.launches = 0
+
+
+def param_names(use_residual: bool) -> tuple[str, ...]:
+    return PARAM_NAMES + (LN_NAMES if use_residual else ())
+
+
+class AttentionBlockFn(torch.autograd.Function):
+    """One attention block with its backward kernel. Saves x and the
+    parameters; the backward recomputes the forward (as the TPU kernel's
+    custom_vjp does).
+
+    apply(x, num_heads, use_residual, *params), the parameters in the
+    order of ``param_names(use_residual)``.
+    """
+
+    @staticmethod
+    def forward(ctx, x, num_heads, use_residual, *params):
+        ctx.cfg = (num_heads, use_residual)
+        ctx.save_for_backward(x, *params)
+        p = dict(zip(param_names(use_residual), params))
+        return attention_block_forward(x, p, num_heads, use_residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, use_residual = ctx.cfg
+        x, *params = ctx.saved_tensors
+        names = param_names(use_residual)
+        dx, dp = attention_block_backward(
+            x, dict(zip(names, params)), g, num_heads, use_residual)
+        return (dx, None, None, *(dp[n] for n in names))
+
+
+def attention_block(x: torch.Tensor, p: dict, num_heads: int,
+                    use_residual: bool) -> torch.Tensor:
+    """The block, through ``AttentionBlockFn`` where a gradient is
+    needed."""
+    names = param_names(use_residual)
+    params = [p[n] for n in names]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *params)):
+        return AttentionBlockFn.apply(x, num_heads, use_residual, *params)
+    return attention_block_forward(x, p, num_heads, use_residual)
+
+
+__all__ = [
+    "AttentionBlockFn",
+    "attention_block",
+    "attention_block_backward",
+    "attention_block_backward_plain",
+    "attention_block_forward",
+    "attention_block_plain",
+    "head_scale",
+]

@@ -22,6 +22,8 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "deepfm_tpu_torch"
 SOURCES = (
+    "attention_block.cu",
+    "cin_stack_bwd.cu",
     "cin_stack_fwd.cu",
     "densify_rows_grad.cu",
     "fused_table_adam.cu",

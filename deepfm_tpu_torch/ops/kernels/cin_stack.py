@@ -1,6 +1,8 @@
-"""CIN-stack forward: the hand-written CUDA kernel and its plain version.
+"""The CIN stack: hand-written CUDA kernels for its forward and its backward,
+their plain versions, and ``CinStackFn``, which ties the two together for
+autograd. This note covers the forward; the backward's is further down.
 
-Replaces ``deepfm_tpu/ops/pallas/cin_stack_kernel.py`` ::
+The forward replaces ``deepfm_tpu/ops/pallas/cin_stack_kernel.py`` ::
 ``make_cin_stack_pallas.forward`` / ``_stack_kernel`` (the
 ``pl.pallas_call`` of the forward). Source: ``csrc/cin_stack_fwd.cu``.
 
@@ -50,6 +52,7 @@ import torch
 from torch.utils.weak import WeakTensorKeyDictionary
 
 from deepfm_tpu_torch.ops.cin import cin_compress, cin_layer_sizes
+from deepfm_tpu_torch.ops.kernels import build
 
 SOURCE = "cin_stack_fwd.cu"
 MAX_LAYERS = 8
@@ -127,30 +130,31 @@ def _zero_padded(t: torch.Tensor, shape: tuple, dtype: torch.dtype):
     return out
 
 
-# tensor -> (key, re-laid-out copy); entries die with their tensor
+# tensor -> {"state": (storage, version), key: re-laid-out copy}; entries
+# die with their tensor
 _relayout_cache = WeakTensorKeyDictionary()
 
 
 def _relayout(
     t: torch.Tensor, key: tuple, make: Callable[[], torch.Tensor]
 ) -> torch.Tensor:
-    """``make()``, cached on ``t`` until t changes in place or is given
-    new storage. Inference tensors carry no version counter and are
-    re-laid out on every call."""
+    """``make()``, cached on ``t`` under ``key`` until t changes in place or
+    is given new storage (the forward and the backward keep one copy each
+    per weight). Inference tensors carry no version counter and are re-laid
+    out on every call."""
     if t.is_inference():
         return make()
-    full = (key, t.data_ptr(), t._version)
-    hit = _relayout_cache.get(t)
-    if hit is not None and hit[0] == full:
-        return hit[1]
-    out = make()
-    _relayout_cache[t] = (full, out)
+    state = (t.data_ptr(), t._version)
+    entries = _relayout_cache.get(t)
+    if entries is None or entries["state"] != state:
+        entries = _relayout_cache[t] = {"state": state}
+    out = entries.get(key)
+    if out is None:
+        out = entries[key] = make()
     return out
 
 
 def _lib() -> ctypes.CDLL:
-    from deepfm_tpu_torch.ops.kernels import build
-
     lib = build.load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
         ptrs = ctypes.POINTER(ctypes.c_void_p)
@@ -247,6 +251,21 @@ def _cin_stack_cuda(x0, weights, biases, layer_sizes, split_half,
     return out.to(x0.dtype)
 
 
+def _cin_stack_raw(x0, weights, biases, layer_sizes, split_half,
+                   bf16_operands) -> torch.Tensor:
+    """The forward without an autograd graph: plain on the CPU, the kernel
+    on CUDA (or a raise)."""
+    if x0.device.type == "cpu":
+        return cin_stack_plain(
+            x0, weights, biases, layer_sizes, split_half, bf16_operands
+        )
+    if x0.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0.device}")
+    return _cin_stack_cuda(
+        x0, weights, biases, layer_sizes, split_half, bf16_operands
+    )
+
+
 def cin_stack_forward(
     x0: torch.Tensor,
     weights: Sequence[torch.Tensor],
@@ -256,26 +275,280 @@ def cin_stack_forward(
     bf16_operands: bool = False,
 ) -> torch.Tensor:
     """(B, F, D) -> (B, sum(direct)). A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel (or raises). The kernel has no
-    backward yet, so on CUDA it refuses inputs that would need one; the
-    serving path runs under ``torch.inference_mode``."""
-    if x0.device.type == "cpu":
-        return cin_stack_plain(
-            x0, weights, biases, layer_sizes, split_half, bf16_operands
-        )
-    if x0.device.type != "cuda":
-        raise ValueError(f"unsupported device {x0.device}")
+    a CUDA tensor launches the kernel (or raises). Where a gradient is
+    needed the call goes through ``CinStackFn``, whose backward is
+    ``cin_stack_backward``."""
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x0, *weights, *biases)
     ):
-        raise RuntimeError(
-            "cin_stack_forward on CUDA has no backward yet (it comes with "
-            "the training slice): call it under torch.inference_mode() or "
-            "torch.no_grad()"
-        )
-    return _cin_stack_cuda(
+        return CinStackFn.apply(x0, tuple(layer_sizes), split_half,
+                                bf16_operands, *weights, *biases)
+    return _cin_stack_raw(
         x0, weights, biases, layer_sizes, split_half, bf16_operands
     )
 
 
 cin_stack_forward.launches = 0
+
+
+# ---------------------------------------------------------------- backward
+#
+# Replaces ``deepfm_tpu/ops/pallas/cin_stack_kernel.py`` ::
+# ``make_cin_stack_pallas.backward_pallas`` / ``_stack_bwd_kernel`` (the
+# ``pl.pallas_call`` of the backward). Source: ``csrc/cin_stack_bwd.cu``
+# (the design is in its head note). Bounded by operations: about four
+# forwards of work (remat, dW, A and the group sums), ~660 GFLOP at
+# bench.py's xDeepFM shape.
+
+BWD_SOURCE = "cin_stack_bwd.cu"
+HIDDEN_CHUNK = 4  # kHC: hidden rows per chunk of A = W^T dcomp
+# dW is summed over K = B*D in at most MAX_SPLITS fixed chunks of at least
+# SPLIT_COLUMNS columns each, then the partials are added in order.
+SPLIT_COLUMNS = 4096
+MAX_SPLITS = 64
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_IP = ctypes.POINTER(ctypes.c_int)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_BWD_SIGNATURES = {
+    "cin_stack_bwd": [_P, _P, _PP, _PP, _PP, _IP, _IP, _IP, _IP, _IP]
+    + [_I] * 7 + [_P] * 5 + [_I, _PP, _P, _P],
+}
+
+
+def cin_stack_backward_plain(
+    x0: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    g: torch.Tensor,
+    layer_sizes: Sequence[int],
+    split_half: bool,
+    bf16_operands: bool = False,
+    dcomp_round: bool = True,
+) -> tuple[torch.Tensor, list[torch.Tensor], list[torch.Tensor]]:
+    """Plain version of the kernel: (dx0, dWs, dbs) of the stack for the
+    output cotangent g (B, sum(direct)), the adjoints written out as the
+    JAX package's ``backward_xla`` does, with the bf16 mode's rounding
+    points (see ``csrc/cin_stack_bwd.cu``). dx0 comes back in x0's dtype,
+    each dW and db in its parameter's.
+
+    ``dcomp_round=False`` leaves out the bf16 cast of dcomp before its two
+    products: a control that chip_smoke.py's bf16 check must refuse."""
+    bf16 = bf16_operands and x0.dtype == torch.bfloat16
+
+    def op(t: torch.Tensor) -> torch.Tensor:
+        return t.to(torch.bfloat16).float() if bf16 else t
+
+    layer_sizes = tuple(layer_sizes)
+    direct_sizes, _ = cin_layer_sizes(layer_sizes, split_half)
+    n = len(layer_sizes)
+    x = x0.float()
+    bsz, f, d = x.shape
+    # remat: every layer's comp and input hidden state, in f32
+    comps, hids = [], []
+    hidden = x
+    for i in range(n):
+        hids.append(hidden)
+        comp = torch.relu(cin_compress(
+            op(hidden), x, op(weights[i].float()), biases[i].float(), op
+        ))
+        comps.append(comp)
+        hidden = (comp[:, direct_sizes[i]:] if split_half and i < n - 1
+                  else comp)
+    g = g.float()
+    cols = torch.split(g, list(direct_sizes), dim=1)
+    dx0 = torch.zeros_like(x)
+    dws: list = [None] * n
+    dbs: list = [None] * n
+    dhid_next = None
+    for i in reversed(range(n)):
+        ddirect = cols[i][:, :, None].expand(bsz, direct_sizes[i], d)
+        if split_half and i < n - 1:
+            dcomp = torch.cat([ddirect, dhid_next], dim=1)
+        elif dhid_next is not None:
+            dcomp = ddirect + dhid_next
+        else:
+            dcomp = ddirect
+        dcomp = dcomp * (comps[i] > 0)
+        dbs[i] = dcomp.sum(dim=(0, 2))
+        dc = op(dcomp) if dcomp_round else dcomp
+        hid = hids[i]
+        m, h = layer_sizes[i], hid.shape[1]
+        outer = op(op(hid)[:, :, None, :] * x[:, None, :, :])  # (B,H,F,D)
+        dws[i] = torch.einsum("bmd,bhfd->mhf", dc, outer).reshape(m, h * f)
+        w3 = op(weights[i].float()).reshape(m, h, f)
+        a = torch.einsum("mhf,bmd->bhfd", w3, dc)
+        dhid_next = (a * x[:, None]).sum(dim=2)          # sum over f
+        dx0 = dx0 + (a * hid[:, :, None]).sum(dim=1)    # sum over h
+    dx0 = dx0 + dhid_next  # the first layer's hidden state is x0
+    return (dx0.to(x0.dtype),
+            [dw.to(w.dtype) for dw, w in zip(dws, weights)],
+            [db.to(b.dtype) for db, b in zip(dbs, biases)])
+
+
+def plan_backward(
+    batch: int, f: int, d: int, layer_sizes: Sequence[int], split_half: bool
+) -> tuple[int, int, int, int]:
+    """(tile_b, ntp, smem_bytes, splits) for one backward launch.
+
+    The tile kernel holds, per tile of tile_b samples (ntp columns as in
+    the forward), in f32 shared memory x0, each hidden state but x0, one
+    layer's comp / dcomp, dhid, dx0 and a chunk of 4F rows of A (rounded up
+    to 8), and one sign bit per element of every comp but the last layer's
+    (the layout in csrc/cin_stack_bwd.cu). Raises ValueError when that does
+    not fit."""
+    tile_b, ntp, _ = plan_tile(batch, f, d, layer_sizes)
+    _, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    hmax = max([f, *next_sizes[:-1]])
+    arows = _round_up(HIDDEN_CHUNK * f, 8)
+    rows = (f + sum(next_sizes[:-1]) + max(layer_sizes) + hmax + f + arows)
+    smem = 4 * (rows * ntp + sum(layer_sizes[:-1]) * ntp // 32)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"CIN stack backward with F={f}, D={d}, layers "
+            f"{tuple(layer_sizes)} needs {smem} bytes of shared memory per "
+            f"block; the limit is {SMEM_PER_BLOCK}"
+        )
+    splits = max(1, min(MAX_SPLITS, -(-batch * d // SPLIT_COLUMNS)))
+    return tile_b, ntp, smem, splits
+
+
+def _chunked(w: torch.Tensor, h: int, f: int, dtype: torch.dtype):
+    """W (M, H*F) m-major by chunks of HIDDEN_CHUNK hidden rows, each chunk's
+    HIDDEN_CHUNK*F columns zero-padded to a multiple of 8 (the kernel reads
+    8 aligned weights at a time): (M, ceil(H / HIDDEN_CHUNK) * that)."""
+    m = w.shape[0]
+    chunks = -(-h // HIDDEN_CHUNK)
+    width = HIDDEN_CHUNK * f
+    out = torch.zeros(m, chunks, _round_up(width, 8), dtype=dtype,
+                      device=w.device)
+    full = torch.zeros(m, chunks * width, dtype=dtype, device=w.device)
+    full[:, : h * f] = w.detach()
+    out[:, :, :width] = full.reshape(m, chunks, width)
+    return out.reshape(m, -1)
+
+
+def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half,
+                        bf16_operands):
+    layer_sizes = tuple(int(m) for m in layer_sizes)
+    direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    _check_shapes(x0, weights, biases, layer_sizes, next_sizes)
+    if x0.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x0 must be float32 or bfloat16, got {x0.dtype}")
+    dev = x0.device
+    for t in (*weights, *biases, g):
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, found {t.device}")
+    bsz, f, d = x0.shape
+    if tuple(g.shape) != (bsz, sum(direct_sizes)):
+        raise ValueError(
+            f"g has shape {tuple(g.shape)}, expected "
+            f"{(bsz, sum(direct_sizes))}"
+        )
+    bf16 = bf16_operands and x0.dtype == torch.bfloat16
+    op_dt = torch.bfloat16 if bf16 else torch.float32
+    n = len(layer_sizes)
+    hs = [f, *next_sizes[:-1]]
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx0 = torch.zeros(bsz, f, d, **f32)
+    dws = [torch.zeros(m, h * f, **f32) for m, h in zip(layer_sizes, hs)]
+    db = torch.zeros(sum(layer_sizes), **f32)
+    if bsz > 0:
+        tile_b, ntp, _, splits = plan_backward(bsz, f, d, layer_sizes,
+                                               split_half)
+        x = x0.to(op_dt).contiguous()
+        gg = g.float().contiguous()
+        mpads = [_round_up(m, 8) for m in layer_sizes]
+        wts, wms, bs = [], [], []
+        for w, b, mp, h in zip(weights, biases, mpads, hs):
+            wts.append(_relayout(w, (op_dt, mp), lambda: _zero_padded(
+                w.t(), (w.shape[1], mp), op_dt)))
+            wms.append(_relayout(w, ("chunked", op_dt),
+                                 lambda: _chunked(w, h, f, op_dt)))
+            bs.append(_relayout(b, (mp,), lambda: _zero_padded(
+                b, (mp,), torch.float32)))
+        kpads = [t.shape[1] for t in wms]
+        tiles = -(-bsz // tile_b)
+        k = bsz * d
+        dcomp = torch.empty(sum(layer_sizes), k, **f32)
+        hid = torch.empty(max(sum(hs[1:]), 1), k, **f32)
+        db_part = torch.empty(tiles, sum(layer_sizes), **f32)
+        dw_part = torch.empty(
+            splits * sum(m * h * f for m, h in zip(layer_sizes, hs)), **f32)
+
+        def ptrs(ts):
+            return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
+
+        def ints(vs):
+            return (ctypes.c_int * n)(*vs)
+
+        lib = build.bind(BWD_SOURCE, _BWD_SIGNATURES)
+        with torch.cuda.device(dev):
+            err = lib.cin_stack_bwd(
+                x.data_ptr(), gg.data_ptr(), ptrs(wts), ptrs(wms), ptrs(bs),
+                ints(layer_sizes), ints(mpads), ints(direct_sizes),
+                ints(next_sizes), ints(kpads), n, bsz, f, d, tile_b, ntp,
+                int(bf16), dx0.data_ptr(), dcomp.data_ptr(), hid.data_ptr(),
+                db_part.data_ptr(), dw_part.data_ptr(), splits, ptrs(dws),
+                db.data_ptr(), build.stream_of(x),
+            )
+        build.check(lib, BWD_SOURCE, "cin_stack_bwd", err)
+        cin_stack_backward.launches += 1
+    dbs = torch.split(db, list(layer_sizes))
+    return (dx0.to(x0.dtype),
+            [dw.to(w.dtype) for dw, w in zip(dws, weights)],
+            [v.to(b.dtype) for v, b in zip(dbs, biases)])
+
+
+def cin_stack_backward(
+    x0: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    g: torch.Tensor,
+    layer_sizes: Sequence[int],
+    split_half: bool,
+    bf16_operands: bool = False,
+) -> tuple[torch.Tensor, list[torch.Tensor], list[torch.Tensor]]:
+    """(dx0, dWs, dbs) of the stack for the output cotangent g. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (or
+    raises)."""
+    if x0.device.type == "cpu":
+        return cin_stack_backward_plain(
+            x0, weights, biases, g, layer_sizes, split_half, bf16_operands
+        )
+    if x0.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0.device}")
+    return _cin_stack_bwd_cuda(
+        x0, weights, biases, g, layer_sizes, split_half, bf16_operands
+    )
+
+
+cin_stack_backward.launches = 0
+
+
+class CinStackFn(torch.autograd.Function):
+    """The CIN stack with its backward: ``cin_stack_forward``'s raw
+    forward, and ``cin_stack_backward``. Saves only x0, the weights and the
+    biases; the backward recomputes the forward (remat, as the JAX
+    package's custom_vjp does).
+
+    apply(x0, layer_sizes, split_half, bf16_operands, *weights, *biases)
+    """
+
+    @staticmethod
+    def forward(ctx, x0, layer_sizes, split_half, bf16_operands, *params):
+        n = len(layer_sizes)
+        ctx.cfg = (layer_sizes, split_half, bf16_operands)
+        ctx.save_for_backward(x0, *params)
+        return _cin_stack_raw(x0, params[:n], params[n:], layer_sizes,
+                              split_half, bf16_operands)
+
+    @staticmethod
+    def backward(ctx, g):
+        layer_sizes, split_half, bf16_operands = ctx.cfg
+        x0, *params = ctx.saved_tensors
+        n = len(layer_sizes)
+        dx0, dws, dbs = cin_stack_backward(
+            x0, params[:n], params[n:], g, layer_sizes, split_half,
+            bf16_operands,
+        )
+        return (dx0, None, None, None, *dws, *dbs)

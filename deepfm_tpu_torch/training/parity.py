@@ -13,10 +13,17 @@ g / (|g| + eps) turns that into a step difference of up to lr. So:
     (a leaf named ``*.mu`` or ``*.nu``) within one bf16 step, 2^-7 of its
     value, as a bf16 rounding may land on the neighbour;
   * at most 0.1 % of a leaf's elements lie outside rtol / atol;
-  * the bias of a Dense layer feeding a train-mode BatchNorm
-    (``dnn.dense_*.bias``) has an exact gradient of 0, so both sides hand
-    Adam pure rounding noise: it is held to the band alone, and the running
-    means it shifts to 0.1 (the BatchNorm momentum) of it.
+  * a leaf whose exact gradient is 0 (``zero_gradient_reference``) hands
+    Adam pure rounding noise on both sides: it is held to the band alone,
+    and the running means such a leaf shifts to 0.1 (the BatchNorm
+    momentum) of it. Three kinds: the bias of a Dense layer feeding a
+    train-mode BatchNorm (``dnn.dense_*.bias``); an attention block's key
+    bias (``bk``: the softmax over the keys ignores a shift that every key
+    shares); and an attention block's LayerNorm bias (``ln_bias``), which
+    shifts every DNN input column it reaches by a constant that the
+    train-mode BatchNorm of AttentionDeepFM's DNN removes (exactly so for
+    the last block, which the configs use; an earlier block's is held to
+    the band as well).
 
 ``share_limit=False`` drops the 0.1 % limit and the moments' bound, for
 two devices whose f32 gradients part at ReLU kinks; ``untouched`` (a row
@@ -34,10 +41,15 @@ RTOL, ATOL = 1e-5, 1e-7
 OUTSIDE_SHARE = 1e-3
 
 
-def bn_fed_bias(name: str) -> bool:
-    """A Dense layer's bias that feeds a train-mode BatchNorm (its exact
-    gradient is 0)."""
-    return name.startswith("dnn.dense_") and name.endswith(".bias")
+def zero_gradient_reference(name: str) -> str | None:
+    """For a leaf whose exact gradient is 0 (see the module docstring), the
+    leaf of the same layer whose gradient sets its scale; else None."""
+    head, _, leaf = name.rpartition(".")
+    if head.startswith("dnn.dense_") and leaf == "bias":
+        return f"{head}.weight"
+    if head.startswith("attention.block_") and leaf in ("bk", "ln_bias"):
+        return f"{head}.{'wk' if leaf == 'bk' else 'ln_scale'}"
+    return None
 
 
 def compare_leaves(got: dict, want: dict, lr: float, steps: int,
@@ -54,12 +66,13 @@ def compare_leaves(got: dict, want: dict, lr: float, steps: int,
         w = torch.as_tensor(w).detach().float().cpu()
         err = (g - w).abs()
         moment = name.endswith((".mu", ".nu"))
-        exempt = bn_fed_bias(name) or name.endswith("running_mean")
+        zero = zero_gradient_reference(name) is not None
+        exempt = zero or name.endswith("running_mean")
         if moment and not share_limit:
             limit = torch.full_like(w, math.inf)  # they follow the gradient
         elif moment:
             limit = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + ATOL
-        elif bn_fed_bias(name):
+        elif zero:
             limit = torch.full_like(w, band)
         elif name.endswith("running_mean"):
             limit = torch.full_like(w, 0.1 * band + ATOL)

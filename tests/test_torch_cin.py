@@ -242,7 +242,7 @@ def test_cin_stack_kernel_matches_plain_on_cuda():
                 got.float().cpu().numpy(), want.cpu().numpy(), **tol,
                 err_msg=f"{layers} split={split} B={b} F={f} D={d} bf16={bf16}",
             )
-    # no backward yet: inputs that would need one are refused on CUDA
+    # inputs that need a gradient go through CinStackFn and its backward
     w0 = ws[0].clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        cin_stack_forward(x0, [w0, *ws[1:]], bs, layers, split)
+    out = cin_stack_forward(x0, [w0, *ws[1:]], bs, layers, split)
+    assert out.grad_fn is not None and "CinStackFn" in out.grad_fn.name()

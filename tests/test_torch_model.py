@@ -162,8 +162,8 @@ def test_xdeepfm_bf16_compute_tracks_jax():
 def test_create_model_refuses_what_later_slices_bring():
     _, tconfig = _config()
     _, tpacked, _, _ = _batch(SYNTH_SPEC)
-    with pytest.raises(NotImplementedError, match="AttentionDeepFM slice"):
-        create_model("attention_deepfm", tpacked, tconfig, device="cpu")
+    with pytest.raises(NotImplementedError, match="baselines slice"):
+        create_model("lr", tpacked, tconfig, device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
         create_model("nope", tpacked, tconfig, device="cpu")
     _, packed_cfg = _config(pallas={"table_layout": "packed"})

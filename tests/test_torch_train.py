@@ -1,6 +1,7 @@
-"""The port's DeepFM train step against the JAX package's.
+"""The port's train step against the JAX package's, for DeepFM, xDeepFM and
+AttentionDeepFM.
 
-Both packages build DeepFM on the synthetic schema of the port's tests
+Both packages build the model on the synthetic schema of the port's tests
 (widths 16 and 8: two tables, a projection and two dense groups), the JAX
 parameters are carried over with ``params_from_jax``, and both take two
 steps on the same numpy batch at dropout 0 and f32 compute. Each of the
@@ -14,7 +15,13 @@ port's three paths is held against the JAX path with the same semantics:
     ``DEEPFM_TPU_FORCE_FUSED_ADAM=1`` and ``table_layout=packed``, its
     packed tables and moments unpacked for the comparison;
 
-with clip on (1.0, active) and off. Tolerances: those of the JAX
+with clip on (1.0, active) and off, for each model: xDeepFM with a
+[8, 8] split-half CIN (the JAX CIN stack's Pallas kernels run in interpret
+mode, the port's through ``CinStackFn`` and its plain backward), and
+AttentionDeepFM with 2 heads of 8 (a=16, d=16: the shapes the JAX f-major
+kernels take; ``DEEPFM_TPU_FORCE_ATTN_KERNEL=1``, set by tests/conftest.py,
+runs them in interpret mode; the port's through ``AttentionBlockFn``).
+Tolerances: those of the JAX
 package's own two-path test (tests/test_sparse_fused.py) — losses rel
 1e-6; parameters, table moments and BatchNorm statistics rtol 1e-5 / atol
 1e-7; psq rel 1e-5 — with the two allowances of
@@ -70,6 +77,12 @@ torch.set_num_threads(1)
 B = 32
 LR = 1e-3
 HIDDEN = [16, 8]
+# model -> its config sections at the tests' small size
+MODELS = {
+    "deepfm": {},
+    "xdeepfm": {"cin": {"layer_sizes": [8, 8], "split_half": True}},
+    "attention_deepfm": {"attention": {"num_heads": 2, "attention_dim": 16}},
+}
 # path -> (port training overrides, JAX training overrides, JAX layout,
 # JAX fused-kernel env)
 PATHS = {
@@ -89,23 +102,24 @@ def _data():
             tpacked, pack_features(tpacked, feats, labels))
 
 
-def _raw(training, **extra):
+def _raw(training, model="deepfm", **extra):
     tr = {"batch_size": B, "scheduler": "none", "lr": LR}
     tr.update(training)
-    raw = {"model_name": "deepfm",
+    raw = {"model_name": model,
            "dnn": {"hidden_units": HIDDEN, "dropout": 0.0},
-           "training": tr}
+           "training": tr, **MODELS[model]}
     raw.update(extra)
     return raw
 
 
-def _port_trainer(tpacked, training):
-    config = config_from_dict(_raw(training, device="cpu"))
-    model = create_model("deepfm", tpacked, config, device="cpu")
-    return Trainer(model, tpacked, config)
+def _port_trainer(tpacked, training, model="deepfm"):
+    config = config_from_dict(_raw(training, model, device="cpu"))
+    return Trainer(create_model(model, tpacked, config, device="cpu"),
+                   tpacked, config)
 
 
-def _jax_run(path, clip, tmp_path, monkeypatch, optimizer="adam"):
+def _jax_run(path, clip, tmp_path, monkeypatch, optimizer="adam",
+             model="deepfm"):
     """Two JAX steps; returns the JAX trainer, the states after steps 1
     and 2 (host copies) and the losses."""
     _, jax_tr, layout, force = PATHS[path]
@@ -114,9 +128,9 @@ def _jax_run(path, clip, tmp_path, monkeypatch, optimizer="adam"):
     jpacked, jarr, _, _ = _data()
     config = jax_config(_raw(
         {**jax_tr, "gradient_clip_norm": clip, "optimizer": optimizer},
-        output_dir=str(tmp_path), pallas={"table_layout": layout},
+        model, output_dir=str(tmp_path), pallas={"table_layout": layout},
     ))
-    trainer = JaxTrainer(jax_create_model("deepfm", jpacked, config),
+    trainer = JaxTrainer(jax_create_model(model, jpacked, config),
                          jpacked, config, jarr, jarr, jarr)
     assert trainer.sparse_fused is (path == "sparse_fused")
     assert trainer.fused_tables is (path != "plain")
@@ -207,10 +221,23 @@ def test_batchnorm_train_statistics_match_flax():
 @pytest.mark.parametrize("clip", [1.0, 0.0])
 @pytest.mark.parametrize("path", sorted(PATHS))
 def test_two_steps_match_jax(path, clip, tmp_path, monkeypatch):
-    _, jstates, jlosses = _jax_run(path, clip, tmp_path, monkeypatch)
+    _two_steps_match_jax("deepfm", path, clip, tmp_path, monkeypatch)
+
+
+@pytest.mark.parametrize("clip", [1.0, 0.0])
+@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("model", sorted(set(MODELS) - {"deepfm"}))
+def test_two_steps_match_jax_per_model(model, path, clip, tmp_path,
+                                       monkeypatch):
+    _two_steps_match_jax(model, path, clip, tmp_path, monkeypatch)
+
+
+def _two_steps_match_jax(model, path, clip, tmp_path, monkeypatch):
+    _, jstates, jlosses = _jax_run(path, clip, tmp_path, monkeypatch,
+                                   model=model)
     _, _, tpacked, tarr = _data()
     trainer = _port_trainer(tpacked, {**PATHS[path][0],
-                                      "gradient_clip_norm": clip})
+                                      "gradient_clip_norm": clip}, model)
     assert trainer.path == path
     train_state_from_jax(jstates[0], trainer)  # the same initial state
     losses = [_port_step(trainer, tarr) for _ in range(2)]
