@@ -39,6 +39,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              function, that call; then (long_runs) three of them again
              with two fields missing (id 0) in every row, runs of 16384
              equal ids, held to the plain versions and timed;
+  packed_kernels  the packed layout's kernels at the same table packed
+             (7 logical rows per 128-float row, 1,485,824 rows): the packed
+             densify bit for bit against its plain version, twice, dead
+             lanes 0, also on the long runs, timed beside its bound, the
+             plain version and one index_add_ into the flat packed table;
+             sparse_table_adam on the packed table against its plain
+             version (TABLE_TOL) and, bit for bit, against the logical
+             kernel on the unpacked state; the row-gather kernel bit for
+             bit against its plain version, timed beside index_select;
   train      the DeepFM train step at bench.py's full width and config
              (26 x 400k-id fields, d=16, DNN [512,256,128] with BatchNorm,
              batch 16384, bf16 compute, dropout 0) through the port's
@@ -51,6 +60,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
              planted faults are refused, and with f32 moments the card's
              2 steps must agree with the CPU's (plain versions) on both
              paths; each path's kernels must have launched on it;
+             then (train_packed) the same DeepFM step on packed tables: the
+             sparse-fused step timed and profiled, 2 steps against the
+             logical sparse-fused step from the same logical weights and
+             against the packed two-pass step (TRAIN_TOL), the row-gather
+             lookup (use_embedding_kernel, two-pass) against the default
+             two-pass step, and at 20k ids in f32 the packed first-step
+             gradients card against CPU with a planted fault (the packed
+             densify one sub-slot off) that must be refused;
              then (train_models) xDeepFM and AttentionDeepFM at the same
              width on the sparse-fused path, timed and profiled as DeepFM,
              each of their kernels launched once per step (per block for
@@ -65,14 +82,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              prologue, the HTTP server on an ephemeral port, GET /health,
              POST /score and GET /recommend; the served scores are held
              against the same checkpoint on the CPU, and the model's
-             kernel's launch count must have risen;
+             kernel's launch count must have risen; the xDeepFM checkpoint
+             is written packed and served under the config's logical
+             tables, and then under packed ones (SERVE_LAYOUT_TOL);
   kernels    one line listing every ported kernel with its launch count
              on the path that runs it (serve for the CIN-stack forward,
              the xDeepFM train step for the CIN-stack backward, the
              AttentionDeepFM train step for the attention kernels, the
              sparse-fused DeepFM step for segment_sumsq and
              sparse_table_adam, the two-pass step for densify_rows_grad and
-             fused_table_adam) and its numbers at that path's shape.
+             fused_table_adam, the packed two-pass step for the packed
+             densify, the use_embedding_kernel step for row_gather) and its
+             numbers at that path's shape, after a line with each phase's
+             seconds.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA, or outside a
 checkout of the repository, the script fails before printing any result.
@@ -80,6 +102,8 @@ checkout of the repository, the script fails before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -128,8 +152,14 @@ CIN_TOL = {
 }
 # Served probabilities against the same checkpoint on the CPU.
 SERVE_TOL = 1e-4
-SERVE_CONFIGS = ("xdeepfm_movielens_cin_tuned.yaml",
-                 "attention_deepfm_movielens.yaml")
+# (config, the layout its seeded checkpoint is written in): the xDeepFM
+# checkpoint is written packed and served under the config's logical tables
+# (converted on load) and, beside it, under packed ones
+SERVE_CONFIGS = (("xdeepfm_movielens_cin_tuned.yaml", "packed"),
+                 ("attention_deepfm_movielens.yaml", "logical"))
+# Scores of one checkpoint served with packed and with logical tables: the
+# same weights and the same arithmetic, so equal but for summation order
+SERVE_LAYOUT_TOL = 1e-6
 
 # (name, B, F, D, layer_sizes, split_half, dtype) of the CIN-stack backward
 CIN_BWD_SHAPES = [
@@ -184,6 +214,7 @@ BENCH_FIELDS = 26
 BENCH_VOCAB = 400_000
 SMALL_VOCAB = 20_000  # the card-against-CPU comparison
 D = 17  # d + 1 columns of the fused width-16 table
+PACK = 128 // D  # logical rows of that table per packed 128-float row
 LR, L2, CLIP = 1e-3, 1e-5, 1.0  # the config defaults bench.py keeps
 # Table kernels against their plain versions on the card. Both sides round
 # every f32 operation on its own (csrc/table_update.cuh) and sum each run
@@ -772,6 +803,16 @@ def phase_attention() -> dict:
     return results
 
 
+def free_device() -> None:
+    """Give the device memory of deleted objects back. A Trainer and its
+    step closure refer to each other, so a deleted trainer's tables stay
+    allocated until the cycle collector runs: run it first."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def mem_bound_ms(nbytes: float) -> float:
     return 1e3 * nbytes / PEAK_BYTES_PER_S
 
@@ -801,6 +842,37 @@ def table_inputs(dev, seed=7, missing_fields=0):
 
 def rel_err(a, b) -> float:
     return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def adam_check(kernel, plain, fresh, extra, args) -> dict:
+    """A table Adam kernel against its plain version on three fresh copies
+    of the same state (``fresh()``): the moments bit for bit, p within
+    TABLE_TOL, sum(p'^2) (sparse kernels) within TABLE_TOL, and a second
+    launch giving the same bits; then both timed."""
+    import torch
+
+    k, q, k2 = fresh(), fresh(), fresh()
+    rk = kernel(*k, *extra, *args)
+    rq = plain(*q, *extra, *args)
+    rk2 = kernel(*k2, *extra, *args)
+    p_err = (k[0] - q[0]).abs()
+    p_rel = (p_err / q[0].abs().clamp_min(1e-30)).max().item()
+    moments_equal = bool(torch.equal(k[1], q[1]) and torch.equal(k[2], q[2]))
+    det = all(torch.equal(a, b) for a, b in zip(k, k2))
+    rec = {"max_abs_err": p_err.max().item(), "p_max_rel_err": p_rel,
+           "p_share_differing": (p_err > 0).float().mean().item(),
+           "moments_bit_equal": moments_equal, "deterministic": det,
+           "moments": "bfloat16"}
+    ok = moments_equal and det and p_rel <= TABLE_TOL["p_rel"]
+    if len(rk) == 4:  # sparse: sum(p'^2)
+        rec["psq_rel_err"] = rel_err(rk[3], rq[3])
+        rec["deterministic"] = det = det and bool(torch.equal(rk[3], rk2[3]))
+        ok = ok and det and rec["psq_rel_err"] <= TABLE_TOL["scalar_rel"]
+    rec["ok"] = ok
+    del k2, rk2
+    rec["ms"] = time_ms(lambda: kernel(*k, *extra, *args), reps=20)
+    rec["plain_ms"] = time_ms(lambda: plain(*q, *extra, *args), reps=3, warmup=1)
+    return rec
 
 
 def phase_table_kernels() -> dict:
@@ -880,32 +952,8 @@ def phase_table_kernels() -> dict:
     def fresh():
         return [p.clone(), mu.clone(), nu.clone()]
 
-    def adam_check(name, kernel, plain, extra):
-        k, q, k2 = fresh(), fresh(), fresh()
-        rk = kernel(*k, *extra, *args)
-        rq = plain(*q, *extra, *args)
-        rk2 = kernel(*k2, *extra, *args)
-        p_err = (k[0] - q[0]).abs()
-        p_rel = (p_err / q[0].abs().clamp_min(1e-30)).max().item()
-        moments_equal = bool(torch.equal(k[1], q[1]) and torch.equal(k[2], q[2]))
-        det = all(torch.equal(a, b) for a, b in zip(k, k2))
-        rec = {"max_abs_err": p_err.max().item(), "p_max_rel_err": p_rel,
-               "p_share_differing": (p_err > 0).float().mean().item(),
-               "moments_bit_equal": moments_equal, "deterministic": det,
-               "moments": "bfloat16"}
-        ok = moments_equal and det and p_rel <= TABLE_TOL["p_rel"]
-        if len(rk) == 4:  # sparse: sum(p'^2)
-            rec["psq_rel_err"] = rel_err(rk[3], rq[3])
-            rec["deterministic"] = det = det and bool(torch.equal(rk[3], rk2[3]))
-            ok = ok and det and rec["psq_rel_err"] <= TABLE_TOL["scalar_rel"]
-        rec["ok"] = ok
-        del k2, rk2
-        rec["ms"] = time_ms(lambda: kernel(*k, *extra, *args), reps=20)
-        rec["plain_ms"] = time_ms(lambda: plain(*q, *extra, *args), reps=3, warmup=1)
-        return rec
-
-    rec = adam_check("sparse_table_adam", sparse_table_adam,
-                     sparse_table_adam_plain, (sids, cts))
+    rec = adam_check(sparse_table_adam, sparse_table_adam_plain, fresh,
+                     (sids, cts), args)
     record("sparse_table_adam", {
         **rec, "library_ms": None,
         "library": "none: no single PyTorch call densifies and applies Adam",
@@ -913,8 +961,8 @@ def phase_table_kernels() -> dict:
         "bound_by": "bytes",
     })
 
-    rec = adam_check("fused_table_adam", fused_table_adam,
-                     fused_table_adam_plain, (grad,))
+    rec = adam_check(fused_table_adam, fused_table_adam_plain, fresh,
+                     (grad,), args)
     lib_p = p.clone().requires_grad_()
     lib_p.grad = grad
     lib = torch.optim.Adam([lib_p], lr=LR, weight_decay=2 * L2, fused=True)
@@ -939,8 +987,8 @@ def phase_table_kernels() -> dict:
     dense_equal = bool(torch.equal(got, segment_rows_plain(sids, cts, rows)))
     del got
     ssq_rel = rel_err(segment_sumsq(sids, cts), segment_sumsq_plain(sids, cts))
-    rec = adam_check("sparse_table_adam", sparse_table_adam,
-                     sparse_table_adam_plain, (sids, cts))
+    rec = adam_check(sparse_table_adam, sparse_table_adam_plain, fresh,
+                     (sids, cts), args)
     record("long_runs", {
         "missing_fields": LONG_RUN_FIELDS, "max_run": int(run_lengths.max()),
         "unique_ids": run_lengths.numel(),
@@ -953,6 +1001,146 @@ def phase_table_kernels() -> dict:
         "ok": dense_equal and rec["ok"] and ssq_rel <= TABLE_TOL["scalar_rel"],
     })
     del ids, ct, p, mu, nu, sids, cts
+    torch.cuda.empty_cache()
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
+def packed_rows_of(rows: int) -> int:
+    """Physical rows of a packed table of ``rows`` logical rows (pad128 of
+    ceil(rows / PACK), as create_model builds it)."""
+    return -(-(-(-rows // PACK)) // 128) * 128
+
+
+def phase_packed_kernels() -> dict:
+    """The packed layout's kernels at bench.py's table: the packed densify
+    (also on the long runs), the packed sparse_table_adam (against its
+    plain version and against the logical kernel on the unpacked state)
+    and the row gather."""
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.gather import row_gather, row_gather_plain
+    from deepfm_tpu_torch.ops.kernels.grad import sort_pairs
+    from deepfm_tpu_torch.ops.kernels.packed_grad import (
+        densify_packed_plain,
+        densify_packed_sorted,
+    )
+    from deepfm_tpu_torch.ops.kernels.sparse_adam import (
+        sparse_table_adam,
+        sparse_table_adam_plain,
+    )
+    from deepfm_tpu_torch.utils.layout import pack_table, unpack_table
+
+    dev = torch.device(DEVICE)
+    ids, ct, p, mu, nu, args = table_inputs(dev)
+    rows, n = p.shape[0], ids.shape[0]
+    phys = packed_rows_of(rows)
+    num_rows = phys * PACK  # the packed lookup's backward asks for these
+    sids, cts = sort_pairs(ids, ct)
+    pair_bytes = n * (4 + 4 * D)
+    out, failures = {}, []
+    shape = {"logical_rows": rows, "phys_rows": phys, "pack": PACK, "D": D,
+             "pairs": n}
+
+    def record(name, rec):
+        rec = {"phase": name, **shape, **rec}
+        emit(rec)
+        out[name] = rec
+        if not rec["ok"]:
+            failures.append(f"{name}: {rec}")
+
+    # densify_rows_grad_packed: bit for bit, deterministic, dead lanes 0
+    got = densify_packed_sorted(sids, cts, num_rows, PACK)
+    again = densify_packed_sorted(sids, cts, num_rows, PACK)
+    want = densify_packed_plain(sids, cts, num_rows, PACK)
+    equal, det = bool(torch.equal(got, want)), bool(torch.equal(got, again))
+    dead_zero = not bool(got[:, PACK * D:].any())
+    err = (got - want).abs().max().item()
+    del got, again, want
+    offs = (((ids // PACK) * 128 + (ids % PACK) * D)[:, None]
+            + torch.arange(D, device=dev)).reshape(-1)
+    flat_ct = ct.reshape(-1)
+    rec = {
+        "max_abs_err": err, "bit_equal": equal, "deterministic": det,
+        "dead_lanes_zero": dead_zero, "ok": equal and det and dead_zero,
+        "ms": time_ms(lambda: densify_packed_sorted(sids, cts, num_rows, PACK), reps=20),
+        "plain_ms": time_ms(lambda: densify_packed_plain(sids, cts, num_rows, PACK), reps=5, warmup=1),
+        "library_ms": time_ms(lambda: torch.zeros(phys * 128, device=dev).index_add_(0, offs, flat_ct), reps=20),
+        "library": "torch.zeros(phys * 128).index_add_(0, element offsets, ct) "
+                   "(unsorted, atomics)",
+        "bound_ms": mem_bound_ms(phys * 128 * 4 + pair_bytes),
+        "bound_by": "bytes",
+    }
+    del offs, flat_ct
+    # the same where LONG_RUN_FIELDS fields are missing in every row
+    lids, lct, *_ = table_inputs(dev, missing_fields=LONG_RUN_FIELDS)
+    lsids, lcts = sort_pairs(lids, lct)
+    del lids, lct, _
+    lgot = densify_packed_sorted(lsids, lcts, num_rows, PACK)
+    long_equal = bool(torch.equal(lgot, densify_packed_plain(lsids, lcts, num_rows, PACK)))
+    del lgot
+    rec["long_runs"] = {
+        "missing_fields": LONG_RUN_FIELDS, "bit_equal": long_equal,
+        "ms": time_ms(lambda: densify_packed_sorted(lsids, lcts, num_rows, PACK), reps=10),
+    }
+    rec["ok"] = rec["ok"] and long_equal
+    record("densify_rows_grad_packed", rec)
+    del lsids, lcts
+    torch.cuda.empty_cache()
+
+    # sparse_table_adam on the packed table: against its plain version, and
+    # against the logical kernel on the unpacked state
+    packed_state = [pack_table(t, D, PACK, phys) for t in (p, mu, nu)]
+
+    def fresh():
+        return [t.clone() for t in packed_state]
+
+    def kernel(*a):
+        return sparse_table_adam(*a, pack=PACK)
+
+    def plain(*a):
+        return sparse_table_adam_plain(*a, pack=PACK)
+
+    rec = adam_check(kernel, plain, fresh, (sids, cts), args)
+    k = fresh()
+    *_, kpsq = kernel(*k, sids, cts, *args)
+    lg = [p.clone(), mu.clone(), nu.clone()]
+    *_, lpsq = sparse_table_adam(*lg, sids, cts, *args)
+    same_as_logical = all(
+        bool(torch.equal(unpack_table(a, D, PACK, rows), b))
+        for a, b in zip(k, lg))
+    dead_zero = not any(bool(t[:, PACK * D:].float().any()) for t in k)
+    rec.update({
+        "bit_equal_to_logical_kernel": same_as_logical,
+        "psq_rel_err_to_logical_kernel": rel_err(kpsq, lpsq),
+        "dead_lanes_zero": dead_zero,
+        "library_ms": None,
+        "library": "none: no single PyTorch call densifies and applies Adam",
+        "bound_ms": mem_bound_ms(phys * 128 * (8 + 2 * 2 * 2) + pair_bytes),
+        "bound_by": "bytes",
+    })
+    rec["ok"] = (rec["ok"] and same_as_logical and dead_zero
+                 and rec["psq_rel_err_to_logical_kernel"] <= TABLE_TOL["scalar_rel"])
+    record("sparse_table_adam_packed", rec)
+    del k, lg, packed_state, mu, nu
+    torch.cuda.empty_cache()
+
+    # row_gather: the logical table's rows at the step's ids
+    got = row_gather(p, ids)
+    want = row_gather_plain(p, ids)
+    equal = bool(torch.equal(got, want))
+    det = bool(torch.equal(got, row_gather(p, ids)))
+    record("row_gather", {
+        "table_rows": rows, "max_abs_err": (got - want).abs().max().item(),
+        "bit_equal": equal, "deterministic": det, "ok": equal and det,
+        "ms": time_ms(lambda: row_gather(p, ids), reps=50),
+        "plain_ms": time_ms(lambda: row_gather_plain(p, ids), reps=20),
+        "library_ms": time_ms(lambda: torch.index_select(p, 0, ids), reps=50),
+        "library": "torch.index_select(table, 0, ids)",
+        "bound_ms": mem_bound_ms(2 * n * D * 4 + n * 8), "bound_by": "bytes",
+    })
+    del got, want, ids, ct, p, sids, cts
     torch.cuda.empty_cache()
     if failures:
         fail("; ".join(failures))
@@ -996,9 +1184,11 @@ def head_rows(arrays, n: int):
 
 
 def bench_config(device: str, compute_dtype: str = "bfloat16",
-                 model_name: str = "deepfm", **training):
+                 model_name: str = "deepfm", pallas: dict | None = None,
+                 **training):
     """bench.py's config (bench.py:131-150) for the port; the CIN and
-    attention sections keep their defaults, as bench.py does."""
+    attention sections keep their defaults, as bench.py does. ``pallas``
+    sets the table layout or the row-gather lookup."""
     from deepfm_tpu_torch.config import config_from_dict
 
     return config_from_dict({
@@ -1008,6 +1198,7 @@ def bench_config(device: str, compute_dtype: str = "bfloat16",
                 "use_batch_norm": True},
         "training": {"batch_size": BENCH_BATCH, "compute_dtype": compute_dtype,
                      **training},
+        "pallas": pallas or {},
     })
 
 
@@ -1023,7 +1214,11 @@ def kernel_counters():
         cin_stack_backward,
         cin_stack_forward,
     )
+    from deepfm_tpu_torch.ops.kernels.gather import row_gather
     from deepfm_tpu_torch.ops.kernels.grad import densify_rows_grad
+    from deepfm_tpu_torch.ops.kernels.packed_grad import (
+        densify_rows_grad_packed,
+    )
     from deepfm_tpu_torch.ops.kernels.sparse_adam import (
         segment_sumsq,
         sparse_table_adam,
@@ -1036,7 +1231,9 @@ def kernel_counters():
             "densify_rows_grad": densify_rows_grad,
             "segment_sumsq": segment_sumsq,
             "sparse_table_adam": sparse_table_adam,
-            "fused_table_adam": fused_table_adam}
+            "fused_table_adam": fused_table_adam,
+            "densify_rows_grad_packed": densify_rows_grad_packed,
+            "row_gather": row_gather}
 
 
 def reset_counts() -> None:
@@ -1059,16 +1256,19 @@ def snapshot(trainer) -> dict:
     return out
 
 
-def first_step_grads(packed, arrays, device: str, model_name: str):
+def first_step_grads(packed, arrays, device: str, model_name: str,
+                     pallas: dict | None = None):
     """The loss and every parameter's gradient at the seeded initial weights:
     one train-mode forward and autograd backward on ``device``, the table's
-    gradient densified by the kernel (CUDA) or its plain version (CPU)."""
+    gradient densified by the kernel (CUDA) or its plain version (CPU), in
+    the table layout ``pallas`` asks for."""
     import torch
 
     from deepfm_tpu_torch.models import create_model
     from deepfm_tpu_torch.training.steps import weighted_bce
 
-    cfg = bench_config(device, compute_dtype="float32", model_name=model_name)
+    cfg = bench_config(device, compute_dtype="float32", model_name=model_name,
+                       pallas=pallas)
     model = create_model(model_name, packed, cfg, device="cpu").to(device)
     model.train()
     ids, dense, labels, weights = batch_on(arrays, torch.device(device))
@@ -1102,17 +1302,33 @@ def grad_check(got: dict, want: dict) -> dict:
             "failed_leaves": failed, "ok": not failed}
 
 
+def neighbour_slot(grad, dcol: int, pack: int):
+    """A packed table gradient with each logical row's gradient moved to the
+    next sub-slot of its physical row (the last to the first): what a packed
+    densify that got its lane offset one slot wrong would return."""
+    out = grad.clone()
+    live = out[:, : pack * dcol].reshape(out.shape[0], pack, dcol)
+    out[:, : pack * dcol] = live.roll(1, dims=1).reshape(out.shape[0], -1)
+    return out
+
+
 def phase_grads_card_vs_cpu(small, small_arrays,
-                            model_name: str = "deepfm") -> dict:
+                            model_name: str = "deepfm",
+                            pallas: dict | None = None) -> dict:
     """First-step gradients, the card against the CPU, and the planted
     faults the check must refuse: three for DeepFM, GRAD_FAULTS' one for
-    the other models."""
-    cpu_loss, want = first_step_grads(small, small_arrays, "cpu", model_name)
-    card_loss, got = first_step_grads(small, small_arrays, DEVICE, model_name)
+    the other models, one (the neighbouring sub-slot) for packed tables."""
+    cpu_loss, want = first_step_grads(small, small_arrays, "cpu", model_name,
+                                      pallas)
+    card_loss, got = first_step_grads(small, small_arrays, DEVICE, model_name,
+                                      pallas)
     out = grad_check(got, want)
     out["loss_rel_err"] = rel_err(card_loss, cpu_loss)
-    if model_name == "deepfm":
-        table = "embedding.table_w16"
+    table = "embedding.table_w16"
+    if got[table].shape[1] == 128:  # packed
+        faults = (("packed densify into the neighbouring sub-slot",
+                   {**got, table: neighbour_slot(got[table], D, 128 // D)}),)
+    elif model_name == "deepfm":
         flipped = {**got, "dnn.dense_1.weight": -got["dnn.dense_1.weight"]}
         dropped = {**got, table: got[table].clone()}
         dropped[table][want[table].abs().amax(dim=1).argmax()] = 0.0
@@ -1226,7 +1442,7 @@ def phase_train() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     last_loss = loss.item()
     del trainer, model
-    torch.cuda.empty_cache()
+    free_device()
 
     # --- the two-pass path from the same weights: counts start at 0 -------
     config2 = bench_config(DEVICE, fused_backward=False)
@@ -1245,7 +1461,7 @@ def phase_train() -> dict:
         failures.append(f"sparse-fused and two-pass differ: loss rel "
                         f"{loss_rel}, {paths_cmp}")
     del trainer2, model2, fused_state
-    torch.cuda.empty_cache()
+    free_device()
 
     # --- the card against the CPU at 20k ids per field, f32 ---------------
     small, small_arrays = bench_workload(SMALL_VOCAB)
@@ -1282,7 +1498,7 @@ def phase_train() -> dict:
         if cmp["loss_rel_err"] > TRAIN_TOL["cpu_loss_rel"] or cmp["failed_leaves"]:
             failures.append(f"{path}: the card differs from the CPU: {cmp}")
         del trainers
-    torch.cuda.empty_cache()
+    free_device()
 
     for name in ("segment_sumsq", "sparse_table_adam"):
         if fused_counts[name] < 1:
@@ -1314,6 +1530,224 @@ def phase_train() -> dict:
         "tol": {**TRAIN_TOL, "grad_max_rel": GRAD_MAX_REL,
                 "grad_norm_rel": GRAD_NORM_REL, "rtol": RTOL, "atol": ATOL,
                 "outside_share": OUTSIDE_SHARE},
+        "ok": not failures,
+    }
+    emit(out)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
+def timed_steps(trainer, batch) -> list:
+    """Host-clock seconds of TIMED_STEPS train steps, each ending in a
+    device synchronisation."""
+    import torch
+
+    times = []
+    for _ in range(TIMED_STEPS):
+        s0 = time.perf_counter()
+        trainer._train_step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - s0)
+    return times
+
+
+def unpack_snapshot(state: dict) -> dict:
+    """A train-state snapshot with its packed table-shaped leaves (tables
+    and their moments) unpacked to the logical layout."""
+    from deepfm_tpu_torch.utils.layout import unpack_table
+
+    rows = -(-BENCH_FIELDS * BENCH_VOCAB // 128) * 128  # the logical table's
+    out = dict(state)
+    for k, v in state.items():
+        if "table_w" in k and v.dim() == 2 and v.shape[1] == 128:
+            out[k] = unpack_table(v, D, PACK, rows)
+    return out
+
+
+def phase_train_packed() -> dict:
+    """DeepFM at bench.py's full width on packed tables
+    (pallas.table_layout: packed): the sparse-fused step timed and profiled
+    (the main path of the packed sparse_table_adam); 2 steps against the
+    logical sparse-fused step from the same logical weights; the packed
+    two-pass step (the main path of the packed densify) against the packed
+    sparse-fused one; the row-gather lookup (use_embedding_kernel, its main
+    path) against the default two-pass step; and at 20k ids in f32 the
+    packed first-step gradients on the card against the CPU, with a planted
+    fault the check must refuse."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.parity import compare_leaves
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    failures = []
+    packed_cfg = {"table_layout": "packed"}
+    packed, arrays = bench_workload(BENCH_VOCAB)
+    batch = batch_on(arrays, dev)
+
+    def trainer_for(pallas=None, **training):
+        cfg = bench_config(DEVICE, pallas=pallas, **training)
+        return Trainer(create_model("deepfm", packed, cfg, device=DEVICE),
+                       packed, cfg)
+
+    t0 = time.perf_counter()
+    trainer = trainer_for(packed_cfg)
+    setup_s = time.perf_counter() - t0
+    table_shape = tuple(trainer.params["embedding.table_w16"].shape)
+    if trainer.path != "sparse_fused" or table_shape != (
+            packed_rows_of(BENCH_FIELDS * BENCH_VOCAB), 128):
+        fail(f"packed config: path {trainer.path}, table {table_shape}")
+
+    # --- the main path (packed, sparse-fused): counts start at 0 here ------
+    reset_counts()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer._train_step(*batch).item() for _ in range(2)]
+    packed_state = snapshot(trainer)
+    for _ in range(WARMUP_STEPS - 2):
+        trainer._train_step(*batch)
+    torch.cuda.synchronize()
+    times = timed_steps(trainer, batch)
+    profile = step_profile(lambda: trainer._train_step(*batch))
+    torch.cuda.synchronize()
+    fused_counts = read_counts()
+    # --- end of the main path ----------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    last_loss = trainer._train_step(*batch).item()
+    for name in ("segment_sumsq", "sparse_table_adam"):
+        if fused_counts[name] < 1:
+            failures.append(f"{name} was not launched on the packed step")
+
+    # --- logical sparse-fused from the same logical weights ----------------
+    logical = trainer_for()
+    losses_logical = [logical._train_step(*batch).item() for _ in range(2)]
+    logical_state = snapshot(logical)
+    unpacked = unpack_snapshot(packed_state)
+    layouts_cmp = compare_leaves(unpacked, logical_state, LR, steps=2)
+    layouts_cmp["loss_rel_err"] = max(
+        rel_err(a, b) for a, b in zip(losses, losses_logical))
+    layouts_cmp["bit_equal_leaves"] = sum(
+        bool(torch.equal(unpacked[k], v)) for k, v in logical_state.items())
+    layouts_cmp["leaves"] = len(logical_state)
+    del unpacked, logical_state
+    if layouts_cmp["loss_rel_err"] > TRAIN_TOL["loss_rel"] \
+            or layouts_cmp["failed_leaves"]:
+        failures.append(f"packed and logical sparse-fused differ: {layouts_cmp}")
+    # the two layouts' steps timed in turns in this process (logical,
+    # packed, logical), each window after the packed main path above, with
+    # the device memory one step takes beyond what is allocated before it
+    logical._train_step(*batch)
+    windows = {"packed_main_path": times}
+    for label, t in (("logical_1", logical), ("packed_2", trainer),
+                     ("logical_2", logical)):
+        windows[label] = timed_steps(t, batch)
+    step_extra_gb = {}
+    for label, t in (("logical", logical), ("packed", trainer)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t._train_step(*batch)
+        torch.cuda.synchronize()
+        step_extra_gb[label] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    packed_ms = [1e3 * x for k, v in windows.items() if "packed" in k for x in v]
+    logical_ms = [1e3 * x for k, v in windows.items() if "logical" in k for x in v]
+    turns = {
+        "window_median_ms": {k: 1e3 * statistics.median(v)
+                             for k, v in windows.items()},
+        "packed_median_ms": statistics.median(packed_ms),
+        "logical_median_ms": statistics.median(logical_ms),
+        "step_extra_memory_gb": step_extra_gb,
+    }
+    del trainer, logical
+    free_device()
+
+    # --- packed two-pass from the same weights: counts start at 0 ----------
+    two_pass = trainer_for(packed_cfg, fused_backward=False)
+    reset_counts()
+    losses_two_pass = [two_pass._train_step(*batch).item() for _ in range(2)]
+    torch.cuda.synchronize()
+    two_pass_counts = read_counts()
+    # --- end of the packed two-pass path ----------------------------------
+    if two_pass.path != "two_pass":
+        failures.append(f"fused_backward: false took the {two_pass.path} path")
+    paths_cmp = compare_leaves(snapshot(two_pass), packed_state, LR, steps=2)
+    paths_cmp["loss_rel_err"] = max(
+        rel_err(a, b) for a, b in zip(losses, losses_two_pass))
+    del two_pass, packed_state
+    free_device()
+    if paths_cmp["loss_rel_err"] > TRAIN_TOL["loss_rel"] \
+            or paths_cmp["failed_leaves"]:
+        failures.append(f"packed two-pass and sparse-fused differ: {paths_cmp}")
+    for name in ("densify_rows_grad_packed", "fused_table_adam"):
+        if two_pass_counts[name] < 1:
+            failures.append(f"{name} was not launched on the packed two-pass path")
+
+    # --- the row-gather lookup (use_embedding_kernel): counts start at 0 ---
+    gather = trainer_for({"use_embedding_kernel": True})
+    reset_counts()
+    losses_gather = [gather._train_step(*batch).item() for _ in range(2)]
+    torch.cuda.synchronize()
+    gather_counts = read_counts()
+    # --- end of the row-gather path ---------------------------------------
+    gather_state = snapshot(gather)
+    if gather.path != "two_pass" or gather.model.table_layout != "logical":
+        failures.append(f"use_embedding_kernel took {gather.path} on "
+                        f"{gather.model.table_layout} tables")
+    del gather
+    default = trainer_for(fused_backward=False)
+    losses_default = [default._train_step(*batch).item() for _ in range(2)]
+    default_state = snapshot(default)
+    del default
+    gather_cmp = compare_leaves(gather_state, default_state, LR, steps=2)
+    gather_cmp["loss_rel_err"] = max(
+        rel_err(a, b) for a, b in zip(losses_gather, losses_default))
+    gather_cmp["bit_equal_leaves"] = sum(
+        bool(torch.equal(gather_state[k], v)) for k, v in default_state.items())
+    gather_cmp["leaves"] = len(default_state)
+    del gather_state, default_state
+    free_device()
+    if gather_cmp["loss_rel_err"] > TRAIN_TOL["loss_rel"] \
+            or gather_cmp["failed_leaves"]:
+        failures.append(f"the row-gather lookup and the default differ: {gather_cmp}")
+    if gather_counts["row_gather"] < 1 or gather_counts["densify_rows_grad"] < 1:
+        failures.append(f"row_gather or its backward was not launched: {gather_counts}")
+
+    # --- the card against the CPU at 20k ids per field, f32, packed --------
+    small, small_arrays = bench_workload(SMALL_VOCAB)
+    grads_cmp = phase_grads_card_vs_cpu(small, small_arrays, pallas=packed_cfg)
+    if not grads_cmp["ok"]:
+        failures.append(f"packed first-step gradients: the card differs from "
+                        f"the CPU, or the planted fault passed: {grads_cmp}")
+    free_device()
+
+    all_losses = (losses + losses_logical + losses_two_pass + losses_gather
+                  + losses_default + [last_loss])
+    if not all(map(math.isfinite, all_losses)):
+        failures.append("a loss is not finite")
+    step_ms = 1e3 * statistics.median(times)
+    out = {
+        "phase": "train_packed", "model": "deepfm", "path": "sparse_fused",
+        "table_layout": "packed", "table_shape": list(table_shape),
+        "batch": BENCH_BATCH, "fields": BENCH_FIELDS, "vocab": BENCH_VOCAB,
+        "compute_dtype": "bfloat16", "moments_dtype": "bfloat16",
+        "setup_s": setup_s, "losses": losses, "last_loss": last_loss,
+        "step_ms_median": step_ms, "step_ms_min": 1e3 * min(times),
+        "step_ms_max": 1e3 * max(times), "timed_steps": TIMED_STEPS,
+        "step_ms_all": [1e3 * t for t in times],
+        "examples_per_s": BENCH_BATCH / (step_ms / 1e3),
+        "allocated_gb_at_start": start_gb, "peak_memory_gb": peak_gb,
+        "profile_step": profile, "packed_and_logical_in_turns": turns,
+        "launches_sparse_fused": fused_counts,
+        "launches_two_pass": two_pass_counts,
+        "launches_row_gather": gather_counts,
+        "packed_vs_logical_sparse_fused": layouts_cmp,
+        "two_pass_vs_sparse_fused": paths_cmp,
+        "row_gather_vs_default_two_pass": gather_cmp,
+        "first_step_grads_card_vs_cpu_20k_f32": grads_cmp,
         "ok": not failures,
     }
     emit(out)
@@ -1383,7 +1817,7 @@ def phase_train_models() -> dict:
             failures.append(f"{name}: a loss is not finite: {losses}")
         n_params = sum(p.numel() for p in model.parameters())
         del trainer, model
-        torch.cuda.empty_cache()
+        free_device()
 
         grads = phase_grads_card_vs_cpu(small, small_arrays, name)
         if not grads["ok"]:
@@ -1472,7 +1906,11 @@ def device_profile(predictor, arrays) -> dict:
     }
 
 
-def phase_serve(tmp: Path, config_file: str) -> dict:
+def phase_serve(tmp: Path, config_file: str, saved_layout: str) -> dict:
+    """The serve path of ``config_file`` (logical tables) over a seeded
+    random checkpoint written in ``saved_layout``; a packed checkpoint is
+    also served under the same config with packed tables, whose scores
+    must agree within SERVE_LAYOUT_TOL."""
     import numpy as np
     import torch
 
@@ -1496,8 +1934,10 @@ def phase_serve(tmp: Path, config_file: str) -> dict:
     )
     # seeded random weights stand in for a trained checkpoint
     _, _, packed0, _, _, _ = _build_data(config)
-    save_best(create_model(config.model_name, packed0, config, device="cpu"),
-              config.output_dir)
+    saved_config = dataclasses.replace(config, pallas=dataclasses.replace(
+        config.pallas, table_layout=saved_layout))
+    save_best(create_model(config.model_name, packed0, saved_config,
+                           device="cpu"), config.output_dir)
     setup_s = time.perf_counter() - t0
     kernel = {"xdeepfm": "cin_stack_fwd",
               "attention_deepfm": "attention_block_fwd"}[config.model_name]
@@ -1572,6 +2012,28 @@ def phase_serve(tmp: Path, config_file: str) -> dict:
         failures.append(f"served scores differ from the CPU by {score_err}/{rec_err}")
     if launches[kernel] < 1:
         failures.append(f"{kernel} was not launched on the serve path")
+    layouts = None
+    if saved_layout == "packed":
+        # the packed checkpoint under the same config with packed tables
+        packed_config = dataclasses.replace(config, pallas=dataclasses.replace(
+            config.pallas, table_layout="packed"))
+        *_, pmodel, ppredictor = _restore_predictor(packed_config)
+        pgot = ppredictor.predict(ds.pack(packed))
+        layouts = {
+            "served_table_shapes": {
+                n: list(t.shape) for n, t in pmodel.named_parameters()
+                if "table_w" in n},
+            "max_abs_err_packed_vs_logical_config":
+                float(np.abs(pgot - served[kept]).max()),
+            "tol": SERVE_LAYOUT_TOL,
+        }
+        if not all(shape[1] == 128
+                   for shape in layouts["served_table_shapes"].values()):
+            failures.append(f"the packed config served {layouts}")
+        if layouts["max_abs_err_packed_vs_logical_config"] > SERVE_LAYOUT_TOL:
+            failures.append(f"packed and logical configs serve other scores: "
+                            f"{layouts}")
+        del pmodel, ppredictor
     out = {
         "phase": "serve", "model": config.model_name,
         "config": f"configs/{config_file}",
@@ -1582,7 +2044,8 @@ def phase_serve(tmp: Path, config_file: str) -> dict:
         "candidates": len(cand), "max_abs_err_score": score_err,
         "max_abs_err_recommend": rec_err, "tol": SERVE_TOL,
         "breakdown_ms": breakdown, "profile_recommend_predict": profile,
-        "launches": launches, "ok": not failures,
+        "launches": launches, "checkpoint_layout": saved_layout,
+        "served_under_packed_config": layouts, "ok": not failures,
     }
     emit(out)
     if failures:
@@ -1602,21 +2065,36 @@ def main() -> None:
              "run it from a checkout of the repository")
     sys.path.insert(0, str(REPO))
 
-    phase_build()
-    cin = phase_cin_stack()
-    cin_bwd = phase_cin_stack_bwd()
-    attn = phase_attention()
-    table = phase_table_kernels()
-    train = phase_train()
-    models = phase_train_models()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
+    timed("build", phase_build)
+    cin = timed("cin_stack", phase_cin_stack)
+    cin_bwd = timed("cin_stack_bwd", phase_cin_stack_bwd)
+    attn = timed("attention", phase_attention)
+    table = timed("table_kernels", phase_table_kernels)
+    packed_k = timed("packed_kernels", phase_packed_kernels)
+    train = timed("train", phase_train)
+    train_packed = timed("train_packed", phase_train_packed)
+    models = timed("train_models", phase_train_models)
+    serve = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        serve = {cfg: phase_serve(Path(tmp), cfg) for cfg in SERVE_CONFIGS}
+        for cfg, layout in SERVE_CONFIGS:
+            serve[cfg] = timed(f"serve {cfg}", phase_serve, Path(tmp), cfg,
+                               layout)
+    emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     kernels = []
     # (name, source, replaces, launches on its main path, its numbers at
     # that path's shape)
     for name, source, replaces, launches, rec in (
         ("cin_stack_fwd", "cin_stack_fwd.cu", "cin_stack_kernel.py:646",
-         serve[SERVE_CONFIGS[0]]["launches"]["cin_stack_fwd"], cin["serving"]),
+         serve[SERVE_CONFIGS[0][0]]["launches"]["cin_stack_fwd"],
+         cin["serving"]),
         ("cin_stack_bwd", "cin_stack_bwd.cu", "cin_stack_kernel.py:742",
          models["xdeepfm"]["launches"]["cin_stack_bwd"],
          cin_bwd["bench_bf16"]),
@@ -1628,6 +2106,28 @@ def main() -> None:
          "attention_fmajor_kernel.py:476",
          models["attention_deepfm"]["launches"]["attention_block_bwd"],
          attn["bench_bf16"]["backward"]),
+        # (the packed sparse_table_adam is the same kernel as the logical
+        # one: its numbers are in the packed_kernels phase)
+        ("segment_sumsq", "sparse_table_adam.cu", "sparse_adam_kernel.py:295",
+         train["launches_sparse_fused"]["segment_sumsq"],
+         table["segment_sumsq"]),
+        ("sparse_table_adam", "sparse_table_adam.cu",
+         "sparse_adam_kernel.py:429",
+         train["launches_sparse_fused"]["sparse_table_adam"],
+         table["sparse_table_adam"]),
+        ("fused_table_adam", "fused_table_adam.cu", "adam_kernel.py:111",
+         train["launches_two_pass"]["fused_table_adam"],
+         table["fused_table_adam"]),
+        ("densify_rows_grad", "densify_rows_grad.cu", "grad_kernel.py:237",
+         train["launches_two_pass"]["densify_rows_grad"],
+         table["densify_rows_grad"]),
+        ("densify_rows_grad_packed", "densify_rows_grad_packed.cu",
+         "packed_grad_kernel.py:256",
+         train_packed["launches_two_pass"]["densify_rows_grad_packed"],
+         packed_k["densify_rows_grad_packed"]),
+        ("row_gather", "row_gather.cu", "embedding_kernel.py:110",
+         train_packed["launches_row_gather"]["row_gather"],
+         packed_k["row_gather"]),
     ):
         kernels.append({
             "name": name,
@@ -1635,31 +2135,6 @@ def main() -> None:
             "source": f"deepfm_tpu_torch/csrc/{source}",
             "replaces": f"deepfm_tpu/ops/pallas/{replaces}",
             "launches": launches,
-            "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"],
-            "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"],
-        })
-    # (name, source, replaces, the path whose launch counts it reports)
-    for name, source, replaces, path in (
-        ("segment_sumsq", "sparse_table_adam.cu",
-         "sparse_adam_kernel.py:295", "launches_sparse_fused"),
-        ("sparse_table_adam", "sparse_table_adam.cu",
-         "sparse_adam_kernel.py:429", "launches_sparse_fused"),
-        ("fused_table_adam", "fused_table_adam.cu",
-         "adam_kernel.py:111", "launches_two_pass"),
-        ("densify_rows_grad", "densify_rows_grad.cu",
-         "grad_kernel.py:237", "launches_two_pass"),
-    ):
-        rec = table[name]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"deepfm_tpu_torch/csrc/{source}",
-            "replaces": f"deepfm_tpu/ops/pallas/{replaces}",
-            "launches": train[path][name],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],

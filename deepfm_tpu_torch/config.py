@@ -12,7 +12,11 @@ Sections the port does not read yet (``mesh``, ``benchmark``, most of
     an error on the GPU, which has no plain path;
   * ``pallas.cin_bf16_operands`` — bf16 operands for that kernel when the
     activations are bfloat16;
-  * ``pallas.table_layout`` — only the logical layout exists in the port;
+  * ``pallas.table_layout`` — "packed" stores the embedding tables packed
+    (128 // (d+1) logical rows per 128-float row), "logical" and "auto"
+    (the port has no TPU to ask) as (rows, d+1);
+  * ``pallas.use_embedding_kernel`` — gathers the logical tables with the
+    hand-written row-gather kernel, and forces logical tables;
   * ``training``: ``optimizer``, ``lr``, ``gradient_clip_norm``,
     ``compute_dtype``, ``fused_table_adam``, ``fused_backward`` and
     ``moments_dtype`` (training/trainer.py picks the step's path from
@@ -147,10 +151,12 @@ class PallasConfig:
     in the hand-written CUDA kernel (off, the plain version runs on the
     CPU only: the port keeps no plain path on the GPU), and
     ``cin_bf16_operands`` feeds that kernel bf16 operands when the
-    activations are bfloat16. ``use_grad_kernel`` is not read: the table
-    gather's backward is always the densify kernel (ops/kernels/grad.py),
-    which has no plain path on the GPU either. The other toggles name
-    kernels of later slices and are not read yet.
+    activations are bfloat16. ``use_embedding_kernel`` gathers the
+    logical tables with the row-gather kernel (ops/kernels/gather.py) and
+    forces logical tables. ``use_grad_kernel`` is not read: the table
+    gather's backward is always a densify kernel (ops/kernels/grad.py, or
+    ops/kernels/packed_grad.py for packed tables), which has no plain path
+    on the GPU either.
     """
 
     use_embedding_kernel: bool = False
@@ -159,8 +165,8 @@ class PallasConfig:
     use_grad_kernel: bool = True
     cin_bf16_operands: bool = True
     # Embedding-table storage layout: "auto" and "logical" give plain
-    # (pad128(rows), d+1) tables; "packed" belongs to a later slice and
-    # raises NotImplementedError (models/__init__.py).
+    # (pad128(rows), d+1) tables; "packed" gives (pad128(ceil(rows / pack)),
+    # 128) tables with pack = 128 // (d+1) (models/__init__.py).
     table_layout: str = "auto"
 
 

@@ -6,10 +6,11 @@ and returns a ``state_dict`` for the port's model of the same config.
 Names map 1:1 (the key path joined with dots) except for layout: flax
 ``Dense`` kernels are ``(in, out)`` and become torch ``(out, in)``
 weights, and BatchNorm's ``scale``/``bias`` and ``mean``/``var`` become
-``weight``/``bias`` and ``running_mean``/``running_var``. Tables in the
-TPU's packed ``(phys, 128)`` layout are unpacked to the port's logical
-``(pad128(rows), d+1)`` layout (``unpack_table``, the port's copy of
-``deepfm_tpu/utils/layout.py``).
+``weight``/``bias`` and ``running_mean``/``running_var``. Embedding tables
+(and leaves shaped like them: their Adam moments) come out in the layout of
+the port's model, packed ``(phys, 128)`` or logical ``(pad128(rows), d+1)``
+(``models.tables_packed``), and are converted only where the JAX tree holds
+the other one (``utils/layout.py``): a packed JAX table stays packed.
 
 ``train_state_from_jax`` carries a JAX ``TrainState`` (step, the dense
 Adam moments and count and the learning rate inside the optax state, the
@@ -26,55 +27,51 @@ import torch
 
 from deepfm_tpu_torch.config import ExperimentConfig
 from deepfm_tpu_torch.data.packing import PackedSchema
-from deepfm_tpu_torch.ops.embedding import pad_rows
+from deepfm_tpu_torch.models import tables_packed
+from deepfm_tpu_torch.utils.layout import (
+    pack_table,
+    table_specs,
+    unpack_table,
+)
 
-LANES = 128
+__all__ = [
+    "layout_table",
+    "logical_table",
+    "params_from_jax",
+    "torch_leaf",
+    "torch_name",
+    "train_state_from_jax",
+    "unpack_table",
+]
 
 
-def unpack_table(packed: np.ndarray, dcol: int, pack: int,
-                 logical_rows: int) -> np.ndarray:
-    """(phys, 128) packed storage -> (logical_rows, dcol) logical table:
-    logical row r lives in physical row r // pack, lanes
-    [(r % pack) * dcol, (r % pack + 1) * dcol)."""
-    packed = np.asarray(packed)
-    out = np.zeros((logical_rows, dcol), packed.dtype)
-    n = min(logical_rows, packed.shape[0] * pack)
-    for k in range(pack):
-        rows = np.arange(k, n, pack)
-        out[rows] = packed[rows // pack, k * dcol : (k + 1) * dcol]
-    return out
-
-
-def _tables(packed_schema: PackedSchema) -> dict[str, dict]:
-    """name -> logical and packed geometry of each fused table."""
-    out = {}
-    for g in packed_schema.lookup_groups:
-        dcol = g.width + 1
-        pack = LANES // dcol
-        out[f"table_w{g.width}"] = {
-            "dcol": dcol, "pack": pack,
-            "logical": (pad_rows(g.total_rows), dcol),
-            "packed": (pad_rows(-(-g.total_rows // pack)), LANES),
-        }
-    return out
+def layout_table(name: str, value: Any, packed_schema: PackedSchema,
+                 to_packed: bool) -> np.ndarray:
+    """A table leaf (or a leaf shaped like one, e.g. its Adam moments) in
+    the packed layout (``to_packed``) or the logical one, converted if it
+    is in the other. Keeps the dtype (bf16 moments stay bf16). A table too
+    wide to pack (128 // (d+1) == 1) has one layout."""
+    arr = np.asarray(value)
+    spec = table_specs(packed_schema)[name]
+    logical, packed = spec["logical_shape"], spec["packed_shape"]
+    if spec["pack"] <= 1 and arr.shape == logical:
+        return arr
+    if arr.shape == (packed if to_packed else logical):
+        return arr
+    if arr.shape == logical:
+        return pack_table(arr, spec["dcol"], spec["pack"], packed[0])
+    if arr.shape == packed:
+        return unpack_table(arr, spec["dcol"], spec["pack"], logical[0])
+    raise ValueError(
+        f"embedding/{name} has shape {arr.shape}: neither the logical "
+        f"{logical} nor the packed {packed} layout"
+    )
 
 
 def logical_table(name: str, value: Any,
                   packed_schema: PackedSchema) -> np.ndarray:
-    """A table leaf (or a leaf shaped like one, e.g. its Adam moments) in
-    the logical layout, unpacked if it is in the packed one. Keeps the
-    dtype (bf16 moments stay bf16)."""
-    arr = np.asarray(value)
-    spec = _tables(packed_schema)[name]
-    if arr.shape == spec["logical"]:
-        return arr
-    if arr.shape == spec["packed"] and spec["pack"] > 1:
-        return unpack_table(arr, spec["dcol"], spec["pack"],
-                            spec["logical"][0])
-    raise ValueError(
-        f"embedding/{name} has shape {arr.shape}: neither the logical "
-        f"{spec['logical']} nor the packed {spec['packed']} layout"
-    )
+    """``layout_table`` into the logical layout."""
+    return layout_table(name, value, packed_schema, to_packed=False)
 
 
 def _leaves(tree: Mapping, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
@@ -104,12 +101,13 @@ def torch_name(path: tuple) -> str:
     return ".".join((*mods, leaf))
 
 
-def torch_leaf(path: tuple, value: Any,
-               packed_schema: PackedSchema) -> tuple[str, torch.Tensor]:
+def torch_leaf(path: tuple, value: Any, packed_schema: PackedSchema,
+               to_packed: bool = False) -> tuple[str, torch.Tensor]:
     """(port name, tensor) of one JAX params leaf or of a leaf shaped like
-    one (an Adam moment): kernels transposed, tables made logical."""
+    one (an Adam moment): kernels transposed, tables in the packed
+    (``to_packed``) or the logical layout."""
     if path[0] == "embedding" and path[-1].startswith("table_w"):
-        value = logical_table(path[-1], value, packed_schema)
+        value = layout_table(path[-1], value, packed_schema, to_packed)
     t = _tensor(value)
     if path[-1] == "kernel" and t.dim() == 2:
         t = t.t().contiguous()
@@ -123,11 +121,13 @@ def params_from_jax(
     config: ExperimentConfig,
 ) -> dict[str, torch.Tensor]:
     """JAX ``params``/``batch_stats`` trees -> the port's ``state_dict``
-    (any model of the registry: embedding, cin, dnn and the heads)."""
-    del config  # the trees carry every name the port needs
+    (any model of the registry: embedding, cin, dnn and the heads), its
+    tables in the layout the port's ``create_model`` builds for
+    ``config``."""
+    to_packed = config is not None and tables_packed(config)
     sd = {}
     for path, value in _leaves(params):
-        name, t = torch_leaf(path, value, packed_schema)
+        name, t = torch_leaf(path, value, packed_schema, to_packed)
         sd[name] = t.float()
     for path, value in _leaves(batch_stats or {}):
         *mods, stat = path
@@ -151,14 +151,14 @@ def _find(obj: Any, fields: tuple[str, ...]) -> Any:
     return None
 
 
-def _moments(tree: Mapping, packed_schema: PackedSchema,
-             device) -> dict[str, torch.Tensor]:
+def _moments(tree: Mapping, packed_schema: PackedSchema, device,
+             to_packed: bool) -> dict[str, torch.Tensor]:
     """A moment tree of optax (MaskedNode leaves dropped) by port name."""
     out = {}
     for path, value in _leaves(tree):
         if not hasattr(value, "shape"):  # optax.MaskedNode: a masked leaf
             continue
-        name, t = torch_leaf(path, value, packed_schema)
+        name, t = torch_leaf(path, value, packed_schema, to_packed)
         out[name] = t.to(device)
     return out
 
@@ -168,10 +168,12 @@ def train_state_from_jax(jax_state: Any, trainer) -> None:
     (``deepfm_tpu_torch.training.trainer.Trainer``) in place: the model's
     parameters and BatchNorm statistics, the step, the learning rate, the
     dense optimizer's moments and count, the table moments in their dtype
-    and the carried ``table_psq``. The two trainers must take the same
-    path (both fused, or both the plain chain)."""
+    and the carried ``table_psq``, every table-shaped leaf in the layout of
+    the trainer's model. The two trainers must take the same path (both
+    fused, or both the plain chain)."""
     model, packed = trainer.model, trainer.packed_schema
     dev = trainer.device
+    to_packed = model.table_layout == "packed"
     model.load_state_dict(params_from_jax(
         jax_state.params, jax_state.batch_stats, packed, trainer.config))
     st = trainer.state
@@ -185,18 +187,18 @@ def train_state_from_jax(jax_state: Any, trainer) -> None:
     if adam is not None:
         opt.count = torch.tensor(int(np.asarray(adam.count)),
                                  dtype=torch.int32, device=dev)
-        opt.mu = _moments(adam.mu, packed, dev)
-        opt.nu = _moments(adam.nu, packed, dev)
+        opt.mu = _moments(adam.mu, packed, dev, to_packed)
+        opt.nu = _moments(adam.nu, packed, dev, to_packed)
     else:
         trace = _find(jax_state.opt_state, ("trace",))
-        opt.mu = _moments(trace.trace, packed, dev)
+        opt.mu = _moments(trace.trace, packed, dev, to_packed)
     if jax_state.table_opt is not None and st.table_opt is not None:
         from deepfm_tpu_torch.training.sparse_opt import TableSlotState
 
         st.table_opt = {
             f"embedding.{name}": TableSlotState(
-                mu=_tensor(logical_table(name, s.mu, packed)).to(dev),
-                nu=_tensor(logical_table(name, s.nu, packed)).to(dev),
+                mu=_tensor(layout_table(name, s.mu, packed, to_packed)).to(dev),
+                nu=_tensor(layout_table(name, s.nu, packed, to_packed)).to(dev),
             )
             for name, s in jax_state.table_opt.items()
         }

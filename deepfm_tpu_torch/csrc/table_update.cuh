@@ -1,5 +1,6 @@
 // Shared pieces of the embedding-table update kernels (sm_90a):
-// densify_rows_grad.cu, fused_table_adam.cu and sparse_table_adam.cu.
+// densify_rows_grad.cu, densify_rows_grad_packed.cu, fused_table_adam.cu and
+// sparse_table_adam.cu.
 //
 //  * adam_update: the optax-ordered table update of
 //    deepfm_tpu/ops/pallas/adam_kernel.py::_adam_kernel, one element at a
@@ -18,6 +19,13 @@
 //    owns a tile of table rows, finds each row's contiguous run of pairs,
 //    and sums the run in stream order. Deterministic, no float atomics;
 //    equal to a sequential scatter-add in the stream's order.
+//  * the packed table layout (deepfm_tpu/utils/layout.py): `pack` logical
+//    rows of `dcol` columns side by side in each physical row of 128 floats,
+//    logical row r in physical row r / pack from lane (r % pack) * dcol;
+//    lanes from pack * dcol on are dead and hold 0. pack == 1 with a row
+//    width of dcol is the logical layout. A block owns tile_phys_rows(pack)
+//    physical rows, i.e. that many times pack logical rows: a run of equal
+//    ids never crosses a physical row, so tiles split the stream cleanly.
 //  * a fixed-order reduction of per-block partial sums to one scalar.
 
 #pragma once
@@ -30,6 +38,8 @@ namespace table_update {
 
 constexpr int kThreads = 256;      // threads per block of every kernel here
 constexpr int kTileRows = 128;     // table rows per block (densify, sparse Adam)
+constexpr int kMaxTileLogical = 1024;  // logical rows per block, packed layout
+constexpr int kLanes = 128;        // floats per physical row, packed layout
 constexpr int kReduceThreads = 1024;
 
 // Per-launch scalars, read from device memory (the trainer computes them on
@@ -103,16 +113,40 @@ __device__ __forceinline__ int64_t lower_bound(const int* ids, int64_t lo,
   return lo;
 }
 
-// bounds[t] = first stream position whose id is >= t * kTileRows, for
+// Physical rows per block of a table with `pack` logical rows per physical
+// row: kTileRows, or fewer so that a tile holds at most kMaxTileLogical
+// logical rows (the size of the blocks' run-start array).
+__host__ __device__ __forceinline__ int tile_phys_rows(int pack) {
+  const int t = kMaxTileLogical / pack;
+  return t < kTileRows ? t : kTileRows;
+}
+
+// Element e of a tile stored row-major with `width` floats per physical row:
+// returns false for a dead lane, else sets the tile-local logical row and its
+// column (see the packed layout above).
+__device__ __forceinline__ bool tile_element(int e, int width, int dcol,
+                                             int pack, int& row, int& col) {
+  const int r = e / width;
+  const int lane = e - r * width;
+  const int sub = lane / dcol;
+  col = lane - sub * dcol;
+  row = r * pack + sub;
+  return sub < pack;
+}
+
+// bounds[t] = first stream position whose id is >= t * rows_per_tile, for
 // t in [0, num_tiles]: the searchsorted of the tile bounds.
 __global__ void tile_bounds_kernel(const int* __restrict__ sids, int64_t n,
-                                   int64_t num_tiles, int64_t* __restrict__ bounds) {
+                                   int64_t num_tiles, int64_t rows_per_tile,
+                                   int64_t* __restrict__ bounds) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t <= num_tiles) bounds[t] = lower_bound(sids, 0, n, t * kTileRows);
+  if (t <= num_tiles) bounds[t] = lower_bound(sids, 0, n, t * rows_per_tile);
 }
 
 // Fills starts[0..rows] (shared memory) with the stream position where each
-// row of the tile [row0, row0 + rows) begins; starts[rows] ends the tile.
+// row of the tile [row0, row0 + rows) begins; starts[rows] ends the tile's
+// last row (before the tile bound when the table ends inside the tile, so
+// ids past the table's last row contribute nothing).
 __device__ __forceinline__ void tile_row_starts(const int* __restrict__ sids,
                                                 const int64_t* __restrict__ bounds,
                                                 int64_t row0, int rows,
@@ -120,7 +154,7 @@ __device__ __forceinline__ void tile_row_starts(const int* __restrict__ sids,
   const int64_t s0 = bounds[blockIdx.x];
   const int64_t s1 = bounds[blockIdx.x + 1];
   for (int r = threadIdx.x; r <= rows; r += blockDim.x) {
-    starts[r] = r == rows ? s1 : lower_bound(sids, s0, s1, row0 + r);
+    starts[r] = lower_bound(sids, s0, s1, row0 + r);
   }
   __syncthreads();
 }
@@ -159,17 +193,19 @@ __global__ void final_sum_kernel(const float* __restrict__ partials,
   if (threadIdx.x == 0) out[0] = total;
 }
 
-inline int64_t num_tiles(int64_t rows) {
-  return (rows + kTileRows - 1) / kTileRows;
+inline int64_t num_tiles(int64_t rows, int64_t rows_per_tile = kTileRows) {
+  return (rows + rows_per_tile - 1) / rows_per_tile;
 }
 
-// Launches the tile-bound search; bounds holds num_tiles(rows) + 1 entries.
+// Launches the tile-bound search over tiles of rows_per_tile (logical) rows;
+// bounds holds num_tiles(rows, rows_per_tile) + 1 entries.
 inline cudaError_t launch_tile_bounds(const int* sids, int64_t n, int64_t rows,
-                                      int64_t* bounds, cudaStream_t stream) {
-  const int64_t tiles = num_tiles(rows);
+                                      int64_t* bounds, cudaStream_t stream,
+                                      int64_t rows_per_tile = kTileRows) {
+  const int64_t tiles = num_tiles(rows, rows_per_tile);
   const int64_t grid = (tiles + 1 + kThreads - 1) / kThreads;
   tile_bounds_kernel<<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-      sids, n, tiles, bounds);
+      sids, n, tiles, rows_per_tile, bounds);
   return cudaGetLastError();
 }
 

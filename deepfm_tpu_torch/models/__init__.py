@@ -35,21 +35,25 @@ LATER_SLICES = {
 
 
 def resolve_table_layout(config: ExperimentConfig) -> bool:
-    """Resolve ``pallas.table_layout``; returns False (logical), the only
-    layout of the port. "auto" means logical: the JAX package resolves it
-    through its backend, and the port has no JAX backend to ask."""
+    """Resolve ``pallas.table_layout`` to packed (True) or logical. "auto"
+    means logical: the JAX package asks its backend and packs only on a
+    TPU, and the port has no TPU to ask. "packed" and "logical" are honored
+    on every device, so a config fully determines the parameter shapes."""
     layout = config.pallas.table_layout
     if layout not in ("auto", "packed", "logical"):
         raise ConfigError(
             f"pallas.table_layout must be auto|packed|logical, got {layout!r}"
         )
-    if layout == "packed":
-        raise NotImplementedError(
-            "pallas.table_layout=packed is not ported yet: the packed table "
-            "layout comes with the packed-densify kernel in a later slice; "
-            "use auto or logical"
-        )
-    return False
+    return layout == "packed"
+
+
+def tables_packed(config: ExperimentConfig) -> bool:
+    """The layout ``create_model`` builds: packed when the config asks for
+    it, unless ``pallas.use_embedding_kernel`` installs the row-gather
+    kernel, which forces logical tables (``create_model`` of the JAX
+    package)."""
+    return (resolve_table_layout(config)
+            and not config.pallas.use_embedding_kernel)
 
 
 def create_model(
@@ -60,7 +64,9 @@ def create_model(
     seed: int | None = None,
 ) -> CTRModel:
     """Instantiate a model by registry name, initialised from ``seed``
-    (default ``config.seed``) and moved to ``device``."""
+    (default ``config.seed``) and moved to ``device``. The tables' layout
+    and lookup follow ``tables_packed`` and
+    ``pallas.use_embedding_kernel``."""
     if name not in MODEL_REGISTRY:
         if name in LATER_SLICES:
             raise NotImplementedError(
@@ -72,9 +78,11 @@ def create_model(
         )
     dev = resolve_device(device)
     packed = schema if isinstance(schema, PackedSchema) else pack_schema(schema)
-    resolve_table_layout(config)
     gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
-    return MODEL_REGISTRY[name](packed, config, generator=gen).to(dev)
+    return MODEL_REGISTRY[name](
+        packed, config, generator=gen, packed_tables=tables_packed(config),
+        gather_kernel=config.pallas.use_embedding_kernel,
+    ).to(dev)
 
 
 __all__ = [
@@ -84,5 +92,6 @@ __all__ = [
     "MODEL_REGISTRY",
     "create_model",
     "resolve_table_layout",
+    "tables_packed",
     "xDeepFM",
 ]

@@ -22,13 +22,17 @@ def compute_dtype_of(config: ExperimentConfig) -> torch.dtype:
 
 
 class CTRModel(nn.Module):
-    """Base class: embedding -> subclass heads -> raw logit (B, 1)."""
+    """Base class: embedding -> subclass heads -> raw logit (B, 1).
+    ``packed_tables`` and ``gather_kernel`` are the embedding's table layout
+    and lookup, as ``create_model`` resolves them from the config."""
 
     def __init__(
         self,
         packed: PackedSchema,
         config: ExperimentConfig,
         generator: torch.Generator | None = None,
+        packed_tables: bool = False,
+        gather_kernel: bool = False,
     ) -> None:
         super().__init__()
         g = generator if generator is not None else torch.Generator()
@@ -39,8 +43,16 @@ class CTRModel(nn.Module):
             fm_embed_dim=config.feature.fm_embed_dim,
             compute_dtype=compute_dtype_of(config),
             generator=g,
+            packed_tables=packed_tables,
+            gather_kernel=gather_kernel,
         )
         self._build_components(g)
+
+    @property
+    def table_layout(self) -> str:
+        """"packed" or "logical": the layout a checkpoint of this model
+        records (``Trainer._table_layout`` of the JAX package)."""
+        return "packed" if self.embedding.packed_tables else "logical"
 
     def _build_components(self, generator: torch.Generator) -> None:
         raise NotImplementedError

@@ -1,7 +1,7 @@
 """Fused feature-embedding engine: one module, three views, few big gathers.
 
-Port of ``deepfm_tpu/ops/embedding.py`` (``FeatureEmbedding`` on the
-logical table layout). One forward produces
+Port of ``deepfm_tpu/ops/embedding.py`` (``FeatureEmbedding`` on both
+table layouts). One forward produces
 
   first_order      (B, 1)        — sum of per-field scalar weights
   field_embeddings (B, F, fm_d)  — per-field embeddings projected to fm_d
@@ -19,16 +19,30 @@ and keeps the JAX package's layout decisions:
     by the valid-slot count for the mean combiner;
   * dense fields are a broadcast multiply-add over a (n, d) weight block.
 
-The forward gather is plain torch indexing: the JAX package's default
-gather is XLA's own, not a Pallas kernel. The table's gradient always comes
-from the densify kernel (``ops/kernels/grad.py::sparse_grad_lookup``; its
-plain version for a CPU table), as ``models/__init__.py`` injects it on
-the TPU for the logical layout. The
-trainer's sparse-fused path gathers the rows itself
-(``gather_group_rows``) and hands them back through ``rows_override``, so
-autograd yields the per-occurrence cotangents and never the dense table
-gradient. The packed table layout belongs to a later slice
-(models/__init__.py raises for it).
+Table layouts (``models/__init__.py`` resolves ``pallas.table_layout``):
+
+  * logical: each table is ``(pad128(rows), d+1)``;
+  * packed: ``pack = 128 // (d+1)`` logical rows side by side in each
+    128-float row of a ``(pad128(ceil(rows / pack)), 128)`` table, dead
+    lanes 0 (``utils/layout.py``); a group whose ``pack`` would be 1 stays
+    logical. A packed table is initialised as the logical one of the same
+    seed and packed, so both layouts hold the same logical weights.
+
+The lookup seam (``lookup_fn`` in the JAX module) takes one of three
+gathers, each with a kernel for its backward:
+
+  * logical, the default: plain torch indexing (the JAX default is XLA's
+    own gather), the gradient densified by ``densify_rows_grad``
+    (``ops/kernels/grad.py::sparse_grad_lookup``);
+  * logical, ``pallas.use_embedding_kernel``: the row-gather kernel
+    (``ops/kernels/gather.py::row_gather_lookup``), the same backward;
+  * packed: plain indexing into a strided view, the gradient densified
+    straight into the packed layout (``ops/kernels/packed_grad.py``).
+
+A CPU table takes the kernels' plain versions. The trainer's sparse-fused
+path gathers the rows itself (``gather_group_rows``) and hands them back
+through ``rows_override``, so autograd yields the per-occurrence
+cotangents and never the dense table gradient.
 """
 
 from __future__ import annotations
@@ -39,7 +53,10 @@ from torch import nn
 
 from deepfm_tpu_torch.data.packing import PackedSchema
 from deepfm_tpu_torch.ops.init import uniform_, xavier_bound
+from deepfm_tpu_torch.ops.kernels.gather import row_gather_lookup
 from deepfm_tpu_torch.ops.kernels.grad import sparse_grad_lookup
+from deepfm_tpu_torch.ops.kernels.packed_grad import packed_lookup, packed_rows
+from deepfm_tpu_torch.utils.layout import LANES, pack_table
 
 ROW_PAD = 128
 
@@ -73,6 +90,9 @@ class FeatureEmbedding(nn.Module):
     Parameters carry the JAX tree's names (``table_w{d}``, ``proj_w{d}``,
     ``dense_fo_w``, ``dense_fo_b``, ``dense_w{d}``, ``dense_b{d}``,
     ``dense_proj_w{d}``) so ``convert.params_from_jax`` maps them 1:1.
+    ``packed_tables`` stores the tables packed; ``gather_kernel`` gathers
+    logical tables with the row-gather kernel (``create_model`` never sets
+    both, as the JAX package's does not).
     """
 
     def __init__(
@@ -81,12 +101,18 @@ class FeatureEmbedding(nn.Module):
         fm_embed_dim: int = 16,
         compute_dtype: torch.dtype = torch.float32,
         generator: torch.Generator | None = None,
+        packed_tables: bool = False,
+        gather_kernel: bool = False,
     ) -> None:
         super().__init__()
         g = generator if generator is not None else torch.Generator()
         self.packed = packed
         self.fm_embed_dim = fm_d = fm_embed_dim
         self.compute_dtype = compute_dtype
+        self.packed_tables = packed_tables
+        self.gather_kernel = gather_kernel
+        # table name -> logical rows per physical row (1: logical layout)
+        self.table_pack: dict[str, int] = {}
 
         for gi, group in enumerate(packed.lookup_groups):
             d = group.width
@@ -95,6 +121,11 @@ class FeatureEmbedding(nn.Module):
             rows = pad_rows(group.total_rows)
             scale = torch.from_numpy(table_row_scale(d, vocabs, rows))
             table = uniform_(torch.empty(rows, d + 1), 1.0, g) * scale
+            pack = LANES // (d + 1) if packed_tables else 1
+            if pack > 1:
+                phys = pad_rows(-(-group.total_rows // pack))
+                table = pack_table(table, d + 1, pack, phys)
+            self.table_pack[f"table_w{d}"] = max(pack, 1)
             setattr(self, f"table_w{d}", nn.Parameter(table))
             self.register_buffer(
                 f"_offsets_{gi}",
@@ -140,10 +171,23 @@ class FeatureEmbedding(nn.Module):
                 ))
 
     def local_ids(self, gi: int, ids: torch.Tensor) -> torch.Tensor:
-        """(B, S_g) row ids of width group ``gi`` in its fused table."""
+        """(B, S_g) logical row ids of width group ``gi`` in its fused
+        table."""
         group = self.packed.lookup_groups[gi]
         ids_g = ids[:, group.slot_start : group.slot_end].long()
         return ids_g + getattr(self, f"_offsets_{gi}")[None, :]
+
+    def lookup(self, d: int, flat_ids: torch.Tensor) -> torch.Tensor:
+        """(n, d+1) rows of the width-``d`` table at logical ids
+        ``flat_ids``, by the table's layout and the configured gather
+        (module docstring)."""
+        table = getattr(self, f"table_w{d}")
+        pack = self.table_pack[f"table_w{d}"]
+        if pack > 1:
+            return packed_lookup(table, flat_ids, d + 1, pack)
+        if self.gather_kernel:
+            return row_gather_lookup(table, flat_ids)
+        return sparse_grad_lookup(table, flat_ids)
 
     def forward(
         self,
@@ -164,15 +208,13 @@ class FeatureEmbedding(nn.Module):
 
         for gi, group in enumerate(packed.lookup_groups):
             d = group.width
-            table = getattr(self, f"table_w{d}")
             ids_g = ids[:, group.slot_start : group.slot_end]
             mask = (ids_g != 0).to(cdt)  # (B, S_g)
             name = f"table_w{d}"
             if rows_override is not None and name in rows_override:
                 rows = rows_override[name]
             else:
-                flat = self.local_ids(gi, ids).reshape(-1)
-                rows = sparse_grad_lookup(table, flat)
+                rows = self.lookup(d, self.local_ids(gi, ids).reshape(-1))
             raw = rows.reshape(*ids_g.shape, d + 1).to(cdt)
             raw = raw * mask[:, :, None]  # (B, S_g, d+1)
             emb = raw[:, :, :d]
@@ -235,16 +277,22 @@ def gather_group_rows(
 ) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
     """Gather each width group's raw table rows outside the loss graph.
 
-    Returns {table name: (rows (n, d+1) f32, flat row ids (n,) int64)}: the
-    same ids and the same gather as ``FeatureEmbedding.forward``, so
-    feeding the rows back through ``rows_override`` reproduces the forward,
-    and the loss gradient with respect to the rows is the (id, cotangent)
-    stream the sparse-fused table update consumes. Port of
-    ``deepfm_tpu/ops/embedding.py::gather_group_rows`` (logical layout).
+    Returns {table name: (rows (n, d+1) f32, flat logical row ids (n,)
+    int64)}: the same ids and the same gather as
+    ``FeatureEmbedding.forward``, so feeding the rows back through
+    ``rows_override`` reproduces the forward, and the loss gradient with
+    respect to the rows is the (id, cotangent) stream the sparse-fused
+    table update consumes. The ids are logical in both layouts, so the
+    sort and ``segment_sumsq`` do not depend on it. Port of
+    ``deepfm_tpu/ops/embedding.py::gather_group_rows``.
     """
     out = {}
     for gi, group in enumerate(embedding.packed.lookup_groups):
         name = f"table_w{group.width}"
         flat = embedding.local_ids(gi, ids).reshape(-1)
-        out[name] = (getattr(embedding, name).detach()[flat], flat)
+        table = getattr(embedding, name).detach()
+        pack = embedding.table_pack[name]
+        rows = (packed_rows(table, flat, group.width + 1, pack) if pack > 1
+                else table[flat])
+        out[name] = (rows, flat)
     return out

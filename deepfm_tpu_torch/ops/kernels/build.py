@@ -26,7 +26,9 @@ SOURCES = (
     "cin_stack_bwd.cu",
     "cin_stack_fwd.cu",
     "densify_rows_grad.cu",
+    "densify_rows_grad_packed.cu",
     "fused_table_adam.cu",
+    "row_gather.cu",
     "sparse_table_adam.cu",
 )
 NVCC_FLAGS = (

@@ -31,6 +31,7 @@ from deepfm_tpu_torch.ops.kernels import build
 
 SOURCE = "densify_rows_grad.cu"
 TILE_ROWS = 128  # kTileRows in csrc/table_update.cuh
+MAX_TILE_LOGICAL = 1024  # kMaxTileLogical in csrc/table_update.cuh
 _SIGNATURES = {
     "densify_rows_grad_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -38,6 +39,13 @@ _SIGNATURES = {
     ],
 }
 MAX_ROWS = 2**31 - 1
+
+
+def tile_phys_rows(pack: int) -> int:
+    """Physical table rows per block of the kernels that read sorted pairs
+    (``tile_phys_rows`` in csrc/table_update.cuh): TILE_ROWS, or fewer so
+    that a tile holds at most MAX_TILE_LOGICAL logical rows."""
+    return min(TILE_ROWS, MAX_TILE_LOGICAL // pack)
 
 
 def sort_pairs(

@@ -10,12 +10,16 @@ Replaces ``deepfm_tpu/ops/pallas/sparse_adam_kernel.py`` ::
 (id, cotangent) pairs into each row's gradient, applies decay + clip + Adam
 (``csrc/table_update.cuh``, shared with ``fused_table_adam``) in place, and
 returns sum(p'^2) for the next step's clip norm. The dense gradient never
-reaches device memory. It works on the logical (rows, d+1) table: the
-TPU's 7-rows-per-128-lane packing is a TPU layout artifact, and so are its
-f32-exact id limit and its width gate (128 // (d+1) > 1); neither applies
-here. What bounds it on an H100: bytes, p read and written plus mu and nu
-read and written (2.83 GB at bench.py's table with bf16 moments, about
-0.85 ms at 3.35 TB/s) and the pairs read once.
+reaches device memory. It takes both table layouts: the packed
+``(phys, 128)`` layout of the TPU kernel (``pack = 128 // (d+1)`` logical
+rows per physical row, dead lanes updated with zeros and left 0) and the
+logical ``(rows, d+1)`` one (``pack = 1``); the ids are logical in both.
+On the same logical state the two give the same p, mu and nu bit for bit.
+The TPU kernel's f32-exact id limit (2^24 rows) and its width gate
+(128 // (d+1) > 1) do not apply here. What bounds it on an H100: bytes, p
+read and written plus mu and nu read and written (2.83 GB at bench.py's
+logical table with bf16 moments, about 0.85 ms at 3.35 TB/s; 3.04 GB
+packed, 0.92 ms) and the pairs read once.
 
 ``segment_sumsq``: sum over runs of equal sorted ids of ||sum of the run's
 rows||^2, the ||g||^2 term of the sparsely assembled clip norm
@@ -43,18 +47,19 @@ from deepfm_tpu_torch.ops.kernels.adam import (
 )
 from deepfm_tpu_torch.ops.kernels.grad import (
     MAX_ROWS,
-    TILE_ROWS,
     segment_rows_plain,
     sort_pairs,
+    tile_phys_rows,
 )
+from deepfm_tpu_torch.ops.kernels.packed_grad import LANES, pack_rows
 
 SOURCE = "sparse_table_adam.cu"
 SEGSQ_BLOCK = 256  # kThreads in csrc/table_update.cuh
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "sparse_table_adam_launch": [
-        _P, _P, _P, _I, _LL, _I, _P, _P, _LL, _P, _F, _F, _F, _F, _P, _P, _P,
-        _P,
+        _P, _P, _P, _I, _LL, _I, _I, _I, _P, _P, _LL, _P, _F, _F, _F, _F, _P,
+        _P, _P, _P,
     ],
     "segment_sumsq_launch": [_P, _P, _LL, _I, _P, _P, _P],
 }
@@ -126,12 +131,16 @@ segment_sumsq.launches = 0
 
 def sparse_table_adam_plain(param, mu, nu, sids, cts, lr, weight_decay,
                             global_norm, clip_norm, step, b1: float = 0.9,
-                            b2: float = 0.999, eps: float = 1e-8):
-    """Plain version: densify (``segment_rows_plain``), the shared update,
-    and sum(p'^2); in place on param, mu and nu."""
+                            b2: float = 0.999, eps: float = 1e-8,
+                            pack: int = 1):
+    """Plain version: densify (``segment_rows_plain``, packed when
+    ``pack`` > 1), the shared update over every element (dead lanes
+    included), and sum(p'^2); in place on param, mu and nu."""
     sc = adam_scalars(lr, weight_decay, global_norm, clip_norm, step, b1, b2,
                       eps, device=param.device)
-    grad = segment_rows_plain(sids, cts, param.shape[0])
+    grad = segment_rows_plain(sids, cts, param.shape[0] * pack)
+    if pack > 1:
+        grad = pack_rows(grad, pack)
     p2, m2, v2 = adam_update_plain(param, grad, mu, nu, sc, b1, b2)
     param.copy_(p2)
     mu.copy_(m2)
@@ -139,38 +148,49 @@ def sparse_table_adam_plain(param, mu, nu, sids, cts, lr, weight_decay,
     return param, mu, nu, torch.sum(p2 * p2)
 
 
+def _check_layout(param, cts, pack: int) -> None:
+    rows, width = param.shape
+    dcol = cts.shape[1]
+    logical = pack == 1 and width == dcol
+    packed = pack > 1 and width == LANES and pack * dcol <= LANES
+    if not (logical or packed) or cts.device != param.device:
+        raise ValueError(
+            f"rows {tuple(cts.shape)} on {cts.device} do not match the table "
+            f"{tuple(param.shape)} on {param.device} at pack {pack}"
+        )
+    if rows * pack > MAX_ROWS:
+        raise ValueError(
+            f"tables of at most {MAX_ROWS} logical rows, got {rows * pack}")
+
+
 def sparse_table_adam(param, mu, nu, sids, cts, lr, weight_decay,
                       global_norm, clip_norm, step, b1: float = 0.9,
-                      b2: float = 0.999, eps: float = 1e-8):
-    """One fused densify + decay + clip + Adam step over a logical table,
-    from its sorted (id, cotangent) pairs (``sort_pairs``), in place.
+                      b2: float = 0.999, eps: float = 1e-8, pack: int = 1):
+    """One fused densify + decay + clip + Adam step over a table, from its
+    sorted (logical id, cotangent) pairs (``sort_pairs``), in place. The
+    table is logical (rows, d+1) with ``pack`` = 1, or packed (phys, 128)
+    with ``pack`` = 128 // (d+1) logical rows per physical row.
 
     Returns (param, mu, nu, sumsq(param')) — the first three are the input
     tensors. ``step`` counts completed steps; ``global_norm`` spans the full
     decayed gradient tree; clip_norm <= 0 disables clipping. Ids outside
-    [0, rows) contribute nothing. A CPU table takes the plain version; a
-    CUDA table launches the kernel (or raises).
+    [0, rows * pack) contribute nothing. A CPU table takes the plain
+    version; a CUDA table launches the kernel (or raises).
     """
     if param.device.type == "cpu":
         return sparse_table_adam_plain(param, mu, nu, sids, cts, lr,
                                        weight_decay, global_norm, clip_norm,
-                                       step, b1, b2, eps)
+                                       step, b1, b2, eps, pack)
     if param.device.type != "cuda":
         raise ValueError(f"unsupported device {param.device}")
     check_table(param, mu, nu)
     _check_pairs(sids, cts)
-    rows, d = param.shape
-    if cts.shape[1] != d or cts.device != param.device:
-        raise ValueError(
-            f"rows {tuple(cts.shape)} on {cts.device} do not match the table "
-            f"{tuple(param.shape)} on {param.device}"
-        )
-    if rows > MAX_ROWS:
-        raise ValueError(f"tables of at most {MAX_ROWS} rows, got {rows}")
+    _check_layout(param, cts, pack)
+    rows, width = param.shape
     sids, cts = sids.contiguous(), cts.contiguous()
     sc = adam_scalars(lr, weight_decay, global_norm, clip_norm, step, b1, b2,
                       eps, device=param.device)
-    tiles = -(-rows // TILE_ROWS)
+    tiles = -(-rows // tile_phys_rows(pack))
     bounds = torch.empty(tiles + 1, dtype=torch.int64, device=param.device)
     partials = torch.empty(max(tiles, 1), dtype=torch.float32,
                            device=param.device)
@@ -179,8 +199,9 @@ def sparse_table_adam(param, mu, nu, sids, cts, lr, weight_decay,
     with torch.cuda.device(param.device):
         err = lib.sparse_table_adam_launch(
             param.data_ptr(), mu.data_ptr(), nu.data_ptr(),
-            int(mu.dtype == torch.bfloat16), rows, d, sids.data_ptr(),
-            cts.data_ptr(), cts.shape[0], sc.data_ptr(), *betas(b1, b2),
+            int(mu.dtype == torch.bfloat16), rows, width, cts.shape[1], pack,
+            sids.data_ptr(), cts.data_ptr(), cts.shape[0], sc.data_ptr(),
+            *betas(b1, b2),
             bounds.data_ptr(), partials.data_ptr(), psq.data_ptr(),
             build.stream_of(param),
         )

@@ -13,14 +13,15 @@ import torch
 
 
 class TableSlotState(NamedTuple):
-    mu: torch.Tensor  # (rows, d+1)
-    nu: torch.Tensor  # (rows, d+1)
+    mu: torch.Tensor  # shaped like the table: (rows, d+1) or packed (phys, 128)
+    nu: torch.Tensor
 
 
 def init_table_state(
     table: torch.Tensor, moments_dtype: torch.dtype | None = None
 ) -> TableSlotState:
-    """Zero Adam moments for one table on its device; ``moments_dtype``
+    """Zero Adam moments for one table on its device, in the table's layout
+    (a packed table's dead lanes get moments that stay 0); ``moments_dtype``
     overrides the storage type (``training.moments_dtype``: bf16 halves the
     moments' share of the bytes the table update moves; the math stays
     f32 in the kernels)."""

@@ -7,7 +7,8 @@ model's backward. Paths (``Trainer.path``):
 
   * ``plain``: the optimizer chain over every leaf, tables included;
   * ``two_pass``: the table gradient is densified by the kernel
-    (``ops/kernels/grad.py``, the table lookup's backward), each table's
+    (``ops/kernels/grad.py``, or ``ops/kernels/packed_grad.py`` straight
+    into a packed table: the table lookup's backward), each table's
     sumsq(g + wd*p) is reduced from it, and ``fused_table_adam`` updates
     each table in place;
   * ``sparse_fused``: the rows are gathered outside the loss graph and fed
@@ -18,8 +19,13 @@ model's backward. Paths (``Trainer.path``):
     decays, clips and updates each table in one pass, returning the next
     sumsq(p). The dense table gradient never exists.
 
-Both fused paths share ``chain_second_half``. Dropout draws from PyTorch's
-generator, so with dropout > 0 the masks differ from the JAX package's.
+Every path runs on both table layouts. The pairs carry logical ids in
+both, so the sort and ``segment_sumsq`` do not see the layout; the table
+update takes the table's ``pack``. A packed table's sums of squares (the
+clip norm's, the carried ``table_psq``) run over the whole packed table,
+whose dead lanes are 0. Both fused paths share ``chain_second_half``.
+Dropout draws from PyTorch's generator, so with dropout > 0 the masks
+differ from the JAX package's.
 """
 
 from __future__ import annotations
@@ -145,6 +151,7 @@ def build_train_step(trainer):
                 *_, psq = sparse_table_adam(
                     params[name].data, topt.mu, topt.nu, sids, sorted_ct,
                     lr, wd, gnorm, clip, state.step,
+                    pack=trainer._table_pack[name],
                 )
                 state.table_psq[name] = psq
         return loss

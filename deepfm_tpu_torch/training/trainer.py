@@ -13,8 +13,13 @@ card. With the defaults (``adam``, ``fused_table_adam``,
 ``fused_backward``) the step takes the sparse-fused path;
 ``fused_backward: false`` takes the two-pass path (densify, then fused
 table Adam); ``fused_table_adam: false``, ``adamw`` or ``sgd`` take the
-plain optax chain. The TPU's width gate (128 // (d+1) > 1) and its
-f32-exact id limit do not apply to the logical layout and are dropped.
+plain optax chain. With ``pallas.use_embedding_kernel`` the row-gather
+kernel is the lookup, and the step takes two-pass or plain, as in the JAX
+package, whose sparse-fused gate wants the default lookup. Every path runs
+on both table layouts (``pallas.table_layout``); the sparse-fused one also
+on the logical layout, where the JAX package needs packed tables. The
+TPU's width gate (128 // (d+1) > 1) and its f32-exact id limit do not
+apply and are dropped.
 """
 
 from __future__ import annotations
@@ -72,10 +77,12 @@ def _use_fused_table_adam(config: ExperimentConfig) -> bool:
 def sparse_fused_eligible(config: ExperimentConfig,
                           packed_schema: PackedSchema) -> bool:
     """True when the step takes the fused sparse backward-optimizer path
-    (``ops/kernels/sparse_adam.py``)."""
+    (``ops/kernels/sparse_adam.py``): it gathers the rows itself, so it
+    wants the default lookup, not the row-gather kernel."""
     return (
         _use_fused_table_adam(config)
         and config.training.fused_backward
+        and not config.pallas.use_embedding_kernel
         and len(packed_schema.lookup_groups) > 0
     )
 
@@ -92,11 +99,16 @@ class Trainer:
         self.device = resolve_device(config.device)
         self.model = model.to(self.device)
         self.fused_tables = _use_fused_table_adam(config)
-        self.sparse_fused = sparse_fused_eligible(config, packed_schema)
+        self.sparse_fused = (sparse_fused_eligible(config, packed_schema)
+                             and not model.embedding.gather_kernel)
         self.path = ("sparse_fused" if self.sparse_fused
                      else "two_pass" if self.fused_tables else "plain")
         self.table_names = [n for n, _ in model.named_parameters()
                             if _is_table_name(n)]
+        # table name -> logical rows per physical row (1: logical layout)
+        self._table_pack = {f"embedding.{k}": v
+                            for k, v in model.embedding.table_pack.items()}
+        self._table_layout = model.table_layout
         self.tx = build_optimizer(config, self.table_names,
                                   fused=self.fused_tables)
         self.state = self._init_state()
@@ -122,6 +134,19 @@ class Trainer:
             state.table_psq = {n: torch.sum(params[n].detach() ** 2)
                                for n in self.table_names}
         return state
+
+    def load_best(self, output_dir) -> dict:
+        """Load a best checkpoint (either table layout) into the live model
+        and re-derive the carried table sums of squares; returns the
+        checkpoint's metadata."""
+        from deepfm_tpu_torch.training.persistence import (
+            load_best,
+            recompute_table_psq,
+        )
+
+        meta = load_best(self.model, output_dir)
+        recompute_table_psq(self)
+        return meta
 
     def _as_tensor(self, x: Any, dtype: torch.dtype) -> torch.Tensor:
         if isinstance(x, np.ndarray):

@@ -15,7 +15,12 @@ port's three paths is held against the JAX path with the same semantics:
     ``DEEPFM_TPU_FORCE_FUSED_ADAM=1`` and ``table_layout=packed``, its
     packed tables and moments unpacked for the comparison;
 
-with clip on (1.0, active) and off, for each model: xDeepFM with a
+with clip on (1.0, active) and off, for each model; and on packed tables
+(``table_layout: packed`` in both packages, the tables and their moments
+compared packed, with no unpacking): DeepFM on the three paths with clip
+on and off, xDeepFM and AttentionDeepFM sparse-fused with clip on, and
+DeepFM two-pass with ``use_embedding_kernel`` (the row-gather lookup; the
+JAX package then takes two-pass too). xDeepFM runs with a
 [8, 8] split-half CIN (the JAX CIN stack's Pallas kernels run in interpret
 mode, the port's through ``CinStackFn`` and its plain backward), and
 AttentionDeepFM with 2 heads of 8 (a=16, d=16: the shapes the JAX f-major
@@ -59,7 +64,7 @@ from deepfm_tpu.ops.dnn import DNN as JaxDNN  # noqa: E402
 from deepfm_tpu.training.trainer import Trainer as JaxTrainer  # noqa: E402
 from deepfm_tpu_torch.config import config_from_dict  # noqa: E402
 from deepfm_tpu_torch.convert import (  # noqa: E402
-    logical_table,
+    layout_table,
     params_from_jax,
     train_state_from_jax,
 )
@@ -112,23 +117,30 @@ def _raw(training, model="deepfm", **extra):
     return raw
 
 
-def _port_trainer(tpacked, training, model="deepfm"):
-    config = config_from_dict(_raw(training, model, device="cpu"))
+def _port_trainer(tpacked, training, model="deepfm", pallas=None):
+    config = config_from_dict(_raw(training, model, device="cpu",
+                                   pallas=pallas or {}))
     return Trainer(create_model(model, tpacked, config, device="cpu"),
                    tpacked, config)
 
 
 def _jax_run(path, clip, tmp_path, monkeypatch, optimizer="adam",
-             model="deepfm"):
+             model="deepfm", pallas=None):
     """Two JAX steps; returns the JAX trainer, the states after steps 1
-    and 2 (host copies) and the losses."""
-    _, jax_tr, layout, force = PATHS[path]
+    and 2 (host copies) and the losses. ``pallas`` replaces the path's
+    table layout (and then the JAX trainer takes the port's training
+    overrides of the path)."""
+    port_tr, jax_tr, layout, force = PATHS[path]
+    if pallas is not None:
+        jax_tr = port_tr
+    else:
+        pallas = {"table_layout": layout}
     if force:
         monkeypatch.setenv("DEEPFM_TPU_FORCE_FUSED_ADAM", "1")
     jpacked, jarr, _, _ = _data()
     config = jax_config(_raw(
         {**jax_tr, "gradient_clip_norm": clip, "optimizer": optimizer},
-        model, output_dir=str(tmp_path), pallas={"table_layout": layout},
+        model, output_dir=str(tmp_path), pallas=pallas,
     ))
     trainer = JaxTrainer(jax_create_model(model, jpacked, config),
                          jpacked, config, jarr, jarr, jarr)
@@ -156,11 +168,12 @@ def _assert_state_matches(trainer, jstate, tpacked, steps):
     want = params_from_jax(jstate.params, jstate.batch_stats, tpacked,
                            trainer.config)
     got = dict(trainer.model.state_dict())
+    to_packed = trainer.model.table_layout == "packed"
     if jstate.table_opt is not None:
         for name, s in jstate.table_opt.items():
             mine = trainer.state.table_opt[f"embedding.{name}"]
             for m in ("mu", "nu"):
-                w = logical_table(name, getattr(s, m), tpacked)
+                w = layout_table(name, getattr(s, m), tpacked, to_packed)
                 g = getattr(mine, m)
                 assert str(g.dtype).endswith(str(w.dtype))
                 want[f"{name}.{m}"] = w.astype(np.float32)
@@ -243,6 +256,51 @@ def _two_steps_match_jax(model, path, clip, tmp_path, monkeypatch):
     losses = [_port_step(trainer, tarr) for _ in range(2)]
     assert losses == pytest.approx(jlosses, rel=1e-6)
     assert int(trainer.state.step) == 2
+    _assert_state_matches(trainer, jstates[2], tpacked, steps=2)
+
+
+PACKED_CASES = ([("deepfm", path, clip) for path in sorted(PATHS)
+                 for clip in (1.0, 0.0)]
+                + [(m, "sparse_fused", 1.0) for m in sorted(MODELS)
+                   if m != "deepfm"])
+
+
+@pytest.mark.parametrize("model,path,clip", PACKED_CASES)
+def test_two_steps_on_packed_tables_match_jax(model, path, clip, tmp_path,
+                                              monkeypatch):
+    """Both packages on packed (phys, 128) tables; nothing is unpacked."""
+    _packed_two_steps(model, path, clip, {"table_layout": "packed"},
+                      tmp_path, monkeypatch)
+
+
+def test_embedding_kernel_two_pass_matches_jax(tmp_path, monkeypatch):
+    """use_embedding_kernel: the row-gather lookup forces logical tables,
+    and the step takes two-pass in both packages."""
+    _packed_two_steps("deepfm", "two_pass", 1.0,
+                      {"table_layout": "packed", "use_embedding_kernel": True},
+                      tmp_path, monkeypatch, port_training={})
+
+
+def _packed_two_steps(model, path, clip, pallas, tmp_path, monkeypatch,
+                      port_training=None):
+    jtrainer, jstates, jlosses = _jax_run(path, clip, tmp_path, monkeypatch,
+                                          model=model, pallas=pallas)
+    _, _, tpacked, tarr = _data()
+    training = PATHS[path][0] if port_training is None else port_training
+    trainer = _port_trainer(tpacked, {**training, "gradient_clip_norm": clip},
+                            model, pallas)
+    assert trainer.path == path
+    layout = ("logical" if pallas.get("use_embedding_kernel")
+              else "packed")
+    assert trainer.model.table_layout == jtrainer._table_layout == layout
+    train_state_from_jax(jstates[0], trainer)
+    for name, table in jstates[2].params["embedding"].items():
+        if name.startswith("table_w"):
+            mine = trainer.params[f"embedding.{name}"]
+            assert tuple(mine.shape) == np.asarray(table).shape
+            assert (mine.shape[1] == 128) is (layout == "packed")
+    losses = [_port_step(trainer, tarr) for _ in range(2)]
+    assert losses == pytest.approx(jlosses, rel=1e-6)
     _assert_state_matches(trainer, jstates[2], tpacked, steps=2)
 
 

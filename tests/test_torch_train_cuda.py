@@ -8,10 +8,14 @@ machine without it:
 Tolerances (the kernels round every f32 operation as PyTorch's separate
 elementwise ops do, csrc/table_update.cuh):
 
-  * densify: bit for bit (both add each run in stream order);
+  * densify, logical and packed, and the row gather: bit for bit (both add
+    each run in stream order; a gather copies); a packed result's dead
+    lanes are 0;
   * sparse / fused table Adam: mu and nu bit for bit, p within 1e-6
     relative (the same roundings; a square root may differ in its last
     bit), psq and the segment sums rel 1e-5 (another summation order);
+  * packed sparse table Adam against the logical kernel on the unpacked
+    state: p, mu and nu bit for bit (the same run sums and arithmetic);
   * every kernel gives the same bits on a second launch;
   * the train step on the card against the CPU step: the rule of
     ``deepfm_tpu_torch/training/parity.py`` (rtol 1e-5 / atol 1e-7 on all
@@ -32,10 +36,15 @@ from deepfm_tpu_torch.ops.kernels.adam import (
     fused_table_adam,
     fused_table_adam_plain,
 )
+from deepfm_tpu_torch.ops.kernels.gather import row_gather, row_gather_plain
 from deepfm_tpu_torch.ops.kernels.grad import (
     densify_rows_grad,
     densify_rows_grad_plain,
     sort_pairs,
+)
+from deepfm_tpu_torch.ops.kernels.packed_grad import (
+    densify_rows_grad_packed,
+    densify_rows_grad_packed_plain,
 )
 from deepfm_tpu_torch.ops.kernels.sparse_adam import (
     segment_sumsq,
@@ -45,6 +54,7 @@ from deepfm_tpu_torch.ops.kernels.sparse_adam import (
 )
 from deepfm_tpu_torch.training.parity import compare_leaves
 from deepfm_tpu_torch.training.trainer import Trainer
+from deepfm_tpu_torch.utils.layout import pack_table, unpack_table
 
 torch.set_num_threads(1)
 
@@ -124,6 +134,60 @@ def test_table_kernels_match_plain_on_cuda(moments):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dcol,pack", [(17, 7), (9, 14), (5, 25)])
+def test_packed_kernels_match_plain_on_cuda(dcol, pack):
+    dev = _cuda()
+    rng = np.random.default_rng(dcol)
+    num_rows, n = 6000, 4000
+    ids = rng.integers(0, num_rows, n).astype(np.int32)
+    ids[:300] = 0  # a long run
+    ids[300:340] = 777  # runs on both sides of a physical-row boundary
+    ids[340:380] = 777 + pack - 777 % pack
+    ids = torch.from_numpy(ids).to(dev)
+    ct = torch.from_numpy(rng.normal(size=(n, dcol)).astype(np.float32)).to(dev)
+    g = densify_rows_grad_packed(ct, ids, num_rows, pack)
+    assert torch.equal(g, densify_rows_grad_packed_plain(ct, ids, num_rows, pack))
+    assert torch.equal(g, densify_rows_grad_packed(ct, ids, num_rows, pack))
+    assert not g[:, pack * dcol:].any()
+
+    phys = -(-num_rows // pack)
+    rows = phys * pack
+    sids, cts = sort_pairs(ids, ct)
+    p, mu, nu = (np.resize(a, (rows, dcol)) for a in _table(rows // 4, 1))
+    for mdt in (torch.float32, torch.bfloat16):
+        def fresh(logical=False):
+            ts = [torch.from_numpy(a.copy()) for a in (p, mu, nu)]
+            if not logical:
+                ts = [pack_table(t, dcol, pack, phys) for t in ts]
+            return [ts[0].to(dev)] + [t.to(dev, mdt) for t in ts[1:]]
+
+        for clip in (0.0, 1.0):
+            args = (LR, WD, torch.tensor(3.0, device=dev), clip,
+                    torch.tensor(2, dtype=torch.int32, device=dev))
+            k, q, k2, lg = fresh(), fresh(), fresh(), fresh(logical=True)
+            *_, kpsq = sparse_table_adam(*k, sids, cts, *args, pack=pack)
+            *_, qpsq = sparse_table_adam_plain(*q, sids, cts, *args, pack=pack)
+            *_, kpsq2 = sparse_table_adam(*k2, sids, cts, *args, pack=pack)
+            *_, lpsq = sparse_table_adam(*lg, sids, cts, *args)
+            assert torch.equal(k[1], q[1]) and torch.equal(k[2], q[2])
+            torch.testing.assert_close(k[0], q[0], rtol=1e-6, atol=0)
+            assert float(kpsq) == pytest.approx(float(qpsq), rel=1e-5)
+            assert all(torch.equal(a, b) for a, b in zip(k, k2))
+            assert torch.equal(kpsq, kpsq2)
+            for a, b in zip(k, lg):
+                assert torch.equal(unpack_table(a, dcol, pack, rows), b)
+                assert not a[:, pack * dcol:].float().any()
+            assert float(kpsq) == pytest.approx(float(lpsq), rel=1e-6)
+
+    table = torch.from_numpy(p).to(dev)
+    gids = torch.cat([ids.long(), torch.tensor([-1, rows, 5], device=dev)])
+    got = row_gather(table, gids)
+    assert torch.equal(got, row_gather_plain(table, gids))
+    assert not got[-3:-1].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_raises_without_its_kernel(tmp_path, monkeypatch):
     """On the card a wrapper whose kernel cannot be built raises; it does
     not fall back to the plain version."""
@@ -164,6 +228,22 @@ def _batch(packed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", sorted(PATHS))
 def test_card_step_matches_cpu_step(path):
+    _card_step_matches_cpu_step(path, {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_packed_card_step_matches_cpu_step(path):
+    _card_step_matches_cpu_step(path, {"table_layout": "packed"})
+
+
+@pytest.mark.cuda
+def test_embedding_kernel_card_step_matches_cpu_step():
+    _card_step_matches_cpu_step("two_pass", {"use_embedding_kernel": True},
+                                training={})
+
+
+def _card_step_matches_cpu_step(path, pallas, training=None):
     _cuda()
     packed = _schema()
     arr = _batch(packed)
@@ -172,7 +252,9 @@ def test_card_step_matches_cpu_step(path):
         config = config_from_dict({
             "model_name": "deepfm", "device": device,
             "dnn": {"hidden_units": HIDDEN, "dropout": 0.0},
-            "training": {"batch_size": B, "lr": LR, **PATHS[path]},
+            "training": {"batch_size": B, "lr": LR,
+                         **(PATHS[path] if training is None else training)},
+            "pallas": pallas,
         })
         model = create_model("deepfm", packed, config, device="cpu", seed=1)
         trainers[device] = Trainer(model, packed, config)
