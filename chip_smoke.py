@@ -22,6 +22,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              same bits, timed beside its bound, its plain version and
              autograd through the plain forward; in bf16 the check must
              refuse the plain backward without its dcomp rounding;
+  cin_compress  the per-layer CIN kernel against its plain version on the
+             card in f32 at the three layer shapes of the xDeepFM paper's
+             CIN (B=4096, F=27, D=10, 200 maps, H = 27, 200, 200) and a
+             ragged shape (CIN_TOL), launched twice to show the same bits,
+             timed beside its bound, the plain version and the outer
+             product materialised plus one torch.matmul; then the CIN
+             stack's "layers" route (stack_route): its backward against
+             the stack backward kernel at bench.py's f32 CIN shape
+             (CIN_BWD_TOL); at the paper's CIN, CinStackFn's backward
+             against the plain stack backward (ROUTE_BWD_TOL, which must
+             refuse a planted fault); and its forward at a stack too wide
+             for the stack forward against the plain version; each with
+             the launches that show the route;
   attention  the attention-block forward and backward kernels against
              their plain versions at bench.py's AttentionDeepFM shape in
              bf16 and f32 and at a ragged batch (ATTN_TOL), each launched
@@ -74,6 +87,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
              attention), and at 20k ids, batch GRAD_BATCH, f32, their
              first-step gradients on the card against the CPU's, with a
              planted fault per model that must be refused;
+  train_xdeepfm_paper  the xDeepFM paper's Criteo configuration
+             (paper_config: d=10, CIN 3 x 200 maps without split, DNN
+             [400, 400], batch 4096, Adam) on bench.py's workload at
+             width 10, through create_model and Trainer on the default
+             sparse-fused path: timed and profiled as train_models, the
+             launches of its 14 steps (the stack forward, three
+             cin_compress per step for the backward's layers route, no
+             stack backward), the trainer's device memory freed on deletion
+             without the cycle collector, and at 20k ids, batch GRAD_BATCH,
+             f32, the first-step gradients on the card against the CPU,
+             with a planted fault that must be refused (layer 1's dW taken
+             from the wrong hidden state);
   serve      the port's serving path at full width: synthetic MovieLens
              at ML-100K scale, xDeepFM from
              configs/xdeepfm_movielens_cin_tuned.yaml and AttentionDeepFM
@@ -88,6 +113,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
   kernels    one line listing every ported kernel with its launch count
              on the path that runs it (serve for the CIN-stack forward,
              the xDeepFM train step for the CIN-stack backward, the
+             paper's xDeepFM train step for cin_compress, the
              AttentionDeepFM train step for the attention kernels, the
              sparse-fused DeepFM step for segment_sumsq and
              sparse_table_adam, the two-pass step for densify_rows_grad and
@@ -102,6 +128,7 @@ checkout of the repository, the script fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -201,12 +228,38 @@ CIN_BWD_TOL = {
     "bfloat16": {"rtol": 2.0 ** -7, "atol_rel": 1e-3, "outside_share": 1e-2,
                  "mean_rel": 1e-3, "differ_share": 1e-2},
 }
+# The CIN stack's layers-route backward against the plain stack backward
+# at the xDeepFM paper's CIN (f32, 3 x 200 maps, B=4096, D=10), per output:
+# sum|diff| / sum|plain| (mean_rel_err) and ||diff|| / ||plain||
+# (norm_rel_err). About 1e-5 of a layer's 8.2M comps lie within f32
+# rounding of 0, so the kernel's remat and the plain version's (cuBLAS)
+# disagree on ~100 ReLU masks a layer, and each flip moves every gradient
+# below it by that sample's share: up to 30 % of a dW's elements fall
+# outside rtol 2e-4, the mean relative error reads 8e-5 to 3e-4 and the
+# norm's 1e-4 to 1.3e-3 (an H100), so no element-wise rule holds. A real fault moves the gradient by O(1): the
+# check must refuse the route with layer 1's dW taken from the wrong hidden
+# state (dw_from_wrong_hidden).
+ROUTE_BWD_TOL = {"mean_rel": 1e-3, "norm_rel": 1e-2}
 ATTN_TOL = {
     "float32": {"rtol": 1e-4, "atol_rel": 1e-5, "outside_share": 0.0,
                 "mean_rel": 1e-5, "differ_share": None},
     "bfloat16": {"rtol": 2.0 ** -7, "atol_rel": 1e-3, "outside_share": 0.0,
                  "mean_rel": 5e-4, "differ_share": 1e-2},
 }
+
+# (name, B, H, F, D, M) of the per-layer CIN kernel: the three layers of
+# the xDeepFM paper's CIN at its batch (layer 0's hidden state is x0), and
+# a ragged shape
+CIN_LAYER_SHAPES = [
+    ("paper_layer0", 4096, 27, 27, 10, 200),
+    ("paper_layer1", 4096, 200, 27, 10, 200),
+    ("paper_layer2", 4096, 200, 27, 10, 200),
+    ("ragged", 1000, 13, 13, 10, 7),
+]
+# The xDeepFM paper's Criteo configuration (paper_config), on bench.py's
+# workload at field width PAPER_WIDTH
+PAPER_BATCH, PAPER_WIDTH = 4096, 10
+PAPER_CIN = (200, 200, 200)
 
 # bench.py's DeepFM workload (bench.py:71-77, 91-113, 131-150)
 BENCH_BATCH = 16384
@@ -529,6 +582,7 @@ def grad_compare(got: dict, want: dict, tol: dict, low: str,
             "share_outside": (err > tol["atol_rel"] * scale
                               + tol["rtol"] * w.abs()).float().mean().item(),
             "mean_rel_err": (err.mean() / ref.mean().clamp_min(1e-30)).item(),
+            "norm_rel_err": (err.norm() / ref.norm().clamp_min(1e-30)).item(),
             "share_differing": (err > 0).float().mean().item(),
         }
         ok = (bool(torch.isfinite(a).all())
@@ -644,6 +698,184 @@ def phase_cin_stack_bwd() -> dict:
         results[name] = rec
         del x0, ws, bs, g
         torch.cuda.empty_cache()
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
+def cin_layer_bound(bsz, h, f, d, m):
+    """(bound_ms, bound_by, flops) of one CIN layer in f32: the products of
+    the contraction (2 * B*D*M*H*F) and the outer product (B*D*H*F) over the
+    FP32 rate; bytes: hidden, x0, W and b read, the output written."""
+    flops = 2 * bsz * m * h * f * d + bsz * h * f * d
+    nbytes = 4 * (bsz * h * d + bsz * f * d + m * h * f + m + bsz * m * d)
+    t_ops = flops / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations", flops
+    return 1e3 * t_bytes, "bytes", flops
+
+
+def phase_cin_compress() -> dict:
+    """The per-layer CIN kernel against its plain version, timed; then the
+    CIN stack's "layers" route against the stack backward kernel and
+    against the plain versions, with the launches that show the route."""
+    import torch
+
+    from deepfm_tpu_torch.ops.cin import cin_layer_sizes, cin_outer
+    from deepfm_tpu_torch.ops.kernels.cin import (
+        cin_compress_layer,
+        cin_compress_plain,
+    )
+    from deepfm_tpu_torch.ops.kernels.cin_stack import (
+        cin_stack_backward,
+        cin_stack_backward_layers,
+        cin_stack_backward_plain,
+        cin_stack_forward,
+        cin_stack_plain,
+        stack_route,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    tol = CIN_TOL["float32"]
+    results, failures = {}, []
+    for k, (name, bsz, h, f, d, m) in enumerate(CIN_LAYER_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(4000 + k)
+        x0 = torch.randn(bsz, f, d, generator=gen, device=dev)
+        hid = x0 if h == f and name.endswith("0") else torch.relu(
+            torch.randn(bsz, h, d, generator=gen, device=dev))
+        bound = (h * f) ** -0.5
+        w = (torch.rand(m, h * f, generator=gen, device=dev) * 2 - 1) * bound
+        b = (torch.rand(m, generator=gen, device=dev) * 2 - 1) * bound
+
+        def kernel():
+            return cin_compress_layer(hid, x0, w, b)
+
+        def library():
+            return torch.matmul(w, cin_outer(hid, x0)) + b[:, None]
+
+        got, again = kernel(), kernel()
+        want = cin_compress_plain(hid, x0, w, b)
+        stats = compare(got, want, tol)
+        same_bits = bool(torch.equal(got, again))
+        if not (stats["ok"] and same_bits):
+            failures.append(f"{name}: kernel outside tolerance {tol} or not "
+                            f"repeatable ({same_bits}): {stats}")
+        del got, again, want
+        bound_ms, bound_by, flops = cin_layer_bound(bsz, h, f, d, m)
+        ms = time_ms(kernel, reps=20)
+        rec = {
+            "phase": "cin_compress", "shape": name, "B": bsz, "H": h, "F": f,
+            "D": d, "M": m, "dtype": "float32", **stats, "tol": tol,
+            "same_bits": same_bits, "ms": ms,
+            "plain_ms": time_ms(lambda: cin_compress_plain(hid, x0, w, b), reps=5),
+            "library_ms": time_ms(library, reps=5),
+            "library": "the outer product materialised plus one torch.matmul",
+            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            "tflops": flops / (ms * 1e-3) / 1e12,
+        }
+        emit(rec)
+        results[name] = rec
+        del x0, hid, w, b
+    torch.cuda.empty_cache()
+
+    def route_check(label, launches, expect, cmp):
+        ok = cmp["ok"] and all(launches[kn] == n for kn, n in expect.items())
+        rec = {"phase": "cin_layers_route", "check": label, "launches": launches,
+               "launches_expected": expect, **cmp, "ok": ok}
+        emit(rec)
+        results[label] = rec
+        if not ok:
+            failures.append(f"{label}: {rec}")
+
+    bwd_tol = CIN_BWD_TOL["float32"]
+    # (a) the layers route's backward against the stack backward kernel at
+    # bench.py's f32 CIN shape, where both run: two implementations
+    gen = torch.Generator(device=dev).manual_seed(4100)
+    layers, split = (128, 128), True
+    x0, ws, bs = cin_inputs(gen, BENCH_BATCH, 27, 16, layers, split, torch.float32)
+    g = torch.randn(BENCH_BATCH, sum(cin_layer_sizes(layers, split)[0]),
+                    generator=gen, device=dev)
+    reset_counts()
+    got = cin_grads_named(cin_stack_backward_layers(x0, ws, bs, g, layers, split))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    reset_counts()
+    want = cin_grads_named(cin_stack_backward(x0, ws, bs, g, layers, split))
+    torch.cuda.synchronize()
+    stack_launches = read_counts()
+    cmp = grad_compare(got, want, bwd_tol, "dx0")
+    cmp["stack_kernel_launches"] = {k: stack_launches[k] for k in
+                                    ("cin_stack_bwd", "cin_compress")}
+    cmp["ok"] = cmp["ok"] and stack_launches["cin_stack_bwd"] == 1
+    route_check("bench_f32_layers_vs_stack_backward",
+                {k: launches[k] for k in ("cin_compress", "cin_stack_bwd")},
+                {"cin_compress": len(layers), "cin_stack_bwd": 0}, cmp)
+    del x0, ws, bs, g, got, want
+
+    # (b) CinStackFn at the paper's CIN: the stack forward, the layers
+    # route's backward, against the plain stack backward in f32
+    # (ROUTE_BWD_TOL), which must refuse a planted fault
+    gen = torch.Generator(device=dev).manual_seed(4200)
+    layers, split = PAPER_CIN, False
+    x0, ws, bs = cin_inputs(gen, PAPER_BATCH, 27, PAPER_WIDTH, layers, split,
+                            torch.float32)
+    g = torch.randn(PAPER_BATCH, sum(layers), generator=gen, device=dev)
+    routes = [stack_route(PAPER_BATCH, 27, PAPER_WIDTH, layers, split, bwd)
+              for bwd in (False, True)]
+    n = len(layers)
+
+    def stack_fn_grads():
+        leaves = [t.detach().clone().requires_grad_() for t in (x0, *ws, *bs)]
+        out = cin_stack_forward(leaves[0], leaves[1:1 + n], leaves[1 + n:],
+                                layers, split)
+        out.backward(g)
+        return cin_grads_named((leaves[0].grad, [t.grad for t in leaves[1:1 + n]],
+                                [t.grad for t in leaves[1 + n:]]))
+
+    def route_cmp(got):
+        cmp = grad_compare(got, want, bwd_tol, "dx0")
+        cmp["ok"] = all(
+            o["mean_rel_err"] <= ROUTE_BWD_TOL["mean_rel"]
+            and o["norm_rel_err"] <= ROUTE_BWD_TOL["norm_rel"]
+            and math.isfinite(o["max_abs_err"]) for o in cmp["outputs"].values())
+        return cmp
+
+    reset_counts()
+    got = stack_fn_grads()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = cin_grads_named(cin_stack_backward_plain(x0, ws, bs, g, layers, split))
+    cmp = route_cmp(got)
+    with dw_from_wrong_hidden():
+        control = route_cmp(stack_fn_grads())
+    cmp.update(routes=routes, tol=ROUTE_BWD_TOL, control_refused=not control["ok"],
+               control_dW1=control["outputs"]["dW1"])
+    cmp["ok"] = cmp["ok"] and routes == ["stack", "layers"] and not control["ok"]
+    route_check("paper_cin_stack_fn_vs_plain_backward",
+                {k: launches[k] for k in ("cin_stack_fwd", "cin_compress", "cin_stack_bwd")},
+                {"cin_stack_fwd": 1, "cin_compress": n, "cin_stack_bwd": 0}, cmp)
+    del x0, ws, bs, g, got, want
+
+    # (c) the layers route's forward, at a stack too wide for the stack
+    # forward, against the plain version
+    gen = torch.Generator(device=dev).manual_seed(4300)
+    layers, split = (512,), False
+    x0, ws, bs = cin_inputs(gen, 1024, 27, 16, layers, split, torch.float32)
+    reset_counts()
+    got = cin_stack_forward(x0, ws, bs, layers, split)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    cmp = compare(got, cin_stack_plain(x0, ws, bs, layers, split), tol)
+    cmp["route"] = stack_route(1024, 27, 16, layers, split, False)
+    cmp["ok"] = cmp["ok"] and cmp["route"] == "layers"
+    route_check("wide_forward_layers_vs_plain",
+                {k: launches[k] for k in ("cin_compress", "cin_stack_fwd")},
+                {"cin_compress": 1, "cin_stack_fwd": 0}, cmp)
+    del x0, ws, bs, got
+    torch.cuda.empty_cache()
     if failures:
         fail("; ".join(failures))
     return results
@@ -804,9 +1036,9 @@ def phase_attention() -> dict:
 
 
 def free_device() -> None:
-    """Give the device memory of deleted objects back. A Trainer and its
-    step closure refer to each other, so a deleted trainer's tables stay
-    allocated until the cycle collector runs: run it first."""
+    """Give the device memory of deleted objects back to the card (a
+    deleted Trainer goes by reference count; the collector runs first for
+    any other cycle)."""
     import torch
 
     gc.collect()
@@ -1147,10 +1379,10 @@ def phase_packed_kernels() -> dict:
     return out
 
 
-def bench_workload(vocab: int):
+def bench_workload(vocab: int, width: int = 16):
     """bench.py's _workload at ``vocab`` ids per field, in the port's own
-    data classes: 26 sparse fields of width 16 and one dense field, one
-    batch of 16384 rows from numpy seed 0."""
+    data classes: 26 sparse fields of width ``width`` (bench.py's 16) and
+    one dense field, one batch of 16384 rows from numpy seed 0."""
     import numpy as np
 
     from deepfm_tpu_torch.data.packing import pack_features, pack_schema
@@ -1163,8 +1395,8 @@ def bench_workload(vocab: int):
     fields = {}
     for i in range(BENCH_FIELDS):
         fields[f"cat_{i}"] = FieldSchema(
-            f"cat_{i}", FeatureType.SPARSE, vocab, 16, "user" if i % 2 else "item")
-    fields["dense_0"] = FieldSchema("dense_0", FeatureType.DENSE, 0, 16, "context")
+            f"cat_{i}", FeatureType.SPARSE, vocab, width, "user" if i % 2 else "item")
+    fields["dense_0"] = FieldSchema("dense_0", FeatureType.DENSE, 0, width, "context")
     packed = pack_schema(DatasetSchema(fields=fields))
     rng = np.random.default_rng(0)
     feats = {f"cat_{i}": rng.integers(1, vocab, BENCH_BATCH)
@@ -1202,6 +1434,28 @@ def bench_config(device: str, compute_dtype: str = "bfloat16",
     })
 
 
+def paper_config(device: str, compute_dtype: str = "bfloat16", **training):
+    """The xDeepFM paper's Criteo configuration for the port: Lian et al.,
+    "xDeepFM: Combining Explicit and Implicit Feature Interactions for
+    Recommender Systems", KDD 2018 (arXiv:1803.05170), section 4.1.3: field
+    embedding dimension 10, 200 feature maps per CIN layer on Criteo, 400
+    units per DNN layer, Adam at lr 0.001, batch 4096; CIN depth 3 (the
+    depth study, section 4.3); every map of every layer pooled (its CIN has
+    no split). BatchNorm, clip 1.0 and L2 1e-5 stay at the config
+    defaults; dropout 0 and bf16 compute as bench.py runs."""
+    from deepfm_tpu_torch.config import config_from_dict
+
+    return config_from_dict({
+        "model_name": "xdeepfm",
+        "device": device,
+        "feature": {"fm_embed_dim": PAPER_WIDTH},
+        "cin": {"layer_sizes": list(PAPER_CIN), "split_half": False},
+        "dnn": {"hidden_units": [400, 400], "dropout": 0.0},
+        "training": {"batch_size": PAPER_BATCH, "compute_dtype": compute_dtype,
+                     "lr": LR, **training},
+    })
+
+
 def kernel_counters():
     """Every ported kernel's wrapper, whose ``launches`` counts its kernel's
     launches."""
@@ -1210,6 +1464,7 @@ def kernel_counters():
         attention_block_backward,
         attention_block_forward,
     )
+    from deepfm_tpu_torch.ops.kernels.cin import cin_compress_layer
     from deepfm_tpu_torch.ops.kernels.cin_stack import (
         cin_stack_backward,
         cin_stack_forward,
@@ -1226,6 +1481,7 @@ def kernel_counters():
 
     return {"cin_stack_fwd": cin_stack_forward,
             "cin_stack_bwd": cin_stack_backward,
+            "cin_compress": cin_compress_layer,
             "attention_block_fwd": attention_block_forward,
             "attention_block_bwd": attention_block_backward,
             "densify_rows_grad": densify_rows_grad,
@@ -1256,20 +1512,17 @@ def snapshot(trainer) -> dict:
     return out
 
 
-def first_step_grads(packed, arrays, device: str, model_name: str,
-                     pallas: dict | None = None):
-    """The loss and every parameter's gradient at the seeded initial weights:
-    one train-mode forward and autograd backward on ``device``, the table's
-    gradient densified by the kernel (CUDA) or its plain version (CPU), in
-    the table layout ``pallas`` asks for."""
+def first_step_grads(packed, arrays, device: str, cfg):
+    """The loss and every parameter's gradient at the seeded initial weights
+    of ``cfg``'s model: one train-mode forward and autograd backward on
+    ``device``, the table's gradient densified by the kernel (CUDA) or its
+    plain version (CPU)."""
     import torch
 
     from deepfm_tpu_torch.models import create_model
     from deepfm_tpu_torch.training.steps import weighted_bce
 
-    cfg = bench_config(device, compute_dtype="float32", model_name=model_name,
-                       pallas=pallas)
-    model = create_model(model_name, packed, cfg, device="cpu").to(device)
+    model = create_model(cfg.model_name, packed, cfg, device="cpu").to(device)
     model.train()
     ids, dense, labels, weights = batch_on(arrays, torch.device(device))
     loss = weighted_bce(model(ids, dense)[:, 0], labels, weights)
@@ -1314,18 +1567,28 @@ def neighbour_slot(grad, dcol: int, pack: int):
 
 def phase_grads_card_vs_cpu(small, small_arrays,
                             model_name: str = "deepfm",
-                            pallas: dict | None = None) -> dict:
+                            pallas: dict | None = None,
+                            cfg=None, planted=None) -> dict:
     """First-step gradients, the card against the CPU, and the planted
     faults the check must refuse: three for DeepFM, GRAD_FAULTS' one for
-    the other models, one (the neighbouring sub-slot) for packed tables."""
-    cpu_loss, want = first_step_grads(small, small_arrays, "cpu", model_name,
-                                      pallas)
-    card_loss, got = first_step_grads(small, small_arrays, DEVICE, model_name,
-                                      pallas)
+    the other models, one (the neighbouring sub-slot) for packed tables.
+    ``cfg`` (f32) replaces bench.py's config; ``planted`` = (name, a
+    context manager factory) replaces the faults with the card's gradients
+    taken again inside that context."""
+    if cfg is None:
+        cfg = bench_config("cpu", compute_dtype="float32",
+                           model_name=model_name, pallas=pallas)
+    cpu_loss, want = first_step_grads(small, small_arrays, "cpu", cfg)
+    card_loss, got = first_step_grads(small, small_arrays, DEVICE, cfg)
     out = grad_check(got, want)
     out["loss_rel_err"] = rel_err(card_loss, cpu_loss)
-    table = "embedding.table_w16"
-    if got[table].shape[1] == 128:  # packed
+    table = next(n for n in got if "table_w" in n)
+    if planted is not None:
+        name, context = planted
+        with context():
+            faults = ((name, first_step_grads(small, small_arrays, DEVICE,
+                                              cfg)[1]),)
+    elif got[table].shape[1] == 128:  # packed
         faults = (("packed densify into the neighbouring sub-slot",
                    {**got, table: neighbour_slot(got[table], D, 128 // D)}),)
     elif model_name == "deepfm":
@@ -1849,6 +2112,142 @@ def phase_train_models() -> dict:
     return results
 
 
+@contextlib.contextmanager
+def dw_from_wrong_hidden():
+    """A planted fault of the CIN stack's layers-route backward: layer 1's
+    dW taken from layer 2's input hidden state (layer 1's own output)
+    instead of layer 1's input, what an off-by-one in the remat's hidden
+    states would give. The adjoint loop runs from the last layer, so layer
+    1 is the second call of ``cin_compress_backward``."""
+    from deepfm_tpu_torch.ops.kernels import cin_stack
+
+    real = cin_stack.cin_compress_backward
+    hiddens = []
+
+    def faulty(g, hidden, x0, w):
+        hiddens.append(hidden)
+        dhid, dx0, dw, db = real(g, hidden, x0, w)
+        if len(hiddens) == 2:
+            dw = real(g, hiddens[0], x0, w)[2]
+        return dhid, dx0, dw, db
+
+    cin_stack.cin_compress_backward = faulty
+    try:
+        yield
+    finally:
+        cin_stack.cin_compress_backward = real
+
+
+def phase_train_xdeepfm_paper() -> dict:
+    """The xDeepFM paper's Criteo configuration (paper_config) on bench.py's
+    workload at width 10, on the default sparse-fused path with logical
+    tables. Its steps are the main path of cin_compress: the stack forward
+    fits one block, the stack backward does not, so the backward takes the
+    layers route. Then its first-step gradients on the card against the
+    CPU, with a planted fault that must be refused."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.ops.kernels.cin_stack import stack_route
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    failures = []
+    t0 = time.perf_counter()
+    packed, arrays = bench_workload(BENCH_VOCAB, PAPER_WIDTH)
+    batch = batch_on(head_rows(arrays, PAPER_BATCH), dev)
+    config = paper_config(DEVICE)
+    model = create_model("xdeepfm", packed, config, device=DEVICE)
+    trainer = Trainer(model, packed, config)
+    setup_s = time.perf_counter() - t0
+    routes = {("backward" if bwd else "forward"): stack_route(
+        PAPER_BATCH, packed.num_fields, PAPER_WIDTH, PAPER_CIN, False, bwd)
+        for bwd in (False, True)}
+    if trainer.path != "sparse_fused" or routes != {"forward": "stack",
+                                                    "backward": "layers"}:
+        fail(f"paper config: path {trainer.path}, CIN routes {routes}")
+    n_params = sum(p.numel() for p in model.parameters())
+    table_bytes = sum(p.numel() * p.element_size()
+                      for n, p in model.named_parameters() if "table_w" in n)
+
+    # --- the main path: counts start at 0 here ------------------------------
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer._train_step(*batch).item() for _ in range(WARMUP_STEPS)]
+    times = timed_steps(trainer, batch)
+    profile = step_profile(lambda: trainer._train_step(*batch))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # --- end of the main path ------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses.append(trainer._train_step(*batch).item())
+    steps = WARMUP_STEPS + TIMED_STEPS + 1
+    expected = {"cin_stack_fwd": steps, "cin_compress": steps * len(PAPER_CIN),
+                "cin_stack_bwd": 0}
+    for kernel, n in expected.items():
+        if counts[kernel] != n:
+            failures.append(f"{kernel} launched {counts[kernel]} times in "
+                            f"{steps} steps, expected {n}")
+    for kernel in ("segment_sumsq", "sparse_table_adam"):
+        if counts[kernel] < 1:
+            failures.append(f"{kernel} was not launched")
+    if not all(map(math.isfinite, losses)):
+        failures.append(f"a loss is not finite: {losses}")
+
+    # a deleted trainer's device memory goes back by reference count alone
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        del trainer, model
+        freed = before - torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    if freed < table_bytes:
+        failures.append(f"deleting the trainer freed {freed} bytes without "
+                        f"the cycle collector, less than its {table_bytes} "
+                        f"bytes of tables")
+    free_device()
+
+    small, small_arrays = bench_workload(SMALL_VOCAB, PAPER_WIDTH)
+    small_arrays = head_rows(small_arrays, GRAD_BATCH)
+    grads = phase_grads_card_vs_cpu(
+        small, small_arrays, cfg=paper_config("cpu", compute_dtype="float32"),
+        planted=("layer 1's dW from layer 2's input hidden state",
+                 dw_from_wrong_hidden))
+    if not grads["ok"]:
+        failures.append(f"first-step gradients: the card differs from the "
+                        f"CPU, or the planted fault passed: {grads}")
+    free_device()
+    step_ms = 1e3 * statistics.median(times)
+    out = {
+        "phase": "train_xdeepfm_paper", "model": "xdeepfm",
+        "path": "sparse_fused", "table_layout": "logical",
+        "source": "Lian et al., KDD 2018 (arXiv:1803.05170), 4.1.3",
+        "batch": PAPER_BATCH, "fields": BENCH_FIELDS, "vocab": BENCH_VOCAB,
+        "width": PAPER_WIDTH, "cin": list(PAPER_CIN), "split_half": False,
+        "dnn": [400, 400], "n_params": n_params, "compute_dtype": "bfloat16",
+        "moments_dtype": "bfloat16", "cin_routes": routes, "setup_s": setup_s,
+        "losses": losses, "step_ms_median": step_ms,
+        "step_ms_min": 1e3 * min(times), "step_ms_max": 1e3 * max(times),
+        "timed_steps": TIMED_STEPS, "step_ms_all": [1e3 * t for t in times],
+        "examples_per_s": PAPER_BATCH / (step_ms / 1e3),
+        "peak_memory_gb": peak_gb, "profile_step": profile,
+        "launches": counts, "launches_expected": expected,
+        "freed_without_gc_gb": freed / 1e9, "table_gb": table_bytes / 1e9,
+        "first_step_grads_card_vs_cpu_20k_f32": {"batch": GRAD_BATCH, **grads},
+        "tol": {"grad_max_rel": GRAD_MAX_REL, "grad_norm_rel": GRAD_NORM_REL,
+                "cpu_loss_rel": TRAIN_TOL["cpu_loss_rel"]},
+        "ok": not failures,
+    }
+    emit(out)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
 def _http(method: str, url: str, payload=None):
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(
@@ -2076,12 +2475,14 @@ def main() -> None:
     timed("build", phase_build)
     cin = timed("cin_stack", phase_cin_stack)
     cin_bwd = timed("cin_stack_bwd", phase_cin_stack_bwd)
+    cin_layer = timed("cin_compress", phase_cin_compress)
     attn = timed("attention", phase_attention)
     table = timed("table_kernels", phase_table_kernels)
     packed_k = timed("packed_kernels", phase_packed_kernels)
     train = timed("train", phase_train)
     train_packed = timed("train_packed", phase_train_packed)
     models = timed("train_models", phase_train_models)
+    paper = timed("train_xdeepfm_paper", phase_train_xdeepfm_paper)
     serve = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for cfg, layout in SERVE_CONFIGS:
@@ -2098,6 +2499,8 @@ def main() -> None:
         ("cin_stack_bwd", "cin_stack_bwd.cu", "cin_stack_kernel.py:742",
          models["xdeepfm"]["launches"]["cin_stack_bwd"],
          cin_bwd["bench_bf16"]),
+        ("cin_compress", "cin_compress.cu", "cin_kernel.py:97",
+         paper["launches"]["cin_compress"], cin_layer["paper_layer1"]),
         ("attention_block_fwd", "attention_block.cu",
          "attention_fmajor_kernel.py:435",
          models["attention_deepfm"]["launches"]["attention_block_fwd"],

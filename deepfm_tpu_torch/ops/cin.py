@@ -9,7 +9,11 @@ routing, sum-pooling over D and concatenation across layers.
 (``ops/kernels/cin_stack.py``): the whole stack runs in one hand-written
 CUDA kernel on a CUDA tensor, and in its plain version on a CPU tensor;
 where a gradient is needed the call goes through ``CinStackFn``, whose
-backward is the CIN-stack backward kernel (or its plain version).
+backward is the CIN-stack backward kernel (or its plain version). A stack
+too large for one block's shared memory (``stack_route``) is not refused:
+in the direction that does not fit it runs layer by layer through the
+per-layer kernel (``ops/kernels/cin.py``), as the JAX package falls back
+to ``cin_compress_pallas`` where no stack tile fits.
 With ``use_kernel`` off (config ``pallas.use_cin_kernel: false``) the
 JAX package runs its plain jnp function; the port runs its plain version
 on the CPU as well, and refuses any other device, since there is no plain

@@ -23,6 +23,7 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "deepfm_tpu_torch"
 SOURCES = (
     "attention_block.cu",
+    "cin_compress.cu",
     "cin_stack_bwd.cu",
     "cin_stack_fwd.cu",
     "densify_rows_grad.cu",

@@ -28,11 +28,28 @@ k-major (K_i, mpad_i), zero-padded to mpad_i = round_up(M_i, 8) maps
 (cast to bf16 in bf16 mode), and the biases padded and cast to f32. The
 re-laid-out copies are cached per weight and bias tensor and made again
 only when that tensor changes (its version counter or storage moves), so
-a served model pays for them once, not per request. The TPU kernel's f-major chunking, VMEM budgets and (F, D, B) transpose are
-TPU artifacts and are not carried over. Neither is its gate: the kernel
-takes any B >= 1, F, D and layer sizes (odd splits included) and masks
-the ragged edges itself; the only refusal is a shape whose tile does not
-fit in shared memory, which raises here.
+a served model pays for them once, not per request. The TPU kernel's
+f-major chunking, VMEM budgets and (F, D, B) transpose are TPU artifacts
+and are not carried over. Neither is its alignment gate: the kernel takes
+any B >= 1, F, D and layer sizes (odd splits included) and masks the
+ragged edges itself.
+
+Routes. A block holds a tile's feature maps in shared memory, so a stack
+with wide layers does not fit one block. ``stack_route``, one shape
+predicate computed from the same arithmetic as the kernels' plans
+(``stack_smem``), sends such a stack, in each direction on its own, down
+the "layers" route instead, the port of the JAX package's fallbacks
+(``make_cin_stack_pallas``'s ``forward`` / ``bwd`` gates behind
+``stack_tile``): the forward runs each layer through the per-layer kernel
+``cin_compress_layer`` (``ops/kernels/cin.py``), and the backward is
+``backward_xla``'s algorithm (``cin_stack_backward_layers``). At the
+xDeepFM paper's Criteo CIN (F=27, D=10, 3 x 200 maps, no split) the
+forward fits (109,312 bytes) and the backward does not (250,496). The
+plans themselves still raise when called on a shape that does not fit.
+The JAX package runs its jnp oracle where its forward finds no tile; the
+port runs the kernel (there is no plain path on the card), so in bf16 the
+two differ by the kernel's f32 accumulation. On the CPU the same
+predicate picks the route, and every layer runs the plain version.
 
 bf16 mode (``bf16_operands`` with a bfloat16 x0) follows the TPU kernel:
 bf16 operands (x0, weights, the outer product), f32 accumulation, f32 bias
@@ -46,18 +63,26 @@ rounding. bf16 input without ``bf16_operands`` computes in f32.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Sequence
+from typing import Sequence
 
 import torch
-from torch.utils.weak import WeakTensorKeyDictionary
 
 from deepfm_tpu_torch.ops.cin import cin_compress, cin_layer_sizes
 from deepfm_tpu_torch.ops.kernels import build
+from deepfm_tpu_torch.ops.kernels.cin import (
+    _relayout,
+    _round_up,
+    _zero_padded,
+    cin_compress_backward,
+    cin_compress_layer,
+    kmajor_weight,
+)
 
 SOURCE = "cin_stack_fwd.cu"
 MAX_LAYERS = 8
 # Hopper: at most 227 KB of shared memory per block.
 SMEM_PER_BLOCK = 232_448
+HIDDEN_CHUNK = 4  # the backward's kHC: hidden rows per chunk of A = W^T dcomp
 # A block is 8 x 16 threads, each owning 8 columns and 8 maps: a column
 # chunk of 64 (kTX * kTN in the .cu file).
 COLUMN_CHUNK = 64
@@ -99,22 +124,49 @@ def cin_stack_plain(
     return torch.cat(outs, dim=1).to(x0.dtype)
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+def stack_smem(
+    batch: int, f: int, d: int, layer_sizes: Sequence[int],
+    split_half: bool, backward: bool,
+) -> tuple[int, int, int]:
+    """(tile_b, ntp, smem_bytes) of the stack kernel in one direction.
+
+    A block holds tile_b samples as tile_b*d columns padded to ntp, a
+    multiple of the column chunk. The forward keeps (f + 2*max(M)) rows of
+    f32 shared memory; the backward, per column, x0, each hidden state but
+    x0, one layer's comp / dcomp, dhid, dx0 and a chunk of 4F rows of A
+    (rounded up to 8), and one sign bit per element of every comp but the
+    last layer's (the layout in csrc/cin_stack_bwd.cu)."""
+    tile_b = max(1, min(batch, COLUMN_CHUNK // d))
+    ntp = _round_up(tile_b * d, COLUMN_CHUNK)
+    if not backward:
+        return tile_b, ntp, 4 * (f + 2 * max(layer_sizes)) * ntp
+    _, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    hmax = max([f, *next_sizes[:-1]])
+    arows = _round_up(HIDDEN_CHUNK * f, 8)
+    rows = (f + sum(next_sizes[:-1]) + max(layer_sizes) + hmax + f + arows)
+    return tile_b, ntp, 4 * (rows * ntp + sum(layer_sizes[:-1]) * ntp // 32)
+
+
+def stack_route(
+    batch: int, f: int, d: int, layer_sizes: Sequence[int],
+    split_half: bool, backward: bool,
+) -> str:
+    """The route of one direction: "stack" when its stack kernel fits one
+    block's shared memory (the backward launches with the forward's tile,
+    so it needs both to fit), else "layers". The one gate of both
+    directions, as ``stack_tile`` is the JAX package's."""
+    dirs = (False, True) if backward else (False,)
+    fits = all(stack_smem(batch, f, d, layer_sizes, split_half, bwd)[2]
+               <= SMEM_PER_BLOCK for bwd in dirs)
+    return "stack" if fits else "layers"
 
 
 def plan_tile(
     batch: int, f: int, d: int, layer_sizes: Sequence[int]
 ) -> tuple[int, int, int]:
-    """(tile_b, ntp, smem_bytes) for one launch.
-
-    A block holds tile_b samples as tile_b*d columns padded to ntp, a
-    multiple of the column chunk, in (f + 2*max(M)) rows of f32 shared
-    memory. Raises ValueError when that does not fit.
-    """
-    tile_b = max(1, min(batch, COLUMN_CHUNK // d))
-    ntp = _round_up(tile_b * d, COLUMN_CHUNK)
-    smem = 4 * (f + 2 * max(layer_sizes)) * ntp
+    """(tile_b, ntp, smem_bytes) for one forward launch (``stack_smem``).
+    Raises ValueError when that does not fit."""
+    tile_b, ntp, smem = stack_smem(batch, f, d, layer_sizes, False, False)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"CIN stack with F={f}, D={d}, max layer size {max(layer_sizes)} "
@@ -122,36 +174,6 @@ def plan_tile(
             f"{SMEM_PER_BLOCK}"
         )
     return tile_b, ntp, smem
-
-
-def _zero_padded(t: torch.Tensor, shape: tuple, dtype: torch.dtype):
-    out = torch.zeros(shape, dtype=dtype, device=t.device)
-    out[tuple(slice(0, n) for n in t.shape)] = t.detach()
-    return out
-
-
-# tensor -> {"state": (storage, version), key: re-laid-out copy}; entries
-# die with their tensor
-_relayout_cache = WeakTensorKeyDictionary()
-
-
-def _relayout(
-    t: torch.Tensor, key: tuple, make: Callable[[], torch.Tensor]
-) -> torch.Tensor:
-    """``make()``, cached on ``t`` under ``key`` until t changes in place or
-    is given new storage (the forward and the backward keep one copy each
-    per weight). Inference tensors carry no version counter and are re-laid
-    out on every call."""
-    if t.is_inference():
-        return make()
-    state = (t.data_ptr(), t._version)
-    entries = _relayout_cache.get(t)
-    if entries is None or entries["state"] != state:
-        entries = _relayout_cache[t] = {"state": state}
-    out = entries.get(key)
-    if out is None:
-        out = entries[key] = make()
-    return out
 
 
 def _lib() -> ctypes.CDLL:
@@ -222,8 +244,7 @@ def _cin_stack_cuda(x0, weights, biases, layer_sizes, split_half,
     mpads = [_round_up(m, 8) for m in layer_sizes]
     wts, bs = [], []
     for w, b, mp in zip(weights, biases, mpads):
-        wts.append(_relayout(w, (op_dt, mp), lambda: _zero_padded(
-            w.t(), (w.shape[1], mp), op_dt)))
+        wts.append(kmajor_weight(w, op_dt))
         bs.append(_relayout(b, (mp,), lambda: _zero_padded(
             b, (mp,), torch.float32)))
 
@@ -251,16 +272,45 @@ def _cin_stack_cuda(x0, weights, biases, layer_sizes, split_half,
     return out.to(x0.dtype)
 
 
+def cin_stack_layers(
+    x0: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    layer_sizes: Sequence[int],
+    split_half: bool,
+) -> torch.Tensor:
+    """The forward's "layers" route: each layer's compression by
+    ``cin_compress_layer`` (the per-layer kernel on CUDA, its plain version
+    on the CPU), then ReLU, split and sum pooling. The hidden state is
+    handed on in x0's dtype, as ``cin_compress_pallas`` returns it; the
+    bf16 operand mode does not apply."""
+    direct_sizes, _ = cin_layer_sizes(layer_sizes, split_half)
+    n = len(layer_sizes)
+    hidden, outs = x0, []
+    for i in range(n):
+        comp = torch.relu(cin_compress_layer(hidden, x0, weights[i],
+                                             biases[i]))
+        if split_half and i < n - 1:
+            direct, hidden = comp[:, : direct_sizes[i]], comp[:, direct_sizes[i]:]
+        else:
+            direct = hidden = comp
+        outs.append(direct.sum(dim=2))
+    return torch.cat(outs, dim=1)
+
+
 def _cin_stack_raw(x0, weights, biases, layer_sizes, split_half,
                    bf16_operands) -> torch.Tensor:
-    """The forward without an autograd graph: plain on the CPU, the kernel
-    on CUDA (or a raise)."""
+    """The forward without an autograd graph, down ``stack_route``'s route:
+    plain on the CPU, the kernels on CUDA (or a raise)."""
+    if x0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x0.device}")
+    bsz, f, d = x0.shape
+    if stack_route(bsz, f, d, layer_sizes, split_half, False) == "layers":
+        return cin_stack_layers(x0, weights, biases, layer_sizes, split_half)
     if x0.device.type == "cpu":
         return cin_stack_plain(
             x0, weights, biases, layer_sizes, split_half, bf16_operands
         )
-    if x0.device.type != "cuda":
-        raise ValueError(f"unsupported device {x0.device}")
     return _cin_stack_cuda(
         x0, weights, biases, layer_sizes, split_half, bf16_operands
     )
@@ -275,9 +325,10 @@ def cin_stack_forward(
     bf16_operands: bool = False,
 ) -> torch.Tensor:
     """(B, F, D) -> (B, sum(direct)). A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel (or raises). Where a gradient is
-    needed the call goes through ``CinStackFn``, whose backward is
-    ``cin_stack_backward``."""
+    a CUDA tensor launches the kernel (or raises); a stack too large for
+    the stack kernel takes the "layers" route (``stack_route``). Where a
+    gradient is needed the call goes through ``CinStackFn``, whose backward
+    is ``cin_stack_backward``."""
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x0, *weights, *biases)
     ):
@@ -301,7 +352,6 @@ cin_stack_forward.launches = 0
 # bench.py's xDeepFM shape.
 
 BWD_SOURCE = "cin_stack_bwd.cu"
-HIDDEN_CHUNK = 4  # kHC: hidden rows per chunk of A = W^T dcomp
 # dW is summed over K = B*D in at most MAX_SPLITS fixed chunks of at least
 # SPLIT_COLUMNS columns each, then the partials are added in order.
 SPLIT_COLUMNS = 4096
@@ -313,6 +363,22 @@ _BWD_SIGNATURES = {
     "cin_stack_bwd": [_P, _P, _PP, _PP, _PP, _IP, _IP, _IP, _IP, _IP]
     + [_I] * 7 + [_P] * 5 + [_I, _PP, _P, _P],
 }
+
+
+def _dcomp(col: torch.Tensor, dhid_next: torch.Tensor | None,
+           comp: torch.Tensor, split_here: bool) -> torch.Tensor:
+    """The cotangent of one layer's comp (B, M, D): its pooled columns'
+    cotangent ``col`` (B, direct) broadcast over d, then the next layer's
+    dhid, after the direct maps with split-half or added to them without,
+    masked by the ReLU."""
+    ddirect = col[:, :, None].expand(-1, -1, comp.shape[2])
+    if split_here:
+        dcomp = torch.cat([ddirect, dhid_next], dim=1)
+    elif dhid_next is not None:
+        dcomp = ddirect + dhid_next
+    else:
+        dcomp = ddirect
+    return dcomp * (comp > 0)
 
 
 def cin_stack_backward_plain(
@@ -361,14 +427,7 @@ def cin_stack_backward_plain(
     dbs: list = [None] * n
     dhid_next = None
     for i in reversed(range(n)):
-        ddirect = cols[i][:, :, None].expand(bsz, direct_sizes[i], d)
-        if split_half and i < n - 1:
-            dcomp = torch.cat([ddirect, dhid_next], dim=1)
-        elif dhid_next is not None:
-            dcomp = ddirect + dhid_next
-        else:
-            dcomp = ddirect
-        dcomp = dcomp * (comps[i] > 0)
+        dcomp = _dcomp(cols[i], dhid_next, comps[i], split_half and i < n - 1)
         dbs[i] = dcomp.sum(dim=(0, 2))
         dc = op(dcomp) if dcomp_round else dcomp
         hid = hids[i]
@@ -388,20 +447,11 @@ def cin_stack_backward_plain(
 def plan_backward(
     batch: int, f: int, d: int, layer_sizes: Sequence[int], split_half: bool
 ) -> tuple[int, int, int, int]:
-    """(tile_b, ntp, smem_bytes, splits) for one backward launch.
-
-    The tile kernel holds, per tile of tile_b samples (ntp columns as in
-    the forward), in f32 shared memory x0, each hidden state but x0, one
-    layer's comp / dcomp, dhid, dx0 and a chunk of 4F rows of A (rounded up
-    to 8), and one sign bit per element of every comp but the last layer's
-    (the layout in csrc/cin_stack_bwd.cu). Raises ValueError when that does
-    not fit."""
-    tile_b, ntp, _ = plan_tile(batch, f, d, layer_sizes)
-    _, next_sizes = cin_layer_sizes(layer_sizes, split_half)
-    hmax = max([f, *next_sizes[:-1]])
-    arows = _round_up(HIDDEN_CHUNK * f, 8)
-    rows = (f + sum(next_sizes[:-1]) + max(layer_sizes) + hmax + f + arows)
-    smem = 4 * (rows * ntp + sum(layer_sizes[:-1]) * ntp // 32)
+    """(tile_b, ntp, smem_bytes, splits) for one backward launch
+    (``stack_smem``; the tile is the forward's). Raises ValueError when the
+    forward's or the backward's shared memory does not fit."""
+    plan_tile(batch, f, d, layer_sizes)
+    tile_b, ntp, smem = stack_smem(batch, f, d, layer_sizes, split_half, True)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"CIN stack backward with F={f}, D={d}, layers "
@@ -460,8 +510,7 @@ def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half,
         mpads = [_round_up(m, 8) for m in layer_sizes]
         wts, wms, bs = [], [], []
         for w, b, mp, h in zip(weights, biases, mpads, hs):
-            wts.append(_relayout(w, (op_dt, mp), lambda: _zero_padded(
-                w.t(), (w.shape[1], mp), op_dt)))
+            wts.append(kmajor_weight(w, op_dt))
             wms.append(_relayout(w, ("chunked", op_dt),
                                  lambda: _chunked(w, h, f, op_dt)))
             bs.append(_relayout(b, (mp,), lambda: _zero_padded(
@@ -499,6 +548,50 @@ def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half,
             [v.to(b.dtype) for v, b in zip(dbs, biases)])
 
 
+def cin_stack_backward_layers(
+    x0: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    g: torch.Tensor,
+    layer_sizes: Sequence[int],
+    split_half: bool,
+) -> tuple[torch.Tensor, list[torch.Tensor], list[torch.Tensor]]:
+    """The backward's "layers" route, the algorithm of the JAX package's
+    ``backward_xla`` (``cin_stack_kernel.py:775-840``): every layer's comp
+    recomputed in f32 by ``cin_compress_layer`` (the per-layer kernel on
+    CUDA, its plain version on the CPU), then, last layer first, dcomp and
+    the layer's adjoints dhid, dx0, dW and db (``cin_compress_backward``:
+    f32 einsums and matmuls). f32 throughout, as there: the bf16 operand
+    mode does not apply. dx0 comes back in x0's dtype, each dW and db in
+    its parameter's."""
+    layer_sizes = tuple(layer_sizes)
+    direct_sizes, _ = cin_layer_sizes(layer_sizes, split_half)
+    n = len(layer_sizes)
+    x = x0.float()
+    comps, hids, hidden = [], [], x
+    for i in range(n):
+        hids.append(hidden)
+        comp = torch.relu(cin_compress_layer(
+            hidden, x, weights[i].float(), biases[i].float()))
+        comps.append(comp)
+        hidden = (comp[:, direct_sizes[i]:] if split_half and i < n - 1
+                  else comp)
+    cols = torch.split(g.float(), list(direct_sizes), dim=1)
+    dx0 = torch.zeros_like(x)
+    dws: list = [None] * n
+    dbs: list = [None] * n
+    dhid_next = None
+    for i in reversed(range(n)):
+        dcomp = _dcomp(cols[i], dhid_next, comps[i], split_half and i < n - 1)
+        dhid_next, dx, dws[i], dbs[i] = cin_compress_backward(
+            dcomp, hids[i], x, weights[i])
+        dx0 = dx0 + dx
+    dx0 = dx0 + dhid_next  # the first layer's hidden state is x0
+    return (dx0.to(x0.dtype),
+            [dw.to(w.dtype) for dw, w in zip(dws, weights)],
+            [db.to(b.dtype) for db, b in zip(dbs, biases)])
+
+
 def cin_stack_backward(
     x0: torch.Tensor,
     weights: Sequence[torch.Tensor],
@@ -510,13 +603,18 @@ def cin_stack_backward(
 ) -> tuple[torch.Tensor, list[torch.Tensor], list[torch.Tensor]]:
     """(dx0, dWs, dbs) of the stack for the output cotangent g. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel (or
-    raises)."""
+    raises); a stack whose backward does not fit the stack kernel takes
+    the "layers" route (``stack_route``, ``cin_stack_backward_layers``)."""
+    if x0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x0.device}")
+    bsz, f, d = x0.shape
+    if stack_route(bsz, f, d, layer_sizes, split_half, True) == "layers":
+        return cin_stack_backward_layers(x0, weights, biases, g, layer_sizes,
+                                         split_half)
     if x0.device.type == "cpu":
         return cin_stack_backward_plain(
             x0, weights, biases, g, layer_sizes, split_half, bf16_operands
         )
-    if x0.device.type != "cuda":
-        raise ValueError(f"unsupported device {x0.device}")
     return _cin_stack_bwd_cuda(
         x0, weights, biases, g, layer_sizes, split_half, bf16_operands
     )

@@ -61,7 +61,12 @@ def weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def build_train_step(trainer):
-    """The step closure for the trainer's resolved path."""
+    """The step closure for the trainer's resolved path,
+    ``step(trainer, ids, dense, labels, weights)``. It holds the model and
+    the optimizer but not the trainer, which passes itself on each call: a
+    trainer holding a closure that held it would form a reference cycle,
+    and a deleted trainer's device memory would wait for the cycle
+    collector."""
     model = trainer.model
     tx = trainer.tx
     config = trainer.config
@@ -82,7 +87,7 @@ def build_train_step(trainer):
                  for n, g in zip(names, got)}
         return grads, got[len(names):]
 
-    def chain_second_half(grads, table_sq):
+    def chain_second_half(grads, table_sq, opt_state):
         """The optax-chain tail of both fused paths: the decayed global
         norm with each table's sumsq(g + wd*p) from ``table_sq``, in the
         JAX tree's leaf order, then clip and the masked dense update (in
@@ -101,24 +106,24 @@ def build_train_step(trainer):
             trigger = gnorm < clip
             dense = {n: clip_fn(g, gnorm, clip, trigger)
                      for n, g in dense.items()}
-        tx.apply(dense, params, trainer.state.opt_state)
+        tx.apply(dense, params, opt_state)
         return gnorm
 
-    def plain_step(ids, dense, labels, weights):
+    def plain_step(trainer, ids, dense, labels, weights):
         loss = forward_loss(ids, dense, labels, weights)
         grads, _ = grads_of(loss, order)
         with torch.no_grad():
             tx.update(grads, params, trainer.state.opt_state)
         return loss
 
-    def two_pass_step(ids, dense, labels, weights):
+    def two_pass_step(trainer, ids, dense, labels, weights):
         state = trainer.state
         loss = forward_loss(ids, dense, labels, weights)
         grads, _ = grads_of(loss, order)
         with torch.no_grad():
             table_sq = {n: sumsq(grads[n] + wd * params[n])
                         for n in trainer.table_names}
-            gnorm = chain_second_half(grads, table_sq)
+            gnorm = chain_second_half(grads, table_sq, state.opt_state)
             lr = state.opt_state.lr
             for n in trainer.table_names:
                 topt = state.table_opt[n]
@@ -126,7 +131,7 @@ def build_train_step(trainer):
                                  lr, wd, gnorm, clip, state.step)
         return loss
 
-    def sparse_fused_step(ids, dense, labels, weights):
+    def sparse_fused_step(trainer, ids, dense, labels, weights):
         state = trainer.state
         gathered = gather_group_rows(model.embedding, ids)
         rows_in = {k: rows.requires_grad_()
@@ -144,7 +149,7 @@ def build_train_step(trainer):
                 table_sq[name] = (segment_sumsq(sids, sorted_ct)
                                   + (2.0 * wd) * dotgp
                                   + (wd * wd) * state.table_psq[name])
-            gnorm = chain_second_half(grads, table_sq)
+            gnorm = chain_second_half(grads, table_sq, state.opt_state)
             lr = state.opt_state.lr
             for name, (sids, sorted_ct) in pairs.items():
                 topt = state.table_opt[name]
@@ -162,8 +167,8 @@ def build_train_step(trainer):
         "sparse_fused": sparse_fused_step,
     }[trainer.path]
 
-    def train_step(ids, dense, labels, weights):
-        loss = step_fn(ids, dense, labels, weights)
+    def train_step(trainer, ids, dense, labels, weights):
+        loss = step_fn(trainer, ids, dense, labels, weights)
         trainer.state.step = trainer.state.step + 1
         return loss.detach()
 

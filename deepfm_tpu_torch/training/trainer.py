@@ -158,6 +158,7 @@ class Trainer:
         and table state); returns the weighted BCE loss (f32 0-dim, on the
         device, without the L2 term, as the JAX step logs it)."""
         return self._step_fn(
+            self,
             self._as_tensor(ids, torch.int64),
             self._as_tensor(dense, torch.float32),
             self._as_tensor(labels, torch.float32),

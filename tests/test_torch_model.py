@@ -159,6 +159,30 @@ def test_xdeepfm_bf16_compute_tracks_jax():
     np.testing.assert_allclose(got[:, 0].numpy(), want, rtol=0, atol=1e-2)
 
 
+def test_paper_cin_leaves_carry_across_unchanged():
+    """params_from_jax at the xDeepFM paper's CIN (27 fields of width 10,
+    3 x 200 maps, no split): the conv kernels of H*F = 729, 5400 and 5400
+    columns and their biases reach the port's model bit for bit."""
+    spec = ([(f"cat_{i}", "sparse", 30, 10, 1) for i in range(26)]
+            + [("dense_0", "dense", 0, 10, 1)])
+    jconfig, tconfig = _config(
+        use_cin_kernel=False, feature={"fm_embed_dim": 10},
+        cin={"layer_sizes": [200, 200, 200], "split_half": False},
+        dnn={"hidden_units": [400, 400], "dropout": 0.0})
+    jpacked, tpacked, ids, dense = _batch(spec, n=2, seed=3)
+    jmodel = jax_create_model("xdeepfm", jpacked, jconfig)
+    params, stats = init_jax_model(jmodel, ids, dense)
+    model = create_model("xdeepfm", tpacked, tconfig, device="cpu")
+    model.load_state_dict(params_from_jax(params, stats, tpacked, tconfig))
+    for i, cols in enumerate((729, 5400, 5400)):
+        for leaf, shape in ((f"conv_{i}_kernel", (200, cols)),
+                            (f"conv_{i}_bias", (200,))):
+            want = np.asarray(params["cin"][leaf])
+            got = getattr(model.cin, leaf).detach().numpy()
+            assert got.shape == want.shape == shape
+            np.testing.assert_array_equal(got, want)
+
+
 def test_create_model_refuses_what_later_slices_bring():
     _, tconfig = _config()
     _, tpacked, _, _ = _batch(SYNTH_SPEC)

@@ -38,7 +38,9 @@ this. Measured here on the CPU: at most 1 of 4352 table elements and 1 of
 1152 bf16 moments lie outside rtol / atol.
 """
 
+import gc
 import sys
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -71,6 +73,7 @@ from deepfm_tpu_torch.convert import (  # noqa: E402
 from deepfm_tpu_torch.data.packing import pack_features, pack_schema  # noqa: E402
 from deepfm_tpu_torch.models import create_model  # noqa: E402
 from deepfm_tpu_torch.ops.dnn import DNN  # noqa: E402
+from deepfm_tpu_torch.ops.kernels import cin_stack  # noqa: E402
 from deepfm_tpu_torch.training.parity import compare_leaves  # noqa: E402
 from deepfm_tpu_torch.training.trainer import (  # noqa: E402
     Trainer,
@@ -117,19 +120,19 @@ def _raw(training, model="deepfm", **extra):
     return raw
 
 
-def _port_trainer(tpacked, training, model="deepfm", pallas=None):
+def _port_trainer(tpacked, training, model="deepfm", pallas=None, **extra):
     config = config_from_dict(_raw(training, model, device="cpu",
-                                   pallas=pallas or {}))
+                                   pallas=pallas or {}, **extra))
     return Trainer(create_model(model, tpacked, config, device="cpu"),
                    tpacked, config)
 
 
 def _jax_run(path, clip, tmp_path, monkeypatch, optimizer="adam",
-             model="deepfm", pallas=None):
+             model="deepfm", pallas=None, **extra):
     """Two JAX steps; returns the JAX trainer, the states after steps 1
     and 2 (host copies) and the losses. ``pallas`` replaces the path's
     table layout (and then the JAX trainer takes the port's training
-    overrides of the path)."""
+    overrides of the path); ``extra`` replaces config sections."""
     port_tr, jax_tr, layout, force = PATHS[path]
     if pallas is not None:
         jax_tr = port_tr
@@ -140,7 +143,7 @@ def _jax_run(path, clip, tmp_path, monkeypatch, optimizer="adam",
     jpacked, jarr, _, _ = _data()
     config = jax_config(_raw(
         {**jax_tr, "gradient_clip_norm": clip, "optimizer": optimizer},
-        model, output_dir=str(tmp_path), pallas=pallas,
+        model, output_dir=str(tmp_path), pallas=pallas, **extra,
     ))
     trainer = JaxTrainer(jax_create_model(model, jpacked, config),
                          jpacked, config, jarr, jarr, jarr)
@@ -302,6 +305,59 @@ def _packed_two_steps(model, path, clip, pallas, tmp_path, monkeypatch,
     losses = [_port_step(trainer, tarr) for _ in range(2)]
     assert losses == pytest.approx(jlosses, rel=1e-6)
     _assert_state_matches(trainer, jstates[2], tpacked, steps=2)
+
+
+# xDeepFM whose CIN backward does not fit one block of the stack kernel
+# (239,104 bytes at F=5, D=16): the port takes the "layers" route
+# (stack_route); the JAX package, with stack_tile patched to find no tile,
+# takes its TPU fallbacks (the oracle forward, and backward_xla through
+# cin_compress_pallas in interpret mode)
+WIDE_CIN = {"cin": {"layer_sizes": [224, 224, 224], "split_half": False}}
+
+
+@pytest.mark.parametrize("path", ["sparse_fused", "two_pass"])
+def test_two_steps_match_jax_on_the_cin_layers_route(path, tmp_path,
+                                                     monkeypatch):
+    import deepfm_tpu.ops.pallas.cin_stack_kernel as jstack
+
+    monkeypatch.setattr(jstack, "stack_tile", lambda *a, **k: None)
+    _, jstates, jlosses = _jax_run(path, 1.0, tmp_path, monkeypatch,
+                                   model="xdeepfm", **WIDE_CIN)
+    _, _, tpacked, tarr = _data()
+    trainer = _port_trainer(tpacked, {**PATHS[path][0],
+                                      "gradient_clip_norm": 1.0},
+                            "xdeepfm", **WIDE_CIN)
+    assert trainer.path == path
+    f, d = tpacked.num_fields, trainer.config.feature.fm_embed_dim
+    layers = tuple(WIDE_CIN["cin"]["layer_sizes"])
+    assert cin_stack.stack_route(B, f, d, layers, False, False) == "stack"
+    assert cin_stack.stack_route(B, f, d, layers, False, True) == "layers"
+    calls = []
+    real = cin_stack.cin_compress_layer
+    monkeypatch.setattr(cin_stack, "cin_compress_layer",
+                        lambda *a: calls.append(1) or real(*a))
+    train_state_from_jax(jstates[0], trainer)
+    losses = [_port_step(trainer, tarr) for _ in range(2)]
+    assert len(calls) == 2 * len(layers)  # one remat per layer and step
+    assert losses == pytest.approx(jlosses, rel=1e-6)
+    _assert_state_matches(trainer, jstates[2], tpacked, steps=2)
+
+
+def test_deleted_trainer_is_freed_without_the_cycle_collector():
+    """The step closure does not hold its trainer, so a deleted trainer
+    (and its model, tables and optimizer state) goes by reference count."""
+    _, _, tpacked, tarr = _data()
+    gc.disable()
+    try:
+        trainer = _port_trainer(tpacked, {}, "xdeepfm")
+        _port_step(trainer, tarr)
+        refs = [weakref.ref(o) for o in (
+            trainer, trainer.model, trainer.state,
+            trainer.params["embedding.table_w16"])]
+        del trainer
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        gc.enable()
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "sgd"])
