@@ -49,14 +49,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              plain version on the card (TABLE_TOL), launched twice to show
              the same bits, and timed (CUDA events) beside its bound, the
              plain version and, where one PyTorch call computes the same
-             function, that call; then (long_runs) three of them again
+             function, that call; the densify also with no pairs
+             (fill_ms, the write stream alone, beside a memset of the
+             same bytes), its achieved TB/s, on the
+             long runs below (bit for bit, twice, timed) and on a ragged
+             table (RAGGED_ROWS, ids also outside it) bit for bit, twice;
+             then (long_runs) three of them again
              with two fields missing (id 0) in every row, runs of 16384
              equal ids, held to the plain versions and timed;
   packed_kernels  the packed layout's kernels at the same table packed
              (7 logical rows per 128-float row, 1,485,824 rows): the packed
              densify bit for bit against its plain version, twice, dead
-             lanes 0, also on the long runs, timed beside its bound, the
-             plain version and one index_add_ into the flat packed table;
+             lanes 0, timed beside its bound, the plain version and one
+             index_add_ into the flat packed table, and as the logical
+             densify with no pairs, on the long runs and on the ragged
+             table;
              sparse_table_adam on the packed table against its plain
              version (TABLE_TOL) and, bit for bit, against the logical
              kernel on the unpacked state; the row-gather kernel bit for
@@ -315,6 +322,9 @@ GRAD_NORM_REL = 1e-2
 # Fields whose ids are all 0 (padding/OOV, a missing value) in the long-run
 # timing of the table kernels: each gives one run of BENCH_BATCH pairs.
 LONG_RUN_FIELDS = 2
+# The densify kernels' ragged table: rows not a multiple of 4, of a tile or
+# of PACK, with ids drawn in [-5, rows + 5), so some fall outside it
+RAGGED_ROWS, RAGGED_PAIRS = 1_000_003, 99_999
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 TRAIN_MODELS = ("xdeepfm", "attention_deepfm")
 GRAD_BATCH = 1024  # their first-step gradients, card against CPU
@@ -1107,6 +1117,65 @@ def adam_check(kernel, plain, fresh, extra, args) -> dict:
     return rec
 
 
+def add_densify_edges(rec: dict, kernel, plain, num_rows: int, dev) -> None:
+    """Adds to a densify record: the kernel ``kernel(sids, cts, num_rows)``
+    against its plain version, bit for bit and twice, on the long runs
+    (table_inputs with LONG_RUN_FIELDS fields at id 0, timed, and their time
+    over the record's) and on the ragged table (RAGGED_ROWS, RAGGED_PAIRS),
+    and whether the record's time is below its library call's."""
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.grad import sort_pairs
+
+    out, rec_ms = {}, rec["ms"]
+    ids, ct, *rest = table_inputs(dev, missing_fields=LONG_RUN_FIELDS)
+    del rest
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rids = torch.randint(-5, RAGGED_ROWS + 5, (RAGGED_PAIRS,), generator=gen,
+                         device=dev)
+    rct = torch.randn(RAGGED_PAIRS, D, generator=gen, device=dev)
+    for name, pairs, rows in (("long_runs", (ids, ct), num_rows),
+                              ("ragged", (rids, rct), RAGGED_ROWS)):
+        sids, cts = sort_pairs(*pairs)
+        got = kernel(sids, cts, rows)
+        equal = bool(torch.equal(got, plain(sids, cts, rows)))
+        det = bool(torch.equal(got, kernel(sids, cts, rows)))
+        edge = {"rows": rows, "pairs": sids.numel(), "bit_equal": equal,
+                "deterministic": det, "ok": equal and det}
+        if name == "long_runs":
+            _, runs = torch.unique_consecutive(sids, return_counts=True)
+            edge.update(missing_fields=LONG_RUN_FIELDS,
+                        max_run=int(runs.max()),
+                        ms=time_ms(lambda: kernel(sids, cts, rows), reps=10))
+        out[name] = edge
+        del got, sids, cts
+    del ids, ct, rids, rct
+    torch.cuda.empty_cache()
+    out["long_runs"]["over_bench_pairs"] = out["long_runs"]["ms"] / rec_ms
+    rec.update(out)
+    rec["ok"] = rec["ok"] and out["long_runs"]["ok"] and out["ragged"]["ok"]
+    rec["below_library"] = rec_ms < rec["library_ms"]
+
+
+def densify_record(kernel, sids, cts, num_rows, out_bytes, pair_bytes,
+                   ms) -> dict:
+    """What a densify record adds to its bit-equal check and times: the
+    kernel with no pairs (fill_ms: the write stream alone) beside a memset
+    of the same bytes (torch.empty(...).zero_(), the card's write rate in
+    practice), its achieved rate and share of the bytes bound."""
+    import torch
+
+    bound = mem_bound_ms(out_bytes + pair_bytes)
+    return {
+        "fill_ms": time_ms(lambda: kernel(sids[:0], cts[:0], num_rows), reps=20),
+        "memset_ms": time_ms(lambda: torch.empty(out_bytes // 4, device=cts.device).zero_(), reps=20),
+        "fill_bound_ms": mem_bound_ms(out_bytes),
+        "achieved_TBps": (out_bytes + pair_bytes) / ms / 1e9,
+        "share_of_bound": bound / ms,
+        "bound_ms": bound, "bound_by": "bytes",
+    }
+
+
 def phase_table_kernels() -> dict:
     """The four table-update kernels at bench.py's shape."""
     import torch
@@ -1147,23 +1216,28 @@ def phase_table_kernels() -> dict:
         if not rec["ok"]:
             failures.append(f"{name}: {rec}")
 
-    # densify_rows_grad: bit for bit, deterministic
+    # densify_rows_grad: bit for bit, deterministic; the write stream alone
+    # (no pairs), the long runs and a ragged table
     got = densify_sorted(sids, cts, rows)
     again = densify_sorted(sids, cts, rows)
     want = segment_rows_plain(sids, cts, rows)
     err = (got - want).abs().max().item()
-    record("densify_rows_grad", {
+    ms = time_ms(lambda: densify_sorted(sids, cts, rows), reps=20)
+    rec = {
         "max_abs_err": err, "bit_equal": bool(torch.equal(got, want)),
         "deterministic": bool(torch.equal(got, again)),
         "ok": bool(torch.equal(got, want) and torch.equal(got, again)),
-        "ms": time_ms(lambda: densify_sorted(sids, cts, rows), reps=20),
+        "ms": ms,
         "plain_ms": time_ms(lambda: segment_rows_plain(sids, cts, rows), reps=5, warmup=1),
         "library_ms": time_ms(lambda: torch.zeros(rows, D, device=dev).index_add_(0, ids, ct), reps=20),
         "library": "torch.zeros(rows, D).index_add_(0, ids, ct) (unsorted, atomics)",
-        "bound_ms": mem_bound_ms(elems * 4 + pair_bytes), "bound_by": "bytes",
-    })
+        **densify_record(densify_sorted, sids, cts, rows, elems * 4,
+                         pair_bytes, ms),
+    }
     grad = got
     del again, want
+    add_densify_edges(rec, densify_sorted, segment_rows_plain, rows, dev)
+    record("densify_rows_grad", rec)
 
     # segment_sumsq: rel 1e-5 against the plain version, deterministic
     got = segment_sumsq(sids, cts)
@@ -1293,33 +1367,30 @@ def phase_packed_kernels() -> dict:
     offs = (((ids // PACK) * 128 + (ids % PACK) * D)[:, None]
             + torch.arange(D, device=dev)).reshape(-1)
     flat_ct = ct.reshape(-1)
+
+    def kernel(s, c, r):
+        return densify_packed_sorted(s, c, r, PACK)
+
+    def plain(s, c, r):
+        return densify_packed_plain(s, c, r, PACK)
+
+    ms = time_ms(lambda: kernel(sids, cts, num_rows), reps=20)
     rec = {
         "max_abs_err": err, "bit_equal": equal, "deterministic": det,
         "dead_lanes_zero": dead_zero, "ok": equal and det and dead_zero,
-        "ms": time_ms(lambda: densify_packed_sorted(sids, cts, num_rows, PACK), reps=20),
-        "plain_ms": time_ms(lambda: densify_packed_plain(sids, cts, num_rows, PACK), reps=5, warmup=1),
+        "ms": ms,
+        "plain_ms": time_ms(lambda: plain(sids, cts, num_rows), reps=5, warmup=1),
         "library_ms": time_ms(lambda: torch.zeros(phys * 128, device=dev).index_add_(0, offs, flat_ct), reps=20),
         "library": "torch.zeros(phys * 128).index_add_(0, element offsets, ct) "
                    "(unsorted, atomics)",
-        "bound_ms": mem_bound_ms(phys * 128 * 4 + pair_bytes),
-        "bound_by": "bytes",
+        **densify_record(kernel, sids, cts, num_rows, phys * 128 * 4,
+                         pair_bytes, ms),
     }
     del offs, flat_ct
-    # the same where LONG_RUN_FIELDS fields are missing in every row
-    lids, lct, *_ = table_inputs(dev, missing_fields=LONG_RUN_FIELDS)
-    lsids, lcts = sort_pairs(lids, lct)
-    del lids, lct, _
-    lgot = densify_packed_sorted(lsids, lcts, num_rows, PACK)
-    long_equal = bool(torch.equal(lgot, densify_packed_plain(lsids, lcts, num_rows, PACK)))
-    del lgot
-    rec["long_runs"] = {
-        "missing_fields": LONG_RUN_FIELDS, "bit_equal": long_equal,
-        "ms": time_ms(lambda: densify_packed_sorted(lsids, lcts, num_rows, PACK), reps=10),
-    }
-    rec["ok"] = rec["ok"] and long_equal
+    # the same where LONG_RUN_FIELDS fields are missing in every row, and
+    # a ragged table (its last tile ends inside a physical row)
+    add_densify_edges(rec, kernel, plain, num_rows, dev)
     record("densify_rows_grad_packed", rec)
-    del lsids, lcts
-    torch.cuda.empty_cache()
 
     # sparse_table_adam on the packed table: against its plain version, and
     # against the logical kernel on the unpacked state

@@ -108,8 +108,9 @@ class TrainingConfig:
     ranking_ks: tuple[int, ...] = (1, 5, 10, 20)
     # Additions of the JAX package. The port reads compute_dtype
     # ("float32" or "bfloat16" for the dense towers; params stay f32),
-    # fused_table_adam, moments_dtype and fused_backward; resume and
-    # stage_budget_mb belong to later slices and are kept so configs parse.
+    # fused_table_adam, moments_dtype, fused_backward and stage_budget_mb
+    # (Predictor's staging); resume belongs to a later slice and is kept so
+    # configs parse.
     compute_dtype: str = "float32"
     resume: bool = False
     stage_budget_mb: int = 1024

@@ -20,79 +20,28 @@
 // is written once, dead lanes included (phys * 512 bytes: 760.7 MB at
 // bench.py's 10.4M-row table, pack 7), and the sorted pairs are read once
 // (n * (4 + 4 * dcol) bytes: 31 MB); about 0.24 ms at 3.35 TB/s.
-// Design: the sorted-pairs / tile-bounds scheme of densify_rows_grad.cu,
-// tiled over physical rows. A block owns tile_phys_rows(pack) physical rows
-// (128 at pack 7), i.e. that many times pack logical rows; a run of equal
-// ids never crosses a physical row, so the tile bounds split the stream
-// cleanly. The block finds each logical row's run with a binary search
-// inside its range and writes its whole 512-byte rows with consecutive
-// threads on consecutive addresses, zeros included.
+// Design: the tiled kernel of densify_tile.cuh with physical rows of 128
+// floats: a tile of whole physical rows is built in shared memory (a run of
+// equal ids never crosses a physical row) and written with bulk stores,
+// dead lanes and padding rows as the zeros the tile was built on.
 
-#include "table_update.cuh"
-
-namespace {
-
-using namespace table_update;
-
-__global__ void __launch_bounds__(kThreads)
-densify_packed_kernel(const int* __restrict__ sids,
-                      const float* __restrict__ cts,
-                      const int64_t* __restrict__ bounds, int64_t num_rows,
-                      int64_t phys_rows, int dcol, int pack,
-                      float* __restrict__ out) {
-  __shared__ int64_t starts[kMaxTileLogical + 1];
-  const int tile = tile_phys_rows(pack);
-  const int64_t phys0 = static_cast<int64_t>(blockIdx.x) * tile;
-  const int tile_phys = static_cast<int>(
-      phys_rows - phys0 < tile ? phys_rows - phys0 : tile);
-  const int64_t row0 = phys0 * pack;
-  // logical rows of the tile that lie inside the table (the last tile may
-  // end inside a physical row)
-  const int64_t left = num_rows - row0;
-  const int rows = static_cast<int>(
-      left < static_cast<int64_t>(tile_phys) * pack ? left : tile_phys * pack);
-  tile_row_starts(sids, bounds, row0, rows, starts);
-  const int elems = tile_phys * kLanes;
-  float* dst = out + phys0 * kLanes;
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    int row, col;
-    float g = 0.0f;
-    if (tile_element(e, kLanes, dcol, pack, row, col) && row < rows) {
-      g = run_sum(cts, starts[row], starts[row + 1], dcol, col);
-    }
-    dst[e] = g;
-  }
-}
-
-}  // namespace
+#include "densify_tile.cuh"
 
 // Plain C entry point (bound with ctypes). sids (n,) int32 sorted logical
-// ids, cts (n, dcol) f32 cotangent rows in the same order, bounds scratch of
-// ceil(num_rows / (tile_phys_rows(pack) * pack)) + 1 int64, out
-// (ceil(num_rows / pack), 128) f32. Ids outside [0, num_rows) contribute
+// ids, cts (n, dcol) f32 cotangent rows in the same order, out
+// (ceil(num_rows / pack), 128) f32, 16-byte aligned; tile_phys,
+// chunk_pairs, grid and smem are the wrapper's plan
+// (ops/kernels/grad.py::densify_plan). Ids outside [0, num_rows) contribute
 // nothing. Returns a cudaError_t (0: launched). Nothing here synchronises.
-extern "C" int densify_rows_grad_packed_launch(const int* sids,
-                                               const float* cts, long long n,
-                                               int dcol, int pack,
-                                               long long num_rows,
-                                               long long* bounds, float* out,
-                                               void* stream) {
-  if (dcol < 1 || pack < 1 || pack * dcol > kLanes) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (num_rows <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tile = tile_phys_rows(pack);
-  const int64_t phys = (num_rows + pack - 1) / pack;
-  cudaError_t err = launch_tile_bounds(
-      sids, n, num_rows, reinterpret_cast<int64_t*>(bounds), s,
-      static_cast<int64_t>(tile) * pack);
-  if (err != cudaSuccess) return (int)err;
-  densify_packed_kernel<<<static_cast<unsigned>(num_tiles(phys, tile)),
-                          kThreads, 0, s>>>(
-      sids, cts, reinterpret_cast<const int64_t*>(bounds), num_rows, phys,
-      dcol, pack, out);
-  return (int)cudaGetLastError();
+extern "C" int densify_rows_grad_packed_launch(
+    const int* sids, const float* cts, long long n, int dcol, int pack,
+    long long num_rows, int tile_phys, int chunk_pairs, int grid,
+    long long smem, float* out, void* stream) {
+  const densify_tile::Geometry g{
+      num_rows, (num_rows + pack - 1) / (pack > 0 ? pack : 1), dcol, pack,
+      table_update::kLanes, tile_phys, chunk_pairs};
+  return densify_tile::launch(sids, cts, n, g, grid, smem, out,
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* densify_rows_grad_packed_error_string(int err) {

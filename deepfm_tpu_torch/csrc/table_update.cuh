@@ -1,6 +1,6 @@
 // Shared pieces of the embedding-table update kernels (sm_90a):
-// densify_rows_grad.cu, densify_rows_grad_packed.cu, fused_table_adam.cu and
-// sparse_table_adam.cu.
+// fused_table_adam.cu and sparse_table_adam.cu, and lower_bound and kLanes
+// for the densify kernels (densify_tile.cuh).
 //
 //  * adam_update: the optax-ordered table update of
 //    deepfm_tpu/ops/pallas/adam_kernel.py::_adam_kernel, one element at a

@@ -134,6 +134,13 @@ def check(lib: ctypes.CDLL, source: str, entry: str, err: int) -> None:
         raise RuntimeError(f"{entry} launch failed: {msg}")
 
 
+def sm_count(t) -> int:
+    """The number of SMs of ``t``'s device."""
+    import torch
+
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 def stream_of(t) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as a C pointer."""
     import torch

@@ -13,10 +13,11 @@ form one run, summed in stream order: the result equals a sequential
 scatter-add in the original order, bit for bit (``np.add.at``).
 
 What bounds it on an H100: bytes. The dense output is written once (707 MB
-at bench.py's 10.4M x 17 table) and the pairs are read once (31 MB); the
-kernel writes every element, zeros included, with consecutive threads on
-consecutive addresses. The TPU kernel's one-hot MXU matmul, its 3-way
-bf16 mantissa split and its f32-exact id limit (2^24 rows) are TPU
+at bench.py's 10.4M x 17 table) and the pairs are read once (31 MB). The
+kernel (``csrc/densify_tile.cuh``, shared with the packed densify) builds
+tiles of rows in shared memory and writes each with one bulk store, zeros
+included; ``densify_plan`` is its tile plan. The TPU kernel's one-hot MXU
+matmul, its 3-way bf16 mantissa split and its f32-exact id limit (2^24 rows) are TPU
 artifacts and are not carried over; ids are int32, so a table may hold up
 to 2^31 - 1 rows.
 """
@@ -24,28 +25,91 @@ to 2^31 - 1 rows.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from deepfm_tpu_torch.ops.kernels import build
 
 SOURCE = "densify_rows_grad.cu"
-TILE_ROWS = 128  # kTileRows in csrc/table_update.cuh
-MAX_TILE_LOGICAL = 1024  # kMaxTileLogical in csrc/table_update.cuh
 _SIGNATURES = {
     "densify_rows_grad_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ],
 }
 MAX_ROWS = 2**31 - 1
 
+# The tile plan of the densify kernels (csrc/densify_tile.cuh)
+SMEM_PER_BLOCK = 232_448  # Hopper: at most 227 KB of shared memory a block
+TILE_BYTES = 32 * 1024  # one of a block's two tile buffers, at most
+CHUNK_BYTES = 36 * 1024  # the cotangent rows of a window of staged pairs
+MAX_CHUNK_PAIRS = 1024
+BOUND_BATCH = 256  # kBoundBatch: tile bounds searched at once
+BLOCKS_PER_SM = 2  # kBlocksPerSM: resident blocks an SM (launch bounds)
+WAVES = 2  # blocks per resident slot, so a slow tile (a long run) delays
+# one block of a few tiles while the others take the rest
 
-def tile_phys_rows(pack: int) -> int:
-    """Physical table rows per block of the kernels that read sorted pairs
-    (``tile_phys_rows`` in csrc/table_update.cuh): TILE_ROWS, or fewer so
-    that a tile holds at most MAX_TILE_LOGICAL logical rows."""
-    return min(TILE_ROWS, MAX_TILE_LOGICAL // pack)
+
+@dataclass(frozen=True)
+class DensifyPlan:
+    """Where a densify launch writes: ``phys`` physical rows of ``width``
+    floats, in tiles of ``tile_phys`` rows; block b of ``grid`` builds the
+    contiguous tiles ``block_tiles(b)``, staging up to ``chunk_pairs``
+    pairs at a time; a block takes ``smem_bytes`` of dynamic shared
+    memory."""
+
+    phys: int
+    width: int
+    tile_phys: int
+    chunk_pairs: int
+    grid: int
+    smem_bytes: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.phys // self.tile_phys)
+
+    def block_tiles(self, block: int) -> range:
+        return range(self.tiles * block // self.grid,
+                     self.tiles * (block + 1) // self.grid)
+
+    def tile_store(self, tile: int) -> tuple[int, int, int]:
+        """(byte offset, bytes bulk-stored, bytes stored plainly) of a
+        tile's output: every float but the last (floats % 4) goes in one
+        bulk store."""
+        phys0 = tile * self.tile_phys
+        floats = min(self.tile_phys, self.phys - phys0) * self.width
+        bulk = floats - floats % 4
+        return 4 * phys0 * self.width, 4 * bulk, 4 * (floats - bulk)
+
+
+def densify_plan(num_rows: int, dcol: int, pack: int = 1,
+                 width: int | None = None, sms: int = 132) -> DensifyPlan:
+    """The tile plan of a densify launch over ``num_rows`` logical rows of
+    ``dcol`` columns, ``pack`` to a physical row of ``width`` floats
+    (logical layout: pack 1, width dcol) on a card of ``sms`` SMs
+    (``smem_bytes`` is ``densify_tile::smem_bytes``). A tile holds a
+    multiple of 4 physical rows, so every tile but the last is a whole
+    number of 16-byte units; raises ValueError when one block's shared
+    memory would exceed SMEM_PER_BLOCK."""
+    width = dcol if width is None else width
+    if dcol < 1 or pack < 1 or pack * dcol > width:
+        raise ValueError(
+            f"{pack} rows of {dcol} columns do not fit a {width}-float row")
+    phys = -(-num_rows // pack)
+    tile = max(4, TILE_BYTES // (4 * width) // 4 * 4)
+    tile = min(tile, max(4, -(-phys // 4) * 4))
+    chunk = max(1, min(MAX_CHUNK_PAIRS, CHUNK_BYTES // (4 * dcol)))
+    smem = (8 * tile * width + 8 * (BOUND_BATCH + 1)
+            + chunk * (4 * dcol + 4))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"densify rows of {width} floats need {smem} bytes of shared "
+            f"memory per block; the limit is {SMEM_PER_BLOCK}")
+    grid = min(-(-phys // tile), WAVES * BLOCKS_PER_SM * sms)
+    return DensifyPlan(phys, width, tile, chunk, grid, smem)
 
 
 def sort_pairs(
@@ -108,14 +172,14 @@ def _densify_cuda(sids, cts, num_rows: int) -> torch.Tensor:
     if not 0 <= num_rows <= MAX_ROWS:
         raise ValueError(f"num_rows must be in [0, {MAX_ROWS}], got {num_rows}")
     sids, cts = sids.contiguous(), cts.contiguous()
+    plan = densify_plan(num_rows, d, sms=build.sm_count(cts))
     out = torch.empty(num_rows, d, dtype=torch.float32, device=cts.device)
-    tiles = -(-num_rows // TILE_ROWS)
-    bounds = torch.empty(tiles + 1, dtype=torch.int64, device=cts.device)
     lib = build.bind(SOURCE, _SIGNATURES)
     with torch.cuda.device(cts.device):
         err = lib.densify_rows_grad_launch(
-            sids.data_ptr(), cts.data_ptr(), n, d, num_rows,
-            bounds.data_ptr(), out.data_ptr(), build.stream_of(cts),
+            sids.data_ptr(), cts.data_ptr(), n, d, num_rows, plan.tile_phys,
+            plan.chunk_pairs, plan.grid, plan.smem_bytes, out.data_ptr(),
+            build.stream_of(cts),
         )
     build.check(lib, SOURCE, "densify_rows_grad", err)
     densify_rows_grad.launches += 1

@@ -17,7 +17,9 @@ id (``sort_pairs``), each row's run is summed in stream order, and the
 result is bit-equal to the logical densify packed afterwards and to a
 sequential scatter-add in the original order. What bounds it on an H100:
 bytes, the packed gradient written once (760.7 MB at bench.py's table) and
-the pairs read once (31 MB). The TPU kernel's one-hot MXU matmul, its 3-way
+the pairs read once (31 MB). The kernel is the logical densify's tiled
+kernel (``csrc/densify_tile.cuh``) over 128-float physical rows, with the
+tile plan of ``grad.densify_plan``. The TPU kernel's one-hot MXU matmul, its 3-way
 bf16 split and its 2^24-row fallback are TPU artifacts and are not carried
 over.
 
@@ -38,9 +40,9 @@ import torch.nn.functional as F
 from deepfm_tpu_torch.ops.kernels import build
 from deepfm_tpu_torch.ops.kernels.grad import (
     MAX_ROWS,
+    densify_plan,
     segment_rows_plain,
     sort_pairs,
-    tile_phys_rows,
 )
 
 SOURCE = "densify_rows_grad_packed.cu"
@@ -48,8 +50,8 @@ LANES = 128
 _SIGNATURES = {
     "densify_rows_grad_packed_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
     ],
 }
 
@@ -98,15 +100,15 @@ def _densify_packed_cuda(sids, cts, num_rows: int, pack: int) -> torch.Tensor:
             f"{tuple(cts.shape)} on {cts.device}"
         )
     sids, cts = sids.contiguous(), cts.contiguous()
-    phys = -(-num_rows // pack)
-    out = torch.empty(phys, LANES, dtype=torch.float32, device=cts.device)
-    tiles = -(-phys // tile_phys_rows(pack))
-    bounds = torch.empty(tiles + 1, dtype=torch.int64, device=cts.device)
+    plan = densify_plan(num_rows, dcol, pack, LANES, build.sm_count(cts))
+    out = torch.empty(plan.phys, LANES, dtype=torch.float32,
+                      device=cts.device)
     lib = build.bind(SOURCE, _SIGNATURES)
     with torch.cuda.device(cts.device):
         err = lib.densify_rows_grad_packed_launch(
             sids.data_ptr(), cts.data_ptr(), n, dcol, pack, num_rows,
-            bounds.data_ptr(), out.data_ptr(), build.stream_of(cts),
+            plan.tile_phys, plan.chunk_pairs, plan.grid, plan.smem_bytes,
+            out.data_ptr(), build.stream_of(cts),
         )
     build.check(lib, SOURCE, "densify_rows_grad_packed", err)
     densify_rows_grad_packed.launches += 1

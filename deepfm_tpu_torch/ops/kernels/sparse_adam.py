@@ -49,12 +49,22 @@ from deepfm_tpu_torch.ops.kernels.grad import (
     MAX_ROWS,
     segment_rows_plain,
     sort_pairs,
-    tile_phys_rows,
 )
 from deepfm_tpu_torch.ops.kernels.packed_grad import LANES, pack_rows
 
 SOURCE = "sparse_table_adam.cu"
+TILE_ROWS = 128  # kTileRows in csrc/table_update.cuh
+MAX_TILE_LOGICAL = 1024  # kMaxTileLogical in csrc/table_update.cuh
 SEGSQ_BLOCK = 256  # kThreads in csrc/table_update.cuh
+
+
+def tile_phys_rows(pack: int) -> int:
+    """Physical table rows per block of the sparse_table_adam kernel
+    (``tile_phys_rows`` in csrc/table_update.cuh): TILE_ROWS, or fewer so
+    that a tile holds at most MAX_TILE_LOGICAL logical rows."""
+    return min(TILE_ROWS, MAX_TILE_LOGICAL // pack)
+
+
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "sparse_table_adam_launch": [

@@ -2,11 +2,13 @@
 of ``deepfm_tpu/training/trainer.py``).
 
 ``Predictor.predict`` returns sigmoid probabilities for every row of a
-``PackedArrays``, in order: the rows go to the device once, the model runs
-in eval mode under ``torch.inference_mode`` in batches of
-``training.batch_size``, and the scores come back in one host fetch. The
-JAX package pads the last batch to a static shape for its compiled scan;
-eager PyTorch needs no padding, so the last batch is just shorter.
+``PackedArrays``, in order: the rows go to the device in chunks of as many
+batches as ``training.stage_budget_mb`` holds (``budget_batches``, the JAX
+``Trainer._budget_batches``), the model runs in eval mode under
+``torch.inference_mode`` in batches of ``training.batch_size``, and each
+chunk's scores come back in one host fetch. The JAX package pads the last
+batch to a static shape for its compiled scan; eager PyTorch needs no
+padding, so the last batch is just shorter.
 """
 
 from __future__ import annotations
@@ -39,22 +41,38 @@ class Predictor:
         running statistics excluded, as the JAX package counts params)."""
         return sum(p.numel() for p in self.model.parameters())
 
+    def budget_batches(self, data: PackedArrays, batch_size: int) -> int:
+        """How many batches one staged chunk holds (at least one): the
+        staging budget over a batch's bytes, its ids and dense values at 4
+        bytes each and 8 for its label and weight, as the JAX trainer
+        counts them."""
+        bytes_per_batch = batch_size * (
+            4 * data.ids.shape[1] + 4 * data.dense.shape[1] + 8
+        )
+        budget = self.config.training.stage_budget_mb * (1 << 20)
+        return max(1, budget // max(bytes_per_batch, 1))
+
+    def _stage(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, non_blocking=True
+        )
+
     def predict(self, data: PackedArrays) -> np.ndarray:
         n = len(data)
         if n == 0:
             return np.zeros(0, np.float32)
         bs = self.config.training.batch_size
+        chunk = bs * self.budget_batches(data, bs)
         self.model.eval()
+        scores = []
         with torch.inference_mode():
-            ids = torch.from_numpy(np.ascontiguousarray(data.ids)).to(
-                self.device, non_blocking=True
-            )
-            dense = torch.from_numpy(np.ascontiguousarray(data.dense)).to(
-                self.device, non_blocking=True
-            )
-            parts = [
-                self.model.predict(ids[i : i + bs], dense[i : i + bs])[:, 0]
-                for i in range(0, n, bs)
-            ]
-            scores = torch.cat(parts) if len(parts) > 1 else parts[0]
-            return scores.cpu().numpy()
+            for lo in range(0, n, chunk):
+                ids = self._stage(data.ids[lo : lo + chunk])
+                dense = self._stage(data.dense[lo : lo + chunk])
+                parts = [
+                    self.model.predict(ids[i : i + bs], dense[i : i + bs])[:, 0]
+                    for i in range(0, ids.shape[0], bs)
+                ]
+                part = torch.cat(parts) if len(parts) > 1 else parts[0]
+                scores.append(part.cpu().numpy())
+        return scores[0] if len(scores) == 1 else np.concatenate(scores)

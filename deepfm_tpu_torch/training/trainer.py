@@ -4,8 +4,10 @@ Port of ``deepfm_tpu/training/trainer.py``: ``TrainState``,
 ``_is_table_name``, the gates ``_use_fused_table_adam`` /
 ``sparse_fused_eligible`` and the ``Trainer``'s state construction and
 ``_train_step`` — the seam
-``bench.py`` times. The epoch loop, eval, staging, the mesh and
-checkpoints come with later slices (ROADMAP queue 1 items 3 and 10).
+``bench.py`` times — and its learning-rate scheduler (built as the JAX
+``Trainer`` builds it: the first step runs at ``scheduler.lr``). The epoch
+loop (and with it the schedulers' epoch steps), eval, staging, the mesh
+and checkpoints come with later slices (ROADMAP queue 1 items 3 and 10).
 
 The gates are resolved from the config alone, on every device: the CPU
 runs each kernel's plain version, so the tests take the same paths as the
@@ -35,6 +37,7 @@ from deepfm_tpu_torch.data.packing import PackedSchema
 from deepfm_tpu_torch.device import resolve_device
 from deepfm_tpu_torch.models.base import CTRModel
 from deepfm_tpu_torch.training.optim import OptState, build_optimizer
+from deepfm_tpu_torch.training.schedulers import build_scheduler, set_lr
 from deepfm_tpu_torch.training.sparse_opt import (
     TableSlotState,
     init_table_state,
@@ -94,6 +97,7 @@ class Trainer:
     def __init__(self, model: CTRModel, packed_schema: PackedSchema,
                  config: ExperimentConfig) -> None:
         _refuse_lazy(config)
+        self.scheduler = build_scheduler(config.training)
         self.config = config
         self.packed_schema = packed_schema
         self.device = resolve_device(config.device)
@@ -112,6 +116,8 @@ class Trainer:
         self.tx = build_optimizer(config, self.table_names,
                                   fused=self.fused_tables)
         self.state = self._init_state()
+        # warmup: epoch 1 starts below the base LR
+        set_lr(self.state.opt_state, self.scheduler.lr)
         from deepfm_tpu_torch.training.steps import build_train_step
 
         self._step_fn = build_train_step(self)

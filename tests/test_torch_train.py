@@ -75,6 +75,7 @@ from deepfm_tpu_torch.models import create_model  # noqa: E402
 from deepfm_tpu_torch.ops.dnn import DNN  # noqa: E402
 from deepfm_tpu_torch.ops.kernels import cin_stack  # noqa: E402
 from deepfm_tpu_torch.training.parity import compare_leaves  # noqa: E402
+from deepfm_tpu_torch.training.predict import Predictor  # noqa: E402
 from deepfm_tpu_torch.training.trainer import (  # noqa: E402
     Trainer,
     sparse_fused_eligible,
@@ -128,11 +129,12 @@ def _port_trainer(tpacked, training, model="deepfm", pallas=None, **extra):
 
 
 def _jax_run(path, clip, tmp_path, monkeypatch, optimizer="adam",
-             model="deepfm", pallas=None, **extra):
+             model="deepfm", pallas=None, training=None, **extra):
     """Two JAX steps; returns the JAX trainer, the states after steps 1
     and 2 (host copies) and the losses. ``pallas`` replaces the path's
     table layout (and then the JAX trainer takes the port's training
-    overrides of the path); ``extra`` replaces config sections."""
+    overrides of the path); ``training`` adds training overrides; ``extra``
+    replaces config sections."""
     port_tr, jax_tr, layout, force = PATHS[path]
     if pallas is not None:
         jax_tr = port_tr
@@ -142,7 +144,8 @@ def _jax_run(path, clip, tmp_path, monkeypatch, optimizer="adam",
         monkeypatch.setenv("DEEPFM_TPU_FORCE_FUSED_ADAM", "1")
     jpacked, jarr, _, _ = _data()
     config = jax_config(_raw(
-        {**jax_tr, "gradient_clip_norm": clip, "optimizer": optimizer},
+        {**jax_tr, "gradient_clip_norm": clip, "optimizer": optimizer,
+         **(training or {})},
         model, output_dir=str(tmp_path), pallas=pallas, **extra,
     ))
     trainer = JaxTrainer(jax_create_model(model, jpacked, config),
@@ -358,6 +361,75 @@ def test_deleted_trainer_is_freed_without_the_cycle_collector():
         assert [r() for r in refs] == [None] * len(refs)
     finally:
         gc.enable()
+
+
+WARMUP = {"scheduler": "warmup_cosine", "warmup_epochs": 2, "num_epochs": 4}
+
+
+def test_warmup_schedule_matches_jax(tmp_path, monkeypatch):
+    """warmup_cosine: both trainers start epoch 1 at lr / warmup, and the
+    port takes its two steps there as JAX does."""
+    jtrainer, jstates, jlosses = _jax_run("sparse_fused", 1.0, tmp_path,
+                                          monkeypatch, training=WARMUP)
+    _, _, tpacked, tarr = _data()
+    trainer = _port_trainer(tpacked, {"gradient_clip_norm": 1.0, **WARMUP})
+    assert trainer.scheduler.lr == jtrainer.scheduler.lr == LR / 2
+    lr = trainer.state.opt_state.lr.clone()
+    train_state_from_jax(jstates[0], trainer)
+    assert torch.equal(trainer.state.opt_state.lr, lr)  # JAX's starting lr
+    losses = [_port_step(trainer, tarr) for _ in range(2)]
+    assert losses == pytest.approx(jlosses, rel=1e-6)
+    _assert_state_matches(trainer, jstates[2], tpacked, steps=2)
+
+
+def test_unknown_scheduler_raises_in_both_packages(tmp_path, monkeypatch):
+    with pytest.raises(ValueError, match="Unknown scheduler: cyclic"):
+        _jax_run("plain", 1.0, tmp_path, monkeypatch,
+                 training={"scheduler": "cyclic"})
+    _, _, tpacked, _ = _data()
+    with pytest.raises(ValueError, match="Unknown scheduler: cyclic"):
+        _port_trainer(tpacked, {"scheduler": "cyclic"})
+
+
+def test_predictor_stages_within_the_budget(monkeypatch):
+    """A 1 MiB staging budget splits the split into 3+ chunks of whole
+    batches; the scores equal one chunk's, and no staged tensor is larger
+    than the budget."""
+    jschema, tschema = schema_pair(SYNTH_SPEC)
+    tpacked = pack_schema(tschema)
+    n, bs = 60_000, 4096
+    feats = random_features(SYNTH_SPEC, n, seed=5)
+    arrays = pack_features(tpacked, feats, np.zeros(n, np.float32))
+
+    def predictor(budget_mb):
+        config = config_from_dict(_raw({"batch_size": bs,
+                                        "stage_budget_mb": budget_mb},
+                                       device="cpu"))
+        torch.manual_seed(0)
+        model = create_model("deepfm", tpacked, config, device="cpu")
+        return Predictor(model, tpacked, config, device="cpu")
+
+    whole = predictor(1024)
+    assert whole.budget_batches(arrays, bs) * bs >= n
+    want = whole.predict(arrays)
+    small = predictor(1)
+    per_chunk = small.budget_batches(arrays, bs)
+    assert -(-n // (per_chunk * bs)) >= 3
+    staged = {}
+    real = small.model.predict
+
+    def recording(ids, dense):
+        for t in (ids, dense):
+            staged[t.untyped_storage().data_ptr()] = \
+                t.untyped_storage().nbytes()
+        return real(ids, dense)
+
+    monkeypatch.setattr(small.model, "predict", recording)
+    got = small.predict(arrays)
+    assert got.shape == (n,)
+    np.testing.assert_array_equal(got, want)
+    assert len(staged) >= 2 * 3  # ids and dense of each chunk
+    assert max(staged.values()) <= 1 << 20
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "sgd"])

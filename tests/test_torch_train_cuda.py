@@ -130,11 +130,29 @@ def test_table_kernels_match_plain_on_cuda(moments):
             fused_table_adam_plain(*q, g, *args)
             assert torch.equal(k[1], q[1]) and torch.equal(k[2], q[2])
             torch.testing.assert_close(k[0], q[0], rtol=1e-6, atol=0)
+    # the densify kernel's edges (ids drawn in [lo, hi)): no pairs, no
+    # rows, every id out of range, rows not a multiple of 4 or of a tile,
+    # D of 1, 5, 17 and 33, runs longer than a chunk of staged pairs
+    for rows, n, d, lo, hi in [
+        (1000, 0, 17, 0, 1), (0, 50, 17, 0, 5), (999, 500, 17, 999, 5000),
+        (999, 500, 5, -50, 0), (10_001, 3000, 1, 0, 10_001),
+        (4_003, 3000, 5, 0, 4_003), (2_999, 3000, 33, 0, 2_999),
+        (5, 5000, 17, 0, 2), (3, 5000, 1, 0, 3),
+    ]:
+        rng = np.random.default_rng(rows + n + d)
+        ids = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32))
+        ct = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+        ids, ct = ids.to(dev), ct.to(dev)
+        g = densify_rows_grad(ct, ids, rows)
+        assert g.shape == (rows, d)
+        assert torch.equal(g, densify_rows_grad_plain(ct, ids, rows))
+        assert torch.equal(g, densify_rows_grad(ct, ids, rows))
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dcol,pack", [(17, 7), (9, 14), (5, 25)])
+@pytest.mark.parametrize("dcol,pack", [(17, 7), (9, 14), (5, 25), (128, 1),
+                                       (1, 128)])
 def test_packed_kernels_match_plain_on_cuda(dcol, pack):
     dev = _cuda()
     rng = np.random.default_rng(dcol)
@@ -149,6 +167,19 @@ def test_packed_kernels_match_plain_on_cuda(dcol, pack):
     assert torch.equal(g, densify_rows_grad_packed_plain(ct, ids, num_rows, pack))
     assert torch.equal(g, densify_rows_grad_packed(ct, ids, num_rows, pack))
     assert not g[:, pack * dcol:].any()
+    # the packed densify's edges (ids drawn in [lo, hi)): no pairs, every
+    # id out of range, a table ending inside a physical row and a tile,
+    # runs longer than a chunk of staged pairs
+    for rows, m, lo, hi in [(1001, 0, 0, 1), (1001, 300, 1001, 5000),
+                            (1001, 300, -9, 0), (4_099, 5000, 0, 3)]:
+        eids = torch.from_numpy(rng.integers(lo, hi, m).astype(np.int32))
+        ect = torch.from_numpy(rng.normal(size=(m, dcol)).astype(np.float32))
+        eids, ect = eids.to(dev), ect.to(dev)
+        eg = densify_rows_grad_packed(ect, eids, rows, pack)
+        assert eg.shape == (-(-rows // pack), 128)
+        assert torch.equal(
+            eg, densify_rows_grad_packed_plain(ect, eids, rows, pack))
+        assert torch.equal(eg, densify_rows_grad_packed(ect, eids, rows, pack))
 
     phys = -(-num_rows // pack)
     rows = phys * pack
