@@ -6,12 +6,15 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
   build      compile every CUDA kernel of the port from csrc/ (nvcc, one
-             process per source, all at once) and print the card's name
-             and power limit as nvidia-smi reports them;
+             process per source, all at once), print the card's name
+             and power limit as nvidia-smi reports them and the attention
+             backward's and the row gather's ptxas lines (registers, shared
+             memory, spills);
   cin_stack  hold the CIN-stack kernel against its plain PyTorch version
-             on the card at four shapes (the serving config, bench.py's
-             xDeepFM shape in f32 and bf16, and a ragged shape the TPU
-             kernel's gate refuses), element by element (CIN_TOL), with
+             on the card at five shapes (the serving config, bench.py's
+             xDeepFM shape in f32 and bf16, a ragged shape the TPU
+             kernel's gate refuses, and the xDeepFM paper's CIN at its
+             batch in bf16), element by element (CIN_TOL), with
              the kernel's, the plain version's and a library yardstick's
              median times (CUDA events) beside the shape's bound; in
              bf16 the check must also refuse two controls, the plain
@@ -37,11 +40,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the launches that show the route;
   attention  the attention-block forward and backward kernels against
              their plain versions at bench.py's AttentionDeepFM shape in
-             bf16 and f32 and at a ragged batch (ATTN_TOL), each launched
-             twice, timed beside its bound, its plain version and
-             scaled_dot_product_attention around the same projections; in
-             bf16 the check must refuse the plain backward without its
-             [dq|dk|dv] rounding;
+             bf16 and f32, at a ragged batch and at F=33 (ATTN_TOL), each
+             launched twice, timed beside its bound (and the mixed bound:
+             the core's f32 work at the FP32 rate), its plain version and
+             scaled_dot_product_attention around the same projections
+             (below_library); in bf16 the check must refuse the plain
+             backward without its [dq|dk|dv] rounding;
   densify_rows_grad, segment_sumsq, sparse_table_adam, fused_table_adam
              the four table-update kernels at bench.py's shape (a 10.4M x 17
              table, 425,984 (id, cotangent) pairs drawn as bench.py draws
@@ -67,7 +71,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              sparse_table_adam on the packed table against its plain
              version (TABLE_TOL) and, bit for bit, against the logical
              kernel on the unpacked state; the row-gather kernel bit for
-             bit against its plain version, timed beside index_select;
+             bit against its plain version, its single-call time split
+             into device time (100 back-to-back launches) and host time
+             per call, beside the same for index_select, in turns;
   train      the DeepFM train step at bench.py's full width and config
              (26 x 400k-id fields, d=16, DNN [512,256,128] with BatchNorm,
              batch 16384, bf16 compute, dropout 0) through the port's
@@ -157,12 +163,20 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
+# The xDeepFM paper's Criteo configuration (paper_config), on bench.py's
+# workload at field width PAPER_WIDTH
+PAPER_BATCH, PAPER_WIDTH = 4096, 10
+PAPER_CIN = (200, 200, 200)
+
 # (name, B, F, D, layer_sizes, split_half, dtype)
 CIN_SHAPES = [
     ("serving", 4096, 16, 16, (128, 128, 64), True, "float32"),
     ("bench_f32", 16384, 27, 16, (128, 128), True, "float32"),
     ("bench_bf16", 16384, 27, 16, (128, 128), True, "bfloat16"),
     ("ragged", 1000, 13, 16, (10, 7), True, "float32"),
+    # the xDeepFM paper's CIN at its batch (paper_config), which the paper
+    # xDeepFM step runs through the stack forward
+    ("paper_bf16", PAPER_BATCH, 27, PAPER_WIDTH, PAPER_CIN, False, "bfloat16"),
 ]
 # The kernel is held against the plain version element by element,
 # |kernel - plain| <= atol + rtol * |plain|, and, in bf16, by its mean
@@ -207,6 +221,8 @@ ATTN_SHAPES = [
     ("bench_bf16", 16384, 27, 16, 64, 4, "bfloat16"),
     ("bench_f32", 16384, 27, 16, 64, 4, "float32"),
     ("ragged_bf16", 1000, 27, 16, 64, 4, "bfloat16"),
+    # more fields than a warp has lanes: the backward core's lanes wrap
+    ("f33_bf16", 2000, 33, 16, 64, 4, "bfloat16"),
 ]
 # A gradient kernel against its plain version, per output (dx0, each dW_i
 # and db_i; out, dx and each parameter's gradient), with scale = max|plain|:
@@ -263,10 +279,6 @@ CIN_LAYER_SHAPES = [
     ("paper_layer2", 4096, 200, 27, 10, 200),
     ("ragged", 1000, 13, 13, 10, 7),
 ]
-# The xDeepFM paper's Criteo configuration (paper_config), on bench.py's
-# workload at field width PAPER_WIDTH
-PAPER_BATCH, PAPER_WIDTH = 4096, 10
-PAPER_CIN = (200, 200, 200)
 
 # bench.py's DeepFM workload (bench.py:71-77, 91-113, 131-150)
 BENCH_BATCH = 16384
@@ -378,10 +390,14 @@ def phase_build() -> str:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     gpu = smi.stdout.strip().splitlines()[0]
     print(gpu, flush=True)
-    ptxas = [
-        line.strip() for log in logs.values() for line in log.splitlines()
-        if "Used" in line or "spill" in line or "Compiling entry" in line
-    ]
+    ptxas = {
+        src: [line.strip() for line in log.splitlines()
+              if "Used" in line or "spill" in line or "Compiling entry" in line]
+        for src, log in logs.items()
+    }
+    for src in ("attention_bwd.cu", "row_gather.cu"):
+        for line in ptxas.get(src, []):
+            print(f"ptxas {src}: {line}", flush=True)
     emit({"phase": "build", "seconds": seconds,
           "sources": sorted(logs), "gpu": gpu, "ptxas": ptxas})
     return gpu
@@ -928,23 +944,32 @@ def attention_library(x, p, heads):
 
 
 def attn_bound(bsz, f, d, a, heads, bf16, backward):
-    """(bound_ms, bound_by, flops): the projections (QKV and output) and
-    the attention core (scores and context) of the forward; the backward
-    recomputes them and takes two products per forward product. Bytes: x
-    (and g) read, out (or dx and the parameter gradients) written."""
+    """(bound_ms, bound_by, flops, mixed_bound_ms): the projections (QKV
+    and output) and the attention core (scores and context) of the forward;
+    the backward recomputes them and takes two products per forward
+    product. Bytes: x (and g) read, out (or dx and the parameter gradients)
+    written. bound_ms takes every operation at the operands' peak (bf16
+    tensor cores in bf16); mixed_bound_ms, beside it, takes the core's f32
+    operations at the FP32 rate and only the projections at the operands'
+    peak (and is never below the byte time)."""
     es = 2 if bf16 else 4
     rows = bsz * f
-    fwd = 2 * rows * d * 4 * a + 2 * 2 * bsz * heads * f * f * (a // heads)
+    proj = 2 * rows * d * 4 * a
+    core = 2 * 2 * bsz * heads * f * f * (a // heads)
     params = 4 * (4 * d * a + 3 * a + 3 * d)
     if backward:
-        flops, nbytes = 3 * fwd, 3 * rows * d * es + 2 * params
+        proj, core = 3 * proj, 3 * core
+        nbytes = 3 * rows * d * es + 2 * params
     else:
-        flops, nbytes = fwd, 2 * rows * d * es + params
-    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+        nbytes = 2 * rows * d * es + params
+    flops = proj + core
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+    t_ops = flops / peak
     t_bytes = nbytes / PEAK_BYTES_PER_S
+    mixed = 1e3 * max(proj / peak + core / PEAK_FP32_FLOPS, t_bytes)
     if t_ops >= t_bytes:
-        return 1e3 * t_ops, "operations", flops
-    return 1e3 * t_bytes, "bytes", flops
+        return 1e3 * t_ops, "operations", flops, mixed
+    return 1e3 * t_bytes, "bytes", flops, mixed
 
 
 def phase_attention() -> dict:
@@ -955,6 +980,7 @@ def phase_attention() -> dict:
         attention_block_backward_plain,
         attention_block_forward,
         attention_block_plain,
+        backward_plan,
         param_names,
     )
 
@@ -1013,9 +1039,13 @@ def phase_attention() -> dict:
         del out, out2, dx, dp, dx2, dp2, got, again
         big = bsz >= 16384
         reps = 20 if big else 50
+        bp = backward_plan(f, d, a, heads)
         rec = {"phase": "attention", "shape": name, "B": bsz, "F": f, "d": d,
                "attention_dim": a, "heads": heads, "dtype": dtype,
                "residual": True, "same_bits": same_bits, "tol": tol,
+               "backward_plan": {"samples": bp.samples,
+                                 "core_warps": bp.core_warps, "rows": bp.rows,
+                                 "smem_bytes": bp.smem, "grid": bp.grid(bsz)},
                "controls": controls,
                "library": "scaled_dot_product_attention around the same "
                           "projections and layer_norm (autograd for the "
@@ -1024,16 +1054,18 @@ def phase_attention() -> dict:
                 ("forward", fcmp, fwd,
                  lambda: attention_block_plain(x, p, heads, True), lib_fwd),
                 ("backward", bcmp, bwd, bwd_plain, lib_bwd)):
-            bound_ms, bound_by, flops = attn_bound(
+            bound_ms, bound_by, flops, mixed_ms = attn_bound(
                 bsz, f, d, a, heads, bf16, kind == "backward")
             ms = time_ms(kern, reps=reps)
+            library_ms = time_ms(lib, reps=reps)
             rec[kind] = {
                 **cmp,
                 "max_abs_err": max(o["max_abs_err"]
                                    for o in cmp["outputs"].values()),
                 "ms": ms, "plain_ms": time_ms(plain, reps=5, warmup=1),
-                "library_ms": time_ms(lib, reps=reps),
+                "library_ms": library_ms, "below_library": ms < library_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "mixed_bound_ms": mixed_ms,
                 "gflop": flops / 1e9, "tflops": flops / (ms * 1e-3) / 1e12,
             }
         emit(rec)
@@ -1057,6 +1089,46 @@ def free_device() -> None:
 
 def mem_bound_ms(nbytes: float) -> float:
     return 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+def call_split(fn, device_reps: int = 100, host_reps: int = 1000) -> dict:
+    """One call's time taken apart: call_ms (CUDA events around one call,
+    as time_ms takes it: host path and device time), device_ms (events
+    around device_reps back-to-back calls, over the count) and host_us
+    (host clock per call over host_reps calls, no synchronise; and
+    host_us_idle_queue, one call at a time after a synchronise)."""
+    import torch
+
+    call_ms = time_ms(fn, reps=50)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(device_reps):
+        fn()
+    end.record()
+    end.synchronize()
+    device_ms = start.elapsed_time(end) / device_reps
+    t0 = time.perf_counter()
+    for _ in range(host_reps):
+        fn()
+    host_us = 1e6 * (time.perf_counter() - t0) / host_reps
+    torch.cuda.synchronize()
+    # one call at a time from an idle queue (median of 200): the host path
+    # with no wait on the device
+    hs = []
+    for _ in range(200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        hs.append(time.perf_counter() - t0)
+    host_us_idle = 1e6 * statistics.median(hs)
+    torch.cuda.synchronize()
+    return {"call_ms": call_ms, "device_ms": device_ms,
+            "host_us": host_us,
+            "host_us_idle_queue": host_us_idle}
 
 
 def table_inputs(dev, seed=7, missing_fields=0):
@@ -1429,19 +1501,37 @@ def phase_packed_kernels() -> dict:
     del k, lg, packed_state, mu, nu
     torch.cuda.empty_cache()
 
-    # row_gather: the logical table's rows at the step's ids
+    # row_gather: the logical table's rows at the step's ids; the single
+    # call's time split into device and host time, for the kernel and for
+    # index_select, in turns
     got = row_gather(p, ids)
     want = row_gather_plain(p, ids)
     equal = bool(torch.equal(got, want))
     det = bool(torch.equal(got, row_gather(p, ids)))
+
+    def kernel():
+        return row_gather(p, ids)
+
+    def library():
+        return torch.index_select(p, 0, ids)
+
+    splits = [call_split(fn) for fn in (kernel, library, library, kernel)]
+    ksplit = {k: (splits[0][k] + splits[3][k]) / 2 for k in splits[0]}
+    lsplit = {k: (splits[1][k] + splits[2][k]) / 2 for k in splits[1]}
+    bound_ms = mem_bound_ms(2 * n * D * 4 + n * 8)
     record("row_gather", {
         "table_rows": rows, "max_abs_err": (got - want).abs().max().item(),
         "bit_equal": equal, "deterministic": det, "ok": equal and det,
-        "ms": time_ms(lambda: row_gather(p, ids), reps=50),
+        "ms": ksplit["call_ms"],
         "plain_ms": time_ms(lambda: row_gather_plain(p, ids), reps=20),
-        "library_ms": time_ms(lambda: torch.index_select(p, 0, ids), reps=50),
+        "library_ms": lsplit["call_ms"],
         "library": "torch.index_select(table, 0, ids)",
-        "bound_ms": mem_bound_ms(2 * n * D * 4 + n * 8), "bound_by": "bytes",
+        "below_library": ksplit["call_ms"] < lsplit["call_ms"],
+        "kernel": ksplit, "index_select": lsplit,
+        "split_runs": splits,
+        "device_below_library": ksplit["device_ms"] < lsplit["device_ms"],
+        "device_share_of_bound": bound_ms / ksplit["device_ms"],
+        "bound_ms": bound_ms, "bound_by": "bytes",
     })
     del got, want, ids, ct, p, sids, cts
     torch.cuda.empty_cache()
@@ -2576,7 +2666,7 @@ def main() -> None:
          "attention_fmajor_kernel.py:435",
          models["attention_deepfm"]["launches"]["attention_block_fwd"],
          attn["bench_bf16"]["forward"]),
-        ("attention_block_bwd", "attention_block.cu",
+        ("attention_block_bwd", "attention_bwd.cu",
          "attention_fmajor_kernel.py:476",
          models["attention_deepfm"]["launches"]["attention_block_bwd"],
          attn["bench_bf16"]["backward"]),

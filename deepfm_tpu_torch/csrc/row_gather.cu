@@ -14,10 +14,16 @@
 // What bounds it on this card: bytes. Each gathered row is read once and
 // written once (2 * n * C * 4 bytes) and the ids once (8 bytes each): 61 MB
 // at bench.py's 425,984 ids x 17 columns, about 0.018 ms at 3.35 TB/s.
-// Design: one thread per output element, consecutive threads on
-// consecutive output addresses (so neighbouring threads also read
-// neighbouring columns of one row), a grid-stride loop; 32-bit index
-// arithmetic when n * C fits in it.
+// Design: one warp owns 32 consecutive rows of the output. Each lane loads
+// one id (one coalesced 256-byte read a warp) and turns it into a row offset
+// (-1 outside the table). The warp's output span, 32 * C floats, starts on a
+// 128-byte boundary, so it is written in 16-byte stores: a lane's float4
+// covers four consecutive elements, whose row offsets come from the owning
+// lanes by shuffle, with one division by C per float4 (none per element).
+// The table reads stay 4-byte: at C = 17 a row is 68 bytes at any 4-byte
+// alignment, but consecutive lanes read consecutive floats of the same or
+// the next row, so a warp's loads coalesce into the rows' sectors. The grid
+// covers the rows (no grid-stride loop, no device query at launch).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -25,52 +31,85 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-template <typename I>
+// The four elements of the span starting at element e, from row r, column c.
+__device__ __forceinline__ float4 gather4(const float* __restrict__ table,
+                                          long long off, int e, int C) {
+  int r = e / C;
+  int c = e - r * C;
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long o = __shfl_sync(kFull, off, r & 31);
+    v[k] = o >= 0 ? __ldg(table + o + c) : 0.0f;
+    if (++c == C) {
+      c = 0;
+      ++r;
+    }
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
 __global__ void __launch_bounds__(kThreads)
-row_gather_kernel(const float* __restrict__ table, int64_t V, int C,
-                  const int64_t* __restrict__ ids, I total,
+row_gather_kernel(const float* __restrict__ table, long long V, int C,
+                  const long long* __restrict__ ids, long long n,
                   float* __restrict__ out) {
-  const I stride = static_cast<I>(gridDim.x) * blockDim.x;
-  const I cols = static_cast<I>(C);
-  for (I i = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const I r = i / cols;
-    const I c = i - r * cols;
-    const int64_t id = ids[r];
-    out[i] = (id >= 0 && id < V) ? table[id * C + c] : 0.0f;
+  const int lane = threadIdx.x & 31;
+  const long long row0 =
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * 32;
+  if (row0 >= n) return;  // whole warps leave together
+  const int nr = n - row0 < 32 ? (int)(n - row0) : 32;
+  long long off = -1;
+  if (lane < nr) {
+    const long long id = ids[row0 + lane];
+    if (id >= 0 && id < V) off = id * C;
+  }
+  float* dst = out + row0 * C;  // 128-byte aligned: row0 is a multiple of 32
+  const int total = nr * C;
+  const int nq = total >> 2;
+  // every lane runs every iteration (the shuffles need the whole warp);
+  // unrolled so that several float4s' loads are in flight at once
+#pragma unroll 4
+  for (int base = 0; base < nq; base += 32) {
+    const int q = base + lane;
+    const float4 v = gather4(table, off, (q < nq ? q : 0) * 4, C);
+    if (q < nq) reinterpret_cast<float4*>(dst)[q] = v;
+  }
+  const int rem = total - nq * 4;  // only the last, partial warp has one
+  if (rem) {
+    const int e = nq * 4 + (lane < rem ? lane : 0);
+    const int r = e / C;
+    const long long o = __shfl_sync(kFull, off, r);
+    if (lane < rem) dst[e] = o >= 0 ? __ldg(table + o + (e - r * C)) : 0.0f;
   }
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). table (V, C) f32, ids (n,)
-// int64, out (n, C) f32. Returns a cudaError_t (0: launched). Nothing here
-// synchronises.
+// int64, out (n, C) f32, all on CUDA device `device`, out from a fresh
+// allocation (16-byte aligned). Launches on `stream`, switching the
+// current device only if it differs. Returns a cudaError_t (0: launched).
+// Nothing here synchronises.
 extern "C" int row_gather_launch(const float* table, long long V, int C,
                                  const long long* ids, long long n, float* out,
-                                 void* stream) {
-  if (C < 1 || V < 0 || n < 0) return (int)cudaErrorInvalidValue;
-  const int64_t total = static_cast<int64_t>(n) * C;
-  if (total == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+                                 int device, void* stream) {
+  if (C < 1 || C > (1 << 25) || V < 0 || n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  int64_t grid = (total + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms) * 16;  // 16 blocks per SM
-  if (grid > cap) grid = cap;
-  const int64_t* id64 = reinterpret_cast<const int64_t*>(ids);
-  if (total <= INT32_MAX) {
-    row_gather_kernel<uint32_t><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-        table, V, C, id64, static_cast<uint32_t>(total), out);
-  } else {
-    row_gather_kernel<int64_t><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
-        table, V, C, id64, total, out);
-  }
-  return (int)cudaGetLastError();
+  if (cur != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  const long long warps = (n + 31) / 32;
+  const long long grid = (warps + kWarps - 1) / kWarps;
+  row_gather_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      table, V, C, reinterpret_cast<const long long*>(ids), n, out);
+  err = cudaGetLastError();
+  if (cur != device) cudaSetDevice(cur);
+  return (int)err;
 }
 
 extern "C" const char* row_gather_error_string(int err) {

@@ -3,8 +3,9 @@ backward) and their plain versions.
 
 Replaces ``deepfm_tpu/ops/pallas/attention_fmajor_kernel.py`` ::
 ``make_attention_block_fmajor`` → ``forward`` / ``_attn_fwd_kernel`` and
-``backward`` / ``_attn_bwd_kernel``. Source: ``csrc/attention_block.cu``
-(the design is in its head note).
+``backward`` / ``_attn_bwd_kernel``. Sources: ``csrc/attention_block.cu``
+(forward) and ``csrc/attention_bwd.cu`` (backward); each design is in its
+source's head note.
 
 What it computes, per sample x (F, d) in the compute type (x's dtype):
 q/k/v = x · W + b in f32, a softmax over the F key fields per head in f32,
@@ -19,35 +20,42 @@ The port keeps the ``(B, F, d)`` layout at every function: the TPU
 kernel's ``(F, d, B)`` transpose (batch on the 128-lane axis), its tile
 gate (B % 128, hd % 8, d % 8) and its VMEM budget are TPU artifacts. The
 kernels take any B, F, d and heads dividing a; they raise only where a
-block's shared memory would exceed 227 KB.
+block's shared memory would exceed 227 KB (``plan``, ``backward_plan``).
 
-What bounds them on an H100: bytes (x in, out or dx out, and g in) at
-bench.py's shape; the work (6.7 GFLOP forward, ~20 backward) is small, so
-a simple kernel is latency-bound (see the .cu file).
+What bounds them on an H100: bytes (x read, out written) for the forward at
+bench.py's shape, operations (~20 GFLOP) for the backward, which runs its
+projections on the tensor cores in bf16 (see the .cu files).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from deepfm_tpu_torch.ops.kernels import build
 
 SOURCE = "attention_block.cu"
+BWD_SOURCE = "attention_bwd.cu"
 LN_EPS = 1e-5
 SMEM_PER_BLOCK = 232_448  # Hopper: at most 227 KB of shared memory a block
 # grid-stride blocks: the forward has no cross-sample sums; the backward's
-# block count fixes the partition of its parameter-gradient sums
+# block count (one block an SM of an H100 SXM, a constant so that the bits
+# do not depend on the card) fixes the partition of its gradient sums
 FWD_BLOCKS = 132 * 8
-BWD_BLOCKS = 132 * 2
+BWD_BLOCKS = 132
+BWD_WARPS = 8  # 256 threads a backward block
+BWD_MAX_SAMPLES = 8
 PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 LN_NAMES = ("ln_scale", "ln_bias")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "attention_block_fwd": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
-    "attention_block_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+}
+_BWD_SIGNATURES = {
+    "attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
 }
 
 
@@ -171,17 +179,13 @@ def _check(x: torch.Tensor, p: dict, use_residual: bool) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def _smem_floats(f: int, d: int, a: int, h: int, backward: bool) -> int:
-    """The layout of csrc/attention_block.cu: the weights (and, in the
-    backward, their transposed copies and the gradient partials), then one
-    sample's tensors; score and qkv rows padded to an odd stride."""
+def _smem_floats(f: int, d: int, a: int, h: int) -> int:
+    """The forward's layout in csrc/attention_block.cu: the weights, then
+    one sample's tensors; score and qkv rows padded to an odd stride."""
     weights = d * 3 * a + a * d + 3 * a
     scores = f * h * (f | 1)
     qkv = f * ((3 * a) | 1)
-    if not backward:
-        return weights + 3 * d + 2 * f * d + qkv + scores + f * a
-    return (2 * weights - 3 * a + 2 * d + n_grad(d, a) + 4 * f * d
-            + qkv + f * 3 * a + 2 * scores + 2 * f * a)
+    return weights + 3 * d + 2 * f * d + qkv + scores + f * a
 
 
 def n_grad(d: int, a: int) -> int:
@@ -190,14 +194,78 @@ def n_grad(d: int, a: int) -> int:
     return d * 3 * a + 3 * a + a * d + 3 * d
 
 
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _row_stride(n: int) -> int:
+    """A multiple of 4 floats that is not a multiple of 8 (the .cu's
+    row_stride): the 8 rows of an mma fragment start on distinct banks."""
+    s = _up(n, 4)
+    return s + 4 if s % 8 == 0 else s
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """One backward block's work and shared memory (csrc/attention_bwd.cu's
+    make_plan / choose_plan, which the launch recomputes and checks).
+
+    samples: samples a tile (rows = samples * F, padded to 16); core_warps:
+    warps that run the attention core, one (sample, head) each at a time;
+    smem: dynamic shared memory in bytes; grid: blocks for batch ``bsz``."""
+    samples: int
+    core_warps: int
+    rows: int
+    smem: int
+
+    def grid(self, bsz: int) -> int:
+        return min(-(-bsz // self.samples), BWD_BLOCKS)
+
+
+def _bwd_floats(f: int, d: int, a: int, h: int, samples: int,
+                core_warps: int) -> int:
+    hdp = _up(a // h, 4)
+    ap = _up(h * hdp, 16)
+    n3, dp = 3 * ap, _up(d, 16)
+    ws, os_ = _row_stride(n3), _row_stride(dp)
+    rows = _up(samples * f, 16)
+    weights = dp * ws + ap * os_ + n3 + 2 * dp  # wqkv, wo, bqkv, bo, ls
+    grads = dp * ws + ap * os_ + n3 + 3 * dp    # their accumulators, dls, dlb
+    tile = rows * (3 * _row_stride(dp) + _row_stride(n3) + _row_stride(ap))
+    # w and ds of each core warp's (sample, head); between the two cores
+    # the tile's g and the column sums' partials
+    scratch = max(core_warps * 2 * f * (f | 1),
+                  rows * _row_stride(dp) + 3 * max(BWD_WARPS * 32, d))
+    return weights + grads + tile + scratch
+
+
+def backward_plan(f: int, d: int, a: int, num_heads: int) -> BackwardPlan:
+    """The most core warps, then the most samples a tile, that fit one
+    block; raises ValueError where one sample and one warp do not."""
+    for nc in range(BWD_WARPS, 0, -1):
+        for s in range(BWD_MAX_SAMPLES, 0, -1):
+            if nc > s * num_heads:
+                continue
+            smem = 4 * _bwd_floats(f, d, a, num_heads, s, nc)
+            if smem <= SMEM_PER_BLOCK:
+                return BackwardPlan(s, nc, _up(s * f, 16), smem)
+    smem = 4 * _bwd_floats(f, d, a, num_heads, 1, 1)
+    raise ValueError(
+        f"attention block backward with F={f}, d={d}, a={a}, H={num_heads} "
+        f"needs {smem} bytes of shared memory per block; the limit is "
+        f"{SMEM_PER_BLOCK}"
+    )
+
+
 def plan(f: int, d: int, a: int, num_heads: int, backward: bool) -> int:
     """Dynamic shared memory (bytes) of one block; raises ValueError where
     it does not fit."""
-    smem = 4 * _smem_floats(f, d, a, num_heads, backward)
+    if backward:
+        return backward_plan(f, d, a, num_heads).smem
+    smem = 4 * _smem_floats(f, d, a, num_heads)
     if smem > SMEM_PER_BLOCK:
-        kind = "backward" if backward else "forward"
         raise ValueError(
-            f"attention block {kind} with F={f}, d={d}, a={a}, "
+            f"attention block forward with F={f}, d={d}, a={a}, "
             f"H={num_heads} needs {smem} bytes of shared memory per block; "
             f"the limit is {SMEM_PER_BLOCK}"
         )
@@ -255,23 +323,23 @@ def _backward_cuda(x, p, g, num_heads, use_residual):
     flat = torch.zeros(n, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
     if bsz > 0:
-        smem = plan(f, d, a, num_heads, backward=True)
+        bp = backward_plan(f, d, a, num_heads)
         x = x.contiguous()
         gg = g.float().contiguous()
         wqkv, bqkv, wo, bo, ls, _ = _operands(x, p, use_residual)
-        grid = min(bsz, BWD_BLOCKS)
+        grid = bp.grid(bsz)
         part = torch.empty(grid, n, dtype=torch.float32, device=x.device)
-        lib = build.bind(SOURCE, _SIGNATURES)
+        lib = build.bind(BWD_SOURCE, _BWD_SIGNATURES)
         with torch.cuda.device(x.device):
-            err = lib.attention_block_bwd(
+            err = lib.attention_bwd(
                 x.data_ptr(), gg.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
                 wo.data_ptr(), bo.data_ptr(), ls.data_ptr(), dx.data_ptr(),
                 part.data_ptr(), flat.data_ptr(), n, bsz, f, d, a, num_heads,
                 head_scale(hd), int(use_residual),
-                int(x.dtype == torch.bfloat16), grid, smem,
-                build.stream_of(x),
+                int(x.dtype == torch.bfloat16), bp.samples, bp.core_warps,
+                grid, bp.smem, build.stream_of(x),
             )
-        build.check(lib, SOURCE, "attention_block_bwd", err)
+        build.check(lib, BWD_SOURCE, "attention_bwd", err)
         attention_block_backward.launches += 1
     else:
         dx.zero_()
@@ -362,10 +430,12 @@ def attention_block(x: torch.Tensor, p: dict, num_heads: int,
 
 __all__ = [
     "AttentionBlockFn",
+    "BackwardPlan",
     "attention_block",
     "attention_block_backward",
     "attention_block_backward_plain",
     "attention_block_forward",
     "attention_block_plain",
+    "backward_plan",
     "head_scale",
 ]

@@ -23,6 +23,7 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "deepfm_tpu_torch"
 SOURCES = (
     "attention_block.cu",
+    "attention_bwd.cu",
     "cin_compress.cu",
     "cin_stack_bwd.cu",
     "cin_stack_fwd.cu",
@@ -142,7 +143,9 @@ def sm_count(t) -> int:
 
 
 def stream_of(t) -> int:
-    """PyTorch's current CUDA stream on ``t``'s device, as a C pointer."""
+    """PyTorch's current CUDA stream on ``t``'s device, as a C pointer, read
+    without building a ``torch.cuda.Stream`` object (the call PyTorch's own
+    generated kernels use)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -22,6 +22,7 @@ sum gives the same bits as a sequential scatter-add.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,7 +33,7 @@ SOURCE = "row_gather.cu"
 _SIGNATURES = {
     "row_gather_launch": [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ],
 }
 
@@ -47,13 +48,16 @@ def row_gather_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                                                          device=table.device))
 
 
-def row_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows ``ids`` (n,) of a 2-D table: (n, C). A CPU table takes the plain
-    version; a CUDA table launches the kernel (or raises)."""
-    if table.device.type == "cpu":
-        return row_gather_plain(table, ids)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
+@functools.cache
+def _library():
+    """The kernel's library, built, loaded and bound at the first launch."""
+    return build.bind(SOURCE, _SIGNATURES)
+
+
+def gather_operands(table: torch.Tensor, ids: torch.Tensor):
+    """(table, ids) as the kernel takes them: a contiguous 2-D float32
+    table and contiguous int64 ids on its device. Raises on anything
+    else."""
     if table.dtype != torch.float32 or table.dim() != 2:
         raise TypeError(
             f"the table must be a 2-D float32 tensor, got {table.dtype} "
@@ -64,18 +68,37 @@ def row_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
             f"ids {tuple(ids.shape)} on {ids.device} must be 1-D on the "
             f"table's device {table.device}"
         )
-    table = table.contiguous()
-    ids = ids.to(torch.int64).contiguous()
+    if ids.dtype != torch.int64:  # (.to() costs microseconds even as a no-op)
+        ids = ids.long()
+    return table.contiguous(), ids.contiguous()
+
+
+def row_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` (n,) of a 2-D table: (n, C). A CPU table takes the plain
+    version; a CUDA table launches the kernel (or raises).
+
+    The host path is kept short, since a gather of tens of MB takes tens of
+    microseconds on the card: the library is bound once, the stream is read
+    without building a Stream object, and the C launch switches devices
+    only when the table is not on the current one."""
+    if not table.is_cuda:
+        if table.device.type == "cpu":
+            return row_gather_plain(table, ids)
+        raise ValueError(f"unsupported device {table.device}")
+    table, ids = gather_operands(table, ids)
     v, c = table.shape
-    out = torch.empty(ids.shape[0], c, dtype=torch.float32,
-                      device=table.device)
-    lib = build.bind(SOURCE, _SIGNATURES)
-    with torch.cuda.device(table.device):
-        err = lib.row_gather_launch(
-            table.data_ptr(), v, c, ids.data_ptr(), ids.shape[0],
-            out.data_ptr(), build.stream_of(table),
-        )
-    build.check(lib, SOURCE, "row_gather", err)
+    n = ids.shape[0]
+    out = torch.empty((n, c), dtype=torch.float32, device=table.device)
+    if n == 0 or c == 0:
+        return out
+    lib = _library()
+    dev = table.get_device()
+    err = lib.row_gather_launch(
+        table.data_ptr(), v, c, ids.data_ptr(), n, out.data_ptr(), dev,
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
+    if err:
+        build.check(lib, SOURCE, "row_gather", err)
     row_gather.launches += 1
     return out
 

@@ -47,6 +47,8 @@ from deepfm_tpu_torch.ops.kernels.attention import (
     attention_block_backward_plain,
     attention_block_forward,
     attention_block_plain,
+    BackwardPlan,
+    backward_plan,
     plan,
 )
 from deepfm_tpu_torch.training.optim import leaf_order
@@ -80,7 +82,7 @@ def _xg(seed, b=B, f=F, d=D):
             rng.normal(size=(b, f, d)).astype(np.float32))
 
 
-def _jax_block(x, p, g, residual, bf16):
+def _jax_block(x, p, g, residual, bf16, heads=H):
     """(out, dx, dp) of the JAX f-major kernels, back in (B, F, d), f32."""
     import jax
     import jax.numpy as jnp
@@ -90,7 +92,7 @@ def _jax_block(x, p, g, residual, bf16):
     )
 
     dt = jnp.bfloat16 if bf16 else jnp.float32
-    fn = make_attention_block_fmajor(H, residual)
+    fn = make_attention_block_fmajor(heads, residual)
     xf = jnp.asarray(x, dt).transpose(1, 2, 0)
     out, vjp = jax.vjp(fn, xf, {k: jnp.asarray(v) for k, v in p.items()})
     dx, dp = vjp(jnp.asarray(g, dt).transpose(1, 2, 0))
@@ -118,20 +120,34 @@ def _bf16(a):
     return np.asarray(torch.from_numpy(a).bfloat16().float())
 
 
-@pytest.mark.parametrize("residual", [True, False])
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-def test_plain_block_matches_jax_fmajor_kernels(residual, bf16):
-    p = _params(0, residual)
-    x, g = _xg(0)
+# (bf16, residual, (F, d, attention_dim, heads)): the base shape in both
+# dtypes with and without residual; F = 33 (more fields than a warp has
+# lanes: the backward kernel's lanes wrap) and four heads of 8
+_BLOCK_CASES = [
+    pytest.param(bf16, residual, (F, D, A, H),
+                 id=f"{'bf16' if bf16 else 'f32'}-{residual}")
+    for bf16 in (False, True) for residual in (True, False)
+] + [
+    pytest.param(bf16, True, shape, id=f"{name}-{'bf16' if bf16 else 'f32'}")
+    for name, shape in (("F33", (33, D, A, H)), ("hd8", (F, D, 32, 4)))
+    for bf16 in (False, True)
+]
+
+
+@pytest.mark.parametrize("bf16,residual,shape", _BLOCK_CASES)
+def test_plain_block_matches_jax_fmajor_kernels(bf16, residual, shape):
+    f, d, a, heads = shape
+    p = _params(0, residual, d, a)
+    x, g = _xg(0, f=f, d=d)
     if bf16:
         x, g = _bf16(x), _bf16(g)
-    jout, jdx, jdp = _jax_block(x, p, g, residual, bf16)
+    jout, jdx, jdp = _jax_block(x, p, g, residual, bf16, heads)
     dt = torch.bfloat16 if bf16 else torch.float32
     xt = torch.from_numpy(x).to(dt)
     pt = {k: torch.from_numpy(v) for k, v in p.items()}
-    out = attention_block_forward(xt, pt, H, residual)
-    dx, dp = attention_block_backward(xt, pt, torch.from_numpy(g).to(dt), H,
-                                      residual)
+    out = attention_block_forward(xt, pt, heads, residual)
+    dx, dp = attention_block_backward(xt, pt, torch.from_numpy(g).to(dt),
+                                      heads, residual)
     assert out.dtype == dx.dtype == dt
     assert sorted(dp) == sorted(p)
     if bf16:
@@ -229,8 +245,49 @@ def test_plan_fits_the_bench_shape_and_refuses_oversize():
     fwd = plan(27, 16, 64, 4, backward=False)
     bwd = plan(27, 16, 64, 4, backward=True)
     assert fwd < bwd <= 232_448
+    # bench.py's shape: 4 samples (108 rows, padded to 112) a tile, all 8
+    # warps in the core (16 (sample, head) pairs a tile), one block an SM
+    bp = backward_plan(27, 16, 64, 4)
+    assert bp == BackwardPlan(samples=4, core_warps=8, rows=112, smem=bwd)
+    assert bp.smem == 228_992
+    assert bp.grid(16384) == 132 and bp.grid(5) == 2 and bp.grid(1000) == 132
     with pytest.raises(ValueError, match="shared memory"):
         plan(100, 16, 64, 4, backward=True)
+
+
+def _old_backward_smem(f, d, a, h):
+    """Bytes of the backward's first design (one block a sample, every
+    stage in shared memory): what the plan accepted before."""
+    weights = d * 3 * a + a * d + 3 * a
+    scores = f * h * (f | 1)
+    n_grad = d * 3 * a + 3 * a + a * d + 3 * d
+    return 4 * (2 * weights - 3 * a + 2 * d + n_grad + 4 * f * d
+                + f * ((3 * a) | 1) + f * 3 * a + 2 * scores + 2 * f * a)
+
+
+@pytest.mark.parametrize("d,a,heads", [(16, 64, 4), (8, 16, 2), (16, 128, 1),
+                                       (12, 24, 3), (16, 64, 8), (32, 128, 4),
+                                       (5, 15, 3)])
+def test_backward_plan_refuses_no_shape_the_first_design_took(d, a, heads):
+    """Every F that the first design's shared memory took still runs (F > 32
+    included: lanes wrap), and the plan's tile and warps stay in range."""
+    for f in range(1, 130):
+        if _old_backward_smem(f, d, a, heads) > 232_448:
+            continue
+        bp = backward_plan(f, d, a, heads)
+        assert 1 <= bp.samples <= 8 and 1 <= bp.core_warps <= 8
+        assert bp.core_warps <= bp.samples * heads
+        assert bp.rows == -(-bp.samples * f // 16) * 16
+        assert bp.smem <= 232_448
+
+
+def test_backward_plan_takes_more_than_a_warp_of_fields():
+    bp = backward_plan(33, 16, 64, 4)
+    assert (bp.samples, bp.core_warps, bp.rows) == (2, 8, 80)
+    assert backward_plan(47, 16, 64, 4).samples >= 1
+    # the first design refused F = 48 at bench.py's widths; this one does not
+    assert _old_backward_smem(48, 16, 64, 4) > 232_448
+    assert backward_plan(48, 16, 64, 4).smem <= 232_448
 
 
 def _model_data(model, **extra):
@@ -353,8 +410,12 @@ def test_attention_kernels_match_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU launch")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for b, f, d, a, heads in ((6, 5, 8, 16, 2), (1000, 27, 16, 64, 4),
-                              (33, 7, 12, 24, 3)):
+    # (B=1001 is not a multiple of the bench plan's 4 samples a tile; F=33
+    # wraps the core's lanes; d=12, a=24, H=3 pads d, the heads and the
+    # [q|k|v] sections; B=16384 is bench.py's shape)
+    for b, f, d, a, heads in ((6, 5, 8, 16, 2), (1001, 27, 16, 64, 4),
+                              (33, 7, 12, 24, 3), (300, 33, 16, 64, 4),
+                              (16384, 27, 16, 64, 4)):
         for residual in (True, False):
             p = {k: torch.from_numpy(v).cuda()
                  for k, v in _params(7, residual, d, a).items()}

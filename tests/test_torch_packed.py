@@ -450,6 +450,26 @@ def test_row_gather_width_17_and_out_of_range():
     assert torch.equal(out[3], torch.from_numpy(table[5]))
 
 
+def test_gather_operands_are_what_the_kernel_takes():
+    """The wrapper's host-side check: a contiguous 2-D float32 table and
+    contiguous int64 ids on its device, anything else refused."""
+    table = torch.arange(30, dtype=torch.float32).reshape(10, 3)
+    ids = torch.tensor([3, 1, 4, 1, 5], dtype=torch.int32)
+    t, i = gather_mod.gather_operands(table.t().contiguous().t(), ids[::1])
+    assert t.is_contiguous() and torch.equal(t, table)
+    assert i.dtype == torch.int64 and torch.equal(i, ids.long())
+    t2, i2 = gather_mod.gather_operands(table, ids.long())
+    assert t2 is table
+    with pytest.raises(TypeError, match="2-D float32"):
+        gather_mod.gather_operands(table.double(), ids)
+    with pytest.raises(TypeError, match="2-D float32"):
+        gather_mod.gather_operands(table[0], ids)
+    with pytest.raises(ValueError, match="1-D"):
+        gather_mod.gather_operands(table, ids[None])
+    with pytest.raises(ValueError, match="1-D"):
+        gather_mod.gather_operands(table, ids.to("meta"))
+
+
 def test_embedding_kernel_config_gathers_with_the_kernel(monkeypatch):
     """use_embedding_kernel: logical tables even under table_layout packed,
     the row-gather lookup in the forward, and a two-pass train step."""

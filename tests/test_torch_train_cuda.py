@@ -219,6 +219,30 @@ def test_packed_kernels_match_plain_on_cuda(dcol, pack):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cols", [1, 17, 128])
+def test_row_gather_edges_on_cuda(cols):
+    """The row gather bit for bit against its plain version and on a second
+    launch: no ids, every id outside the table, row counts that end inside
+    a warp's 32 rows and inside a 16-byte store, ids at both ends."""
+    dev = _cuda()
+    rng = np.random.default_rng(cols)
+    rows = 1000
+    table = torch.from_numpy(
+        rng.normal(size=(rows, cols)).astype(np.float32)).to(dev)
+    for ids in (np.zeros(0, np.int64), rng.integers(rows, 3 * rows, 77),
+                rng.integers(-50, 0, 33), rng.integers(0, rows, 1),
+                rng.integers(-3, rows + 3, 4_099),
+                np.array([0, rows - 1, rows, -1, 5] * 7)):
+        gids = torch.from_numpy(ids).to(dev)
+        got = row_gather(table, gids)
+        assert got.shape == (len(ids), cols)
+        assert torch.equal(got, row_gather_plain(table, gids))
+        assert torch.equal(got, row_gather(table, gids))
+        assert torch.equal(got, row_gather(table, gids.int()))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_cuda_wrapper_raises_without_its_kernel(tmp_path, monkeypatch):
     """On the card a wrapper whose kernel cannot be built raises; it does
     not fall back to the plain version."""
