@@ -8,13 +8,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
   build      compile every CUDA kernel of the port from csrc/ (nvcc, one
              process per source, all at once), print the card's name
              and power limit as nvidia-smi reports them and the attention
-             backward's and the row gather's ptxas lines (registers, shared
-             memory, spills);
-  cin_stack  hold the CIN-stack kernel against its plain PyTorch version
-             on the card at five shapes (the serving config, bench.py's
+             backward's, the bf16 CIN-stack forward's and the row gather's
+             ptxas lines (registers, shared memory, spills);
+  cin_stack  hold the CIN-stack forward kernels (f32 on the FP32 pipes,
+             bf16 on the tensor cores) against their plain PyTorch version
+             on the card at six shapes (the serving config, bench.py's
              xDeepFM shape in f32 and bf16, a ragged shape the TPU
-             kernel's gate refuses, and the xDeepFM paper's CIN at its
-             batch in bf16), element by element (CIN_TOL), with
+             kernel's gate refuses in f32 and bf16, and the xDeepFM
+             paper's CIN at its batch in bf16), element by element
+             (CIN_TOL), each launched twice to show the same bits and
+             that it went through its own kernel (in bf16 also read, not
+             gated, at CIN_SWEEP_DRAWS other seeded draws), with
              the kernel's, the plain version's and a library yardstick's
              median times (CUDA events) beside the shape's bound; in
              bf16 the check must also refuse two controls, the plain
@@ -177,6 +181,10 @@ CIN_SHAPES = [
     # the xDeepFM paper's CIN at its batch (paper_config), which the paper
     # xDeepFM step runs through the stack forward
     ("paper_bf16", PAPER_BATCH, 27, PAPER_WIDTH, PAPER_CIN, False, "bfloat16"),
+    # the ragged shape in bf16: odd F, layer sizes off the 16-map tile and
+    # a batch off the bf16 kernel's 8-sample tile (last, so that the shapes
+    # above keep their seeds)
+    ("ragged_bf16", 1000, 13, 16, (10, 7), True, "bfloat16"),
 ]
 # The kernel is held against the plain version element by element,
 # |kernel - plain| <= atol + rtol * |plain|, and, in bf16, by its mean
@@ -198,6 +206,11 @@ CIN_TOL = {
     "float32": {"rtol": 2e-4, "atol": 1e-5, "mean_rel": None},
     "bfloat16": {"rtol": 2.0 ** -7, "atol": 1e-3, "mean_rel": 3e-5},
 }
+# In bf16 the same comparison is also read, not gated, at this many other
+# seeded draws of each shape: how often an element of the tensor-core
+# kernel, whose own additions are not round-to-nearest, lands beyond
+# CIN_TOL (the gate above stays the one draw).
+CIN_SWEEP_DRAWS = 6
 # Served probabilities against the same checkpoint on the CPU.
 SERVE_TOL = 1e-4
 # (config, the layout its seeded checkpoint is written in): the xDeepFM
@@ -395,7 +408,7 @@ def phase_build() -> str:
               if "Used" in line or "spill" in line or "Compiling entry" in line]
         for src, log in logs.items()
     }
-    for src in ("attention_bwd.cu", "row_gather.cu"):
+    for src in ("attention_bwd.cu", "cin_stack_fwd_mma.cu", "row_gather.cu"):
         for line in ptxas.get(src, []):
             print(f"ptxas {src}: {line}", flush=True)
     emit({"phase": "build", "seconds": seconds,
@@ -526,7 +539,9 @@ def phase_cin_stack() -> dict:
 
     from deepfm_tpu_torch.ops.kernels.cin_stack import (
         cin_stack_forward,
+        cin_stack_mma,
         cin_stack_plain,
+        forward_plan,
         plan_tile,
     )
 
@@ -550,11 +565,24 @@ def phase_cin_stack() -> dict:
         def library():
             return cin_library(x0, ws, bs, layers, split)
 
-        got = kernel()
+        # bf16 takes the tensor-core kernel, f32 the FP32-pipe one: each
+        # call here must launch its kernel once and the other not at all
+        counter = cin_stack_mma if bf16 else cin_stack_forward
+        other = cin_stack_forward if bf16 else cin_stack_mma
+        before = (counter.launches, other.launches)
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        launched = (counter.launches - before[0], other.launches - before[1])
+        same_bits = bool(torch.equal(got, again))
+        del again
         want = plain()
         stats = compare(got, want, tol)
         if not stats["ok"]:
             failures.append(f"{name}: kernel outside tolerance {tol}: {stats}")
+        if not same_bits or launched != (2, 0):
+            failures.append(f"{name}: two launches gave other bits "
+                            f"({not same_bits}) or the launches went "
+                            f"elsewhere: {launched}")
         controls = {}
         if bf16:
             for skip in ("hidden", "outer"):
@@ -564,6 +592,17 @@ def phase_cin_stack() -> dict:
                     failures.append(
                         f"{name}: the bf16 check passes a kernel without "
                         f"{skip} rounding: {ctl}")
+        sweep = []
+        for draw in range(CIN_SWEEP_DRAWS if bf16 else 0):
+            g = torch.Generator(device=dev).manual_seed(2000 + 10 * k + draw)
+            xd, wd, bd = cin_inputs(g, bsz, f, d, layers, split, dt)
+            st = compare(
+                cin_stack_forward(xd, wd, bd, layers, split, bf16_operands=True),
+                cin_stack_plain(xd, wd, bd, layers, split, bf16_operands=True),
+                tol)
+            sweep.append({key: st[key] for key in (
+                "max_err_over_tol", "mean_rel_err", "share_differing", "ok")})
+            del xd, wd, bd
         big = bsz >= 16384
         ms = time_ms(kernel, reps=10 if big else 20)
         plain_ms = time_ms(plain, reps=3 if big else 10, warmup=1)
@@ -572,12 +611,16 @@ def phase_cin_stack() -> dict:
         rec = {
             "phase": "cin_stack", "shape": name, "B": bsz, "F": f, "D": d,
             "layers": list(layers), "split_half": split, "dtype": dtype,
-            "tile": list(plan_tile(bsz, f, d, layers)[:2]),
+            "kernel": "cin_stack_fwd_mma" if bf16 else "cin_stack_fwd",
+            "tile": (forward_plan(bsz, f, d, layers, split)._asdict() if bf16
+                     else list(plan_tile(bsz, f, d, layers)[:2])),
             **stats, "tol": tol, "controls": controls,
+            "same_bits": same_bits, "launched": launched,
+            "seed_sweep": sweep,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
             "tflops": flops / (ms * 1e-3) / 1e12,
-            "launches": cin_stack_forward.launches,
+            "launches": counter.launches,
         }
         emit(rec)
         results[name] = rec
@@ -1629,6 +1672,7 @@ def kernel_counters():
     from deepfm_tpu_torch.ops.kernels.cin_stack import (
         cin_stack_backward,
         cin_stack_forward,
+        cin_stack_mma,
     )
     from deepfm_tpu_torch.ops.kernels.gather import row_gather
     from deepfm_tpu_torch.ops.kernels.grad import densify_rows_grad
@@ -1641,6 +1685,7 @@ def kernel_counters():
     )
 
     return {"cin_stack_fwd": cin_stack_forward,
+            "cin_stack_fwd_mma": cin_stack_mma,
             "cin_stack_bwd": cin_stack_backward,
             "cin_compress": cin_compress_layer,
             "attention_block_fwd": attention_block_forward,
@@ -2224,7 +2269,9 @@ def phase_train_models() -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steps = WARMUP_STEPS + TIMED_STEPS + 1
         if name == "xdeepfm":
-            expected = {"cin_stack_fwd": steps, "cin_stack_bwd": steps}
+            # bf16 operands: every forward on the tensor-core kernel
+            expected = {"cin_stack_fwd_mma": steps, "cin_stack_fwd": 0,
+                        "cin_stack_bwd": steps}
         else:
             blocks = config.attention.num_layers
             expected = {"attention_block_fwd": steps * blocks,
@@ -2345,8 +2392,8 @@ def phase_train_xdeepfm_paper() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses.append(trainer._train_step(*batch).item())
     steps = WARMUP_STEPS + TIMED_STEPS + 1
-    expected = {"cin_stack_fwd": steps, "cin_compress": steps * len(PAPER_CIN),
-                "cin_stack_bwd": 0}
+    expected = {"cin_stack_fwd_mma": steps, "cin_stack_fwd": 0,
+                "cin_compress": steps * len(PAPER_CIN), "cin_stack_bwd": 0}
     for kernel, n in expected.items():
         if counts[kernel] != n:
             failures.append(f"{kernel} launched {counts[kernel]} times in "
@@ -2657,6 +2704,9 @@ def main() -> None:
         ("cin_stack_fwd", "cin_stack_fwd.cu", "cin_stack_kernel.py:646",
          serve[SERVE_CONFIGS[0][0]]["launches"]["cin_stack_fwd"],
          cin["serving"]),
+        ("cin_stack_fwd_mma", "cin_stack_fwd_mma.cu", "cin_stack_kernel.py:646",
+         models["xdeepfm"]["launches"]["cin_stack_fwd_mma"],
+         cin["bench_bf16"]),
         ("cin_stack_bwd", "cin_stack_bwd.cu", "cin_stack_kernel.py:742",
          models["xdeepfm"]["launches"]["cin_stack_bwd"],
          cin_bwd["bench_bf16"]),

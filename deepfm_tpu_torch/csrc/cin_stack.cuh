@@ -1,6 +1,7 @@
 // Shared by the CIN-stack forward (cin_stack_fwd.cu) and backward
 // (cin_stack_bwd.cu): the per-layer metadata, the f32/bf16 loads, the x0
-// tile staging and one layer's compression into shared memory. Both
+// tile staging and one layer's compression into shared memory (the bf16
+// forward, cin_stack_fwd_mma.cu, takes kMaxLayers and ensure_smem). Both
 // kernels run one block of kTX * kTY threads per tile of TB samples whose
 // columns are n = b_local * D + d, padded to NTP (a multiple of kTX * kTN).
 

@@ -1,8 +1,10 @@
 // CIN-stack forward for Hopper (sm_90a): the whole Compressed Interaction
-// Network stack of xDeepFM in one kernel.
+// Network stack of xDeepFM in one kernel, in f32.
 //
 // Replaces deepfm_tpu/ops/pallas/cin_stack_kernel.py ::
-// make_cin_stack_pallas.forward / _stack_kernel. For every layer i
+// make_cin_stack_pallas.forward / _stack_kernel in f32 (its bf16 operand
+// mode runs on the tensor cores: csrc/cin_stack_fwd_mma.cu). For every
+// layer i
 //
 //   comp[b,m,d] = relu(sum_{h,f} W_i[m, h*F+f] * hid[b,h,d] * x0[b,f,d] + b_i[m])
 //
@@ -15,8 +17,8 @@
 // What bounds it on this card: operations. At the xDeepFM bench shape
 // (B=16384, F=27, D=16, [128,128] split) a forward is ~165 GFLOP against
 // ~41 MB of f32 input and output, far above the H100's ops:byte ridge.
-// This first kernel runs on the FP32 FMA pipes (67 TFLOP/s on the data
-// sheet), not the tensor cores; wgmma is later work.
+// It runs on the FP32 FMA pipes (67 TFLOP/s on the data sheet): f32
+// operands have no tensor-core product that keeps their bits.
 //
 // Design. One block owns a tile of TB samples. Its columns are
 // n = b_local*D + d, padded to NTP (a multiple of the column chunk CW), so
@@ -35,11 +37,6 @@
 // Pooling sums the d columns of each direct map in a fixed order, so the
 // output is deterministic. Ragged batch tiles, odd F, D and layer sizes
 // are masked here; the wrapper pads only the weights (to mpad, zeros).
-//
-// bf16 mode follows the TPU kernel's semantics: bf16 x0 and weights, the
-// outer product rounded to bf16 (a matmul operand), f32 accumulation,
-// f32 bias add, ReLU and pooling, the hidden state handed to the next
-// layer rounded to bf16, and the output stored as bf16.
 
 #include "cin_stack.cuh"
 
@@ -47,13 +44,11 @@ namespace {
 
 using namespace cin;
 
-template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
-cin_stack_fwd_kernel(const void* __restrict__ x0, void* __restrict__ out,
+cin_stack_fwd_kernel(const float* __restrict__ x0, float* __restrict__ out,
                      const Layers layers, const int n_layers, const int batch,
                      const int F, const int D, const int TB, const int NTP,
                      const int out_dim, const int mmax) {
-  using io = Io<BF16>;
   constexpr int NT = kThreads;
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;  // F x NTP
@@ -64,7 +59,7 @@ cin_stack_fwd_kernel(const void* __restrict__ x0, void* __restrict__ out,
   const int b0 = blockIdx.x * TB;
   const int nb = min(TB, batch - b0);
 
-  stage_x0<BF16>(x0, xs, b0, nb, F, D, NTP);
+  stage_x0<false>(x0, xs, b0, nb, F, D, NTP);
   __syncthreads();
 
   const float* hid = xs;
@@ -72,8 +67,8 @@ cin_stack_fwd_kernel(const void* __restrict__ x0, void* __restrict__ out,
   for (int l = 0; l < n_layers; ++l) {
     float* comp = (l & 1) ? buf1 : buf0;
     const int M = layers.m[l];
-    compress_layer<BF16>(hid, H, xs, F, NTP, layers.w[l], layers.bias[l], M,
-                         layers.mpad[l], comp, false);
+    compress_layer<false>(hid, H, xs, F, NTP, layers.w[l], layers.bias[l], M,
+                          layers.mpad[l], comp, false);
     __syncthreads();
 
     // pool the direct maps over d, in order, into out[b, col + m]
@@ -85,36 +80,13 @@ cin_stack_fwd_kernel(const void* __restrict__ x0, void* __restrict__ out,
       const float* src = comp + (size_t)m * NTP + bl * D;
       float s = 0.f;
       for (int d = 0; d < D; ++d) s += src[d];
-      io::store(out, (size_t)(b0 + bl) * out_dim + col + m, s);
+      out[(size_t)(b0 + bl) * out_dim + col + m] = s;
     }
 
-    // the last `next` maps are the next layer's hidden state; in bf16 mode
-    // they are rounded to bf16 (the TPU kernel's bf16 hidden scratch)
-    const int nxt = layers.next[l];
-    float* hnext = comp + (size_t)(M - nxt) * NTP;
-    if (BF16 && l + 1 < n_layers) {
-      __syncthreads();  // pooling above read the f32 values
-      for (int i = tid; i < nxt * NTP; i += NT) hnext[i] = round_bf16(hnext[i]);
-      __syncthreads();
-    }
-    hid = hnext;
-    H = nxt;
+    // the last `next` maps are the next layer's hidden state
+    hid = comp + (size_t)(M - layers.next[l]) * NTP;
+    H = layers.next[l];
   }
-}
-
-template <bool BF16>
-cudaError_t launch(const void* x0, void* out, const Layers& layers,
-                   int n_layers, int batch, int F, int D, int TB, int NTP,
-                   int out_dim, int mmax, cudaStream_t stream) {
-  const int smem = (int)(sizeof(float) * (size_t)(F + 2 * mmax) * NTP);
-  auto kernel = cin_stack_fwd_kernel<BF16>;
-  static int smem_set[kMaxDevices] = {};
-  const cudaError_t err = ensure_smem(kernel, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  const int grid = (batch + TB - 1) / TB;
-  kernel<<<grid, kThreads, smem, stream>>>(x0, out, layers, n_layers, batch,
-                                            F, D, TB, NTP, out_dim, mmax);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -128,8 +100,7 @@ extern "C" int cin_stack_fwd(const void* x0, void* out,
                              const void* const* biases, const int* m,
                              const int* mpad, const int* direct,
                              const int* next, int n_layers, int batch, int F,
-                             int D, int TB, int NTP, int bf16,
-                             void* stream) {
+                             int D, int TB, int NTP, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers) return (int)cudaErrorInvalidValue;
   Layers layers = {};
   int col = 0;
@@ -145,11 +116,15 @@ extern "C" int cin_stack_fwd(const void* x0, void* out,
     col += direct[l];
     mmax = m[l] > mmax ? m[l] : mmax;
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch<true>(x0, out, layers, n_layers, batch, F, D, TB, NTP, col, mmax, s)
-           : launch<false>(x0, out, layers, n_layers, batch, F, D, TB, NTP, col, mmax, s);
-  return (int)err;
+  const int smem = (int)(sizeof(float) * (size_t)(F + 2 * mmax) * NTP);
+  static int smem_set[kMaxDevices] = {};
+  const cudaError_t err = ensure_smem(cin_stack_fwd_kernel, smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (batch + TB - 1) / TB;
+  cin_stack_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x0), static_cast<float*>(out), layers,
+      n_layers, batch, F, D, TB, NTP, col, mmax);
+  return (int)cudaGetLastError();
 }
 
 // Message for an error code returned by cin_stack_fwd.

@@ -27,6 +27,7 @@ SOURCES = (
     "cin_compress.cu",
     "cin_stack_bwd.cu",
     "cin_stack_fwd.cu",
+    "cin_stack_fwd_mma.cu",
     "densify_rows_grad.cu",
     "densify_rows_grad_packed.cu",
     "fused_table_adam.cu",

@@ -4,7 +4,9 @@ autograd. This note covers the forward; the backward's is further down.
 
 The forward replaces ``deepfm_tpu/ops/pallas/cin_stack_kernel.py`` ::
 ``make_cin_stack_pallas.forward`` / ``_stack_kernel`` (the
-``pl.pallas_call`` of the forward). Source: ``csrc/cin_stack_fwd.cu``.
+``pl.pallas_call`` of the forward) with two kernels: in f32
+``csrc/cin_stack_fwd.cu`` (the FP32 pipes), and in the bf16 operand mode
+``csrc/cin_stack_fwd_mma.cu`` (the tensor cores, ``cin_stack_mma``).
 
 What it computes. Given x0 (B, F, D), per-layer weights W_i (M_i, H_i*F)
 in the parameter's own h-major layout (column h*F + f) and biases b_i, each
@@ -16,23 +18,28 @@ both; the output is concat_i sum_d direct_i, shape (B, sum(direct_i)).
 What bounds it on an H100: operations, not bytes. At bench.py's xDeepFM
 shape (B=16384, F=27, D=16, [128,128] split) a forward is ~165 GFLOP
 against ~41 MB of f32 input and output; only x0, the weights and the
-pooled output touch device memory. The kernel keeps every per-layer
-feature map and the outer product in shared memory and registers (one
-block of 128 threads per tile of samples, an 8x8 register tile per
-thread, the outer product formed on the fly), so the work is bounded by
-the FP32 FMA rate; tensor cores (wgmma) are later work. See the .cu file
-for the design.
+pooled output touch device memory. Both kernels keep every per-layer
+feature map and the outer product in shared memory and registers. The
+f32 kernel (one block of 128 threads per tile of samples, an 8x8 register
+tile per thread, the outer product formed on the fly) is bounded by the
+FP32 FMA rate. The bf16 kernel runs each layer as mma.sync m16n8k16
+products whose B fragments (the outer product, rounded to bf16) are
+formed in registers, with the weights streamed through shared memory; its
+tile is ``forward_plan``'s. See the .cu files for the designs.
 
-Re-layout done here, not in the kernel: the weights are transposed to
-k-major (K_i, mpad_i), zero-padded to mpad_i = round_up(M_i, 8) maps
-(cast to bf16 in bf16 mode), and the biases padded and cast to f32. The
-re-laid-out copies are cached per weight and bias tensor and made again
-only when that tensor changes (its version counter or storage moves), so
-a served model pays for them once, not per request. The TPU kernel's
+Re-layout done here, not in the kernels, and cached per weight and bias
+tensor until that tensor changes (its version counter or storage moves),
+so a served model pays for it once, not per request: for the f32 kernel
+the weights are transposed to k-major (K_i, mpad_i), zero-padded to
+mpad_i = round_up(M_i, 8) maps, and the biases padded to mpad_i; for the
+bf16 kernel each weight becomes (round_up(M_i, 16), H_i * round_up(F, 16))
+bf16, row-major, column h * round_up(F, 16) + f, zeros in the pads
+(``mma_weight``), and the biases are read as they are. The TPU kernel's
 f-major chunking, VMEM budgets and (F, D, B) transpose are TPU artifacts
-and are not carried over. Neither is its alignment gate: the kernel takes
-any B >= 1, F, D and layer sizes (odd splits included) and masks the
-ragged edges itself.
+and are not carried over. Neither is its alignment gate: both kernels take
+any B >= 1, F, D and layer sizes (odd splits included) and mask the
+ragged edges themselves. ``forward_plan`` fits every shape ``stack_route``
+sends to the stack forward.
 
 Routes. A block holds a tile's feature maps in shared memory, so a stack
 with wide layers does not fit one block. ``stack_route``, one shape
@@ -44,7 +51,8 @@ the "layers" route instead, the port of the JAX package's fallbacks
 ``cin_compress_layer`` (``ops/kernels/cin.py``), and the backward is
 ``backward_xla``'s algorithm (``cin_stack_backward_layers``). At the
 xDeepFM paper's Criteo CIN (F=27, D=10, 3 x 200 maps, no split) the
-forward fits (109,312 bytes) and the backward does not (250,496). The
+forward fits (109,312 bytes by ``stack_smem``'s count; the bf16 kernel's
+plan takes 225,408) and the backward does not (250,496). The
 plans themselves still raise when called on a shape that does not fit.
 The JAX package runs its jnp oracle where its forward finds no tile; the
 port runs the kernel (there is no plain path on the card), so in bf16 the
@@ -54,16 +62,20 @@ predicate picks the route, and every layer runs the plain version.
 bf16 mode (``bf16_operands`` with a bfloat16 x0) follows the TPU kernel:
 bf16 operands (x0, weights, the outer product), f32 accumulation, f32 bias
 add, ReLU and pooling, the hidden state rounded to bf16 between layers,
-and the output cast to bf16. The TPU additionally requires every hidden
-height to be a multiple of 16 for this mode and otherwise runs f32; the
-port has no such gate, so at other heights the two differ by bf16
-rounding. bf16 input without ``bf16_operands`` computes in f32.
+and the output cast to bf16. The TPU pads F to 16 in this mode
+(``cin_stack_kernel.py:601``), as the bf16 kernel does. The TPU
+additionally requires every hidden height to be a multiple of 16 for this
+mode and otherwise runs f32; the port has no such gate, so at other
+heights the two differ by bf16 rounding. bf16 input without
+``bf16_operands`` computes in f32. On the card every bf16-mode call down
+the "stack" route launches the bf16 kernel; the f32 kernel has no bf16
+instance.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -79,6 +91,7 @@ from deepfm_tpu_torch.ops.kernels.cin import (
 )
 
 SOURCE = "cin_stack_fwd.cu"
+MMA_SOURCE = "cin_stack_fwd_mma.cu"
 MAX_LAYERS = 8
 # Hopper: at most 227 KB of shared memory per block.
 SMEM_PER_BLOCK = 232_448
@@ -86,6 +99,14 @@ HIDDEN_CHUNK = 4  # the backward's kHC: hidden rows per chunk of A = W^T dcomp
 # A block is 8 x 16 threads, each owning 8 columns and 8 maps: a column
 # chunk of 64 (kTX * kTN in the .cu file).
 COLUMN_CHUNK = 64
+# The bf16 kernel (csrc/cin_stack_fwd_mma.cu): each warp owns 4 n8 tiles
+# (32 columns) and at most a number of m16 tiles of a pass. Two instances,
+# (warps, m16 tiles a warp): the first runs two blocks an SM, each within
+# half of the SM's 228 KB less the 1 KB reserved per block.
+MMA_WARP_COLUMNS = 32
+MMA_TWO_BLOCKS = (8, 4)
+MMA_ONE_BLOCK = (12, 5)
+SMEM_TWO_BLOCKS = 115_712
 
 
 def cin_stack_plain(
@@ -176,6 +197,89 @@ def plan_tile(
     return tile_b, ntp, smem
 
 
+class ForwardPlan(NamedTuple):
+    """One launch of the bf16 forward kernel: ``tile_b`` samples a block,
+    their columns padded to ``ntp``, taken ``columns`` at a time (32 per
+    n-group of warps) and ``rows`` maps at a time, the weights streamed in
+    chunks of ``chunk`` k16 steps, ``warps`` warps owning up to
+    ``warp_tiles`` m16 tiles each (the kernel's instance), ``smem`` bytes
+    of shared memory."""
+
+    tile_b: int
+    ntp: int
+    columns: int
+    rows: int
+    chunk: int
+    warps: int
+    warp_tiles: int
+    smem: int
+
+
+def _mma_smem(f: int, d: int, hn: int, maxdir: int, columns: int,
+              tile_b: int, rows: int) -> tuple[int, int]:
+    """(ntp, bytes) of one bf16-kernel layout: x0 and two hidden buffers in
+    bf16, the region of the two weight stages (= rows x columns f32 comps)
+    and the pooled sums (the layout in csrc/cin_stack_fwd_mma.cu)."""
+    ntp = _round_up(tile_b * d, columns)
+    nbytes = (_round_up(2 * f * ntp, 16) + 2 * _round_up(2 * hn * ntp, 16)
+              + 4 * rows * columns + _round_up(4 * tile_b * maxdir, 16))
+    return ntp, nbytes
+
+
+def forward_plan(
+    batch: int, f: int, d: int, layer_sizes: Sequence[int], split_half: bool
+) -> ForwardPlan:
+    """The bf16 forward kernel's plan. The two-block instance (8 warps, 4
+    m16 tiles a warp) at 128 columns where every layer's maps fit one pass
+    of it and two blocks fit an SM (bench.py's CIN); else the one-block
+    instance (12 warps, 5 tiles a warp) at the widest column pass
+    (128, 64 or 32 columns), then the most maps a pass (a multiple of 16),
+    whose shared memory fits one block. It fits every shape whose
+    ``stack_smem`` forward count fits (about half of it: bf16 hidden
+    states, no f32 comp buffers). Raises ValueError when nothing fits. The
+    C launch recomputes it and refuses a mismatch."""
+    direct_sizes, next_sizes = cin_layer_sizes(tuple(layer_sizes), split_half)
+    hn = max(next_sizes[:-1], default=0)
+    maxdir = max(direct_sizes)
+    mtop = _round_up(max(layer_sizes), 16)
+    for wn in (4, 2, 1):
+        columns = MMA_WARP_COLUMNS * wn
+        tile_b = 1 if d > columns else min(batch, columns // d)
+        warps, tiles = MMA_TWO_BLOCKS
+        if wn == 4 and mtop <= warps // wn * 16 * tiles:
+            ntp, smem = _mma_smem(f, d, hn, maxdir, columns, tile_b, mtop)
+            if smem <= SMEM_TWO_BLOCKS:
+                return ForwardPlan(tile_b, ntp, columns, mtop, columns // 16,
+                                   warps, tiles, smem)
+        warps, tiles = MMA_ONE_BLOCK
+        for rows in range(min(mtop, warps // wn * 16 * tiles), 0, -16):
+            ntp, smem = _mma_smem(f, d, hn, maxdir, columns, tile_b, rows)
+            if smem <= SMEM_PER_BLOCK:
+                return ForwardPlan(tile_b, ntp, columns, rows, columns // 16,
+                                   warps, tiles, smem)
+    raise ValueError(
+        f"bf16 CIN stack with F={f}, D={d}, layers {tuple(layer_sizes)} "
+        f"needs more shared memory per block than the limit of "
+        f"{SMEM_PER_BLOCK} bytes"
+    )
+
+
+def mma_weight(w: torch.Tensor, f: int) -> torch.Tensor:
+    """W (M, H*F) as the bf16 kernel reads it: (round_up(M, 16),
+    H * round_up(F, 16)) bf16, row-major, column h * round_up(F, 16) + f,
+    zeros in the pads; cached until W changes."""
+    m, k = w.shape
+    h, fp = k // f, _round_up(f, 16)
+
+    def make():
+        out = torch.zeros(_round_up(m, 16), h, fp, dtype=torch.bfloat16,
+                          device=w.device)
+        out[:m, :, :f] = w.detach().reshape(m, h, f)
+        return out.reshape(out.shape[0], h * fp)
+
+    return _relayout(w, ("mma", fp), make)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_argtypes_set", False):
@@ -184,7 +288,7 @@ def _lib() -> ctypes.CDLL:
         lib.cin_stack_fwd.argtypes = (
             [ctypes.c_void_p, ctypes.c_void_p, ptrs, ptrs]
             + [ints] * 4
-            + [ctypes.c_int] * 7
+            + [ctypes.c_int] * 6
             + [ctypes.c_void_p]
         )
         lib.cin_stack_fwd.restype = ctypes.c_int
@@ -220,31 +324,36 @@ def _check_shapes(x0, weights, biases, layer_sizes, next_sizes) -> None:
         h = next_sizes[i]
 
 
-def _cin_stack_cuda(x0, weights, biases, layer_sizes, split_half,
-                    bf16_operands) -> torch.Tensor:
-    layer_sizes = tuple(int(m) for m in layer_sizes)
-    direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+def _check_inputs(x0, weights, biases, layer_sizes, next_sizes) -> None:
     _check_shapes(x0, weights, biases, layer_sizes, next_sizes)
     if x0.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x0 must be float32 or bfloat16, got {x0.dtype}")
-    dev = x0.device
     for t in (*weights, *biases):
-        if t.device != dev:
-            raise ValueError(f"all inputs must be on {dev}, found {t.device}")
-    bf16 = bf16_operands and x0.dtype == torch.bfloat16
-    op_dt = torch.bfloat16 if bf16 else torch.float32
+        if t.device != x0.device:
+            raise ValueError(f"all inputs must be on {x0.device}, found "
+                             f"{t.device}")
+
+
+def _cin_stack_cuda(x0, weights, biases, layer_sizes,
+                    split_half) -> torch.Tensor:
+    """The f32 kernel (csrc/cin_stack_fwd.cu); a bf16 x0 is computed in
+    f32 and the output cast back."""
+    layer_sizes = tuple(int(m) for m in layer_sizes)
+    direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    _check_inputs(x0, weights, biases, layer_sizes, next_sizes)
+    dev = x0.device
     bsz, f, d = x0.shape
-    out = torch.empty(bsz, sum(direct_sizes), dtype=op_dt, device=dev)
+    out = torch.empty(bsz, sum(direct_sizes), dtype=torch.float32, device=dev)
     if bsz == 0:
         return out.to(x0.dtype)
-    x = x0.to(op_dt).contiguous()
+    x = x0.float().contiguous()
     tile_b, ntp, _ = plan_tile(bsz, f, d, layer_sizes)
 
     # re-layout: k-major weights padded to mpad maps, f32 padded biases
     mpads = [_round_up(m, 8) for m in layer_sizes]
     wts, bs = [], []
     for w, b, mp in zip(weights, biases, mpads):
-        wts.append(kmajor_weight(w, op_dt))
+        wts.append(kmajor_weight(w, torch.float32))
         bs.append(_relayout(b, (mp,), lambda: _zero_padded(
             b, (mp,), torch.float32)))
 
@@ -260,7 +369,7 @@ def _cin_stack_cuda(x0, weights, biases, layer_sizes, split_half,
             (ctypes.c_int * n)(*mpads),
             (ctypes.c_int * n)(*direct_sizes),
             (ctypes.c_int * n)(*next_sizes),
-            n, bsz, f, d, tile_b, ntp, int(bf16), stream,
+            n, bsz, f, d, tile_b, ntp, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -270,6 +379,72 @@ def _cin_stack_cuda(x0, weights, biases, layer_sizes, split_half,
     cin_stack_forward.launches += 1
     # wts/bs/x stay referenced until here; the stream orders their reuse
     return out.to(x0.dtype)
+
+
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_IP = ctypes.POINTER(ctypes.c_int)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_MMA_SIGNATURES = {
+    "cin_stack_fwd_mma": [_P, _P, _PP, _PP, _IP, _IP, _IP] + [_I] * 10 + [_P],
+}
+
+
+def _cin_stack_mma_cuda(x0, weights, biases, layer_sizes,
+                        split_half) -> torch.Tensor:
+    layer_sizes = tuple(int(m) for m in layer_sizes)
+    direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    _check_inputs(x0, weights, biases, layer_sizes, next_sizes)
+    bsz, f, d = x0.shape
+    out = torch.empty(bsz, sum(direct_sizes), dtype=torch.bfloat16,
+                      device=x0.device)
+    if bsz == 0:
+        return out
+    plan = forward_plan(bsz, f, d, layer_sizes, split_half)
+    x = x0.contiguous()
+    wts = [mma_weight(w, f) for w in weights]
+    bs = [b.float().contiguous() for b in biases]
+    n = len(layer_sizes)
+
+    def ints(vs):
+        return (ctypes.c_int * n)(*vs)
+
+    lib = build.bind(MMA_SOURCE, _MMA_SIGNATURES)
+    with torch.cuda.device(x0.device):
+        err = lib.cin_stack_fwd_mma(
+            x.data_ptr(), out.data_ptr(),
+            (ctypes.c_void_p * n)(*[t.data_ptr() for t in wts]),
+            (ctypes.c_void_p * n)(*[t.data_ptr() for t in bs]),
+            ints(layer_sizes), ints(direct_sizes), ints(next_sizes),
+            n, bsz, f, d, plan.tile_b, plan.ntp, plan.columns // MMA_WARP_COLUMNS,
+            plan.rows, plan.warp_tiles, plan.smem, build.stream_of(x),
+        )
+    build.check(lib, MMA_SOURCE, "cin_stack_fwd_mma", err)
+    cin_stack_mma.launches += 1
+    # wts/bs/x stay referenced until here; the stream orders their reuse
+    return out
+
+
+def cin_stack_mma(
+    x0: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    layer_sizes: Sequence[int],
+    split_half: bool,
+) -> torch.Tensor:
+    """The stack forward in the bf16 operand mode, x0 (B, F, D) bfloat16 ->
+    (B, sum(direct)) bfloat16, no autograd graph. A CPU tensor takes the
+    plain version; a CUDA tensor launches the tensor-core kernel
+    (csrc/cin_stack_fwd_mma.cu) or raises, also where ``forward_plan``
+    finds no tile."""
+    if x0.dtype != torch.bfloat16:
+        raise TypeError(f"x0 must be bfloat16, got {x0.dtype}")
+    if x0.device.type == "cpu":
+        return cin_stack_plain(x0, weights, biases, layer_sizes, split_half,
+                               bf16_operands=True)
+    return _cin_stack_mma_cuda(x0, weights, biases, layer_sizes, split_half)
+
+
+cin_stack_mma.launches = 0
 
 
 def cin_stack_layers(
@@ -307,13 +482,11 @@ def _cin_stack_raw(x0, weights, biases, layer_sizes, split_half,
     bsz, f, d = x0.shape
     if stack_route(bsz, f, d, layer_sizes, split_half, False) == "layers":
         return cin_stack_layers(x0, weights, biases, layer_sizes, split_half)
+    if bf16_operands and x0.dtype == torch.bfloat16:
+        return cin_stack_mma(x0, weights, biases, layer_sizes, split_half)
     if x0.device.type == "cpu":
-        return cin_stack_plain(
-            x0, weights, biases, layer_sizes, split_half, bf16_operands
-        )
-    return _cin_stack_cuda(
-        x0, weights, biases, layer_sizes, split_half, bf16_operands
-    )
+        return cin_stack_plain(x0, weights, biases, layer_sizes, split_half)
+    return _cin_stack_cuda(x0, weights, biases, layer_sizes, split_half)
 
 
 def cin_stack_forward(
@@ -356,9 +529,6 @@ BWD_SOURCE = "cin_stack_bwd.cu"
 # SPLIT_COLUMNS columns each, then the partials are added in order.
 SPLIT_COLUMNS = 4096
 MAX_SPLITS = 64
-_PP = ctypes.POINTER(ctypes.c_void_p)
-_IP = ctypes.POINTER(ctypes.c_int)
-_P, _I = ctypes.c_void_p, ctypes.c_int
 _BWD_SIGNATURES = {
     "cin_stack_bwd": [_P, _P, _PP, _PP, _PP, _IP, _IP, _IP, _IP, _IP]
     + [_I] * 7 + [_P] * 5 + [_I, _PP, _P, _P],

@@ -6,9 +6,11 @@ Pallas kernel runs in interpret mode on the CPU) and against the JAX
 ``CIN`` on its per-layer ``cin_compress`` path. Inputs and weights are
 made with numpy from a seed and handed to both packages.
 
-The JAX package is imported inside the tests that use it, so the one
-CUDA test also runs on a GPU machine without JAX:
-``python -m pytest --noconftest tests/test_torch_cin.py -m cuda``.
+The JAX package is imported inside the tests that use it, so the CUDA
+tests also run on a GPU machine without JAX:
+``python -m pytest --noconftest tests/test_torch_cin.py -m cuda``. In bf16
+they run the tensor-core kernel (csrc/cin_stack_fwd_mma.cu), held there
+also to chip_smoke.py's CIN_TOL["bfloat16"] (element-wise and mean).
 
 Tolerances: f32 at rtol 2e-4 / atol 1e-5, the tolerance of
 tests/test_torch_parity.py (sums taken in another order). The port's bf16
@@ -246,3 +248,46 @@ def test_cin_stack_kernel_matches_plain_on_cuda():
     w0 = ws[0].clone().requires_grad_()
     out = cin_stack_forward(x0, [w0, *ws[1:]], bs, layers, split)
     assert out.grad_fn is not None and "CinStackFn" in out.grad_fn.name()
+
+
+# (layer_sizes, split_half, B, F, D): bench.py's CIN at a small batch off
+# the 8-sample tile, the ragged shape, the paper's 3 x 200 CIN at D=10;
+# then plans off the main path (forward_plan): a sample wider than a column
+# pass (3 passes), two passes of maps, 64-column passes, passes of 16 maps
+MMA_CASES = [
+    ((128, 128), True, 300, 27, 16),
+    ((10, 7), True, 1000, 13, 16),
+    ((200, 200, 200), False, 100, 27, 10),
+    ((20,), False, 3, 5, 300),
+    ((300,), False, 40, 27, 16),
+    ((446, 446), False, 64, 16, 16),
+    ((400, 400), False, 12, 16, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,split,b,f,d", MMA_CASES)
+def test_cin_stack_mma_kernel_matches_plain_on_cuda(layers, split, b, f, d):
+    """The bf16 tensor-core kernel against the plain bf16 version under
+    chip_smoke.py's CIN_TOL["bfloat16"], launched twice with the same bits;
+    every launch goes through the bf16 kernel, none through the f32 one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU launch")
+    from chip_smoke import CIN_TOL, compare
+    from deepfm_tpu_torch.ops.kernels.cin_stack import cin_stack_mma
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x0 = torch.from_numpy(_x0(4, b, f, d)).cuda().to(torch.bfloat16)
+    ws, bs = _params(4, f, layers, split)
+    ws = [torch.from_numpy(w).cuda() for w in ws]
+    bs = [torch.from_numpy(v).cuda() for v in bs]
+    before = (cin_stack_mma.launches, cin_stack_forward.launches)
+    got = cin_stack_forward(x0, ws, bs, layers, split, bf16_operands=True)
+    again = cin_stack_forward(x0, ws, bs, layers, split, bf16_operands=True)
+    torch.cuda.synchronize()
+    assert (cin_stack_mma.launches - before[0],
+            cin_stack_forward.launches - before[1]) == (2, 0)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    want = cin_stack_plain(x0, ws, bs, layers, split, bf16_operands=True)
+    stats = compare(got, want, CIN_TOL["bfloat16"])
+    assert stats["ok"], stats
