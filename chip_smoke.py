@@ -8,8 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
   build      compile every CUDA kernel of the port from csrc/ (nvcc, one
              process per source, all at once), print the card's name
              and power limit as nvidia-smi reports them and the attention
-             backward's, the bf16 CIN-stack forward's and the row gather's
-             ptxas lines (registers, shared memory, spills);
+             backward's, the bf16 CIN-stack forward's and backward's and
+             the row gather's ptxas lines (registers, shared memory,
+             spills);
   cin_stack  hold the CIN-stack forward kernels (f32 on the FP32 pipes,
              bf16 on the tensor cores) against their plain PyTorch version
              on the card at six shapes (the serving config, bench.py's
@@ -23,12 +24,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              median times (CUDA events) beside the shape's bound; in
              bf16 the check must also refuse two controls, the plain
              version without its hidden-state or outer-product rounding;
-  cin_stack_bwd  the CIN-stack backward kernel against its plain version
-             on the card at bench.py's xDeepFM shape in f32 and bf16 and at
-             the ragged shape (CIN_BWD_TOL), launched twice to show the
-             same bits, timed beside its bound, its plain version and
-             autograd through the plain forward; in bf16 the check must
-             refuse the plain backward without its dcomp rounding;
+  cin_stack_bwd  the CIN-stack backward kernels (f32 on the FP32 pipes,
+             bf16 on the tensor cores) against their plain version on the
+             card at bench.py's xDeepFM shape in f32 and bf16 and at the
+             ragged shape in f32 and bf16 (CIN_BWD_TOL), launched twice to
+             show the same bits and that each went through its own kernel,
+             timed beside its bound, its plain version and autograd
+             through the plain forward (below_library, TFLOP/s, the
+             plan); in bf16 the check must refuse the plain backward
+             without its dcomp rounding;
   cin_compress  the per-layer CIN kernel against its plain version on the
              card in f32 at the three layer shapes of the xDeepFM paper's
              CIN (B=4096, F=27, D=10, 200 maps, H = 27, 200, 200) and a
@@ -101,9 +105,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              then (train_models) xDeepFM and AttentionDeepFM at the same
              width on the sparse-fused path, timed and profiled as DeepFM,
              each of their kernels launched once per step (per block for
-             attention), and at 20k ids, batch GRAD_BATCH, f32, their
-             first-step gradients on the card against the CPU's, with a
-             planted fault per model that must be refused;
+             attention; xDeepFM's CIN forward and backward on the
+             tensor-core kernels, never the f32 ones), and at 20k ids,
+             batch GRAD_BATCH, f32, their first-step gradients on the card
+             against the CPU's, with a planted fault per model that must be
+             refused (xDeepFM's through the f32 CIN-stack backward);
   train_xdeepfm_paper  the xDeepFM paper's Criteo configuration
              (paper_config: d=10, CIN 3 x 200 maps without split, DNN
              [400, 400], batch 4096, Adam) on bench.py's workload at
@@ -128,9 +134,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              is written packed and served under the config's logical
              tables, and then under packed ones (SERVE_LAYOUT_TOL);
   kernels    one line listing every ported kernel with its launch count
-             on the path that runs it (serve for the CIN-stack forward,
-             the xDeepFM train step for the CIN-stack backward, the
-             paper's xDeepFM train step for cin_compress, the
+             on the path that runs it (serve for the f32 CIN-stack
+             forward, the xDeepFM train step for the bf16 CIN-stack
+             forward and backward, xDeepFM's f32 first-step gradients for
+             the f32 CIN-stack backward, the paper's xDeepFM train step
+             for cin_compress, the
              AttentionDeepFM train step for the attention kernels, the
              sparse-fused DeepFM step for segment_sumsq and
              sparse_table_adam, the two-pass step for densify_rows_grad and
@@ -227,6 +235,10 @@ CIN_BWD_SHAPES = [
     ("bench_f32", 16384, 27, 16, (128, 128), True, "float32"),
     ("bench_bf16", 16384, 27, 16, (128, 128), True, "bfloat16"),
     ("ragged", 1000, 13, 16, (10, 7), True, "float32"),
+    # the ragged shape in bf16 through the tensor-core kernel: odd F, maps
+    # off the 16-map tile, a batch off its 8-sample tile (last, so that the
+    # shapes above keep their seeds)
+    ("ragged_bf16", 1000, 13, 16, (10, 7), True, "bfloat16"),
 ]
 # (name, B, F, d, attention_dim, heads, dtype) of the attention block with
 # residual + LayerNorm (bench.py's AttentionDeepFM: 4 heads of 16, d=16)
@@ -257,7 +269,10 @@ ATTN_SHAPES = [
 # element by about 2^-9: half of the bf16 dx0 and 7 % of the bf16 dx
 # elements differ, against 2e-4 and 6e-4 for the kernels, and the weight
 # gradients' mean relative error reads 1.1e-3 to 1.9e-3, against at most
-# 6e-6 (CIN) and 9e-5 (attention) for the kernels (an H100, bench shapes).
+# 9e-5 for the attention kernel and, for the CIN backward, 6e-6 on the FP32
+# pipes and 3.6e-4 on the tensor cores, whose remat reproduces the
+# tensor-core forward's comps, so more of its ReLU masks part from the
+# plain version's f32 ones (an H100, bench shapes).
 CIN_BWD_TOL = {
     "float32": {"rtol": 2e-4, "atol_rel": 1e-5, "outside_share": 1e-3,
                 "mean_rel": 1e-4, "differ_share": None},
@@ -408,7 +423,8 @@ def phase_build() -> str:
               if "Used" in line or "spill" in line or "Compiling entry" in line]
         for src, log in logs.items()
     }
-    for src in ("attention_bwd.cu", "cin_stack_fwd_mma.cu", "row_gather.cu"):
+    for src in ("attention_bwd.cu", "cin_stack_fwd_mma.cu",
+                "cin_stack_bwd_mma.cu", "row_gather.cu"):
         for line in ptxas.get(src, []):
             print(f"ptxas {src}: {line}", flush=True)
     emit({"phase": "build", "seconds": seconds,
@@ -699,7 +715,9 @@ def phase_cin_stack_bwd() -> dict:
     from deepfm_tpu_torch.ops.kernels.cin_stack import (
         cin_stack_backward,
         cin_stack_backward_plain,
+        cin_stack_bwd_mma,
         cin_stack_plain,
+        mma_backward_plan,
         plan_backward,
     )
 
@@ -730,13 +748,22 @@ def phase_cin_stack_bwd() -> dict:
                                   layers, split, True)
             return torch.autograd.grad(out, leaves, g.to(out.dtype))
 
+        # bf16 takes the tensor-core kernel, f32 the FP32-pipe one: each
+        # call here must launch its kernel once and the other not at all
+        counter = cin_stack_bwd_mma if bf16 else cin_stack_backward
+        other = cin_stack_backward if bf16 else cin_stack_bwd_mma
+        before = (counter.launches, other.launches)
         got, again = cin_grads_named(kernel()), cin_grads_named(kernel())
+        torch.cuda.synchronize()
+        launched = (counter.launches - before[0], other.launches - before[1])
         want = cin_grads_named(plain())
         same_bits = all(torch.equal(got[o], again[o]) for o in got)
         cmp = grad_compare(got, want, tol, "dx0")
         if not (cmp["ok"] and same_bits):
             failures.append(f"{name}: kernel outside tolerance {tol} or not "
                             f"repeatable ({same_bits}): {cmp}")
+        if launched != (2, 0):
+            failures.append(f"{name}: the launches went elsewhere: {launched}")
         controls = {}
         if bf16:
             ctl = grad_compare(cin_grads_named(plain(dcomp_round=False)),
@@ -751,17 +778,24 @@ def phase_cin_stack_bwd() -> dict:
         plain_ms = time_ms(plain, reps=3 if big else 10, warmup=1)
         library_ms = time_ms(library, reps=3 if big else 10, warmup=1)
         bound_ms, bound_by, flops = cin_bwd_bound(bsz, f, d, layers, split, bf16)
-        tile_b, ntp, smem, splits = plan_backward(bsz, f, d, layers, split)
+        if bf16:
+            plan = mma_backward_plan(bsz, f, d, layers, split)._asdict()
+        else:
+            plan = dict(zip(("tile_b", "ntp", "smem", "splits"),
+                            plan_backward(bsz, f, d, layers, split)))
         rec = {
             "phase": "cin_stack_bwd", "shape": name, "B": bsz, "F": f, "D": d,
             "layers": list(layers), "split_half": split, "dtype": dtype,
-            "tile_b": tile_b, "smem_bytes": smem, "dw_splits": splits,
+            "kernel": "cin_stack_bwd_mma" if bf16 else "cin_stack_bwd",
+            "plan": plan, "launched": launched,
             **cmp, "same_bits": same_bits, "tol": tol, "controls": controls,
             "max_abs_err": max(o["max_abs_err"] for o in cmp["outputs"].values()),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "autograd through cin_stack_plain (forward + backward)",
+            "below_library": ms < library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
             "tflops": flops / (ms * 1e-3) / 1e12,
+            "launches": counter.launches,
         }
         emit(rec)
         results[name] = rec
@@ -1671,6 +1705,7 @@ def kernel_counters():
     from deepfm_tpu_torch.ops.kernels.cin import cin_compress_layer
     from deepfm_tpu_torch.ops.kernels.cin_stack import (
         cin_stack_backward,
+        cin_stack_bwd_mma,
         cin_stack_forward,
         cin_stack_mma,
     )
@@ -1687,6 +1722,7 @@ def kernel_counters():
     return {"cin_stack_fwd": cin_stack_forward,
             "cin_stack_fwd_mma": cin_stack_mma,
             "cin_stack_bwd": cin_stack_backward,
+            "cin_stack_bwd_mma": cin_stack_bwd_mma,
             "cin_compress": cin_compress_layer,
             "attention_block_fwd": attention_block_forward,
             "attention_block_bwd": attention_block_backward,
@@ -2269,9 +2305,10 @@ def phase_train_models() -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steps = WARMUP_STEPS + TIMED_STEPS + 1
         if name == "xdeepfm":
-            # bf16 operands: every forward on the tensor-core kernel
+            # bf16 operands: every forward and backward on the tensor-core
+            # kernels
             expected = {"cin_stack_fwd_mma": steps, "cin_stack_fwd": 0,
-                        "cin_stack_bwd": steps}
+                        "cin_stack_bwd_mma": steps, "cin_stack_bwd": 0}
         else:
             blocks = config.attention.num_layers
             expected = {"attention_block_fwd": steps * blocks,
@@ -2290,7 +2327,15 @@ def phase_train_models() -> dict:
         del trainer, model
         free_device()
 
+        # the f32 first-step gradients run the f32 kernels: their own path
+        reset_counts()
         grads = phase_grads_card_vs_cpu(small, small_arrays, name)
+        torch.cuda.synchronize()
+        grad_counts = read_counts()
+        if name == "xdeepfm" and (grad_counts["cin_stack_bwd"] < 1
+                                  or grad_counts["cin_stack_bwd_mma"] != 0):
+            failures.append(f"{name}: the f32 first-step gradients did not "
+                            f"take the f32 stack backward: {grad_counts}")
         if not grads["ok"]:
             failures.append(f"{name}: first-step gradients: the card differs "
                             f"from the CPU, or a planted fault passed: {grads}")
@@ -2306,6 +2351,7 @@ def phase_train_models() -> dict:
             "examples_per_s": BENCH_BATCH / (step_ms / 1e3),
             "peak_memory_gb": peak_gb, "profile_step": profile,
             "launches": counts, "launches_expected": expected,
+            "launches_first_step_grads_f32": grad_counts,
             "first_step_grads_card_vs_cpu_20k_f32": {
                 "batch": GRAD_BATCH, **grads},
             "tol": {"grad_max_rel": GRAD_MAX_REL,
@@ -2393,7 +2439,8 @@ def phase_train_xdeepfm_paper() -> dict:
     losses.append(trainer._train_step(*batch).item())
     steps = WARMUP_STEPS + TIMED_STEPS + 1
     expected = {"cin_stack_fwd_mma": steps, "cin_stack_fwd": 0,
-                "cin_compress": steps * len(PAPER_CIN), "cin_stack_bwd": 0}
+                "cin_compress": steps * len(PAPER_CIN), "cin_stack_bwd": 0,
+                "cin_stack_bwd_mma": 0}
     for kernel, n in expected.items():
         if counts[kernel] != n:
             failures.append(f"{kernel} launched {counts[kernel]} times in "
@@ -2708,7 +2755,10 @@ def main() -> None:
          models["xdeepfm"]["launches"]["cin_stack_fwd_mma"],
          cin["bench_bf16"]),
         ("cin_stack_bwd", "cin_stack_bwd.cu", "cin_stack_kernel.py:742",
-         models["xdeepfm"]["launches"]["cin_stack_bwd"],
+         models["xdeepfm"]["launches_first_step_grads_f32"]["cin_stack_bwd"],
+         cin_bwd["bench_f32"]),
+        ("cin_stack_bwd_mma", "cin_stack_bwd_mma.cu", "cin_stack_kernel.py:742",
+         models["xdeepfm"]["launches"]["cin_stack_bwd_mma"],
          cin_bwd["bench_bf16"]),
         ("cin_compress", "cin_compress.cu", "cin_kernel.py:97",
          paper["launches"]["cin_compress"], cin_layer["paper_layer1"]),

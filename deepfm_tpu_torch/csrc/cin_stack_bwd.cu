@@ -18,8 +18,9 @@
 // What bounds it on this card: operations. At the xDeepFM bench shape
 // (B=16384, F=27, D=16, [128,128] split) it is three forwards' products
 // (the remat, dW and A), ~500 GFLOP, against ~0.4 GB of device memory
-// traffic. This first version runs on the FP32 FMA pipes (67 TFLOP/s on
-// the data sheet); tensor cores (wgmma) are later work.
+// traffic. This is the f32 instance, on the FP32 FMA pipes (67 TFLOP/s on
+// the data sheet); the bf16 operand mode runs on the tensor cores in
+// csrc/cin_stack_bwd_mma.cu.
 //
 // Design: three steps, no float atomics, so two launches give the same bits.
 //
@@ -48,14 +49,6 @@
 //     db_reduce_kernel adds the tiles' db partials of each map in a fixed
 //     tree. The partition depends only on the shapes.
 //
-// bf16 mode follows the TPU kernel's rounding points: the remat as in the
-// forward (bf16 x0, weights, outer product and hidden state, f32
-// accumulation, bias and ReLU); the ReLU mask from the f32 comps; dcomp
-// rounded to bf16 once per layer for both products (db sums it in f32);
-// bf16 weights for A; the outer product for dW the bf16 product of bf16 x0
-// and the bf16 hidden state; the group sums giving dhid and dx0 use the f32
-// x0 and the f32 (unrounded) hidden state; every accumulation is f32.
-
 #include "cin_stack.cuh"
 
 namespace {
@@ -69,7 +62,7 @@ constexpr int kHC = 4;       // hidden rows per chunk of A
 constexpr int kReduceThreads = 256;
 
 struct BwdLayers {
-  const void* wm[kMaxLayers];  // (M_i, kpad_i) m-major by chunks, f32 or bf16
+  const float* wm[kMaxLayers];  // (M_i, kpad_i) m-major by chunks
   int kpad[kMaxLayers];        // ceil(H_i / kHC) * round_up(kHC * F, 8)
   int off[kMaxLayers];         // first map of layer i in the stacked maps
   int hoff[kMaxLayers];        // first row of layer i's hidden state (i > 0)
@@ -80,11 +73,9 @@ struct BwdLayers {
 // Wm are zero-padded to that, which keeps every group's 8 weights aligned
 // for one vector load) and every column n; same register tiling as the
 // forward.
-template <bool BF16>
-__device__ void adjoint_chunk(const void* __restrict__ wm, int kpad, int k0,
+__device__ void adjoint_chunk(const float* __restrict__ wm, int kpad, int k0,
                               int F, const float* dcs, int M, int NTP,
                               float* As) {
-  using io = Io<BF16>;
   const int tx = threadIdx.x % kTX;
   const int ty = threadIdx.x / kTX;
   const int groups = (kHC * F + kTM - 1) / kTM;
@@ -103,7 +94,7 @@ __device__ void adjoint_chunk(const void* __restrict__ wm, int kpad, int k0,
 #pragma unroll 4
       for (int m = 0; m < M; ++m) {
         float wv[kTM];
-        io::load_w8(wm, (size_t)m * kpad + k0 + rg * kTM, wv);
+        load_w8(wm, (size_t)m * kpad + k0 + rg * kTM, wv);
         const float4 da = *reinterpret_cast<const float4*>(dcs + (size_t)m * NTP + c0);
         const float4 db = *reinterpret_cast<const float4*>(dcs + (size_t)m * NTP + c1);
         const float dv[kTN] = {da.x, da.y, da.z, da.w, db.x, db.y, db.z, db.w};
@@ -135,9 +126,8 @@ __device__ void adjoint_chunk(const void* __restrict__ wm, int kpad, int k0,
 // Only the hidden part of a comp and the sign of the rest are kept, which
 // fits two blocks on an SM at bench.py's shape; the last layer's comp is
 // recomputed into dcs when the walk starts there.
-template <bool BF16>
 __global__ void __launch_bounds__(kThreads, 2)
-cin_bwd_tile_kernel(const void* __restrict__ x0, const float* __restrict__ g,
+cin_bwd_tile_kernel(const float* __restrict__ x0, const float* __restrict__ g,
                     const Layers layers, const BwdLayers bl,
                     const int n_layers, const int batch, const int F,
                     const int D, const int TB, const int NTP,
@@ -165,7 +155,7 @@ cin_bwd_tile_kernel(const void* __restrict__ x0, const float* __restrict__ g,
   const long long kcol = (long long)b0 * D;
   const int last = n_layers - 1;
 
-  stage_x0<BF16>(x0, xs, b0, nb, F, D, NTP);
+  stage_x0(x0, xs, b0, nb, F, D, NTP);
   for (int i = tid; i < F * NTP; i += NT) dx0s[i] = 0.f;
   __syncthreads();
 
@@ -174,8 +164,8 @@ cin_bwd_tile_kernel(const void* __restrict__ x0, const float* __restrict__ g,
     const int M = layers.m[l];
     const int H = l == 0 ? F : layers.next[l - 1];
     const float* hid = l == 0 ? xs : hids + (size_t)bl.hoff[l] * NTP;
-    compress_layer<BF16, 4>(hid, H, xs, F, NTP, layers.w[l], layers.bias[l],
-                            M, layers.mpad[l], dcs, BF16 && l > 0);
+    compress_layer<4>(hid, H, xs, F, NTP, layers.w[l], layers.bias[l], M,
+                      layers.mpad[l], dcs);
     __syncthreads();
     uint32_t* mk = masks + (size_t)bl.off[l] * words;
     for (int i = tid; i < M * words; i += NT) {
@@ -202,8 +192,8 @@ cin_bwd_tile_kernel(const void* __restrict__ x0, const float* __restrict__ g,
     const uint32_t* mk = masks + (size_t)bl.off[l] * words;
     float* dcomp_l = dcomp + (size_t)bl.off[l] * K;
     if (l == last) {  // its comp, into dcs
-      compress_layer<BF16, 4>(hid, H, xs, F, NTP, layers.w[l], layers.bias[l],
-                              M, layers.mpad[l], dcs, BF16 && l > 0);
+      compress_layer<4>(hid, H, xs, F, NTP, layers.w[l], layers.bias[l], M,
+                        layers.mpad[l], dcs);
       __syncthreads();
     }
 
@@ -245,15 +235,11 @@ cin_bwd_tile_kernel(const void* __restrict__ x0, const float* __restrict__ g,
       for (int n = 0; n < ncol; ++n) s += row[n];
       db_part[(size_t)blockIdx.x * msum + bl.off[l] + m] = s;
     }
-    if (BF16) {  // the matmul operand, rounded once per layer
-      __syncthreads();
-      for (int i = tid; i < M * NTP; i += NT) dcs[i] = round_bf16(dcs[i]);
-    }
     __syncthreads();
 
     // A = W^T dcomp by chunks of kHC hidden rows; dhid and dx0 from each
     for (int h0 = 0; h0 < H; h0 += kHC) {
-      adjoint_chunk<BF16>(bl.wm[l], bl.kpad[l], h0 / kHC * arows, F, dcs, M,
+      adjoint_chunk(bl.wm[l], bl.kpad[l], h0 / kHC * arows, F, dcs, M,
                           NTP, As);
       __syncthreads();
       const int hc = min(kHC, H - h0);
@@ -290,18 +276,16 @@ cin_bwd_tile_kernel(const void* __restrict__ x0, const float* __restrict__ g,
 }
 
 // One split of dW for one layer: dw_part[s, m, (h,f)] = sum over the
-// split's K columns of op(dcomp[m, k]) * op(op(hid[h, k]) * x0[f, k]),
+// split's K columns of dcomp[m, k] * hid[h, k] * x0[f, k],
 // hid = x0 at layer 0 (hid == nullptr). Each step stages kKC columns of
 // dcomp and of the outer product in shared memory; the next step's global
 // loads are issued into registers before the current step's products, so
 // their latency is hidden behind them.
-template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
 cin_dw_kernel(const float* __restrict__ dcomp, const float* __restrict__ hid,
-              const void* __restrict__ x0, float* __restrict__ dw_part,
+              const float* __restrict__ x0, float* __restrict__ dw_part,
               const int M, const int H, const int F, const int D,
               const long long K, const long long chunk) {
-  using io = Io<BF16>;
   constexpr int kWarps = kThreads / 32;
   constexpr int kRA = kDwM / kWarps;  // dcomp rows a warp stages per step
   constexpr int kRB = kDwN / kWarps;  // outer rows a warp stages per step
@@ -339,9 +323,9 @@ cin_dw_kernel(const float* __restrict__ dcomp, const float* __restrict__ hid,
       if (kin && nn < HF) {
         const int h = nn / F;
         const int f = nn - h * F;
-        rx[r] = io::load(x0, ((size_t)b * F + f) * D + d);
+        rx[r] = __ldg(x0 + ((size_t)b * F + f) * D + d);
         rh[r] = hid ? hid[(size_t)h * K + k]
-                    : io::load(x0, ((size_t)b * F + h) * D + d);
+                    : __ldg(x0 + ((size_t)b * F + h) * D + d);
       }
     }
   };
@@ -355,12 +339,9 @@ cin_dw_kernel(const float* __restrict__ dcomp, const float* __restrict__ hid,
   if (kb0 < ke) fetch(kb0);
   for (long long kb = kb0; kb < ke; kb += kKC) {
 #pragma unroll
-    for (int r = 0; r < kRA; ++r) dcs[lane][warp + kWarps * r] = io::operand(ra[r]);
+    for (int r = 0; r < kRA; ++r) dcs[lane][warp + kWarps * r] = ra[r];
 #pragma unroll
-    for (int r = 0; r < kRB; ++r) {
-      const float hv = BF16 ? round_bf16(rh[r]) : rh[r];
-      ous[lane][warp + kWarps * r] = io::operand(hv * rx[r]);
-    }
+    for (int r = 0; r < kRB; ++r) ous[lane][warp + kWarps * r] = rh[r] * rx[r];
     __syncthreads();
     if (kb + kKC < ke) fetch(kb + kKC);
 #pragma unroll 4
@@ -423,8 +404,7 @@ db_reduce_kernel(const float* __restrict__ part, float* __restrict__ db,
   if (threadIdx.x == 0) db[m] = red[0];
 }
 
-template <bool BF16>
-cudaError_t launch(const void* x0, const float* g, const Layers& layers,
+cudaError_t launch(const float* x0, const float* g, const Layers& layers,
                    const BwdLayers& bl, int n_layers, int batch, int F, int D,
                    int TB, int NTP, int out_dim, int mmax, int hmax, int msum,
                    int hsum, float* dx0, float* dcomp, float* hid, float* db_part,
@@ -435,7 +415,7 @@ cudaError_t launch(const void* x0, const float* g, const Layers& layers,
   const int smem = (int)(sizeof(float) *
                          ((size_t)(F + hsum + mmax + hmax + F + arows) * NTP
                           + (size_t)(msum - mlast) * (NTP / 32)));
-  auto tile_kernel = cin_bwd_tile_kernel<BF16>;
+  auto tile_kernel = cin_bwd_tile_kernel;
   static int smem_set[kMaxDevices] = {};
   cudaError_t err = ensure_smem(tile_kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
@@ -456,7 +436,7 @@ cudaError_t launch(const void* x0, const float* g, const Layers& layers,
     const int HF = H * F;
     float* part = dw_part + part_off;
     const dim3 grid((HF + kDwN - 1) / kDwN, (M + kDwM - 1) / kDwM, splits);
-    cin_dw_kernel<BF16><<<grid, kThreads, 0, stream>>>(
+    cin_dw_kernel<<<grid, kThreads, 0, stream>>>(
         dcomp + (size_t)bl.off[l] * K, l == 0 ? nullptr : hid + (size_t)bl.hoff[l] * K,
         x0, part, M, H, F, D, K, chunk);
     err = cudaGetLastError();
@@ -476,9 +456,8 @@ cudaError_t launch(const void* x0, const float* g, const Layers& layers,
 
 // Plain C entry point (bound with ctypes). Pointers are device pointers
 // except the per-layer arrays, which are host arrays of n_layers entries.
-//   x0 (B, F, D) f32 or bf16 (bf16 selects the bf16 mode); g (B, out_dim)
-//   f32; wt_i k-major (H_i*F, mpad_i) and wm_i m-major (M_i, kpad_i)
-//   weights in x0's type, zero-padded; wm_i holds W_i's columns by chunks
+//   x0 (B, F, D) f32; g (B, out_dim) f32; wt_i k-major (H_i*F, mpad_i)
+//   and wm_i m-major (M_i, kpad_i) f32 weights, zero-padded; wm_i holds W_i's columns by chunks
 //   of 4 hidden rows (4F columns), each chunk zero-padded to
 //   round_up(4F, 8) columns; biases_i (mpad_i,) f32.
 //   Outputs: dx0 (B, F, D) f32, dws_i (M_i, H_i*F) f32, db (sum M_i,) f32.
@@ -492,7 +471,7 @@ extern "C" int cin_stack_bwd(const void* x0, const float* g,
                              const int* mpad, const int* direct,
                              const int* next, const int* kpad, int n_layers,
                              int batch, int F, int D, int TB, int NTP,
-                             int bf16, float* dx0, float* dcomp, float* hid,
+                             float* dx0, float* dcomp, float* hid,
                              float* db_part, float* dw_part, int splits,
                              float* const* dws, float* db, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || splits < 1)
@@ -501,14 +480,14 @@ extern "C" int cin_stack_bwd(const void* x0, const float* g,
   BwdLayers bl = {};
   int col = 0, mmax = 0, msum = 0, hsum = 0, hmax = F;
   for (int l = 0; l < n_layers; ++l) {
-    layers.w[l] = wt[l];
+    layers.w[l] = static_cast<const float*>(wt[l]);
     layers.bias[l] = static_cast<const float*>(biases[l]);
     layers.m[l] = m[l];
     layers.mpad[l] = mpad[l];
     layers.direct[l] = direct[l];
     layers.next[l] = next[l];
     layers.col[l] = col;
-    bl.wm[l] = wm[l];
+    bl.wm[l] = static_cast<const float*>(wm[l]);
     bl.kpad[l] = kpad[l];
     bl.off[l] = msum;
     bl.hoff[l] = hsum;
@@ -519,14 +498,9 @@ extern "C" int cin_stack_bwd(const void* x0, const float* g,
     mmax = m[l] > mmax ? m[l] : mmax;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch<true>(x0, g, layers, bl, n_layers, batch, F, D, TB, NTP,
-                          col, mmax, hmax, msum, hsum, dx0, dcomp, hid, db_part,
-                          dw_part, splits, dws, db, s)
-           : launch<false>(x0, g, layers, bl, n_layers, batch, F, D, TB, NTP,
-                           col, mmax, hmax, msum, hsum, dx0, dcomp, hid,
-                           db_part, dw_part, splits, dws, db, s);
-  return (int)err;
+  return (int)launch(static_cast<const float*>(x0), g, layers, bl, n_layers,
+                     batch, F, D, TB, NTP, col, mmax, hmax, msum, hsum, dx0,
+                     dcomp, hid, db_part, dw_part, splits, dws, db, s);
 }
 
 // Message for an error code returned by cin_stack_bwd.

@@ -59,7 +59,7 @@ cin_stack_fwd_kernel(const float* __restrict__ x0, float* __restrict__ out,
   const int b0 = blockIdx.x * TB;
   const int nb = min(TB, batch - b0);
 
-  stage_x0<false>(x0, xs, b0, nb, F, D, NTP);
+  stage_x0(x0, xs, b0, nb, F, D, NTP);
   __syncthreads();
 
   const float* hid = xs;
@@ -67,8 +67,8 @@ cin_stack_fwd_kernel(const float* __restrict__ x0, float* __restrict__ out,
   for (int l = 0; l < n_layers; ++l) {
     float* comp = (l & 1) ? buf1 : buf0;
     const int M = layers.m[l];
-    compress_layer<false>(hid, H, xs, F, NTP, layers.w[l], layers.bias[l], M,
-                          layers.mpad[l], comp, false);
+    compress_layer(hid, H, xs, F, NTP, layers.w[l], layers.bias[l], M,
+                   layers.mpad[l], comp);
     __syncthreads();
 
     // pool the direct maps over d, in order, into out[b, col + m]
@@ -106,7 +106,7 @@ extern "C" int cin_stack_fwd(const void* x0, void* out,
   int col = 0;
   int mmax = 0;
   for (int l = 0; l < n_layers; ++l) {
-    layers.w[l] = weights[l];
+    layers.w[l] = static_cast<const float*>(weights[l]);
     layers.bias[l] = static_cast<const float*>(biases[l]);
     layers.m[l] = m[l];
     layers.mpad[l] = mpad[l];

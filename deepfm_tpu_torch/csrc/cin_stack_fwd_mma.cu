@@ -79,31 +79,28 @@
 // deepfm_tpu_torch/ops/kernels/cin_stack.py::forward_plan; the launch
 // recomputes it here and refuses a mismatch.
 
-#include "cin_stack.cuh"
+#include "cin_stack_mma.cuh"
 
 namespace {
 
-constexpr int kNT = 4;  // n8 tiles a warp: 32 columns
+using namespace cinmma;
+
 constexpr int kSmemMax = 232448;   // a block's shared memory at most
 constexpr int kSmemTwo = 115712;   // each of two blocks on one SM (228 KB, 1 KB each reserved)
 
-using bf16 = __nv_bfloat16;
-
 struct Layers {
-  const bf16* w[cin::kMaxLayers];      // (mp16_i, H_i * Fp), see above
-  const float* bias[cin::kMaxLayers];  // (M_i,) f32
-  int m[cin::kMaxLayers];
-  int direct[cin::kMaxLayers];
-  int next[cin::kMaxLayers];
-  int col[cin::kMaxLayers];  // first output column of layer i
+  const bf16* w[kMaxLayers];      // (mp16_i, H_i * Fp), see above
+  const float* bias[kMaxLayers];  // (M_i,) f32
+  int m[kMaxLayers];
+  int direct[kMaxLayers];
+  int next[kMaxLayers];
+  int col[kMaxLayers];  // first output column of layer i
 };
 
 struct Plan {
   int F, D, FC, TB, NTP, WARPS, WN, WM, NB, RP, KC, MT, maxdir;
   int o_hid0, o_hid1, o_region, o_pool, total;  // bytes from the start
 };
-
-__host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // The layout of one plan; total is its shared-memory bytes.
 Plan layout(int F, int D, int hn, int maxdir, int WARPS, int WN, int TB, int RP,
@@ -156,45 +153,6 @@ bool make_plan(int batch, int F, int D, const int* m, const int* direct,
   return false;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(smem_addr(p)));
-}
-
-// d = A B on the tensor cores, from a zero accumulator
-__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-// Offset in bf16 elements of (step s, row r, 16-byte half q) in a W stage
-// of RP rows a step: 32 bytes a row, the halves swapped on every other
-// group of four rows.
-__device__ __forceinline__ int stage_off(int s, int r, int q, int RP) {
-  return ((s * RP + r) * 2 + (q ^ ((r >> 2) & 1))) * 8;
-}
-
 template <int WARPS, int MT, int MINB>
 __global__ void __launch_bounds__(32 * WARPS, MINB)
 cin_stack_fwd_mma_kernel(const bf16* __restrict__ x0, bf16* __restrict__ out,
@@ -210,11 +168,13 @@ cin_stack_fwd_mma_kernel(const bf16* __restrict__ x0, bf16* __restrict__ out,
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp / p.WN, wn = warp - wm * p.WN;
-  const int F = p.F, D = p.D, NTP = p.NTP, NB = p.NB, RP = p.RP, KC = p.KC;
-  const int Fp = 16 * p.FC;
+  const int F = p.F, D = p.D, NTP = p.NTP, NB = p.NB, RP = p.RP;
   const int b0 = blockIdx.x * p.TB;
   const int nb = min(p.TB, batch - b0);
-  const int stage_elems = RP * KC * 16;
+  const Geometry geo = {F, p.FC, NTP, NB, p.WN, p.WM, RP, p.KC};
+  const int Fp = 16 * p.FC;
+  const int stage_elems = RP * p.KC * 16;
+  const ThreadPos tp = {warp, lane, g, t, wn};
 
   // x0[b0 + bl, f, d] -> xs[f, bl * D + d], zero past the tile's samples
   const size_t FD = (size_t)F * D;
@@ -240,8 +200,7 @@ cin_stack_fwd_mma_kernel(const bf16* __restrict__ x0, bf16* __restrict__ out,
     const bf16* const W = layers.w[l];
     const float* const bias = layers.bias[l];
     const int K16 = p.FC * H;               // k16 steps of the layer
-    const size_t wrow = (size_t)H * Fp;     // weight row length
-    const int nchunks = (K16 + KC - 1) / KC;
+    const LayerSteps ly = {H, K16, (K16 + p.KC - 1) / p.KC, (size_t)H * Fp};
 
     for (int cp0 = 0; cp0 < NTP; cp0 += NB) {
       for (int m0 = 0; m0 < mp16; m0 += RP) {
@@ -251,111 +210,9 @@ cin_stack_fwd_mma_kernel(const bf16* __restrict__ x0, bf16* __restrict__ out,
         const int my0 = wm * mtw;
         const int my_mt = max(0, min(mtw, mt - my0));
 
-        // chunk c's weights (KC steps x rows) into stage c & 1: a thread
-        // loads one step's rows, 16 rows (two 16-byte halves each) per
-        // group of 32 lanes, its step moving on by KC a chunk
-        const int wps = WARPS > KC ? WARPS / KC : 1;  // warps a step
-        const int ls = warp / wps;  // this thread's step in a chunk (none if >= KC)
-        const int r_first = (warp - ls * wps) * 16 + (lane >> 1);
-        const int lq = lane & 1;
-        int l_fc = ls / H, l_h = ls - l_fc * H;  // of chunk 0's step (H >= 1)
-        auto issue = [&](int c) {
-          const int step = c * KC + ls;
-          if (ls < KC && step < K16) {
-            bf16* st = stages + (c & 1) * stage_elems;
-            const bf16* src = W + (size_t)(m0 + r_first) * wrow + (size_t)l_h * Fp +
-                              l_fc * 16 + lq * 8;
-            for (int r = r_first; r < rows; r += 16 * wps) {
-              cp_async16(st + stage_off(ls, r, lq, RP), src);
-              src += (size_t)16 * wps * wrow;
-            }
-          }
-          cp_async_commit();
-          l_h += KC;
-          while (l_h >= H) {
-            l_h -= H;
-            ++l_fc;
-          }
-        };
-
         float acc[MT][kNT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < kNT; ++j)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-        __nv_bfloat162 xr[kNT][2];  // x0[f, n], x0[f + 1, n] for f = 2t, 2t + 8
-        int cur_fc = -1;
-        const int ncol = cp0 + wn * 32 + g;  // the lane's column in n8 tile 0
-
-        issue(0);
-        for (int c = 0; c < nchunks; ++c) {
-          cp_async_wait_all();
-          __syncthreads();  // chunk c is in; every warp is done with c - 1
-          if (c + 1 < nchunks) issue(c + 1);
-          if (my_mt == 0) continue;
-          const bf16* st = stages + (c & 1) * stage_elems;
-          const int s0 = c * KC;
-          const int ns = min(KC, K16 - s0);
-          int fc = s0 / H;
-          int h = s0 - fc * H;
-#pragma unroll 2
-          for (int s = 0; s < ns; ++s) {
-            if (fc != cur_fc) {  // this lane's x0 values of f-chunk fc
-              cur_fc = fc;
-#pragma unroll
-              for (int j = 0; j < kNT; ++j)
-#pragma unroll
-                for (int q = 0; q < 2; ++q) {
-                  const int f = fc * 16 + 2 * t + q * 8;
-                  const bf16 z = __float2bfloat16_rn(0.f);
-                  xr[j][q].x = f < F ? xs[(size_t)f * NTP + ncol + j * 8] : z;
-                  xr[j][q].y = f + 1 < F ? xs[(size_t)(f + 1) * NTP + ncol + j * 8] : z;
-                }
-            }
-            // the step's A fragments first, so their loads are in flight
-            // together
-            uint32_t a[MT][4];
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              if (i < my_mt) {
-                const int r = (my0 + i) * 16 + (lane & 15);
-                ldmatrix_x4(a[i], st + stage_off(s, r, lane >> 4, RP));
-              }
-            }
-            // B fragments: op(hid[h, n] * x0[f, n]) for k = 2t, 2t+1 and
-            // 2t+8, 2t+9 of the step, n the lane's column of each n8 tile
-            uint32_t bfr[kNT][2];
-#pragma unroll
-            for (int j = 0; j < kNT; ++j) {
-              const __nv_bfloat162 hv =
-                  __bfloat162bfloat162(hid[(size_t)h * NTP + ncol + j * 8]);
-#pragma unroll
-              for (int q = 0; q < 2; ++q) {
-                const __nv_bfloat162 prod = __hmul2_rn(hv, xr[j][q]);
-                bfr[j][q] = *reinterpret_cast<const uint32_t*>(&prod);
-              }
-            }
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              if (i < my_mt) {
-#pragma unroll
-                for (int j = 0; j < kNT; ++j) {
-                  float dd[4];
-                  mma_bf16_zero(dd, a[i], bfr[j][0], bfr[j][1]);
-#pragma unroll
-                  for (int q = 0; q < 4; ++q) acc[i][j][q] += dd[q];
-                }
-              }
-            }
-            if (++h == H) {
-              h = 0;
-              ++fc;
-            }
-          }
-        }
-        __syncthreads();  // every warp is done with the stages
+        layer_product<WARPS, MT>(acc, xs, hid, ly, W, m0, rows, cp0, stages, geo,
+                                 Fp, stage_elems, tp, my0, my_mt);
 
         // bias and ReLU into the pass's comps (rows past M are never read)
 #pragma unroll
@@ -429,8 +286,8 @@ cudaError_t launch(const bf16* x0, bf16* out, const Layers& layers,
                    int n_layers, int batch, int out_dim, const Plan& p,
                    cudaStream_t stream) {
   auto kernel = cin_stack_fwd_mma_kernel<WARPS, MT, MINB>;
-  static int smem_set[cin::kMaxDevices] = {};
-  const cudaError_t err = cin::ensure_smem(kernel, p.total, smem_set);
+  static int smem_set[kMaxDevices] = {};
+  const cudaError_t err = ensure_smem(kernel, p.total, smem_set);
   if (err != cudaSuccess) return err;
   const int grid = (batch + p.TB - 1) / p.TB;
   kernel<<<grid, 32 * WARPS, p.total, stream>>>(x0, out, layers, n_layers,
@@ -454,7 +311,7 @@ extern "C" int cin_stack_fwd_mma(const void* x0, void* out,
                                  int n_layers, int batch, int F, int D, int TB,
                                  int NTP, int WN, int RP, int MT, int smem,
                                  void* stream) {
-  if (n_layers < 1 || n_layers > cin::kMaxLayers || batch < 1 || F < 1 || D < 1)
+  if (n_layers < 1 || n_layers > kMaxLayers || batch < 1 || F < 1 || D < 1)
     return (int)cudaErrorInvalidValue;
   Plan p;
   if (!make_plan(batch, F, D, m, direct, next, n_layers, &p) || p.TB != TB ||

@@ -26,6 +26,7 @@ SOURCES = (
     "attention_bwd.cu",
     "cin_compress.cu",
     "cin_stack_bwd.cu",
+    "cin_stack_bwd_mma.cu",
     "cin_stack_fwd.cu",
     "cin_stack_fwd_mma.cu",
     "densify_rows_grad.cu",

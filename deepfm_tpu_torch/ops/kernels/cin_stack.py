@@ -519,20 +519,39 @@ cin_stack_forward.launches = 0
 #
 # Replaces ``deepfm_tpu/ops/pallas/cin_stack_kernel.py`` ::
 # ``make_cin_stack_pallas.backward_pallas`` / ``_stack_bwd_kernel`` (the
-# ``pl.pallas_call`` of the backward). Source: ``csrc/cin_stack_bwd.cu``
-# (the design is in its head note). Bounded by operations: about four
-# forwards of work (remat, dW, A and the group sums), ~660 GFLOP at
-# bench.py's xDeepFM shape.
+# ``pl.pallas_call`` of the backward) with two kernels: in f32
+# ``csrc/cin_stack_bwd.cu`` (the FP32 pipes), and in the bf16 operand mode
+# ``csrc/cin_stack_bwd_mma.cu`` (the tensor cores, ``cin_stack_bwd_mma``;
+# its tile is ``mma_backward_plan``'s; it reads the forward's re-laid
+# weight, ``mma_weight``). The designs are in the head notes of the .cu
+# files. Bounded by operations: three products of a forward's size (remat,
+# A and dW) and the group sums, ~500 GFLOP at bench.py's xDeepFM shape.
 
 BWD_SOURCE = "cin_stack_bwd.cu"
+BWD_MMA_SOURCE = "cin_stack_bwd_mma.cu"
 # dW is summed over K = B*D in at most MAX_SPLITS fixed chunks of at least
 # SPLIT_COLUMNS columns each, then the partials are added in order.
 SPLIT_COLUMNS = 4096
 MAX_SPLITS = 64
 _BWD_SIGNATURES = {
     "cin_stack_bwd": [_P, _P, _PP, _PP, _PP, _IP, _IP, _IP, _IP, _IP]
-    + [_I] * 7 + [_P] * 5 + [_I, _PP, _P, _P],
+    + [_I] * 6 + [_P] * 5 + [_I, _PP, _P, _P],
 }
+_BWD_MMA_SIGNATURES = {
+    "cin_stack_bwd_mma": [_P, _P, _PP, _PP, _IP, _IP, _IP] + [_I] * 14
+    + [_P] * 6 + [_PP, _P, _P],
+}
+# The bf16 backward's tile kernel (csrc/cin_stack_bwd_mma.cu): 8 warps; the
+# remat runs the forward's layer product with up to 4 m16 tiles a warp;
+# A = W^T dcomp stages up to 8 row tiles (one hidden row and 16 fields
+# each) at a time, 4 where a layer has 1 or 3 hidden rows (its warps split
+# the tiles by the parity of h and hold at most 5 each). Its dW kernel
+# owns 128 maps x 128 columns (h, f) and stages 64 columns of K, each
+# stage row padded by 8 bf16.
+MMA_BWD_WARPS = 8
+MMA_BWD_TILES = 4
+MMA_BWD_A_TILES = (8, 4, 2, 1)
+DW_MAPS, DW_COLUMNS, DW_K = 128, 128, 64
 
 
 def _dcomp(col: torch.Tensor, dhid_next: torch.Tensor | None,
@@ -632,40 +651,139 @@ def plan_backward(
     return tile_b, ntp, smem, splits
 
 
-def _chunked(w: torch.Tensor, h: int, f: int, dtype: torch.dtype):
-    """W (M, H*F) m-major by chunks of HIDDEN_CHUNK hidden rows, each chunk's
-    HIDDEN_CHUNK*F columns zero-padded to a multiple of 8 (the kernel reads
-    8 aligned weights at a time): (M, ceil(H / HIDDEN_CHUNK) * that)."""
+class BackwardPlan(NamedTuple):
+    """One launch of the bf16 backward: ``tile_b`` samples a block, their
+    columns padded to ``ntp``, their cotangent staged in shared memory if
+    ``g_staged``; the remat (the forward's layer product) takes
+    ``columns`` columns and ``rows`` maps a pass, ``chunk`` k16 steps a
+    weight stage; A = W^T dcomp stages ``a_tiles`` row tiles x ``a_steps``
+    map steps of 16; ``smem`` bytes of shared memory for the tile kernel;
+    dW is summed in ``splits`` chunks of K by a kernel of ``dw_smem`` bytes
+    of shared memory."""
+
+    tile_b: int
+    ntp: int
+    columns: int
+    g_staged: bool
+    rows: int
+    chunk: int
+    a_tiles: int
+    a_steps: int
+    smem: int
+    splits: int
+    dw_smem: int
+
+
+def _dw_smem(h: int, f: int) -> int:
+    """The dW kernel's two stages for a layer of h hidden rows: 128 dcomp
+    rows, the hidden rows and the x0 rows a block's 128 columns (h, f)
+    touch, each row DW_K + 8 bf16."""
+    rows = DW_MAPS + min(h, (DW_COLUMNS - 1) // f + 2) + min(f, DW_COLUMNS)
+    return 2 * rows * (DW_K + 8) * 2
+
+
+def _mma_bwd_smem(f, d, tile_b, columns, g_bytes, rows, a_tiles, a_steps,
+                  msum, hsum, hmax, mp16max) -> tuple[int, int]:
+    """(ntp, bytes) of one tile-kernel layout (csrc/cin_stack_bwd_mma.cu):
+    x0 in bf16, every hidden state in f32, a sign bit per comp, one layer's
+    dcomp in bf16, dhid, two dx0 (one per group of A's warps) and x0 in f32
+    (dcomp's, dx0's and the f32 x0's rows ntp + 8 long), ``g_bytes`` of
+    the tile's cotangent, and one region for the remat's weight stages or
+    A's transposed ones."""
+    ntp = _round_up(tile_b * d, columns)
+    stages = max(4 * rows * columns, 2 * a_steps * 16 * (32 * a_tiles + 16))
+    nbytes = (_round_up(2 * f * ntp, 16) + 4 * hsum * ntp
+              + _round_up(msum * ntp // 8, 16)
+              + _round_up(2 * mp16max * (ntp + 8), 16)
+              + 4 * hmax * ntp + 3 * 4 * f * (ntp + 8) + g_bytes + stages)
+    return ntp, nbytes
+
+
+def mma_backward_plan(
+    batch: int, f: int, d: int, layer_sizes: Sequence[int], split_half: bool
+) -> BackwardPlan:
+    """The bf16 backward's plan: the widest column pass (128, 64 or 32
+    columns), then the tile's cotangent staged in shared memory, then the
+    most maps a remat pass, then the most A tiles and map steps a stage,
+    whose tile kernel fits one block's shared memory.
+    It fits every shape whose ``stack_smem`` backward count fits (its f32
+    state per column is smaller). Raises ValueError when nothing fits. The
+    C launch recomputes it and refuses a mismatch."""
+    layer_sizes = tuple(layer_sizes)
+    direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    hs = [f, *next_sizes[:-1]]
+    msum, hsum, hmax = sum(layer_sizes), sum(hs[1:]), max(hs)
+    mp16max = _round_up(max(layer_sizes), 16)
+    splits = max(1, min(MAX_SPLITS, -(-batch * d // SPLIT_COLUMNS)))
+    dw_smem = max(_dw_smem(h, f) for h in hs)
+    a_tiles_top = MMA_BWD_A_TILES[1] if {1, 3} & set(hs) else MMA_BWD_A_TILES[0]
+    for wn in (4, 2, 1):
+        columns = MMA_WARP_COLUMNS * wn
+        tile_b = 1 if d > columns else min(batch, columns // d)
+        most = MMA_BWD_WARPS // wn * 16 * MMA_BWD_TILES
+        for g_staged in (True, False):
+            g_bytes = _round_up(4 * tile_b * sum(direct_sizes), 16) * g_staged
+            for rows in range(min(mp16max, most), 0, -16):
+                for a_tiles in (t for t in MMA_BWD_A_TILES
+                                if t <= a_tiles_top):
+                    for a_steps in range(mp16max // 16, 0, -1):
+                        ntp, smem = _mma_bwd_smem(
+                            f, d, tile_b, columns, g_bytes, rows, a_tiles,
+                            a_steps, msum, hsum, hmax, mp16max)
+                        if smem <= SMEM_PER_BLOCK:
+                            return BackwardPlan(
+                                tile_b, ntp, columns, g_staged, rows,
+                                columns // 16, a_tiles, a_steps, smem,
+                                splits, dw_smem)
+    raise ValueError(
+        f"bf16 CIN stack backward with F={f}, D={d}, layers {layer_sizes} "
+        f"needs more shared memory per block than the limit of "
+        f"{SMEM_PER_BLOCK} bytes"
+    )
+
+
+def _chunked(w: torch.Tensor, h: int, f: int):
+    """W (M, H*F) in f32, m-major by chunks of HIDDEN_CHUNK hidden rows, each
+    chunk's HIDDEN_CHUNK*F columns zero-padded to a multiple of 8 (the f32
+    kernel reads 8 aligned weights at a time): (M, ceil(H / HIDDEN_CHUNK) *
+    that)."""
     m = w.shape[0]
     chunks = -(-h // HIDDEN_CHUNK)
     width = HIDDEN_CHUNK * f
-    out = torch.zeros(m, chunks, _round_up(width, 8), dtype=dtype,
-                      device=w.device)
-    full = torch.zeros(m, chunks * width, dtype=dtype, device=w.device)
+    f32 = dict(dtype=torch.float32, device=w.device)
+    out = torch.zeros(m, chunks, _round_up(width, 8), **f32)
+    full = torch.zeros(m, chunks * width, **f32)
     full[:, : h * f] = w.detach()
     out[:, :, :width] = full.reshape(m, chunks, width)
     return out.reshape(m, -1)
 
 
-def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half,
-                        bf16_operands):
-    layer_sizes = tuple(int(m) for m in layer_sizes)
-    direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
-    _check_shapes(x0, weights, biases, layer_sizes, next_sizes)
-    if x0.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x0 must be float32 or bfloat16, got {x0.dtype}")
-    dev = x0.device
-    for t in (*weights, *biases, g):
-        if t.device != dev:
-            raise ValueError(f"all inputs must be on {dev}, found {t.device}")
-    bsz, f, d = x0.shape
-    if tuple(g.shape) != (bsz, sum(direct_sizes)):
+def _check_cotangent(x0, weights, biases, g, layer_sizes, next_sizes,
+                     direct_sizes) -> None:
+    _check_inputs(x0, weights, biases, layer_sizes, next_sizes)
+    if g.device != x0.device:
+        raise ValueError(f"all inputs must be on {x0.device}, found {g.device}")
+    if tuple(g.shape) != (x0.shape[0], sum(direct_sizes)):
         raise ValueError(
             f"g has shape {tuple(g.shape)}, expected "
-            f"{(bsz, sum(direct_sizes))}"
+            f"{(x0.shape[0], sum(direct_sizes))}"
         )
-    bf16 = bf16_operands and x0.dtype == torch.bfloat16
-    op_dt = torch.bfloat16 if bf16 else torch.float32
+
+
+def _zero_grads(x0, weights, biases):
+    return (torch.zeros_like(x0), [torch.zeros_like(w) for w in weights],
+            [torch.zeros_like(b) for b in biases])
+
+
+def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half):
+    """The f32 kernel (csrc/cin_stack_bwd.cu); a bf16 x0 is computed in f32
+    and dx0 cast back."""
+    layer_sizes = tuple(int(m) for m in layer_sizes)
+    direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    _check_cotangent(x0, weights, biases, g, layer_sizes, next_sizes,
+                     direct_sizes)
+    dev = x0.device
+    bsz, f, d = x0.shape
     n = len(layer_sizes)
     hs = [f, *next_sizes[:-1]]
     f32 = dict(dtype=torch.float32, device=dev)
@@ -675,14 +793,14 @@ def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half,
     if bsz > 0:
         tile_b, ntp, _, splits = plan_backward(bsz, f, d, layer_sizes,
                                                split_half)
-        x = x0.to(op_dt).contiguous()
+        x = x0.float().contiguous()
         gg = g.float().contiguous()
         mpads = [_round_up(m, 8) for m in layer_sizes]
         wts, wms, bs = [], [], []
         for w, b, mp, h in zip(weights, biases, mpads, hs):
-            wts.append(kmajor_weight(w, op_dt))
-            wms.append(_relayout(w, ("chunked", op_dt),
-                                 lambda: _chunked(w, h, f, op_dt)))
+            wts.append(kmajor_weight(w, torch.float32))
+            wms.append(_relayout(w, ("chunked",),
+                                 lambda: _chunked(w, h, f)))
             bs.append(_relayout(b, (mp,), lambda: _zero_padded(
                 b, (mp,), torch.float32)))
         kpads = [t.shape[1] for t in wms]
@@ -706,7 +824,7 @@ def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half,
                 x.data_ptr(), gg.data_ptr(), ptrs(wts), ptrs(wms), ptrs(bs),
                 ints(layer_sizes), ints(mpads), ints(direct_sizes),
                 ints(next_sizes), ints(kpads), n, bsz, f, d, tile_b, ntp,
-                int(bf16), dx0.data_ptr(), dcomp.data_ptr(), hid.data_ptr(),
+                dx0.data_ptr(), dcomp.data_ptr(), hid.data_ptr(),
                 db_part.data_ptr(), dw_part.data_ptr(), splits, ptrs(dws),
                 db.data_ptr(), build.stream_of(x),
             )
@@ -716,6 +834,90 @@ def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half,
     return (dx0.to(x0.dtype),
             [dw.to(w.dtype) for dw, w in zip(dws, weights)],
             [v.to(b.dtype) for v, b in zip(dbs, biases)])
+
+
+def _cin_stack_bwd_mma_cuda(x0, weights, biases, g, layer_sizes, split_half):
+    layer_sizes = tuple(int(m) for m in layer_sizes)
+    direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    _check_cotangent(x0, weights, biases, g, layer_sizes, next_sizes,
+                     direct_sizes)
+    bsz, f, d = x0.shape
+    if bsz == 0:
+        return _zero_grads(x0, weights, biases)
+    plan = mma_backward_plan(bsz, f, d, layer_sizes, split_half)
+    dev = x0.device
+    n = len(layer_sizes)
+    hs = [f, *next_sizes[:-1]]
+    f32 = dict(dtype=torch.float32, device=dev)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    x = x0.contiguous()
+    gg = g.float().contiguous()
+    wts = [mma_weight(w, f) for w in weights]
+    bs = [b.float().contiguous() for b in biases]
+    # every output element is written by the kernels
+    dx0 = torch.empty(bsz, f, d, **f32)
+    dws = [torch.empty(m, h * f, **f32) for m, h in zip(layer_sizes, hs)]
+    db = torch.empty(sum(layer_sizes), **f32)
+    # the dW step's bf16 workspace, rows of round_up(B*D, 8) columns
+    kp = _round_up(bsz * d, 8)
+    xt = torch.empty(f, kp, **bf)
+    hid = torch.empty(max(sum(hs[1:]), 1), kp, **bf)
+    dcomp = torch.empty(sum(layer_sizes), kp, **bf)
+    db_part = torch.empty(-(-bsz // plan.tile_b), sum(layer_sizes), **f32)
+    dw_part = torch.empty(
+        plan.splits * sum(m * h * f for m, h in zip(layer_sizes, hs)), **f32)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
+
+    def ints(vs):
+        return (ctypes.c_int * n)(*vs)
+
+    lib = build.bind(BWD_MMA_SOURCE, _BWD_MMA_SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.cin_stack_bwd_mma(
+            x.data_ptr(), gg.data_ptr(), ptrs(wts), ptrs(bs),
+            ints(layer_sizes), ints(direct_sizes), ints(next_sizes),
+            n, bsz, f, d, plan.tile_b, plan.ntp,
+            plan.columns // MMA_WARP_COLUMNS, int(plan.g_staged), plan.rows,
+            plan.a_tiles,
+            plan.a_steps, plan.smem, plan.splits, plan.dw_smem,
+            dx0.data_ptr(), xt.data_ptr(), hid.data_ptr(), dcomp.data_ptr(),
+            db_part.data_ptr(), dw_part.data_ptr(), ptrs(dws), db.data_ptr(),
+            build.stream_of(x),
+        )
+    build.check(lib, BWD_MMA_SOURCE, "cin_stack_bwd_mma", err)
+    cin_stack_bwd_mma.launches += 1
+    # the workspace stays referenced until here; the stream orders its reuse
+    dbs = torch.split(db, list(layer_sizes))
+    return (dx0.to(x0.dtype),
+            [dw.to(w.dtype) for dw, w in zip(dws, weights)],
+            [v.to(b.dtype) for v, b in zip(dbs, biases)])
+
+
+def cin_stack_bwd_mma(
+    x0: torch.Tensor,
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    g: torch.Tensor,
+    layer_sizes: Sequence[int],
+    split_half: bool,
+) -> tuple[torch.Tensor, list[torch.Tensor], list[torch.Tensor]]:
+    """The stack backward in the bf16 operand mode: (dx0, dWs, dbs) for x0
+    (B, F, D) bfloat16 and the output cotangent g. A CPU tensor takes the
+    plain version; a CUDA tensor launches the tensor-core kernels
+    (csrc/cin_stack_bwd_mma.cu) or raises, also where
+    ``mma_backward_plan`` finds no tile."""
+    if x0.dtype != torch.bfloat16:
+        raise TypeError(f"x0 must be bfloat16, got {x0.dtype}")
+    if x0.device.type == "cpu":
+        return cin_stack_backward_plain(x0, weights, biases, g, layer_sizes,
+                                        split_half, bf16_operands=True)
+    return _cin_stack_bwd_mma_cuda(x0, weights, biases, g, layer_sizes,
+                                   split_half)
+
+
+cin_stack_bwd_mma.launches = 0
 
 
 def cin_stack_backward_layers(
@@ -773,21 +975,24 @@ def cin_stack_backward(
 ) -> tuple[torch.Tensor, list[torch.Tensor], list[torch.Tensor]]:
     """(dx0, dWs, dbs) of the stack for the output cotangent g. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel (or
-    raises); a stack whose backward does not fit the stack kernel takes
-    the "layers" route (``stack_route``, ``cin_stack_backward_layers``)."""
+    raises): the bf16 operand mode with a bfloat16 x0 the tensor-core one
+    (``cin_stack_bwd_mma``), else the f32 one; a stack whose backward does
+    not fit the stack kernel takes the "layers" route (``stack_route``,
+    ``cin_stack_backward_layers``)."""
     if x0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x0.device}")
     bsz, f, d = x0.shape
     if stack_route(bsz, f, d, layer_sizes, split_half, True) == "layers":
         return cin_stack_backward_layers(x0, weights, biases, g, layer_sizes,
                                          split_half)
+    if bf16_operands and x0.dtype == torch.bfloat16:
+        return cin_stack_bwd_mma(x0, weights, biases, g, layer_sizes,
+                                 split_half)
     if x0.device.type == "cpu":
-        return cin_stack_backward_plain(
-            x0, weights, biases, g, layer_sizes, split_half, bf16_operands
-        )
-    return _cin_stack_bwd_cuda(
-        x0, weights, biases, g, layer_sizes, split_half, bf16_operands
-    )
+        return cin_stack_backward_plain(x0, weights, biases, g, layer_sizes,
+                                        split_half)
+    return _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes,
+                               split_half)
 
 
 cin_stack_backward.launches = 0

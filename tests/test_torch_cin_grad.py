@@ -228,58 +228,84 @@ def test_empty_batch_gives_zero_gradients():
     assert all(not t.any() for t in dws + dbs)
 
 
+# bf16 shapes of the tensor-core backward on the card, beside CASES: a
+# small bench-like shape, the ragged shape, a three-layer no-split D=10
+# shape, and plans off the main path (three remat passes of maps, a sample
+# wider than a column pass, 1 and 3 hidden rows, g not staged)
+CUDA_BF16_CASES = [
+    ((128, 128), True, 257, 27, 16),
+    ((10, 7), True, 1000, 13, 16),
+    ((64, 48, 32), False, 100, 27, 10),
+    ((200, 200), True, 50, 13, 16),
+    ((24, 16), True, 5, 5, 300),
+    ((6, 4), True, 20, 3, 16),   # 3 fields: A's stages of 4 row tiles
+    ((4,), False, 33, 1, 8),     # one field
+    ((345,), False, 40, 50, 4),  # the cotangent read from device memory
+]
+
+
 @pytest.mark.cuda
 def test_cin_stack_backward_kernel_matches_plain_on_cuda():
-    """Kernel against its plain version on the card, f32 and bf16, ragged
-    batches and odd splits; a second launch gives the same bits."""
+    """Kernels against their plain version on the card, f32 and bf16, ragged
+    batches and odd splits; a second launch gives the same bits, and each
+    call launches its own kernel (bf16: cin_stack_bwd_mma, f32:
+    cin_stack_backward's)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU launch")
+    from deepfm_tpu_torch.ops.kernels.cin_stack import cin_stack_bwd_mma
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cases = CASES + [((32, 32), True, 33, 5, 16),
-                     ((128, 128), True, 257, 27, 16)]
-    for layers, split, b, f, d in cases:
+    cases = [(c, bf16) for c in CASES + [((32, 32), True, 33, 5, 16),
+                                         ((128, 128), True, 257, 27, 16)]
+             for bf16 in (False, True)]
+    cases += [(c, True) for c in CUDA_BF16_CASES]
+    for (layers, split, b, f, d), bf16 in cases:
         x0, ws, bs, g = _inputs(5, layers, split, b, f, d)
         ws = [t.cuda() for t in _torch(ws)]
         bs = [t.cuda() for t in _torch(bs)]
         gg = torch.from_numpy(g).cuda()
-        for bf16 in (False, True):
-            x = torch.from_numpy(x0).cuda()
-            x = x.bfloat16() if bf16 else x
-            rtol, atol_rel = (2.0 ** -7, 1e-3) if bf16 else (2e-4, 1e-5)
-            rtol_share, mean_rel = (1e-2, 1e-3) if bf16 else (1e-3, 1e-4)
-            want = cin_stack_backward_plain(x, ws, bs, gg, layers, split, bf16)
-            got = cin_stack_backward(x, ws, bs, gg, layers, split, bf16)
-            again = cin_stack_backward(x, ws, bs, gg, layers, split, bf16)
-            torch.cuda.synchronize()
-            for k, (a, w, a2) in enumerate(zip(
-                    [got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]],
-                    [again[0], *again[1], *again[2]])):
-                what = f"{layers} split={split} B={b} bf16={bf16} out {k}"
-                assert torch.equal(a, a2), what
-                a, w = a.float(), w.float()
-                err = (a - w).abs()
-                outside = err > atol_rel * w.abs().max() + rtol * w.abs()
-                assert outside.float().mean().item() <= rtol_share, what
-                assert (err.sum() / w.abs().sum()).item() <= mean_rel, what
-                if bf16 and k == 0:  # dx0, in bf16
-                    assert (err > 0).float().mean().item() <= 1e-2, what
+        x = torch.from_numpy(x0).cuda()
+        x = x.bfloat16() if bf16 else x
+        rtol, atol_rel = (2.0 ** -7, 1e-3) if bf16 else (2e-4, 1e-5)
+        rtol_share, mean_rel = (1e-2, 1e-3) if bf16 else (1e-3, 1e-4)
+        want = cin_stack_backward_plain(x, ws, bs, gg, layers, split, bf16)
+        before = (cin_stack_bwd_mma.launches, cin_stack_backward.launches)
+        got = cin_stack_backward(x, ws, bs, gg, layers, split, bf16)
+        again = cin_stack_backward(x, ws, bs, gg, layers, split, bf16)
+        torch.cuda.synchronize()
+        launched = (cin_stack_bwd_mma.launches - before[0],
+                    cin_stack_backward.launches - before[1])
+        what = f"{layers} split={split} B={b} F={f} D={d} bf16={bf16}"
+        assert launched == ((2, 0) if bf16 else (0, 2)), (what, launched)
+        for k, (a, w, a2) in enumerate(zip(
+                [got[0], *got[1], *got[2]], [want[0], *want[1], *want[2]],
+                [again[0], *again[1], *again[2]])):
+            out = f"{what} out {k}"
+            assert torch.equal(a, a2), out
+            a, w = a.float(), w.float()
+            err = (a - w).abs()
+            outside = err > atol_rel * w.abs().max() + rtol * w.abs()
+            assert outside.float().mean().item() <= rtol_share, out
+            assert (err.sum() / w.abs().sum()).item() <= mean_rel, out
+            if bf16 and k == 0:  # dx0, in bf16
+                assert (err > 0).float().mean().item() <= 1e-2, out
 
 
 def test_backward_weight_chunks_are_aligned_and_padded():
-    """The kernel's m-major weight copy: chunks of HIDDEN_CHUNK hidden rows
-    (HIDDEN_CHUNK * F columns), each zero-padded to a multiple of 8."""
+    """The f32 kernel's m-major weight copy: chunks of HIDDEN_CHUNK hidden
+    rows (HIDDEN_CHUNK * F columns), each zero-padded to a multiple of 8."""
     from deepfm_tpu_torch.ops.kernels.cin_stack import HIDDEN_CHUNK, _chunked
 
     m, h, f = 5, 7, 13
     w = torch.arange(m * h * f, dtype=torch.float32).reshape(m, h * f) + 1
-    out = _chunked(w, h, f, torch.bfloat16)
+    out = _chunked(w, h, f)
     width = HIDDEN_CHUNK * f
     padded = -(-width // 8) * 8
     chunks = -(-h // HIDDEN_CHUNK)
-    assert out.shape == (m, chunks * padded) and out.dtype == torch.bfloat16
-    blocks = out.float().reshape(m, chunks, padded)
+    assert out.shape == (m, chunks * padded) and out.dtype == torch.float32
+    blocks = out.reshape(m, chunks, padded)
     assert not blocks[:, :, width:].any()
     flat = blocks[:, :, :width].reshape(m, -1)
-    assert torch.equal(flat[:, : h * f], w.bfloat16().float())
+    assert torch.equal(flat[:, : h * f], w)
     assert not flat[:, h * f:].any()
