@@ -8,9 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
   build      compile every CUDA kernel of the port from csrc/ (nvcc, one
              process per source, all at once), print the card's name
              and power limit as nvidia-smi reports them and the attention
-             backward's, the bf16 CIN-stack forward's and backward's and
-             the row gather's ptxas lines (registers, shared memory,
-             spills);
+             backward's, cin_compress's, the bf16 CIN-stack forward's and
+             backward's, fused_table_adam's and the row gather's ptxas
+             lines (registers, shared memory, spills);
   cin_stack  hold the CIN-stack forward kernels (f32 on the FP32 pipes,
              bf16 on the tensor cores) against their plain PyTorch version
              on the card at six shapes (the serving config, bench.py's
@@ -38,7 +38,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              CIN (B=4096, F=27, D=10, 200 maps, H = 27, 200, 200) and a
              ragged shape (CIN_TOL), launched twice to show the same bits,
              timed beside its bound, the plain version and the outer
-             product materialised plus one torch.matmul; then the CIN
+             product materialised plus one torch.matmul, with its plan
+             (compress_plan: map tile, column tile, threads, grid, waves;
+             at most 7 padded maps while M <= 256, at most
+             MAX_PADDED_FMA_SHARE of a paper layer's products on them) and
+             the compiled kernel's registers, local memory and blocks an
+             SM (which must be the plan's), and its time split into device
+             time (back-to-back launches) and host time a call; then the CIN
              stack's "layers" route (stack_route): its backward against
              the stack backward kernel at bench.py's f32 CIN shape
              (CIN_BWD_TOL); at the paper's CIN, CinStackFn's backward
@@ -66,6 +72,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              same bytes), its achieved TB/s, on the
              long runs below (bit for bit, twice, timed) and on a ragged
              table (RAGGED_ROWS, ids also outside it) bit for bit, twice;
+             fused_table_adam also on ragged, misaligned tables (8k + 3
+             elements, views one element off a 16-byte boundary, f32 and
+             bf16 moments, the clip on and off) bit for bit against its
+             plain version, and its device time and host time a call
+             beside its single-call time;
              then (long_runs) three of them again
              with two fields missing (id 0) in every row, runs of 16384
              equal ids, held to the plain versions and timed;
@@ -298,6 +309,10 @@ ATTN_TOL = {
                  "mean_rel": 5e-4, "differ_share": 1e-2},
 }
 
+# cin_compress: at most this share of a paper layer's products on padded
+# maps (maps past M, up to the plan's map tiles); at most 7 padded maps
+# while M <= 256
+MAX_PADDED_FMA_SHARE = 0.04
 # (name, B, H, F, D, M) of the per-layer CIN kernel: the three layers of
 # the xDeepFM paper's CIN at its batch (layer 0's hidden state is x0), and
 # a ragged shape
@@ -323,6 +338,10 @@ LR, L2, CLIP = 1e-3, 1e-5, 1.0  # the config defaults bench.py keeps
 # last bit (rel 1e-6); scalar reductions (segment sums, sum p'^2) are
 # summed in another order (rel 1e-5).
 TABLE_TOL = {"dense_exact": True, "p_rel": 1e-6, "scalar_rel": 1e-5}
+# fused_table_adam's ragged, misaligned tables: 8k + 3 elements (D = 17),
+# each tensor a view this many elements past its allocation
+ADAM_RAGGED_ROWS = 1003
+ADAM_OFFSETS = (0, 1, 3)
 # Train steps against each other (sparse-fused against two-pass on the
 # card; the card against the CPU at 20k ids in f32): each leaf under the
 # rule of deepfm_tpu_torch/training/parity.py (rtol 1e-5 / atol 1e-7, the
@@ -423,8 +442,8 @@ def phase_build() -> str:
               if "Used" in line or "spill" in line or "Compiling entry" in line]
         for src, log in logs.items()
     }
-    for src in ("attention_bwd.cu", "cin_stack_fwd_mma.cu",
-                "cin_stack_bwd_mma.cu", "row_gather.cu"):
+    for src in ("attention_bwd.cu", "cin_compress.cu", "cin_stack_fwd_mma.cu",
+                "cin_stack_bwd_mma.cu", "fused_table_adam.cu", "row_gather.cu"):
         for line in ptxas.get(src, []):
             print(f"ptxas {src}: {line}", flush=True)
     emit({"phase": "build", "seconds": seconds,
@@ -826,9 +845,15 @@ def phase_cin_compress() -> dict:
     import torch
 
     from deepfm_tpu_torch.ops.cin import cin_layer_sizes, cin_outer
+    from deepfm_tpu_torch.ops.kernels import build
     from deepfm_tpu_torch.ops.kernels.cin import (
+        CHUNK,
+        STAGES,
         cin_compress_layer,
         cin_compress_plain,
+        compress_attributes,
+        compress_plan,
+        x0_resident,
     )
     from deepfm_tpu_torch.ops.kernels.cin_stack import (
         cin_stack_backward,
@@ -869,10 +894,28 @@ def phase_cin_compress() -> dict:
         del got, again, want
         bound_ms, bound_by, flops = cin_layer_bound(bsz, h, f, d, m)
         ms = time_ms(kernel, reps=20)
+        plan = compress_plan(bsz, f, d, m, sms=build.sm_count(x0))
+        attrs = compress_attributes(x0, plan)
+        padded_share = plan.padded_maps / (plan.map_tiles * plan.tile_maps)
+        field_blocks = -(-f // CHUNK)  # a chunk: one hidden row, a field block
+        if attrs["blocks_per_sm"] != plan.blocks_per_sm or (
+                m <= 256 and plan.padded_maps > 7) or (
+                name.startswith("paper") and padded_share > MAX_PADDED_FMA_SHARE):
+            failures.append(f"{name}: plan {plan} against the compiled "
+                            f"kernel {attrs}, padded share {padded_share}")
         rec = {
             "phase": "cin_compress", "shape": name, "B": bsz, "H": h, "F": f,
             "D": d, "M": m, "dtype": "float32", **stats, "tol": tol,
             "same_bits": same_bits, "ms": ms,
+            "call_split": call_split(kernel, device_reps=20, host_reps=20),
+            "plan": {**plan._asdict(), "tile_cols": plan.tile_cols,
+                     "stages": STAGES,
+                     "chunk_fields": -(-f // field_blocks),
+                     "x0_resident": x0_resident(f),
+                     "grid": plan.grid, "waves": plan.waves,
+                     "wave_fill": plan.wave_fill,
+                     "padded_fma_share": padded_share},
+            "compiled": attrs,
             "plain_ms": time_ms(lambda: cin_compress_plain(hid, x0, w, b), reps=5),
             "library_ms": time_ms(library, reps=5),
             "library": "the outer product materialised plus one torch.matmul",
@@ -1266,6 +1309,58 @@ def adam_check(kernel, plain, fresh, extra, args) -> dict:
     return rec
 
 
+def adam_ragged_checks(dev) -> list:
+    """fused_table_adam on tables of ADAM_RAGGED_ROWS x D (8k + 3
+    elements), stored at each offset of ADAM_OFFSETS elements past an
+    allocation (every tensor a view that far off its 16-byte boundary),
+    with f32 and bf16 moments, the clip off and on: p, mu and nu bit for
+    bit against the plain version on aligned copies of the same state,
+    and a second launch giving the same bits."""
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.adam import (
+        fused_table_adam,
+        fused_table_adam_plain,
+        vector_split,
+    )
+
+    def at_offset(t, off):
+        flat = torch.empty(t.numel() + off, dtype=t.dtype, device=dev)
+        view = flat[off:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    out = []
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = ADAM_RAGGED_ROWS
+    p = (torch.rand(rows, D, generator=gen, device=dev) * 2 - 1) * 4e-3
+    g = torch.randn(rows, D, generator=gen, device=dev) * 1e-3
+    m32 = torch.randn(rows, D, generator=gen, device=dev) * 1e-4
+    v32 = (torch.randn(rows, D, generator=gen, device=dev) * 1e-4).square()
+    for moments in (torch.float32, torch.bfloat16):
+        mu, nu = m32.to(moments), v32.to(moments)
+        for off in ADAM_OFFSETS:
+            for clip in (0.0, CLIP):
+                args = (LR, 2 * L2, torch.tensor(2.0, device=dev), clip,
+                        torch.tensor(4, dtype=torch.int32, device=dev))
+                k = [at_offset(t, off) for t in (p, mu, nu)]
+                k2 = [at_offset(t, off) for t in (p, mu, nu)]
+                gk = at_offset(g, off)
+                q = [p.clone(), mu.clone(), nu.clone()]
+                fused_table_adam(*k, gk, *args)
+                fused_table_adam(*k2, gk, *args)
+                fused_table_adam_plain(*q, g, *args)
+                equal = all(torch.equal(a, b) for a, b in zip(k, q))
+                det = all(torch.equal(a, b) for a, b in zip(k, k2))
+                split = vector_split(p.numel(), [
+                    (t.data_ptr(), t.element_size()) for t in (k[0], gk, *k[1:])])
+                out.append({"moments": str(moments).split(".")[-1],
+                            "offset": off, "clip": clip, "numel": p.numel(),
+                            "split": split._asdict(), "bit_equal": equal,
+                            "deterministic": det, "ok": equal and det})
+    return out
+
+
 def add_densify_edges(rec: dict, kernel, plain, num_rows: int, dev) -> None:
     """Adds to a densify record: the kernel ``kernel(sids, cts, num_rows)``
     against its plain version, bit for bit and twice, on the long runs
@@ -1421,15 +1516,32 @@ def phase_table_kernels() -> dict:
     lib_p = p.clone().requires_grad_()
     lib_p.grad = grad
     lib = torch.optim.Adam([lib_p], lr=LR, weight_decay=2 * L2, fused=True)
+    lib_ms = time_ms(lib.step, reps=20)
+    del lib, lib_p
+    state = fresh()
+    split = call_split(lambda: fused_table_adam(*state, grad, *args),
+                       device_reps=20, host_reps=50)
+    del state
+    ragged = adam_ragged_checks(dev)
+    bound = mem_bound_ms(elems * (4 + 4 + 4 + 2 * 2 * 2))
     record("fused_table_adam", {
         **rec,
-        "library_ms": time_ms(lib.step, reps=20),
+        "library_ms": lib_ms,
         "library": "torch.optim.Adam(fused=True, weight_decay) step, f32 "
                    "moments: no clip, other op order",
-        "bound_ms": mem_bound_ms(elems * (4 + 4 + 4 + 2 * 2 * 2)),
+        "below_library": rec["ms"] < lib_ms,
+        "call_split": split,
+        "device_share_of_bound": bound / split["device_ms"],
+        "ragged": ragged,
+        # the update is elementwise in the plain version's op order: p too
+        # is the plain version's bit for bit
+        "p_bit_equal": rec["max_abs_err"] == 0.0,
+        "ok": (rec["ok"] and rec["max_abs_err"] == 0.0
+               and all(r["ok"] for r in ragged)),
+        "bound_ms": bound,
         "bound_by": "bytes",
     })
-    del lib, lib_p, grad, ids, ct, p, mu, nu, sids, cts
+    del grad, ids, ct, p, mu, nu, sids, cts
     torch.cuda.empty_cache()
 
     # the same kernels where LONG_RUN_FIELDS fields are missing in every

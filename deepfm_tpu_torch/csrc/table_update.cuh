@@ -14,7 +14,8 @@
 //    __fadd_rn, __fdiv_rn, __fsqrt_rn), so nvcc contracts nothing into an
 //    FMA: the result equals the same chain of separate PyTorch elementwise
 //    ops bit for bit. mu and nu are stored round-to-nearest in their own
-//    type (f32 or bf16); the math is f32.
+//    type (f32 or bf16); the math is f32. load8 / store8 move 8 elements
+//    of f32 or bf16 in 16-byte accesses, for fused_table_adam.cu's vectors.
 //  * the segmented row sum over a SORTED (id, cotangent) stream: a block
 //    owns a tile of table rows, finds each row's contiguous run of pairs,
 //    and sums the run in stream order. Deterministic, no float atomics;
@@ -82,6 +83,40 @@ __device__ __forceinline__ void store_moment(float* m, int64_t i, float v) {
 __device__ __forceinline__ void store_moment(__nv_bfloat16* m, int64_t i,
                                              float v) {
   m[i] = __float2bfloat16_rn(v);
+}
+
+// Eight consecutive elements from / to a 16-byte aligned address: two
+// float4 of f32, or one 16-byte word of bf16 (stored round-to-nearest,
+// as store_moment stores one).
+__device__ __forceinline__ void load8(const float* src, float v[8]) {
+  const float4 a = reinterpret_cast<const float4*>(src)[0];
+  const float4 b = reinterpret_cast<const float4*>(src)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float v[8]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(float* dst, const float v[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float v[8]) {
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __halves2bfloat162(__float2bfloat16_rn(v[2 * i]),
+                                                __float2bfloat16_rn(v[2 * i + 1]));
+    u[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
 }
 
 // One element of the update; returns p' and leaves the f32 moments in

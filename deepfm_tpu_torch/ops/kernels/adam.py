@@ -18,12 +18,16 @@ Moments are stored in their own type (f32 or bf16, rounded to nearest);
 the math is f32. The table, mu and nu are updated in place.
 
 What bounds it on an H100: bytes, 20 per element with bf16 moments
-(3.54 GB at bench.py's 10.4M x 17 table, about 1.06 ms at 3.35 TB/s).
+(3.54 GB at bench.py's 10.4M x 17 table, about 1.06 ms at 3.35 TB/s). The
+kernel moves them in 16-byte accesses, 8 elements a thread a step;
+``vector_split`` cuts the arrays into a scalar head, that body of vectors
+and a scalar tail, from the four pointers' alignment.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,12 +37,39 @@ SOURCE = "fused_table_adam.cu"
 _SIGNATURES = {
     "fused_table_adam_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_void_p,
     ],
 }
 MOMENT_DTYPES = (torch.float32, torch.bfloat16)
+VECTOR = 8  # elements a thread takes in one step (kVec)
+
+
+class VectorSplit(NamedTuple):
+    """Elements [0, head) and [head + 8 * vectors, numel) are updated one
+    at a time, [head, head + 8 * vectors) in vectors of 8 whose every
+    pointer is 16-byte aligned."""
+
+    head: int
+    vectors: int
+    tail: int
+
+
+def vector_split(numel: int, addresses) -> VectorSplit:
+    """The kernel's split of ``numel`` elements over arrays at
+    ``addresses``, (byte address, element size) pairs: the head is the
+    first element in [0, 8) at which every array is 16-byte aligned (all
+    of numel when there is none, or when it lies past the end); then as
+    many whole vectors as fit; the rest is the tail. The C launch
+    recomputes it from the pointers."""
+    head = next((h for h in range(VECTOR)
+                 if all((a + h * size) % 16 == 0 for a, size in addresses)),
+                numel)
+    head = min(head, numel)
+    vectors = (numel - head) // VECTOR
+    return VectorSplit(head, vectors, numel - head - VECTOR * vectors)
 
 
 def _scalar(v, device) -> torch.Tensor:
@@ -157,12 +188,15 @@ def fused_table_adam(param, mu, nu, grad, lr, weight_decay, global_norm,
     grad = grad.contiguous()
     sc = adam_scalars(lr, weight_decay, global_norm, clip_norm, step, b1, b2,
                       eps, device=param.device)
+    split = vector_split(param.numel(), [
+        (t.data_ptr(), t.element_size()) for t in (param, grad, mu, nu)])
     lib = build.bind(SOURCE, _SIGNATURES)
     with torch.cuda.device(param.device):
         err = lib.fused_table_adam_launch(
             param.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             int(mu.dtype == torch.bfloat16), grad.data_ptr(), param.numel(),
-            sc.data_ptr(), *betas(b1, b2), build.stream_of(param),
+            split.head, split.vectors, sc.data_ptr(), *betas(b1, b2),
+            build.stream_of(param),
         )
     build.check(lib, SOURCE, "fused_table_adam", err)
     fused_table_adam.launches += 1

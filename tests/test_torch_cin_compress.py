@@ -137,17 +137,28 @@ def test_kmajor_weight_is_padded_and_cached():
     assert torch.equal(kmajor_weight(w, torch.float32)[:, :5], w.t())
 
 
+# On the card besides SHAPES: one of the paper's layers at a small batch,
+# chip_smoke.py's ragged layer, M at and around the plan's 8-map groups and
+# 256-map tiles, F past one chunk of fields (33, 40: two blocks; 70: three
+# of 24, 24, 22 and x0 staged by chunk), and B*D a multiple of no column
+# tile (370 = 37 * 10)
+CUDA_SHAPES = SHAPES + [
+    (129, 200, 27, 10, 200), (1000, 13, 13, 10, 7),
+    *[(37, 9, 7, 10, m) for m in (1, 8, 9, 129, 256, 257)],
+    (37, 4, 33, 10, 24), (21, 6, 40, 7, 200), (50, 3, 70, 3, 30),
+]
+
+
 @pytest.mark.cuda
 def test_cin_compress_kernel_matches_plain_on_cuda():
     """Kernel against its plain version on the card, f32 in and out and
-    bf16 hidden, at ragged shapes and one of the paper's layers (f32
-    rtol 2e-4 / atol 1e-5, the CIN forward's); a second launch gives the
-    same bits."""
+    bf16 hidden, at CUDA_SHAPES (f32 rtol 2e-4 / atol 1e-5, the CIN
+    forward's); a second launch gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU launch")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for b, h, f, d, m in SHAPES + [(129, 200, 27, 10, 200), (1000, 13, 13, 10, 7)]:
+    for b, h, f, d, m in CUDA_SHAPES:
         hid, x0, w, bias, _ = (torch.from_numpy(a).cuda()
                                for a in _inputs(3, b, h, f, d, m))
         for dt in (torch.float32, torch.bfloat16):

@@ -14,6 +14,9 @@ elementwise ops do, csrc/table_update.cuh):
   * sparse / fused table Adam: mu and nu bit for bit, p within 1e-6
     relative (the same roundings; a square root may differ in its last
     bit), psq and the segment sums rel 1e-5 (another summation order);
+    fused table Adam on ragged tables whose tensors are views one element
+    off their allocation (its scalar head and tail): p, mu and nu bit for
+    bit;
   * packed sparse table Adam against the logical kernel on the unpacked
     state: p, mu and nu bit for bit (the same run sums and arithmetic);
   * every kernel gives the same bits on a second launch;
@@ -130,6 +133,30 @@ def test_table_kernels_match_plain_on_cuda(moments):
             fused_table_adam_plain(*q, g, *args)
             assert torch.equal(k[1], q[1]) and torch.equal(k[2], q[2])
             torch.testing.assert_close(k[0], q[0], rtol=1e-6, atol=0)
+    # fused table Adam on ragged, misaligned tables: 1003 * D = 8k + 3 and
+    # 5 * D = 8k + 5 elements, each tensor a view `off` elements past its
+    # allocation (its scalar head and tail); p, mu and nu bit for bit
+    def shifted(t, off):
+        flat = torch.empty(t.numel() + off, dtype=t.dtype, device=dev)
+        view = flat[off:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for rows in (1003, 5):
+        p, mu, nu = _table(rows, rows)
+        g = torch.from_numpy(np.random.default_rng(rows).normal(
+            size=(rows, D)).astype(np.float32)).to(dev)
+        state = [torch.from_numpy(p).to(dev), torch.from_numpy(mu).to(dev, mdt),
+                 torch.from_numpy(nu).to(dev, mdt)]
+        for off in (1, 3):
+            for clip in (0.0, 1.0):
+                args = (LR, WD, torch.tensor(3.0, device=dev), clip,
+                        torch.tensor(2, dtype=torch.int32, device=dev))
+                k = [shifted(t, off) for t in state]
+                q = [t.clone() for t in state]
+                fused_table_adam(*k, shifted(g, off), *args)
+                fused_table_adam_plain(*q, g, *args)
+                assert all(torch.equal(a, b) for a, b in zip(k, q)), (rows, off)
     # the densify kernel's edges (ids drawn in [lo, hi)): no pairs, no
     # rows, every id out of range, rows not a multiple of 4 or of a tile,
     # D of 1, 5, 17 and 33, runs longer than a chunk of staged pairs

@@ -27,6 +27,10 @@ on the same numpy inputs:
     mantissa part on its own "to f32 working precision": within 1e-6 of
     the row's sum of |ct| (8 ulps of it).
 
+``vector_split``, the fused kernel's cut of a table into a scalar head, a
+body of 16-byte vectors and a scalar tail (the C launch recomputes it from
+the pointers), is checked here on addresses alone.
+
 The kernels themselves are held against these plain versions on the card
 by tests/test_torch_train_cuda.py and chip_smoke.py.
 """
@@ -59,8 +63,10 @@ from deepfm_tpu.utils.layout import unpack_table as jax_unpack  # noqa: E402
 from deepfm_tpu_torch.convert import unpack_table  # noqa: E402
 from deepfm_tpu_torch.ops.kernels import build  # noqa: E402
 from deepfm_tpu_torch.ops.kernels.adam import (  # noqa: E402
+    VECTOR,
     fused_table_adam,
     fused_table_adam_plain,
+    vector_split,
 )
 from deepfm_tpu_torch.ops.kernels.grad import (  # noqa: E402
     densify_rows_grad,
@@ -297,6 +303,48 @@ def test_plain_versions_handle_empty_and_out_of_range_ids():
     fused_table_adam_plain(p, mu, nu, torch.zeros(4, D), LR, 0.0, 1.0, 0.0,
                            torch.tensor(1, dtype=torch.int32))
     assert torch.all(p == 1.0)
+
+
+def _covered(numel, split):
+    """Each element's count of the split's pieces that take it."""
+    seen = np.zeros(numel, dtype=int)
+    seen[:split.head] += 1
+    body = split.head + VECTOR * split.vectors
+    seen[split.head:body] += 1
+    seen[body:body + split.tail] += 1
+    return seen, body
+
+
+@pytest.mark.parametrize("moment_size", [4, 2])
+@pytest.mark.parametrize("offset", range(8))
+def test_vector_split_covers_each_element_once(offset, moment_size):
+    """Tables of 0-40 elements whose four arrays sit ``offset`` elements
+    past a 256-byte boundary (a view one or more elements off): every
+    element falls in exactly one of head, vectors and tail, the head is
+    shorter than a vector, and every vector starts 16-byte aligned in all
+    four arrays."""
+    bases = (256, 4096, 65536, 1 << 20)
+    sizes = (4, 4, moment_size, moment_size)
+    for numel in range(41):
+        addrs = [(b + offset * sz, sz) for b, sz in zip(bases, sizes)]
+        split = vector_split(numel, addrs)
+        seen, body = _covered(numel, split)
+        assert (seen == 1).all(), (numel, split)
+        assert split.head < VECTOR and split.tail < VECTOR
+        for v in range(split.vectors):
+            i = split.head + VECTOR * v
+            assert all((a + i * sz) % 16 == 0 for a, sz in addrs)
+        assert body + split.tail == numel
+
+
+def test_vector_split_without_a_common_alignment_is_all_scalar():
+    """Arrays whose misalignments never meet (p one f32 off, the gradient
+    aligned) take every element one at a time."""
+    addrs = [(256 + 4, 4), (4096, 4), (8192, 2), (16384, 2)]
+    for numel in (0, 5, 40, 1001):
+        split = vector_split(numel, addrs)
+        assert split == (numel, 0, 0)
+        assert (_covered(numel, split)[0] == 1).all()
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
