@@ -8,9 +8,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
   build      compile every CUDA kernel of the port from csrc/ (nvcc, one
              process per source, all at once), print the card's name
              and power limit as nvidia-smi reports them and the attention
-             backward's, cin_compress's, the bf16 CIN-stack forward's and
-             backward's, fused_table_adam's and the row gather's ptxas
-             lines (registers, shared memory, spills);
+             forward's and backward's, cin_compress's, the bf16 CIN-stack
+             forward's and backward's, fused_table_adam's, the row
+             gather's and sparse_table_adam's ptxas lines (registers,
+             shared memory, spills);
   cin_stack  hold the CIN-stack forward kernels (f32 on the FP32 pipes,
              bf16 on the tensor cores) against their plain PyTorch version
              on the card at six shapes (the serving config, bench.py's
@@ -59,7 +60,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the core's f32 work at the FP32 rate), its plain version and
              scaled_dot_product_attention around the same projections
              (below_library); in bf16 the check must refuse the plain
-             backward without its [dq|dk|dv] rounding;
+             backward without its [dq|dk|dv] rounding and the plain
+             forward without its context rounding; with the forward's plan
+             (forward_plan), the compiled forward's registers, local memory
+             and blocks an SM (which must be the plan's) and its call split
+             into device and host time;
   densify_rows_grad, segment_sumsq, sparse_table_adam, fused_table_adam
              the four table-update kernels at bench.py's shape (a 10.4M x 17
              table, 425,984 (id, cotangent) pairs drawn as bench.py draws
@@ -75,11 +80,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              fused_table_adam also on ragged, misaligned tables (8k + 3
              elements, views one element off a 16-byte boundary, f32 and
              bf16 moments, the clip on and off) bit for bit against its
-             plain version, and its device time and host time a call
-             beside its single-call time;
+             plain version; fused_table_adam's and sparse_table_adam's
+             device time and host time a call beside the single-call time,
+             and the device time's share of the bound;
              then (long_runs) three of them again
              with two fields missing (id 0) in every row, runs of 16384
-             equal ids, held to the plain versions and timed;
+             equal ids, held to the plain versions and timed
+             (sparse_table_adam with its call split, beside its uniform-ids
+             time; segment_sumsq twice for the same bits and under
+             LONG_RUN_SEGSQ_MS);
   packed_kernels  the packed layout's kernels at the same table packed
              (7 logical rows per 128-float row, 1,485,824 rows): the packed
              densify bit for bit against its plain version, twice, dead
@@ -89,7 +98,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              table;
              sparse_table_adam on the packed table against its plain
              version (TABLE_TOL) and, bit for bit, against the logical
-             kernel on the unpacked state; the row-gather kernel bit for
+             kernel on the unpacked state, with its call split; the
+             row-gather kernel bit for
              bit against its plain version, its single-call time split
              into device time (100 back-to-back launches) and host time
              per call, beside the same for index_select, in turns;
@@ -114,9 +124,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              gradients card against CPU with a planted fault (the packed
              densify one sub-slot off) that must be refused;
              then (train_models) xDeepFM and AttentionDeepFM at the same
-             width on the sparse-fused path, timed and profiled as DeepFM,
-             each of their kernels launched once per step (per block for
-             attention; xDeepFM's CIN forward and backward on the
+             width on the sparse-fused path, timed and profiled as DeepFM
+             (AttentionDeepFM in PROFILED_STEPS profiled steps, each of
+             which must show its forward and backward kernels once per
+             block), each of their kernels launched once per step (per
+             block for attention; xDeepFM's CIN forward and backward on the
              tensor-core kernels, never the f32 ones), and at 20k ids,
              batch GRAD_BATCH, f32, their first-step gradients on the card
              against the CPU's, with a planted fault per model that must be
@@ -381,11 +393,19 @@ GRAD_NORM_REL = 1e-2
 # Fields whose ids are all 0 (padding/OOV, a missing value) in the long-run
 # timing of the table kernels: each gives one run of BENCH_BATCH pairs.
 LONG_RUN_FIELDS = 2
+# segment_sumsq on those long runs must take less than this (ms): a run is
+# summed by its block from staged rows, not walked by one thread (0.047 ms
+# on uniform ids and 21.55 ms on the long runs when one thread walked each
+# run, an H100)
+LONG_RUN_SEGSQ_MS = 0.5
 # The densify kernels' ragged table: rows not a multiple of 4, of a tile or
 # of PACK, with ids drawn in [-5, rows + 5), so some fall outside it
 RAGGED_ROWS, RAGGED_PAIRS = 1_000_003, 99_999
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 TRAIN_MODELS = ("xdeepfm", "attention_deepfm")
+# kernels that must show in each of PROFILED_STEPS profiled steps of a model
+PROFILE_WATCH = {"attention_deepfm": ("attn_fwd_kernel", "attn_bwd_kernel")}
+PROFILED_STEPS = 3
 GRAD_BATCH = 1024  # their first-step gradients, card against CPU
 # (leaf, factor) planted into the card's first-step gradients per model;
 # the check must refuse each
@@ -442,8 +462,10 @@ def phase_build() -> str:
               if "Used" in line or "spill" in line or "Compiling entry" in line]
         for src, log in logs.items()
     }
-    for src in ("attention_bwd.cu", "cin_compress.cu", "cin_stack_fwd_mma.cu",
-                "cin_stack_bwd_mma.cu", "fused_table_adam.cu", "row_gather.cu"):
+    for src in ("attention_block.cu", "attention_bwd.cu", "cin_compress.cu",
+                "cin_stack_fwd_mma.cu", "cin_stack_bwd_mma.cu",
+                "fused_table_adam.cu", "row_gather.cu",
+                "sparse_table_adam.cu"):
         for line in ptxas.get(src, []):
             print(f"ptxas {src}: {line}", flush=True)
     emit({"phase": "build", "seconds": seconds,
@@ -1101,6 +1123,8 @@ def phase_attention() -> dict:
         attention_block_forward,
         attention_block_plain,
         backward_plan,
+        forward_attributes,
+        forward_plan,
         param_names,
     )
 
@@ -1156,6 +1180,20 @@ def phase_attention() -> dict:
             if ctl["ok"]:
                 failures.append(f"{name}: the bf16 check passes a backward "
                                 f"without the [dq|dk|dv] rounding: {ctl}")
+            ctl = grad_compare(
+                {"out": attention_block_plain(x, p, heads, True,
+                                              ctx_round=False)},
+                {"out": attention_block_plain(x, p, heads, True)}, tol, "out")
+            controls["no_ctx_round"] = ctl
+            if ctl["ok"]:
+                failures.append(f"{name}: the bf16 check passes a forward "
+                                f"without the context's rounding: {ctl}")
+        fp = forward_plan(f, d, a, heads)
+        fattr = forward_attributes(x, fp)
+        if fattr["blocks_per_sm"] != fp.blocks_per_sm:
+            failures.append(f"{name}: the compiled forward holds "
+                            f"{fattr['blocks_per_sm']} blocks an SM, the plan "
+                            f"{fp.blocks_per_sm}: {fattr}")
         del out, out2, dx, dp, dx2, dp2, got, again
         big = bsz >= 16384
         reps = 20 if big else 50
@@ -1166,6 +1204,13 @@ def phase_attention() -> dict:
                "backward_plan": {"samples": bp.samples,
                                  "core_warps": bp.core_warps, "rows": bp.rows,
                                  "smem_bytes": bp.smem, "grid": bp.grid(bsz)},
+               "forward_plan": {
+                   "samples": fp.samples, "core_warps": fp.core_warps,
+                   "rows": fp.rows, "smem_bytes": fp.smem,
+                   "blocks_per_sm": fp.blocks_per_sm,
+                   "grid": fp.grid(bsz, torch.cuda.get_device_properties(
+                       dev).multi_processor_count)},
+               "forward_compiled": fattr,
                "controls": controls,
                "library": "scaled_dot_product_attention around the same "
                           "projections and layer_norm (autograd for the "
@@ -1188,6 +1233,11 @@ def phase_attention() -> dict:
                 "mixed_bound_ms": mixed_ms,
                 "gflop": flops / 1e9, "tflops": flops / (ms * 1e-3) / 1e12,
             }
+        split = call_split(fwd, device_reps=20 if big else 100,
+                           host_reps=50 if big else 200)
+        rec["forward"]["call_split"] = split
+        rec["forward"]["device_share_of_mixed_bound"] = (
+            rec["forward"]["mixed_bound_ms"] / split["device_ms"])
         emit(rec)
         results[name] = rec
         del x, g, p
@@ -1420,6 +1470,17 @@ def densify_record(kernel, sids, cts, num_rows, out_bytes, pair_bytes,
     }
 
 
+def sparse_call_split(kernel, fresh, extra, args, bound_ms) -> dict:
+    """A sparse table Adam kernel's call split (call_split) on a fresh copy
+    of the state, and its device time's share of the byte bound."""
+    state = fresh()
+    split = call_split(lambda: kernel(*state, *extra, *args), device_reps=20,
+                       host_reps=50)
+    del state
+    return {"call_split": split,
+            "device_share_of_bound": bound_ms / split["device_ms"]}
+
+
 def phase_table_kernels() -> dict:
     """The four table-update kernels at bench.py's shape."""
     import torch
@@ -1504,10 +1565,14 @@ def phase_table_kernels() -> dict:
 
     rec = adam_check(sparse_table_adam, sparse_table_adam_plain, fresh,
                      (sids, cts), args)
+    sparse_bound = mem_bound_ms(elems * (8 + 2 * 2 * 2) + pair_bytes)
+    sparse_split = sparse_call_split(sparse_table_adam, fresh, (sids, cts),
+                                     args, sparse_bound)
     record("sparse_table_adam", {
         **rec, "library_ms": None,
         "library": "none: no single PyTorch call densifies and applies Adam",
-        "bound_ms": mem_bound_ms(elems * (8 + 2 * 2 * 2) + pair_bytes),
+        **sparse_split,
+        "bound_ms": sparse_bound,
         "bound_by": "bytes",
     })
 
@@ -1545,27 +1610,42 @@ def phase_table_kernels() -> dict:
     torch.cuda.empty_cache()
 
     # the same kernels where LONG_RUN_FIELDS fields are missing in every
-    # row: each run of equal ids is walked by one thread, so its length
-    # (here BENCH_BATCH) is serial work; held to the plain versions too
+    # row: runs of BENCH_BATCH equal ids, each summed in stream order (a
+    # chain of adds that one thread once walked from device memory, fault
+    # 3); held to the plain versions too
     ids, ct, p, mu, nu, args = table_inputs(dev, missing_fields=LONG_RUN_FIELDS)
     sids, cts = sort_pairs(ids, ct)
     _, run_lengths = torch.unique_consecutive(sids, return_counts=True)
     got = densify_sorted(sids, cts, rows)
     dense_equal = bool(torch.equal(got, segment_rows_plain(sids, cts, rows)))
     del got
-    ssq_rel = rel_err(segment_sumsq(sids, cts), segment_sumsq_plain(sids, cts))
+    ssq = segment_sumsq(sids, cts)
+    ssq_rel = rel_err(ssq, segment_sumsq_plain(sids, cts))
+    ssq_same = bool(torch.equal(ssq, segment_sumsq(sids, cts)))
     rec = adam_check(sparse_table_adam, sparse_table_adam_plain, fresh,
                      (sids, cts), args)
+    rec.update(sparse_call_split(sparse_table_adam, fresh, (sids, cts), args,
+                                 sparse_bound))
+    ssq_ms = time_ms(lambda: segment_sumsq(sids, cts), reps=10)
     record("long_runs", {
         "missing_fields": LONG_RUN_FIELDS, "max_run": int(run_lengths.max()),
         "unique_ids": run_lengths.numel(),
         "densify_rows_grad_bit_equal": dense_equal,
         "segment_sumsq_rel_err": ssq_rel,
+        "segment_sumsq_deterministic": ssq_same,
         "sparse_table_adam": rec,
         "densify_rows_grad_ms": time_ms(lambda: densify_sorted(sids, cts, rows), reps=10),
-        "segment_sumsq_ms": time_ms(lambda: segment_sumsq(sids, cts), reps=10),
+        "segment_sumsq_ms": ssq_ms,
+        "segment_sumsq_limit_ms": LONG_RUN_SEGSQ_MS,
         "sparse_table_adam_ms": rec["ms"],
-        "ok": dense_equal and rec["ok"] and ssq_rel <= TABLE_TOL["scalar_rel"],
+        "sparse_table_adam_over_uniform": (
+            rec["ms"] / out["sparse_table_adam"]["ms"]),
+        "sparse_table_adam_device_over_uniform": (
+            rec["call_split"]["device_ms"]
+            / out["sparse_table_adam"]["call_split"]["device_ms"]),
+        "ok": (dense_equal and rec["ok"] and ssq_same
+               and ssq_rel <= TABLE_TOL["scalar_rel"]
+               and ssq_ms < LONG_RUN_SEGSQ_MS),
     })
     del ids, ct, p, mu, nu, sids, cts
     torch.cuda.empty_cache()
@@ -1667,6 +1747,9 @@ def phase_packed_kernels() -> dict:
         return sparse_table_adam_plain(*a, pack=PACK)
 
     rec = adam_check(kernel, plain, fresh, (sids, cts), args)
+    packed_bound = mem_bound_ms(phys * 128 * (8 + 2 * 2 * 2) + pair_bytes)
+    rec.update(sparse_call_split(kernel, fresh, (sids, cts), args,
+                                 packed_bound))
     k = fresh()
     *_, kpsq = kernel(*k, sids, cts, *args)
     lg = [p.clone(), mu.clone(), nu.clone()]
@@ -1681,7 +1764,7 @@ def phase_packed_kernels() -> dict:
         "dead_lanes_zero": dead_zero,
         "library_ms": None,
         "library": "none: no single PyTorch call densifies and applies Adam",
-        "bound_ms": mem_bound_ms(phys * 128 * (8 + 2 * 2 * 2) + pair_bytes),
+        "bound_ms": packed_bound,
         "bound_by": "bytes",
     })
     rec["ok"] = (rec["ok"] and same_as_logical and dead_zero
@@ -1980,9 +2063,10 @@ def device_events(prof) -> list:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def step_profile(step) -> dict:
+def step_profile(step, watch=()) -> dict:
     """torch.profiler over one warm train step: the device's busy share of
-    the host wall time and the device time by kernel."""
+    the host wall time and the device time by kernel; for each name in
+    ``watch``, the launches of the device events whose name holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1999,6 +2083,8 @@ def step_profile(step) -> dict:
         "device_busy_share": device_us / wall_us if wall_us else None,
         "device_kernels": sum(e.count for e in events),
         "top_device_ms": {e.key[:70]: e.self_device_time_total / 1e3 for e in top},
+        "watched": {w: sum(e.count for e in events if w in e.key)
+                    for w in watch},
     }
 
 
@@ -2410,12 +2496,26 @@ def phase_train_models() -> dict:
             loss = trainer._train_step(*batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - s0)
-        profile = step_profile(lambda: trainer._train_step(*batch))
+        watch = PROFILE_WATCH.get(name, ())
+        profiles = [step_profile(lambda: trainer._train_step(*batch), watch)]
         torch.cuda.synchronize()
         counts = read_counts()
         # --- end of the main path ------------------------------------------
+        # AttentionDeepFM's kernels must show in every profiled step (the
+        # profiler once lost the forward kernel from a step); the further
+        # profiled steps run outside the counted window, so every model's
+        # counts cover the same WARMUP_STEPS + TIMED_STEPS + 1 steps
+        profiles += [step_profile(lambda: trainer._train_step(*batch), watch)
+                     for _ in range(PROFILED_STEPS - 1 if watch else 0)]
+        profile = profiles[0]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steps = WARMUP_STEPS + TIMED_STEPS + 1
+        for i, prof in enumerate(profiles):
+            for kernel, n in prof["watched"].items():
+                if n != config.attention.num_layers:
+                    failures.append(f"{name}: profiled step {i} shows {n} "
+                                    f"{kernel} launches, expected "
+                                    f"{config.attention.num_layers}")
         if name == "xdeepfm":
             # bf16 operands: every forward and backward on the tensor-core
             # kernels
@@ -2462,6 +2562,8 @@ def phase_train_models() -> dict:
             "timed_steps": TIMED_STEPS, "step_ms_all": [1e3 * t for t in times],
             "examples_per_s": BENCH_BATCH / (step_ms / 1e3),
             "peak_memory_gb": peak_gb, "profile_step": profile,
+            "profiled_steps_watched": [p["watched"] for p in profiles],
+            "profiled_steps_device_ms": [p["device_ms"] for p in profiles],
             "launches": counts, "launches_expected": expected,
             "launches_first_step_grads_f32": grad_counts,
             "first_step_grads_card_vs_cpu_20k_f32": {

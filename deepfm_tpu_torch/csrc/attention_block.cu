@@ -1,308 +1,292 @@
 // Field self-attention block of AttentionDeepFM for Hopper (sm_90a): the
-// forward. (The backward is csrc/attention_bwd.cu.)
+// forward. (The backward is csrc/attention_bwd.cu; both are built from the
+// pieces in csrc/attention_tile.cuh.)
 //
 // Replaces deepfm_tpu/ops/pallas/attention_fmajor_kernel.py ::
 // make_attention_block_fmajor.forward / _attn_fwd_kernel. Per sample, with
 // x (F, d):
 //
 //   qkv = x . [wq|wk|wv] + [bq|bk|bv]                       (F, 3a), f32
-//   s_ij = (q_i . k_j) * hd^-1/2 per head; w = softmax_j(s)  f32, expf
+//   s_ij = (q_i . k_j) * hd^-1/2 per head; w = softmax_j(s)  f32
 //   ctx_i = sum_j w_ij v_j                                   (F, a), f32
 //   out = op(ctx) . wo + bo;  with residual: LayerNorm(out + x) * ls + lb
 //
 // op casts to the compute type (x's: bf16 or f32); the weights arrive in
 // that type, the biases and LayerNorm parameters in f32, q/k/v, scores,
-// softmax and context stay f32, every product accumulates in f32, and the
-// output leaves in x's type. This is the TPU kernel's rounding, not
-// block_oracle's (which computes everything in bf16).
+// softmax, context and LayerNorm stay f32, every product accumulates in
+// f32, and the output leaves in x's type. This is the TPU kernel's
+// rounding, not block_oracle's (which computes everything in bf16).
 //
-// What bounds it on this card: bytes at bench.py's shape (B=16384, F=27,
-// d=16, a=64, H=4): ~6.7 GFLOP against ~28 MB of x and out in bf16. Here
-// the work is tiny per sample and latency-bound: one block walks a fixed
-// share of the samples (grid-stride), keeps the weights and every
-// per-sample tensor in shared memory, and runs each stage with one thread
-// per output element (FP32 FMA pipes, no tensor cores), the attention core
-// included: one thread per score, per softmax row and per context element,
-// not one per (query, head). Shared-memory reads are kept off bank
-// conflicts: qkv and score rows have odd strides.
+// What bounds it on this card: at bench.py's shape (B=16384, F=27, d=16,
+// a=64, H=4) the projections are 3.6 GFLOP and the attention core 3.1
+// GFLOP against ~28 MB of x and out in bf16: bytes, if every operation ran
+// at the bf16 tensor-core rate, but the core's f32 work at the FP32 rate
+// (the mixed bound) takes longer. Design: the backward's forward half.
+//  * A block walks tiles of S samples (the plan's), S*F consecutive rows
+//    padded to a multiple of 16, the weights resident in shared memory for
+//    all of its tiles; a grid of as many blocks as the card holds (or one a
+//    tile). There are no sums across samples, so the partition does not
+//    reach the bits.
+//  * A tile: x's rows in; qkv = x . Wqkv + b as one product over the
+//    tile's rows (mma.sync in bf16, FP32-pipe lanes in f32); the core, a
+//    warp per (sample, head) and a lane per query, the scores, softmax and
+//    context in registers and a per-warp scratch; out = op(ctx) . wo + bo
+//    (+ x) as a second product, op(ctx) rounded to bf16 on its way into
+//    the fragments, written over x's rows; LayerNorm statistics a thread a
+//    row; the normalised rows leave with consecutive threads on
+//    consecutive elements.
+//  * The plan takes two blocks an SM where they hold as many core warps
+//    as one block would (one tile's loads and barriers overlap the other's
+//    work), else one; each with the most core warps and then the most
+//    samples that fit.
+//
+// The plan is computed by deepfm_tpu_torch/ops/kernels/attention.py::
+// forward_plan; the launch recomputes it here and refuses a mismatch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int kFwdThreads = 256;
-constexpr int kMaxDevices = 64;
-constexpr float kLnEps = 1e-5f;
+using namespace attention_tile;
 
-template <bool BF16>
-struct Io;
+constexpr int kMaxSamples = 8;
+constexpr int kSmemPerSm = 233472;  // 228 KB an SM
+constexpr int kSmemReserved = 1024;  // of which each block reserves 1 KB
 
-template <>
-struct Io<false> {
-  __device__ static float load(const void* p, size_t i) {
-    return static_cast<const float*>(p)[i];
-  }
-  __device__ static void store(void* p, size_t i, float v) {
-    static_cast<float*>(p)[i] = v;
-  }
-  __device__ static float op(float x) { return x; }
-};
-
-template <>
-struct Io<true> {
-  __device__ static float load(const void* p, size_t i) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  }
-  __device__ static void store(void* p, size_t i, float v) {
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-  }
-  __device__ static float op(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
-
-struct Shape {
-  int B, F, d, a, H, hd;
-  // Row strides of the score rows (F) and of qkv (3a), each rounded up to
-  // an odd number, so that threads reading down a column of either touch
-  // distinct shared-memory banks.
-  int FS, QS;
-  float scale;
-  int residual;
-};
-
-// qkv[f, j] = sum_c x[f, c] * wqkv[c, j] + bqkv[j], row stride QS
-__device__ void project_qkv(const float* xs, const float* wqkv,
-                            const float* bqkv, float* qkv, const Shape& s,
-                            int nt) {
-  const int a3 = 3 * s.a;
-  for (int i = threadIdx.x; i < s.F * a3; i += nt) {
-    const int f = i / a3;
-    const int j = i - f * a3;
-    float acc = 0.f;
-    for (int c = 0; c < s.d; ++c) acc = fmaf(xs[f * s.d + c], wqkv[c * a3 + j], acc);
-    qkv[f * s.QS + j] = acc + bqkv[j];
-  }
+Plan make_fwd_plan(int B, int F, int d, int a, int H, int S, int NC,
+                   float scale, int residual) {
+  Plan p = plan_geometry(B, F, d, a, H, S, NC, scale, residual);
+  p.o_wo = p.dp * p.WS;
+  p.o_bqkv = p.o_wo + p.ap * p.OS;
+  p.o_bo = p.o_bqkv + p.n3;
+  p.o_ls = p.o_bo + p.dp;
+  p.o_lb = p.o_ls + p.dp;
+  p.o_x = p.o_lb + p.dp;  // x's rows, then y over them
+  p.o_qkv = p.o_x + p.RP * p.XS;
+  p.o_ctx = p.o_qkv + p.RP * p.QS;
+  p.o_scr = p.o_ctx + p.RP * p.CS;  // a core warp's F x FS scores each
+  p.o_stats = p.o_scr + NC * F * p.FS;  // a row's mean, then its 1/std
+  p.total = p.o_stats + 2 * p.RP;
+  return p;
 }
 
-// The attention core in stages of one thread per output element, so that
-// each stage has thousands of independent sums (not one per query and
-// head); a head's slice of a row of a, b or out starts at h * hd.
-//
-// out[(i*H + h)*FS + j] = scale * sum_e a[i, h, e] * b[j, h, e], each sum
-// in order of e: the scores of every query, head and key.
-__device__ void head_dots(const float* a, int astride, const float* b,
-                          int bstride, float scale, float* out, const Shape& s,
-                          int nt) {
-  for (int t = threadIdx.x; t < s.F * s.H * s.F; t += nt) {
-    const int ih = t / s.F;
-    const int j = t - ih * s.F;
-    const int i = ih / s.H;
-    const int h = ih - i * s.H;
-    const float* ar = a + i * astride + h * s.hd;
-    const float* br = b + j * bstride + h * s.hd;
-    float dot = 0.f;
-    for (int e = 0; e < s.hd; ++e) dot = fmaf(ar[e], br[e], dot);
-    out[ih * s.FS + j] = dot * scale;
-  }
-}
-
-// w[(i*H + h)*FS + j] over j: the softmax of each row, in place, with its
-// maximum subtracted, one thread per row.
-__device__ void softmax_rows(float* w, const Shape& s, int nt) {
-  for (int t = threadIdx.x; t < s.F * s.H; t += nt) {
-    float* row = w + t * s.FS;
-    float mx = __int_as_float(0xff800000);  // -inf
-    for (int j = 0; j < s.F; ++j) mx = fmaxf(mx, row[j]);
-    float sum = 0.f;
-    for (int j = 0; j < s.F; ++j) {
-      const float ex = expf(row[j] - mx);
-      row[j] = ex;
-      sum += ex;
+// For one and for two blocks an SM, the most core warps and then the most
+// samples a tile that fit a block's share of the SM's shared memory; of the
+// two, the one with more core warps an SM (two blocks on a tie). False
+// where even one sample and one warp do not fit one block.
+bool choose_fwd_plan(int B, int F, int d, int a, int H, float scale,
+                     int residual, Plan* out, int* blocks_per_sm) {
+  bool found = false;
+  for (int blocks = 2; blocks >= 1; --blocks) {
+    const int share = kSmemPerSm / blocks - kSmemReserved;
+    const int limit = share < kSmemMax ? share : kSmemMax;
+    bool fits = false;
+    Plan p;
+    for (int nc = kWarps; nc >= 1 && !fits; --nc) {
+      for (int s = kMaxSamples; s >= 1 && !fits; --s) {
+        if (nc > s * H) continue;
+        p = make_fwd_plan(B, F, d, a, H, s, nc, scale, residual);
+        fits = 4LL * p.total <= limit;
+      }
     }
-    for (int j = 0; j < s.F; ++j) row[j] = row[j] / sum;
-  }
-}
-
-// out[i, c] = sum_j w[(i*H + h)*FS + j] * b[j, c] for every query i and
-// column c = h*hd + e, each sum in order of j.
-__device__ void head_mix(const float* w, const float* b, int bstride,
-                         float* out, int ostride, const Shape& s, int nt) {
-  for (int t = threadIdx.x; t < s.F * s.a; t += nt) {
-    const int r = t / s.a;
-    const int c = t - r * s.a;
-    const int h = c / s.hd;
-    float acc = 0.f;
-    const float* row = w + (r * s.H + h) * s.FS;
-    for (int j = 0; j < s.F; ++j) acc = fmaf(row[j], b[j * bstride + c], acc);
-    out[r * ostride + c] = acc;
-  }
-}
-
-// The forward's attention: the softmax weights into w and the context into
-// ctx (F x a). Ends with the caller's barrier.
-__device__ void attend(const float* qkv, float* w, float* ctx, const Shape& s,
-                       int nt) {
-  head_dots(qkv, s.QS, qkv + s.a, s.QS, s.scale, w, s, nt);
-  __syncthreads();
-  softmax_rows(w, s, nt);
-  __syncthreads();
-  head_mix(w, qkv + 2 * s.a, s.QS, ctx, s.a, s, nt);
-}
-
-// y[f, c] = sum_j op(ctx[f, j]) * wo[j, c] + bo[c] (+ x[f, c])
-template <bool BF16>
-__device__ void project_out(const float* ctx, const float* wo, const float* bo,
-                            const float* xs, float* y, const Shape& s, int nt) {
-  for (int i = threadIdx.x; i < s.F * s.d; i += nt) {
-    const int f = i / s.d;
-    const int c = i - f * s.d;
-    float acc = 0.f;
-    for (int j = 0; j < s.a; ++j) {
-      acc = fmaf(Io<BF16>::op(ctx[f * s.a + j]), wo[j * s.d + c], acc);
+    if (fits && (!found || p.NC * blocks > out->NC * *blocks_per_sm)) {
+      *out = p;
+      *blocks_per_sm = blocks;
+      found = true;
     }
-    float v = acc + bo[c];
-    if (s.residual) v += xs[i];
-    y[i] = v;
   }
-}
-
-// Weights in shared memory: wqkv (d, 3a) and wo (a, d) in the compute type
-// (loaded as f32 values), bqkv, bo, ls, lb in f32.
-template <bool BF16>
-__device__ void load_weights(const void* wqkv_g, const float* bqkv_g,
-                             const void* wo_g, const float* bo_g,
-                             const float* ls_g, const float* lb_g, float* wqkv,
-                             float* bqkv, float* wo, float* bo, float* ls,
-                             float* lb, const Shape& s, int nt) {
-  for (int i = threadIdx.x; i < s.d * 3 * s.a; i += nt) wqkv[i] = Io<BF16>::load(wqkv_g, i);
-  for (int i = threadIdx.x; i < s.a * s.d; i += nt) wo[i] = Io<BF16>::load(wo_g, i);
-  for (int i = threadIdx.x; i < 3 * s.a; i += nt) bqkv[i] = bqkv_g[i];
-  for (int i = threadIdx.x; i < s.d; i += nt) {
-    bo[i] = bo_g[i];
-    ls[i] = ls_g[i];
-    lb[i] = lb_g[i];
-  }
+  return found;
 }
 
 template <bool BF16>
-__global__ void __launch_bounds__(kFwdThreads)
-attn_fwd_kernel(const void* __restrict__ x, const void* __restrict__ wqkv_g,
+__global__ void __launch_bounds__(kThreads, 2)
+attn_fwd_kernel(const void* __restrict__ x_g, const void* __restrict__ wqkv_g,
                 const float* __restrict__ bqkv_g, const void* __restrict__ wo_g,
                 const float* __restrict__ bo_g, const float* __restrict__ ls_g,
-                const float* __restrict__ lb_g, void* __restrict__ out,
-                const Shape s) {
+                const float* __restrict__ lb_g, void* __restrict__ out_g,
+                const Plan p) {
   using io = Io<BF16>;
-  constexpr int NT = kFwdThreads;
-  extern __shared__ float smem[];
-  const int Fd = s.F * s.d;
-  float* wqkv = smem;                       // d x 3a
-  float* wo = wqkv + s.d * 3 * s.a;         // a x d
-  float* bqkv = wo + s.a * s.d;             // 3a
-  float* bo = bqkv + 3 * s.a;               // d
-  float* ls = bo + s.d;                     // d
-  float* lb = ls + s.d;                     // d
-  float* xs = lb + s.d;                     // F x d
-  float* qkv = xs + Fd;                     // F x QS
-  float* w = qkv + s.F * s.QS;              // F x H x FS
-  float* ctx = w + s.F * s.H * s.FS;        // F x a
-  float* y = ctx + s.F * s.a;               // F x d
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int F = p.F, d = p.d, a = p.a, a3 = 3 * p.a;
+  const int XS = p.XS, QS = p.QS, CS = p.CS, WS = p.WS, OS = p.OS;
+  float* wq = sm;
+  float* wo = sm + p.o_wo;
+  float* bqkv = sm + p.o_bqkv;
+  float* bo = sm + p.o_bo;
+  float* ls = sm + p.o_ls;
+  float* lb = sm + p.o_lb;
+  float* xs = sm + p.o_x;
+  float* qkv = sm + p.o_qkv;
+  float* ctx = sm + p.o_ctx;
+  float* scr = sm + p.o_scr + warp * F * p.FS;
+  float* mean = sm + p.o_stats;
+  float* inv = mean + p.RP;
 
-  load_weights<BF16>(wqkv_g, bqkv_g, wo_g, bo_g, ls_g, lb_g, wqkv, bqkv, wo,
-                     bo, ls, lb, s, NT);
-  for (int b = blockIdx.x; b < s.B; b += gridDim.x) {
-    __syncthreads();  // the previous sample is done with the buffers
-    for (int i = threadIdx.x; i < Fd; i += NT) xs[i] = io::load(x, (size_t)b * Fd + i);
+  // zero everything (pads, rows no sample fills), then the weights into
+  // their padded places
+  for (int i = tid; i < p.total; i += kThreads) sm[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < d * a3; i += kThreads) {
+    const int c = i / a3;
+    wq[c * WS + qkv_col(p, i - c * a3)] = io::load(wqkv_g, i);
+  }
+  for (int j = tid; j < a3; j += kThreads) bqkv[qkv_col(p, j)] = bqkv_g[j];
+  for (int i = tid; i < a * d; i += kThreads) {
+    const int j = i / d;
+    wo[head_row(p, j) * OS + (i - j * d)] = io::load(wo_g, i);
+  }
+  for (int c = tid; c < d; c += kThreads) {
+    bo[c] = bo_g[c];
+    ls[c] = ls_g[c];
+    lb[c] = lb_g[c];
+  }
+
+  const int tiles = (p.B + p.S - 1) / p.S;
+  const int mt = p.RP / 16;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b0 = tile * p.S;
+    const int sv = min(p.S, p.B - b0);
+    const int R = sv * F;  // valid rows; rows R..RP-1 are never stored
+    const size_t e0 = (size_t)b0 * F * d;
+    // (the previous tile's last barrier: its rows are stored)
+    load_rows(p.RP * d, R * d, d, XS, xs, [&](size_t i) { return io::load(x_g, e0 + i); });
     __syncthreads();
-    project_qkv(xs, wqkv, bqkv, qkv, s, NT);
+    // ---- qkv = x . Wqkv + bqkv
+    product<BF16>(
+        mt, p.n3 / 16, p.dp, [&](int m, int k) { return xs[m * XS + k]; },
+        [&](int k, int n) { return wq[k * WS + n]; },
+        [](int, int) { return 0.f; },
+        [&](int r, int c, float v) { qkv[r * QS + c] = v + bqkv[c]; }, warp, g, t);
     __syncthreads();
-    attend(qkv, w, ctx, s, NT);
+    // ---- the core: ctx
+    core<false>(p, qkv, ctx, scr, sv, warp, lane);
     __syncthreads();
-    project_out<BF16>(ctx, wo, bo, xs, y, s, NT);
+    // ---- y = op(ctx) . op(wo) + bo (+ x), over x's rows
+    product<BF16>(
+        mt, p.dp / 16, p.ap, [&](int m, int k) { return ctx[m * CS + k]; },
+        [&](int k, int n) { return wo[k * OS + n]; },
+        [](int, int) { return 0.f; },
+        [&](int r, int c, float v) {
+          v += bo[c];
+          if (p.residual) v += xs[r * XS + c];
+          xs[r * XS + c] = v;
+        },
+        warp, g, t);
     __syncthreads();
-    if (s.residual) {
-      for (int f = threadIdx.x; f < s.F; f += NT) {
-        const float* r = y + f * s.d;
-        float mean = 0.f;
-        for (int c = 0; c < s.d; ++c) mean += r[c];
-        mean /= s.d;
+    // ---- LayerNorm: a thread a row's statistics, then a thread an element
+    if (p.residual) {
+      for (int r = tid; r < R; r += kThreads) {
+        const float* yr = xs + r * XS;
+        float m = 0.f;
+        for (int c = 0; c < d; ++c) m += yr[c];
+        m /= d;
         float var = 0.f;
-        for (int c = 0; c < s.d; ++c) var += (r[c] - mean) * (r[c] - mean);
-        var /= s.d;
-        const float inv = rsqrtf(var + kLnEps);
-        for (int c = 0; c < s.d; ++c) {
-          io::store(out, (size_t)b * Fd + f * s.d + c,
-                    (r[c] - mean) * inv * ls[c] + lb[c]);
-        }
+        for (int c = 0; c < d; ++c) var += (yr[c] - m) * (yr[c] - m);
+        var /= d;
+        mean[r] = m;
+        inv[r] = rsqrtf(var + kLnEps);
       }
-    } else {
-      for (int i = threadIdx.x; i < Fd; i += NT) io::store(out, (size_t)b * Fd + i, y[i]);
+      __syncthreads();
     }
+    for (int i = tid; i < R * d; i += kThreads) {
+      const int r = i / d, c = i - r * d;
+      float v = xs[r * XS + c];
+      if (p.residual) v = (v - mean[r]) * inv[r] * ls[c] + lb[c];
+      io::store(out_g, e0 + i, v);
+    }
+    __syncthreads();
   }
 }
 
-template <typename Kernel>
-cudaError_t ensure_smem(Kernel kernel, int smem, int (&smem_set)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) smem_set[dev] = smem;
-  }
-  return cudaSuccess;
-}
-
-Shape make_shape(int B, int F, int d, int a, int H, float scale, int residual) {
-  Shape s;
-  s.B = B; s.F = F; s.d = d; s.a = a; s.H = H; s.hd = a / H;
-  s.FS = F | 1;
-  s.QS = (3 * a) | 1;
-  s.scale = scale; s.residual = residual;
-  return s;
+// Raises (never lowers) the kernel's dynamic shared-memory limit on the
+// current device to `smem`; the launch and the attributes share it.
+template <bool BF16>
+cudaError_t ensure_fwd_smem(int smem) {
+  static int smem_set[kMaxDevices] = {};
+  return ensure_smem(attn_fwd_kernel<BF16>, smem, smem_set);
 }
 
 template <bool BF16>
 cudaError_t fwd(const void* x, const void* wqkv, const float* bqkv,
                 const void* wo, const float* bo, const float* ls,
-                const float* lb, void* out, const Shape& s, int grid, int smem,
+                const float* lb, void* out, const Plan& p, int grid,
                 cudaStream_t stream) {
-  static int smem_set[kMaxDevices] = {};
-  const cudaError_t err = ensure_smem(attn_fwd_kernel<BF16>, smem, smem_set);
+  const int smem = 4 * p.total;
+  const cudaError_t err = ensure_fwd_smem<BF16>(smem);
   if (err != cudaSuccess) return err;
-  attn_fwd_kernel<BF16><<<grid, kFwdThreads, smem, stream>>>(
-      x, wqkv, bqkv, wo, bo, ls, lb, out, s);
+  attn_fwd_kernel<BF16><<<grid, kThreads, smem, stream>>>(
+      x, wqkv, bqkv, wo, bo, ls, lb, out, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes); every pointer is a device
-// pointer. x and out (B, F, d), wqkv (d, 3a) and wo (a, d) in the compute
-// type (bf16 selects bf16); bqkv (3a,), bo, ls, lb (d,) f32. `grid` blocks
-// walk the batch; `smem` is the dynamic shared memory of one block (the
-// wrapper's plan). Returns a cudaError_t, 0 on a successful launch; the
-// kernel runs on `stream` and nothing here synchronises.
+// pointer on the current device. x and out (B, F, d), wqkv (d, 3a) and wo
+// (a, d) in the compute type (bf16 selects bf16); bqkv (3a,), bo, ls, lb
+// (d,) f32. `samples`, `core_warps`, `blocks_per_sm`, `grid` and `smem`
+// are the wrapper's plan (forward_plan; grid: a block a tile, at most
+// blocks_per_sm an SM), refused (cudaErrorInvalidValue) unless they are
+// this file's. Returns a cudaError_t, 0 on a successful launch; the kernel
+// runs on `stream` and nothing here synchronises.
 extern "C" int attention_block_fwd(const void* x, const void* wqkv,
                                    const float* bqkv, const void* wo,
                                    const float* bo, const float* ls,
                                    const float* lb, void* out, int B, int F,
                                    int d, int a, int H, float scale,
-                                   int residual, int bf16, int grid, int smem,
-                                   void* stream) {
-  if (H < 1 || a % H != 0) return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(B, F, d, a, H, scale, residual);
+                                   int residual, int bf16, int samples,
+                                   int core_warps, int blocks_per_sm, int grid,
+                                   int smem, void* stream) {
+  if (B < 1 || F < 1 || d < 1 || H < 1 || a < H || a % H != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Plan p;
+  int blocks = 0;
+  if (!choose_fwd_plan(B, F, d, a, H, scale, residual, &p, &blocks)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (B + p.S - 1) / p.S;
+  const int want_grid = tiles < blocks * sms ? tiles : blocks * sms;
+  if (p.S != samples || p.NC != core_warps || blocks != blocks_per_sm ||
+      4 * p.total != smem || grid != want_grid) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? fwd<true>(x, wqkv, bqkv, wo, bo, ls, lb, out, s, grid, smem, st)
-           : fwd<false>(x, wqkv, bqkv, wo, bo, ls, lb, out, s, grid, smem, st);
+  err = bf16 ? fwd<true>(x, wqkv, bqkv, wo, bo, ls, lb, out, p, grid, st)
+             : fwd<false>(x, wqkv, bqkv, wo, bo, ls, lb, out, p, grid, st);
   return (int)err;
 }
 
-// Message for an error code returned by the entry point.
+// The forward kernel as compiled (bf16 selects its bf16 instance): out[0..3]
+// = registers a thread, local memory a thread (bytes: spills and stack),
+// static shared memory (bytes), and the blocks an SM holds at `smem` bytes
+// of dynamic shared memory. Returns a cudaError_t.
+extern "C" int attention_block_fwd_attributes(int bf16, int smem, int* out) {
+  const void* kernel = bf16 ? reinterpret_cast<const void*>(attn_fwd_kernel<true>)
+                            : reinterpret_cast<const void*>(attn_fwd_kernel<false>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = bf16 ? ensure_fwd_smem<true>(smem) : ensure_fwd_smem<false>(smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  out[3] = blocks;
+  return (int)cudaSuccess;
+}
+
+// Message for an error code returned by the entry points.
 extern "C" const char* attention_block_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

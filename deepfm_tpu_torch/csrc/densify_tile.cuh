@@ -16,9 +16,11 @@
 //  * the tile is built in shared memory: zeroed with 16-byte stores; the
 //    pairs are staged with cp.async in windows of up to chunk_pairs that
 //    run on across the block's tiles (one load serves many tiles); the
-//    runs are found by warp ballots (warp w takes the runs that start in
-//    its eighth of the tile's pairs, no per-row search and no block-wide
-//    compaction), and each run is added by one warp, lane c down column c,
+//    runs are summed by table_update::add_runs (which also builds
+//    sparse_table_adam.cu's tile gradients): they are found by warp
+//    ballots (warp w takes the runs that start in its eighth of the
+//    tile's pairs, no per-row search and no block-wide compaction), and
+//    each run is added by one warp, lane c down column c,
 //    in stream order from shared memory into the tile (a run cut by a
 //    window boundary carries its sum in the tile: the adds stay in stream
 //    order from 0.0f), so a 16,384-long run is a chain of shared-memory
@@ -69,20 +71,7 @@ __host__ __device__ inline int64_t smem_bytes(const Geometry& g) {
          static_cast<int64_t>(g.chunk_pairs) * (4LL * g.dcol + 4);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+using table_update::smem_addr;
 
 // One bulk store of `bytes` (a multiple of 16, both addresses 16-byte
 // aligned) from shared to global memory, committed as its own group.
@@ -108,53 +97,6 @@ __device__ __forceinline__ void bulk_wait_all() {
 
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Adds the runs of the staged pairs [lo, hi) (ids / vals, rows of dcol
-// floats) into the tile `buf`, each run in stream order onto what its slot
-// holds: a run starts at lo and wherever the id changes. Warp w takes the
-// runs whose first pair lies in its eighth of [lo, hi), found by ballots
-// (a run it takes may reach past its eighth); its lane c adds column c.
-// No block synchronisation: two runs never share a slot.
-__device__ __forceinline__ void add_runs(const int* ids, const float* vals,
-                                         int lo, int hi, int64_t row0,
-                                         const Geometry& g, float* buf) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int per = (hi - lo + kWarps - 1) / kWarps;
-  const int p0 = lo + warp * per;
-  const int p1 = p0 + per < hi ? p0 + per : hi;
-  for (int base = p0; base < p1; base += 32) {
-    const int i = base + lane;
-    unsigned heads = __ballot_sync(
-        0xffffffffu, i < p1 && (i == lo || ids[i] != ids[i - 1]));
-    while (heads != 0u) {
-      const int a = base + __ffs(heads) - 1;
-      heads &= heads - 1u;
-      int b;
-      if (heads != 0u) {
-        b = base + __ffs(heads) - 1;
-      } else {  // the run goes on to the next change of id, maybe past p1
-        b = base + 32 < p1 ? base + 32 : p1;
-        while (b < hi) {
-          const int j = b + lane;
-          const unsigned ends =
-              __ballot_sync(0xffffffffu, j >= hi || ids[j] != ids[a]);
-          if (ends != 0u) {
-            b += __ffs(ends) - 1;
-            break;
-          }
-          b += 32;
-        }
-      }
-      const int r = static_cast<int>(ids[a] - row0);
-      float* dst = buf + (r / g.pack) * g.width + (r % g.pack) * g.dcol;
-      for (int c = lane; c < g.dcol; c += 32) {
-        float acc = dst[c];
-        for (int k = a; k < b; ++k) acc = __fadd_rn(acc, vals[k * g.dcol + c]);
-        dst[c] = acc;
-      }
-    }
-  }
 }
 
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
@@ -204,18 +146,19 @@ densify_tiles_kernel(const int* __restrict__ sids,
           w1 = s + g.chunk_pairs < batch_end ? s + g.chunk_pairs : batch_end;
           const int len = static_cast<int>(w1 - w0);
           for (int i = threadIdx.x; i < len; i += kThreads) {
-            cp_async4(ids + i, sids + w0 + i);
+            table_update::cp_async4(ids + i, sids + w0 + i);
           }
           const float* src = cts + w0 * g.dcol;
           for (int i = threadIdx.x; i < len * g.dcol; i += kThreads) {
-            cp_async4(vals + i, src + i);
+            table_update::cp_async4(vals + i, src + i);
           }
-          cp_async_wait_all();
+          table_update::cp_async_wait_all();
           __syncthreads();
         }
         const int64_t e = s1 < w1 ? s1 : w1;
-        add_runs(ids, vals, static_cast<int>(s - w0), static_cast<int>(e - w0),
-                 row0, g, buf);
+        table_update::add_runs(ids, vals, static_cast<int>(s - w0),
+                               static_cast<int>(e - w0), row0, g.dcol, g.pack,
+                               g.width, buf);
         s = e;
       }
       const int64_t phys0 = t * g.tile_phys;

@@ -27,8 +27,6 @@ namespace {
 
 using namespace table_update;
 
-constexpr int kVec = 8;  // elements a vector
-
 template <typename M>
 __global__ void __launch_bounds__(kThreads)
 adam_kernel(float* __restrict__ p, M* __restrict__ mu, M* __restrict__ nu,
@@ -37,7 +35,7 @@ adam_kernel(float* __restrict__ p, M* __restrict__ mu, M* __restrict__ nu,
   const Scalars s = load_scalars(scalars);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t tail0 = head + kVec * vectors;
+  const int64_t tail0 = head + kVector * vectors;
   // scalar elements: [0, head) and [tail0, numel)
   for (int64_t u = t; u < head + (numel - tail0); u += stride) {
     const int64_t i = u < head ? u : tail0 + (u - head);
@@ -48,31 +46,18 @@ adam_kernel(float* __restrict__ p, M* __restrict__ mu, M* __restrict__ nu,
     store_moment(nu, i, v);
   }
   for (int64_t w = t; w < vectors; w += stride) {
-    const int64_t i = head + kVec * w;
-    float pv[kVec], gv[kVec], m[kVec], v[kVec];
+    const int64_t i = head + kVector * w;
+    float pv[kVector], gv[kVector], m[kVector], v[kVector];
     load8(p + i, pv);
     load8(g + i, gv);
     load8(mu + i, m);
     load8(nu + i, v);
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) pv[e] = adam_update(pv[e], gv[e], m[e], v[e], s, betas);
+    for (int e = 0; e < kVector; ++e) pv[e] = adam_update(pv[e], gv[e], m[e], v[e], s, betas);
     store8(p + i, pv);
     store8(mu + i, m);
     store8(nu + i, v);
   }
-}
-
-// The first element h in [0, kVec) at which every pointer is 16-byte
-// aligned, or -1 if there is none.
-int aligned_head(const void* const* ptrs, const int* sizes, int count) {
-  for (int h = 0; h < kVec; ++h) {
-    bool ok = true;
-    for (int j = 0; j < count; ++j) {
-      ok = ok && (reinterpret_cast<uintptr_t>(ptrs[j]) + static_cast<uintptr_t>(h) * sizes[j]) % 16 == 0;
-    }
-    if (ok) return h;
-  }
-  return -1;
 }
 
 template <typename M>
@@ -90,7 +75,7 @@ cudaError_t launch(float* p, void* mu, void* nu, const float* g, int64_t head,
     if (err != cudaSuccess) return err;
   }
   // the card's resident blocks, or fewer when there is less work
-  const int64_t units = vectors > numel - kVec * vectors ? vectors : numel - kVec * vectors;
+  const int64_t units = vectors > numel - kVector * vectors ? vectors : numel - kVector * vectors;
   int64_t grid = (units + kThreads - 1) / kThreads;
   const int64_t cap = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   if (grid > cap) grid = cap;
@@ -123,7 +108,7 @@ extern "C" int fused_table_adam_launch(float* p, void* mu, void* nu,
   const int sizes[4] = {4, 4, msize, msize};
   const int h = aligned_head(ptrs, sizes, 4);
   const long long want_head = h < 0 || h > numel ? numel : h;
-  if (head != want_head || vectors != (numel - want_head) / kVec) {
+  if (head != want_head || vectors != (numel - want_head) / kVector) {
     return (int)cudaErrorInvalidValue;
   }
   if (numel == 0) return 0;

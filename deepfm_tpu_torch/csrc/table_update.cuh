@@ -1,6 +1,6 @@
 // Shared pieces of the embedding-table update kernels (sm_90a):
-// fused_table_adam.cu and sparse_table_adam.cu, and lower_bound and kLanes
-// for the densify kernels (densify_tile.cuh).
+// fused_table_adam.cu and sparse_table_adam.cu, and lower_bound, kLanes and
+// add_runs for the densify kernels (densify_tile.cuh).
 //
 //  * adam_update: the optax-ordered table update of
 //    deepfm_tpu/ops/pallas/adam_kernel.py::_adam_kernel, one element at a
@@ -14,20 +14,22 @@
 //    __fadd_rn, __fdiv_rn, __fsqrt_rn), so nvcc contracts nothing into an
 //    FMA: the result equals the same chain of separate PyTorch elementwise
 //    ops bit for bit. mu and nu are stored round-to-nearest in their own
-//    type (f32 or bf16); the math is f32. load8 / store8 move 8 elements
-//    of f32 or bf16 in 16-byte accesses, for fused_table_adam.cu's vectors.
-//  * the segmented row sum over a SORTED (id, cotangent) stream: a block
-//    owns a tile of table rows, finds each row's contiguous run of pairs,
-//    and sums the run in stream order. Deterministic, no float atomics;
-//    equal to a sequential scatter-add in the stream's order.
+//    type (f32 or bf16); the math is f32.
+//  * 16-byte vectors of 8 elements: load8 / store8 (f32 or bf16), and
+//    Vec8, the same load kept raw in registers until it is unpacked, so a
+//    kernel can issue its table loads long before it reads them;
+//    aligned_head, the first element at which every array of a table is
+//    16-byte aligned (the start of its vectors).
 //  * the packed table layout (deepfm_tpu/utils/layout.py): `pack` logical
-//    rows of `dcol` columns side by side in each physical row of 128 floats,
-//    logical row r in physical row r / pack from lane (r % pack) * dcol;
-//    lanes from pack * dcol on are dead and hold 0. pack == 1 with a row
-//    width of dcol is the logical layout. A block owns tile_phys_rows(pack)
-//    physical rows, i.e. that many times pack logical rows: a run of equal
-//    ids never crosses a physical row, so tiles split the stream cleanly.
-//  * a fixed-order reduction of per-block partial sums to one scalar.
+//    rows of `dcol` columns side by side in each physical row of kLanes
+//    floats, logical row r in physical row r / pack from lane
+//    (r % pack) * dcol; lanes from pack * dcol on are dead and hold 0.
+//    pack == 1 with a row width of dcol is the logical layout.
+//  * fixed-order reductions of one float a thread (block_total) and of
+//    per-block partial sums to one scalar (final_sum_kernel).
+//  * the segmented row sum into a shared-memory tile (add_runs), shared by
+//    the densify kernels (densify_tile.cuh) and sparse_table_adam.cu, with
+//    the cp.async helpers that stage its pairs.
 
 #pragma once
 
@@ -38,10 +40,9 @@
 namespace table_update {
 
 constexpr int kThreads = 256;      // threads per block of every kernel here
-constexpr int kTileRows = 128;     // table rows per block (densify, sparse Adam)
-constexpr int kMaxTileLogical = 1024;  // logical rows per block, packed layout
+constexpr int kWarps = kThreads / 32;
 constexpr int kLanes = 128;        // floats per physical row, packed layout
-constexpr int kReduceThreads = 1024;
+constexpr int kVector = 8;         // elements a 16-byte vector of p (two float4)
 
 // Per-launch scalars, read from device memory (the trainer computes them on
 // the card, so no launch waits for the host): the TPU kernel's SMEM vector
@@ -57,7 +58,7 @@ struct Betas {
   float one_m_b1, b1, one_m_b2, b2;
 };
 
-__device__ __forceinline__ Scalars load_scalars(const float* s) {
+__device__ __forceinline__ Scalars make_scalars(const float (&s)[8]) {
   Scalars out;
   out.lr = s[0];
   out.wd = s[1];
@@ -68,6 +69,13 @@ __device__ __forceinline__ Scalars load_scalars(const float* s) {
   out.eps = s[6];
   out.noclip = s[7] > 0.0f;
   return out;
+}
+
+__device__ __forceinline__ Scalars load_scalars(const float* s) {
+  float v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = s[i];
+  return make_scalars(v);
 }
 
 __device__ __forceinline__ float load_moment(const float* m, int64_t i) {
@@ -85,24 +93,49 @@ __device__ __forceinline__ void store_moment(__nv_bfloat16* m, int64_t i,
   m[i] = __float2bfloat16_rn(v);
 }
 
+// Eight consecutive elements from a 16-byte aligned address, kept as loaded
+// (two float4 of f32, or one 16-byte word of bf16) until unpack.
+template <typename T>
+struct Vec8;
+
+template <>
+struct Vec8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* src) {
+    a = reinterpret_cast<const float4*>(src)[0];
+    b = reinterpret_cast<const float4*>(src)[1];
+  }
+  __device__ __forceinline__ void unpack(float v[8]) const {
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+};
+
+template <>
+struct Vec8<__nv_bfloat16> {
+  uint4 w;
+  __device__ __forceinline__ void load(const __nv_bfloat16* src) {
+    w = *reinterpret_cast<const uint4*>(src);
+  }
+  // a bf16 is the upper half of the f32 of the same value
+  __device__ __forceinline__ void unpack(float v[8]) const {
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(u[i] << 16);
+      v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+};
+
 // Eight consecutive elements from / to a 16-byte aligned address: two
 // float4 of f32, or one 16-byte word of bf16 (stored round-to-nearest,
 // as store_moment stores one).
-__device__ __forceinline__ void load8(const float* src, float v[8]) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float v[8]) {
-  const uint4 w = *reinterpret_cast<const uint4*>(src);
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
+template <typename T>
+__device__ __forceinline__ void load8(const T* src, float v[8]) {
+  Vec8<T> r;
+  r.load(src);
+  r.unpack(v);
 }
 __device__ __forceinline__ void store8(float* dst, const float v[8]) {
   reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -112,11 +145,23 @@ __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float v[8]) {
   uint32_t u[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __halves2bfloat162(__float2bfloat16_rn(v[2 * i]),
-                                                __float2bfloat16_rn(v[2 * i + 1]));
-    u[i] = *reinterpret_cast<const uint32_t*>(&h);
+    u[i] = static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i]))) |
+           static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1]))) << 16;
   }
   *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// The first element h in [0, kVector) at which every array (ptrs[j], of
+// elements of sizes[j] bytes) is 16-byte aligned, or -1 if there is none.
+inline int aligned_head(const void* const* ptrs, const int* sizes, int count) {
+  for (int h = 0; h < kVector; ++h) {
+    bool ok = true;
+    for (int j = 0; j < count; ++j) {
+      ok = ok && (reinterpret_cast<uintptr_t>(ptrs[j]) + static_cast<uintptr_t>(h) * sizes[j]) % 16 == 0;
+    }
+    if (ok) return h;
+  }
+  return -1;
 }
 
 // One element of the update; returns p' and leaves the f32 moments in
@@ -148,100 +193,111 @@ __device__ __forceinline__ int64_t lower_bound(const int* ids, int64_t lo,
   return lo;
 }
 
-// Physical rows per block of a table with `pack` logical rows per physical
-// row: kTileRows, or fewer so that a tile holds at most kMaxTileLogical
-// logical rows (the size of the blocks' run-start array).
-__host__ __device__ __forceinline__ int tile_phys_rows(int pack) {
-  const int t = kMaxTileLogical / pack;
-  return t < kTileRows ? t : kTileRows;
-}
-
-// Element e of a tile stored row-major with `width` floats per physical row:
-// returns false for a dead lane, else sets the tile-local logical row and its
-// column (see the packed layout above).
-__device__ __forceinline__ bool tile_element(int e, int width, int dcol,
-                                             int pack, int& row, int& col) {
-  const int r = e / width;
-  const int lane = e - r * width;
-  const int sub = lane / dcol;
-  col = lane - sub * dcol;
-  row = r * pack + sub;
-  return sub < pack;
-}
-
-// bounds[t] = first stream position whose id is >= t * rows_per_tile, for
-// t in [0, num_tiles]: the searchsorted of the tile bounds.
-__global__ void tile_bounds_kernel(const int* __restrict__ sids, int64_t n,
-                                   int64_t num_tiles, int64_t rows_per_tile,
-                                   int64_t* __restrict__ bounds) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t <= num_tiles) bounds[t] = lower_bound(sids, 0, n, t * rows_per_tile);
-}
-
-// Fills starts[0..rows] (shared memory) with the stream position where each
-// row of the tile [row0, row0 + rows) begins; starts[rows] ends the tile's
-// last row (before the tile bound when the table ends inside the tile, so
-// ids past the table's last row contribute nothing).
-__device__ __forceinline__ void tile_row_starts(const int* __restrict__ sids,
-                                                const int64_t* __restrict__ bounds,
-                                                int64_t row0, int rows,
-                                                int64_t* starts) {
-  const int64_t s0 = bounds[blockIdx.x];
-  const int64_t s1 = bounds[blockIdx.x + 1];
-  for (int r = threadIdx.x; r <= rows; r += blockDim.x) {
-    starts[r] = lower_bound(sids, s0, s1, row0 + r);
-  }
+// The sum of one float per thread of a kThreads block, in a fixed order
+// (a shuffle tree in each warp, then the warps in order), returned to
+// every thread. red: kWarps floats of shared memory. Every thread must
+// call it.
+__device__ __forceinline__ float block_total(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
+  float s = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) s = __fadd_rn(s, red[w]);
+  __syncthreads();  // red may be written again
+  return s;
 }
 
-// Sum of column c over the stream run [a, b) of rows of width D, in stream
-// order.
-__device__ __forceinline__ float run_sum(const float* __restrict__ cts,
-                                         int64_t a, int64_t b, int D, int c) {
-  float g = 0.0f;
-  for (int64_t i = a; i < b; ++i) g = __fadd_rn(g, cts[i * D + c]);
-  return g;
-}
-
-// Fixed-order block reduction of one float per thread (blockDim.x a power of
-// two, at most kReduceThreads); thread 0 gets the sum.
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float red[kReduceThreads];
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int w = blockDim.x >> 1; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + w]);
-    __syncthreads();
-  }
-  return red[0];
-}
-
-// out[0] = sum of partials[0..count), in a fixed order: thread t sums
-// partials t, t + kReduceThreads, ... sequentially, then a fixed tree.
+// out[0] = sum of partials[0..count), in a fixed order: thread t of a
+// kThreads block sums partials t, t + kThreads, ... sequentially, then
+// block_total.
 __global__ void final_sum_kernel(const float* __restrict__ partials,
                                  int64_t count, float* __restrict__ out) {
+  __shared__ float red[kWarps];
   float v = 0.0f;
-  for (int64_t i = threadIdx.x; i < count; i += blockDim.x) {
+  for (int64_t i = threadIdx.x; i < count; i += kThreads) {
     v = __fadd_rn(v, partials[i]);
   }
-  const float total = block_sum(v);
+  const float total = block_total(v, red);
   if (threadIdx.x == 0) out[0] = total;
 }
 
-inline int64_t num_tiles(int64_t rows, int64_t rows_per_tile = kTileRows) {
-  return (rows + rows_per_tile - 1) / rows_per_tile;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Launches the tile-bound search over tiles of rows_per_tile (logical) rows;
-// bounds holds num_tiles(rows, rows_per_tile) + 1 entries.
-inline cudaError_t launch_tile_bounds(const int* sids, int64_t n, int64_t rows,
-                                      int64_t* bounds, cudaStream_t stream,
-                                      int64_t rows_per_tile = kTileRows) {
-  const int64_t tiles = num_tiles(rows, rows_per_tile);
-  const int64_t grid = (tiles + 1 + kThreads - 1) / kThreads;
-  tile_bounds_kernel<<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-      sids, n, tiles, rows_per_tile, bounds);
-  return cudaGetLastError();
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until at most N committed cp.async groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Adds the runs of the staged pairs [lo, hi) (ids / vals, rows of dcol
+// floats) into the tile `buf` (logical row r of the tile at
+// (r / pack) * width + (r % pack) * dcol, r = id - row0), each run in
+// stream order onto what its slot holds: a run starts at lo and wherever
+// the id changes, so a run cut by the end of a window carries its sum in
+// the tile and goes on from it in the next. Warp w of a kThreads block
+// takes the runs whose first pair lies in its eighth of [lo, hi), found by
+// ballots (a run it takes may reach past its eighth); its lane c adds
+// column c (and c + 32, ...). No block synchronisation: two runs never
+// share a slot.
+__device__ __forceinline__ void add_runs(const int* ids, const float* vals,
+                                         int lo, int hi, int64_t row0,
+                                         int dcol, int pack, int width,
+                                         float* buf) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per = (hi - lo + kWarps - 1) / kWarps;
+  const int p0 = lo + warp * per;
+  const int p1 = p0 + per < hi ? p0 + per : hi;
+  for (int base = p0; base < p1; base += 32) {
+    const int i = base + lane;
+    unsigned heads = __ballot_sync(
+        0xffffffffu, i < p1 && (i == lo || ids[i] != ids[i - 1]));
+    while (heads != 0u) {
+      const int a = base + __ffs(heads) - 1;
+      heads &= heads - 1u;
+      int b;
+      if (heads != 0u) {
+        b = base + __ffs(heads) - 1;
+      } else {  // the run goes on to the next change of id, maybe past p1
+        b = base + 32 < p1 ? base + 32 : p1;
+        while (b < hi) {
+          const int j = b + lane;
+          const unsigned ends =
+              __ballot_sync(0xffffffffu, j >= hi || ids[j] != ids[a]);
+          if (ends != 0u) {
+            b += __ffs(ends) - 1;
+            break;
+          }
+          b += 32;
+        }
+      }
+      const int r = static_cast<int>(ids[a] - row0);
+      float* dst = buf + (r / pack) * width + (r % pack) * dcol;
+      for (int c = lane; c < dcol; c += 32) {
+        float acc = dst[c];
+        for (int k = a; k < b; ++k) acc = __fadd_rn(acc, vals[k * dcol + c]);
+        dst[c] = acc;
+      }
+    }
+  }
 }
 
 }  // namespace table_update

@@ -57,17 +57,23 @@ class VectorSplit(NamedTuple):
     tail: int
 
 
+def aligned_head(addresses) -> int | None:
+    """The first element h in [0, 8) at which every array at
+    ``addresses``, (byte address, element size) pairs, is 16-byte aligned,
+    or None (``table_update::aligned_head``)."""
+    return next((h for h in range(VECTOR)
+                 if all((a + h * size) % 16 == 0 for a, size in addresses)),
+                None)
+
+
 def vector_split(numel: int, addresses) -> VectorSplit:
     """The kernel's split of ``numel`` elements over arrays at
-    ``addresses``, (byte address, element size) pairs: the head is the
-    first element in [0, 8) at which every array is 16-byte aligned (all
-    of numel when there is none, or when it lies past the end); then as
-    many whole vectors as fit; the rest is the tail. The C launch
-    recomputes it from the pointers."""
-    head = next((h for h in range(VECTOR)
-                 if all((a + h * size) % 16 == 0 for a, size in addresses)),
-                numel)
-    head = min(head, numel)
+    ``addresses``, (byte address, element size) pairs: the head is
+    ``aligned_head`` (all of numel when there is none, or when it lies past
+    the end); then as many whole vectors as fit; the rest is the tail. The
+    C launch recomputes it from the pointers."""
+    head = aligned_head(addresses)
+    head = numel if head is None else min(head, numel)
     vectors = (numel - head) // VECTOR
     return VectorSplit(head, vectors, numel - head - VECTOR * vectors)
 

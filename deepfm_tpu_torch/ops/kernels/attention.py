@@ -4,8 +4,10 @@ backward) and their plain versions.
 Replaces ``deepfm_tpu/ops/pallas/attention_fmajor_kernel.py`` ::
 ``make_attention_block_fmajor`` → ``forward`` / ``_attn_fwd_kernel`` and
 ``backward`` / ``_attn_bwd_kernel``. Sources: ``csrc/attention_block.cu``
-(forward) and ``csrc/attention_bwd.cu`` (backward); each design is in its
-source's head note.
+(forward) and ``csrc/attention_bwd.cu`` (backward), both built from
+``csrc/attention_tile.cuh``; each design is in its source's head note, and
+each kernel's plan (``forward_plan``, ``backward_plan``) is computed here
+and recomputed by its launch.
 
 What it computes, per sample x (F, d) in the compute type (x's dtype):
 q/k/v = x · W + b in f32, a softmax over the F key fields per head in f32,
@@ -20,17 +22,21 @@ The port keeps the ``(B, F, d)`` layout at every function: the TPU
 kernel's ``(F, d, B)`` transpose (batch on the 128-lane axis), its tile
 gate (B % 128, hd % 8, d % 8) and its VMEM budget are TPU artifacts. The
 kernels take any B, F, d and heads dividing a; they raise only where a
-block's shared memory would exceed 227 KB (``plan``, ``backward_plan``).
+block's shared memory would exceed 227 KB (``forward_plan``,
+``backward_plan``).
 
 What bounds them on an H100: bytes (x read, out written) for the forward at
-bench.py's shape, operations (~20 GFLOP) for the backward, which runs its
-projections on the tensor cores in bf16 (see the .cu files).
+bench.py's shape, operations (~20 GFLOP) for the backward, if every
+operation ran at the bf16 tensor-core rate; both run their projections on
+the tensor cores in bf16 and the attention core on the FP32 pipes, whose
+rate bounds them more (the mixed bound, see the .cu files).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -40,25 +46,28 @@ SOURCE = "attention_block.cu"
 BWD_SOURCE = "attention_bwd.cu"
 LN_EPS = 1e-5
 SMEM_PER_BLOCK = 232_448  # Hopper: at most 227 KB of shared memory a block
-# grid-stride blocks: the forward has no cross-sample sums; the backward's
-# block count (one block an SM of an H100 SXM, a constant so that the bits
-# do not depend on the card) fixes the partition of its gradient sums
-FWD_BLOCKS = 132 * 8
+SMEM_PER_SM = 233_472  # 228 KB an SM, of which a block reserves 1 KB
+SMEM_RESERVED = 1024
+# the backward's block count (one block an SM of an H100 SXM, a constant so
+# that the bits do not depend on the card) fixes the partition of its
+# gradient sums; the forward has no cross-sample sums and fills the card
 BWD_BLOCKS = 132
-BWD_WARPS = 8  # 256 threads a backward block
-BWD_MAX_SAMPLES = 8
+WARPS = 8  # 256 threads a block, both kernels
+MAX_SAMPLES = 8  # samples a tile, at most, both kernels
 PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 LN_NAMES = ("ln_scale", "ln_bias")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "attention_block_fwd": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "attention_block_fwd": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 7 + [_P],
+    "attention_block_fwd_attributes": [_I, _I, _P],
 }
 _BWD_SIGNATURES = {
     "attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
 }
 
 
+@functools.lru_cache(maxsize=None)
 def head_scale(head_dim: int) -> float:
     """1 / sqrt(hd), computed in f32 as the TPU kernel does."""
     hd = torch.tensor(float(head_dim), dtype=torch.float32)
@@ -105,11 +114,17 @@ def _layer_norm_parts(y: torch.Tensor):
 
 
 def attention_block_plain(x: torch.Tensor, p: dict, num_heads: int,
-                          use_residual: bool) -> torch.Tensor:
+                          use_residual: bool,
+                          ctx_round: bool = True) -> torch.Tensor:
     """Plain version of the forward kernel, (B, F, d) -> (B, F, d) in x's
-    dtype, with the kernel's rounding points."""
+    dtype, with the kernel's rounding points.
+
+    ``ctx_round=False`` leaves out the cast of the context to the compute
+    type before the output projection: a control that chip_smoke.py's bf16
+    check must refuse."""
     xf, op, _, _, _, _, _, ctx = _recompute(x, p, num_heads)
-    out = op(ctx) @ op(p["wo"].float()) + p["bo"].float()
+    out = (op(ctx) if ctx_round else ctx) @ op(p["wo"].float()) \
+        + p["bo"].float()
     if use_residual:
         yn, _ = _layer_norm_parts(out + xf)
         out = yn * p["ln_scale"].float() + p["ln_bias"].float()
@@ -179,15 +194,6 @@ def _check(x: torch.Tensor, p: dict, use_residual: bool) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def _smem_floats(f: int, d: int, a: int, h: int) -> int:
-    """The forward's layout in csrc/attention_block.cu: the weights, then
-    one sample's tensors; score and qkv rows padded to an odd stride."""
-    weights = d * 3 * a + a * d + 3 * a
-    scores = f * h * (f | 1)
-    qkv = f * ((3 * a) | 1)
-    return weights + 3 * d + 2 * f * d + qkv + scores + f * a
-
-
 def n_grad(d: int, a: int) -> int:
     """Floats of one block's gradient partials: dWqkv, dbqkv, dWo, dbo,
     dls, dlb."""
@@ -235,15 +241,15 @@ def _bwd_floats(f: int, d: int, a: int, h: int, samples: int,
     # w and ds of each core warp's (sample, head); between the two cores
     # the tile's g and the column sums' partials
     scratch = max(core_warps * 2 * f * (f | 1),
-                  rows * _row_stride(dp) + 3 * max(BWD_WARPS * 32, d))
+                  rows * _row_stride(dp) + 3 * max(WARPS * 32, d))
     return weights + grads + tile + scratch
 
 
 def backward_plan(f: int, d: int, a: int, num_heads: int) -> BackwardPlan:
     """The most core warps, then the most samples a tile, that fit one
     block; raises ValueError where one sample and one warp do not."""
-    for nc in range(BWD_WARPS, 0, -1):
-        for s in range(BWD_MAX_SAMPLES, 0, -1):
+    for nc in range(WARPS, 0, -1):
+        for s in range(MAX_SAMPLES, 0, -1):
             if nc > s * num_heads:
                 continue
             smem = 4 * _bwd_floats(f, d, a, num_heads, s, nc)
@@ -257,19 +263,76 @@ def backward_plan(f: int, d: int, a: int, num_heads: int) -> BackwardPlan:
     )
 
 
-def plan(f: int, d: int, a: int, num_heads: int, backward: bool) -> int:
-    """Dynamic shared memory (bytes) of one block; raises ValueError where
-    it does not fit."""
-    if backward:
-        return backward_plan(f, d, a, num_heads).smem
-    smem = 4 * _smem_floats(f, d, a, num_heads)
-    if smem > SMEM_PER_BLOCK:
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """One forward block's work and shared memory (csrc/attention_block.cu's
+    make_fwd_plan / choose_fwd_plan, which the launch recomputes and
+    checks).
+
+    samples: samples a tile (rows = samples * F, padded to 16); core_warps:
+    warps that run the attention core, one (sample, head) each at a time;
+    smem: dynamic shared memory in bytes; blocks_per_sm: the blocks an SM
+    is planned to hold."""
+    samples: int
+    core_warps: int
+    rows: int
+    smem: int
+    blocks_per_sm: int
+
+    def tiles(self, bsz: int) -> int:
+        return -(-bsz // self.samples)
+
+    def grid(self, bsz: int, sms: int) -> int:
+        """A block a tile, at most blocks_per_sm on each of ``sms`` SMs."""
+        return min(self.tiles(bsz), self.blocks_per_sm * sms)
+
+
+def _fwd_floats(f: int, d: int, a: int, h: int, samples: int,
+                core_warps: int) -> int:
+    hdp = _up(a // h, 4)
+    ap = _up(h * hdp, 16)
+    n3, dp = 3 * ap, _up(d, 16)
+    rows = _up(samples * f, 16)
+    weights = dp * _row_stride(n3) + ap * _row_stride(dp) + n3 + 3 * dp
+    tile = rows * (_row_stride(dp) + _row_stride(n3) + _row_stride(ap))
+    # each core warp's scores, and each row's LayerNorm mean and 1/std
+    return weights + tile + core_warps * f * (f | 1) + 2 * rows
+
+
+@functools.lru_cache(maxsize=None)
+def forward_plan(f: int, d: int, a: int, num_heads: int) -> ForwardPlan:
+    """For one and for two blocks an SM, the most core warps and then the
+    most samples a tile that fit a block's share of the SM's shared
+    memory; of the two, the one with more core warps an SM (two blocks on a
+    tie). Raises ValueError where one sample and one warp do not fit one
+    block."""
+    best = None
+    for blocks in (2, 1):
+        limit = min(SMEM_PER_BLOCK, SMEM_PER_SM // blocks - SMEM_RESERVED)
+        fit = next(((nc, s, smem) for nc in range(WARPS, 0, -1)
+                    for s in range(MAX_SAMPLES, 0, -1) if nc <= s * num_heads
+                    for smem in [4 * _fwd_floats(f, d, a, num_heads, s, nc)]
+                    if smem <= limit), None)
+        if fit and (best is None
+                    or fit[0] * blocks > best.core_warps * best.blocks_per_sm):
+            nc, s, smem = fit
+            best = ForwardPlan(s, nc, _up(s * f, 16), smem, blocks)
+    if best is None:
+        smem = 4 * _fwd_floats(f, d, a, num_heads, 1, 1)
         raise ValueError(
             f"attention block forward with F={f}, d={d}, a={a}, "
             f"H={num_heads} needs {smem} bytes of shared memory per block; "
             f"the limit is {SMEM_PER_BLOCK}"
         )
-    return smem
+    return best
+
+
+def plan(f: int, d: int, a: int, num_heads: int, backward: bool) -> int:
+    """Dynamic shared memory (bytes) of one block; raises ValueError where
+    it does not fit."""
+    if backward:
+        return backward_plan(f, d, a, num_heads).smem
+    return forward_plan(f, d, a, num_heads).smem
 
 
 def _operands(x: torch.Tensor, p: dict, use_residual: bool):
@@ -294,7 +357,7 @@ def _forward_cuda(x, p, num_heads, use_residual) -> torch.Tensor:
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     if bsz == 0:
         return out
-    smem = plan(f, d, a, num_heads, backward=False)
+    fp = forward_plan(f, d, a, num_heads)
     x = x.contiguous()
     wqkv, bqkv, wo, bo, ls, lb = _operands(x, p, use_residual)
     lib = build.bind(SOURCE, _SIGNATURES)
@@ -303,12 +366,27 @@ def _forward_cuda(x, p, num_heads, use_residual) -> torch.Tensor:
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), ls.data_ptr(), lb.data_ptr(), out.data_ptr(),
             bsz, f, d, a, num_heads, head_scale(hd), int(use_residual),
-            int(x.dtype == torch.bfloat16), min(bsz, FWD_BLOCKS), smem,
+            int(x.dtype == torch.bfloat16), fp.samples, fp.core_warps,
+            fp.blocks_per_sm, fp.grid(bsz, build.sm_count(x)), fp.smem,
             build.stream_of(x),
         )
     build.check(lib, SOURCE, "attention_block_fwd", err)
     attention_block_forward.launches += 1
     return out
+
+
+def forward_attributes(x: torch.Tensor, fp: ForwardPlan) -> dict:
+    """The compiled forward kernel for x's dtype on x's card: registers and
+    local memory (bytes) a thread, static shared memory (bytes), and the
+    blocks an SM holds at the plan's shared memory."""
+    lib = build.bind(SOURCE, _SIGNATURES)
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(x.device):
+        err = lib.attention_block_fwd_attributes(
+            int(x.dtype == torch.bfloat16), fp.smem, ctypes.addressof(out))
+    build.check(lib, SOURCE, "attention_block_fwd_attributes", err)
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "blocks_per_sm"), out))
 
 
 def _backward_cuda(x, p, g, num_heads, use_residual):
@@ -431,11 +509,14 @@ def attention_block(x: torch.Tensor, p: dict, num_heads: int,
 __all__ = [
     "AttentionBlockFn",
     "BackwardPlan",
+    "ForwardPlan",
     "attention_block",
     "attention_block_backward",
     "attention_block_backward_plain",
     "attention_block_forward",
     "attention_block_plain",
     "backward_plan",
+    "forward_attributes",
+    "forward_plan",
     "head_scale",
 ]

@@ -19,29 +19,42 @@ The TPU kernel's f32-exact id limit (2^24 rows) and its width gate
 (128 // (d+1) > 1) do not apply here. What bounds it on an H100: bytes, p
 read and written plus mu and nu read and written (2.83 GB at bench.py's
 logical table with bf16 moments, about 0.85 ms at 3.35 TB/s; 3.04 GB
-packed, 0.92 ms) and the pairs read once.
+packed, 0.92 ms) and the pairs read once. A block owns one tile of rows
+(``sparse_adam_plan``): it streams the tile in 16-byte vectors while it
+builds the tile's gradient in shared memory from its pairs, staged a
+window at a time, with the densify kernels' segmented row sum (a warp a
+run, each column in stream order; a run longer than a window carries its
+sum in the tile).
 
 ``segment_sumsq``: sum over runs of equal sorted ids of ||sum of the run's
 rows||^2, the ||g||^2 term of the sparsely assembled clip norm
 sumsq(g + wd*p) = sumsq(g) + 2*wd*<g, p> + wd^2*sumsq(p). Bounded by
 reading the pairs once (31 MB, about 9 us). The TPU kernel's (c, c)
-pairwise Gram blocks are an MXU artifact; each run here is summed by one
-thread in stream order.
+pairwise Gram blocks are an MXU artifact; each run here is summed in
+stream order, by one thread, or by the block from staged rows past
+``LONG_RUN`` pairs (fault 3: one thread walked 16,384-pair runs).
 
 Both reduce their scalar per block into partials and then in a fixed
 order, with no float atomics: the same inputs give the same bits.
+``segment_sumsq`` takes rows of any width; ``sparse_table_adam`` takes
+physical rows of at most 512 * gcd(width, 8) floats (512 at an odd width,
+4096 at a multiple of 8), so that a tile of whole 16-byte vectors holds at
+most TILE_ELEMENTS elements.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from deepfm_tpu_torch.ops.kernels import build
 from deepfm_tpu_torch.ops.kernels.adam import (
+    VECTOR,
     adam_scalars,
     adam_update_plain,
+    aligned_head,
     betas,
     check_table,
 )
@@ -53,23 +66,89 @@ from deepfm_tpu_torch.ops.kernels.grad import (
 from deepfm_tpu_torch.ops.kernels.packed_grad import LANES, pack_rows
 
 SOURCE = "sparse_table_adam.cu"
-TILE_ROWS = 128  # kTileRows in csrc/table_update.cuh
-MAX_TILE_LOGICAL = 1024  # kMaxTileLogical in csrc/table_update.cuh
-SEGSQ_BLOCK = 256  # kThreads in csrc/table_update.cuh
+# The plan of csrc/sparse_table_adam.cu (its constants of the same names)
+THREADS = 256  # kThreads: threads a block
+TILE_ELEMENTS = 2 * THREADS * VECTOR  # kTileElements: two vectors a thread
+WINDOW_FLOATS = 4608  # kWindowFloats: a window of staged pairs
+LONG_RUN = 64  # kLongRun: segment_sumsq sums a longer run from staged rows
 
 
-def tile_phys_rows(pack: int) -> int:
-    """Physical table rows per block of the sparse_table_adam kernel
-    (``tile_phys_rows`` in csrc/table_update.cuh): TILE_ROWS, or fewer so
-    that a tile holds at most MAX_TILE_LOGICAL logical rows."""
-    return min(TILE_ROWS, MAX_TILE_LOGICAL // pack)
+def tile_rows(width: int) -> int:
+    """Physical rows a tile (``tile_rows`` in csrc/sparse_table_adam.cu):
+    the most, in steps that keep the tile's element count a multiple of 8,
+    with at most TILE_ELEMENTS elements (at least one step: a wider tile
+    is refused by ``sparse_adam_plan``)."""
+    q = next(q for q in range(1, VECTOR + 1) if q * width % VECTOR == 0)
+    return max(TILE_ELEMENTS // width // q * q, q)
+
+
+def window_pairs(dcol: int) -> int:
+    """Pairs a staged window holds (``window_pairs``; at least one, as dcol
+    is at most TILE_ELEMENTS)."""
+    return WINDOW_FLOATS // (dcol + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseAdamPlan:
+    """One sparse_table_adam launch: a block a tile of ``tile_phys``
+    physical rows; ``head``, the elements of every tile before its first
+    16-byte vector of p, mu and nu (None: no common boundary, every element
+    scalar); ``smem``, a block's dynamic shared memory in bytes."""
+
+    rows: int
+    width: int
+    dcol: int
+    pack: int
+    head: int | None
+    tile_phys: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.rows // self.tile_phys)
+
+    @property
+    def smem(self) -> int:
+        """The tile's gradient (8 floats more, for the shift that aligns
+        its vectors) and a window of the tile's pairs (rows and ids)."""
+        return (4 * (self.tile_phys * self.width + VECTOR)
+                + 4 * window_pairs(self.dcol) * (self.dcol + 1))
+
+    def tile_split(self, tile: int) -> tuple[int, int, int, int]:
+        """(first element, scalar head, vectors, scalar tail) of a tile."""
+        phys0 = tile * self.tile_phys
+        n = min(self.tile_phys, self.rows - phys0) * self.width
+        head = n if self.head is None else min(self.head, n)
+        vectors = (n - head) // VECTOR
+        return phys0 * self.width, head, vectors, n - head - VECTOR * vectors
+
+
+def sparse_adam_plan(rows: int, width: int, dcol: int, pack: int,
+                     addresses) -> SparseAdamPlan:
+    """The plan of a sparse_table_adam launch over a table of ``rows``
+    physical rows of ``width`` floats, each holding ``pack`` logical rows
+    of ``dcol`` columns, whose p, mu and nu lie at ``addresses``, (byte
+    address, element size) pairs. The C launch recomputes it and refuses a
+    mismatch; raises ValueError where the logical rows do not fit the row
+    or a tile of whole vectors would pass TILE_ELEMENTS."""
+    if dcol < 1 or pack < 1 or pack * dcol > width:
+        raise ValueError(
+            f"{pack} logical rows of {dcol} columns in a {width}-float row: "
+            f"the kernel takes rows of at least 1 column that fit the row")
+    plan = SparseAdamPlan(rows, width, dcol, pack, aligned_head(addresses),
+                          tile_rows(width))
+    if plan.tile_phys * width > TILE_ELEMENTS:
+        raise ValueError(
+            f"rows of {width} floats make a tile of {plan.tile_phys * width} "
+            f"elements, more than the kernel's {TILE_ELEMENTS}: at most "
+            f"512 * gcd(width, 8) floats a row")
+    return plan
 
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "sparse_table_adam_launch": [
-        _P, _P, _P, _I, _LL, _I, _I, _I, _P, _P, _LL, _P, _F, _F, _F, _F, _P,
-        _P, _P, _P,
+        _P, _P, _P, _I, _LL, _I, _I, _I, _P, _P, _LL, _P, _F, _F, _F, _F, _I,
+        _I, _I, _P, _P, _P, _P,
     ],
     "segment_sumsq_launch": [_P, _P, _LL, _I, _P, _P, _P],
 }
@@ -77,7 +156,9 @@ _SIGNATURES = {
 __all__ = [
     "segment_sumsq",
     "segment_sumsq_plain",
+    "SparseAdamPlan",
     "sort_pairs",
+    "sparse_adam_plan",
     "sparse_table_adam",
     "sparse_table_adam_plain",
 ]
@@ -121,7 +202,7 @@ def segment_sumsq(sids: torch.Tensor, cts: torch.Tensor) -> torch.Tensor:
     _check_pairs(sids, cts)
     sids, cts = sids.contiguous(), cts.contiguous()
     n, d = cts.shape
-    blocks = -(-n // SEGSQ_BLOCK)
+    blocks = -(-n // THREADS)
     partials = torch.empty(max(blocks, 1), dtype=torch.float32,
                            device=cts.device)
     out = torch.empty((), dtype=torch.float32, device=cts.device)
@@ -200,9 +281,11 @@ def sparse_table_adam(param, mu, nu, sids, cts, lr, weight_decay,
     sids, cts = sids.contiguous(), cts.contiguous()
     sc = adam_scalars(lr, weight_decay, global_norm, clip_norm, step, b1, b2,
                       eps, device=param.device)
-    tiles = -(-rows // tile_phys_rows(pack))
-    bounds = torch.empty(tiles + 1, dtype=torch.int64, device=param.device)
-    partials = torch.empty(max(tiles, 1), dtype=torch.float32,
+    plan = sparse_adam_plan(rows, width, cts.shape[1], pack, [
+        (t.data_ptr(), t.element_size()) for t in (param, mu, nu)])
+    bounds = torch.empty(plan.tiles + 1, dtype=torch.int64,
+                         device=param.device)
+    partials = torch.empty(max(plan.tiles, 1), dtype=torch.float32,
                            device=param.device)
     psq = torch.empty((), dtype=torch.float32, device=param.device)
     lib = build.bind(SOURCE, _SIGNATURES)
@@ -211,7 +294,8 @@ def sparse_table_adam(param, mu, nu, sids, cts, lr, weight_decay,
             param.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             int(mu.dtype == torch.bfloat16), rows, width, cts.shape[1], pack,
             sids.data_ptr(), cts.data_ptr(), cts.shape[0], sc.data_ptr(),
-            *betas(b1, b2),
+            *betas(b1, b2), plan.tile_phys,
+            -1 if plan.head is None else plan.head, plan.smem,
             bounds.data_ptr(), partials.data_ptr(), psq.data_ptr(),
             build.stream_of(param),
         )

@@ -166,13 +166,20 @@ def test_plain_block_matches_jax_fmajor_kernels(bf16, residual, shape):
 
 def test_bf16_rounding_points_matter():
     """The f32 block lies far from the JAX bf16 kernel, and so does the plain
-    backward without the cast of [dq|dk|dv] (chip_smoke.py's control)."""
+    backward without the cast of [dq|dk|dv] (chip_smoke.py's control); the
+    plain forward without the cast of the context (the forward's control)
+    moves bf16 outputs that the plain forward gives as the JAX kernel
+    does."""
     p = _params(1, True)
     x, g = _xg(1)
     x, g = _bf16(x), _bf16(g)
-    _, _, jdp = _jax_block(x, p, g, True, bf16=True)
+    jout, _, jdp = _jax_block(x, p, g, True, bf16=True)
     pt = {k: torch.from_numpy(v) for k, v in p.items()}
     xb, gb = torch.from_numpy(x).bfloat16(), torch.from_numpy(g).bfloat16()
+    plain = attention_block_plain(xb, pt, H, True).float().numpy()
+    control = attention_block_plain(xb, pt, H, True,
+                                    ctx_round=False).float().numpy()
+    assert (control != jout).sum() > (plain != jout).sum()
     _, control = attention_block_backward_plain(xb, pt, gb, H, True,
                                                 dall_round=False)
     _, f32 = attention_block_backward_plain(xb.float(), pt, gb.float(), H,
@@ -412,10 +419,12 @@ def test_attention_kernels_match_plain_on_cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     # (B=1001 is not a multiple of the bench plan's 4 samples a tile; F=33
     # wraps the core's lanes; d=12, a=24, H=3 pads d, the heads and the
-    # [q|k|v] sections; B=16384 is bench.py's shape)
+    # [q|k|v] sections; B=16384 is bench.py's shape; B=1 and B=3, as
+    # serving sends them, leave a forward tile part empty, also at F=33)
     for b, f, d, a, heads in ((6, 5, 8, 16, 2), (1001, 27, 16, 64, 4),
                               (33, 7, 12, 24, 3), (300, 33, 16, 64, 4),
-                              (16384, 27, 16, 64, 4)):
+                              (16384, 27, 16, 64, 4), (1, 27, 16, 64, 4),
+                              (3, 27, 16, 64, 4), (3, 33, 16, 64, 4)):
         for residual in (True, False):
             p = {k: torch.from_numpy(v).cuda()
                  for k, v in _params(7, residual, d, a).items()}
@@ -423,6 +432,7 @@ def test_attention_kernels_match_plain_on_cuda():
             for dt in (torch.float32, torch.bfloat16):
                 xx, gg = x.to(dt), g.to(dt)
                 out = attention_block_forward(xx, p, heads, residual)
+                out2 = attention_block_forward(xx, p, heads, residual)
                 ref = attention_block_plain(xx, p, heads, residual)
                 dx, dp = attention_block_backward(xx, p, gg, heads, residual)
                 dx2, dp2 = attention_block_backward(xx, p, gg, heads, residual)
@@ -433,6 +443,7 @@ def test_attention_kernels_match_plain_on_cuda():
                 what = f"B={b} F={f} d={d} a={a} H={heads} {dt} res={residual}"
                 assert _rel(out.float().cpu().numpy(),
                             ref.float().cpu().numpy()) <= tol, what
+                assert torch.equal(out, out2), what
                 assert torch.equal(dx, dx2), what
                 assert _rel(dx.float().cpu().numpy(),
                             rdx.float().cpu().numpy()) <= tol, what

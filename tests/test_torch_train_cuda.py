@@ -18,7 +18,11 @@ elementwise ops do, csrc/table_update.cuh):
     off their allocation (its scalar head and tail): p, mu and nu bit for
     bit;
   * packed sparse table Adam against the logical kernel on the unpacked
-    state: p, mu and nu bit for bit (the same run sums and arithmetic);
+    state: p, mu and nu bit for bit (the same run sums and arithmetic),
+    also on runs longer than a staged window of pairs and on tables one or
+    three elements off their allocation;
+  * sparse table Adam and the segment sums on the widest logical rows the
+    table kernel takes (511 and 4096 columns): the same rules;
   * every kernel gives the same bits on a second launch;
   * the train step on the card against the CPU step: the rule of
     ``deepfm_tpu_torch/training/parity.py`` (rtol 1e-5 / atol 1e-7 on all
@@ -174,6 +178,123 @@ def test_table_kernels_match_plain_on_cuda(moments):
         assert g.shape == (rows, d)
         assert torch.equal(g, densify_rows_grad_plain(ct, ids, rows))
         assert torch.equal(g, densify_rows_grad(ct, ids, rows))
+    torch.cuda.synchronize()
+
+
+def _at(t, off):
+    """A copy of ``t`` as a view ``off`` elements past its allocation."""
+    flat = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = flat[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pack", [1, 7])
+def test_sparse_table_adam_long_runs_and_offsets_on_cuda(moments, pack):
+    """Sparse table Adam, logical (pack 1) and packed (pack 7), on runs
+    longer than a staged window of pairs (carried from window to window;
+    one in the table's last tile) and on tables whose p and moments lie 0, 1 or
+    3 elements past their allocation (each tile's scalar head and tail;
+    with p and the moments off by different amounts, no common 16-byte
+    boundary: every element scalar): mu and nu bit for bit against the
+    plain version, p within 1e-6, psq rel 1e-5, the same bits twice, and
+    packed equal to the logical kernel on the unpacked state."""
+    from deepfm_tpu_torch.ops.kernels.sparse_adam import LONG_RUN, window_pairs
+
+    dev = _cuda()
+    mdt = getattr(torch, moments)
+    rng = np.random.default_rng(pack)
+    phys = -(-7000 // pack)
+    rows = phys * pack  # logical rows
+    n = 20_000
+    ids = rng.integers(0, rows, n).astype(np.int32)
+    ids[:5000] = 0
+    ids[5000:5001 + LONG_RUN] = 1234  # segment_sumsq: one past its short path
+    ids[6000:6000 + LONG_RUN] = 4321  # its longest short run
+    ids[7000:8000] = rows - 1
+    ids[9000:9001 + window_pairs(D)] = 2345  # one pair more than a window
+    ct = rng.normal(size=(n, D)).astype(np.float32)
+    sids, cts = sort_pairs(torch.from_numpy(ids).to(dev),
+                           torch.from_numpy(ct).to(dev))
+    p, mu, nu = (np.resize(a, (rows, D)) for a in _table(rows // 3, 5))
+
+    def fresh(p_off=0, m_off=0, logical=False):
+        ts = [torch.from_numpy(a.copy()) for a in (p, mu, nu)]
+        if pack > 1 and not logical:
+            ts = [pack_table(t, D, pack, phys) for t in ts]
+        ts = [ts[0].to(dev)] + [t.to(dev, mdt) for t in ts[1:]]
+        return [_at(ts[0], p_off)] + [_at(t, m_off) for t in ts[1:]]
+
+    for p_off, m_off in ((0, 0), (1, 1), (3, 3), (1, 0)):
+        for clip in (0.0, 1.0):
+            args = (LR, WD, torch.tensor(3.0, device=dev), clip,
+                    torch.tensor(2, dtype=torch.int32, device=dev))
+            what = (p_off, m_off, clip)
+            k, k2 = fresh(p_off, m_off), fresh(p_off, m_off)
+            q = fresh()
+            *_, kpsq = sparse_table_adam(*k, sids, cts, *args, pack=pack)
+            *_, kpsq2 = sparse_table_adam(*k2, sids, cts, *args, pack=pack)
+            *_, qpsq = sparse_table_adam_plain(*q, sids, cts, *args,
+                                               pack=pack)
+            assert torch.equal(k[1], q[1]) and torch.equal(k[2], q[2]), what
+            torch.testing.assert_close(k[0], q[0], rtol=1e-6, atol=0)
+            assert float(kpsq) == pytest.approx(float(qpsq), rel=1e-5), what
+            assert all(torch.equal(a, b) for a, b in zip(k, k2)), what
+            assert torch.equal(kpsq, kpsq2), what
+            if pack > 1:
+                lg = fresh(p_off, m_off, logical=True)
+                sparse_table_adam(*lg, sids, cts, *args)
+                for a, b in zip(k, lg):
+                    assert torch.equal(unpack_table(a, D, pack, rows), b), what
+    ssq = segment_sumsq(sids, cts)
+    assert float(ssq) == pytest.approx(
+        float(segment_sumsq_plain(sids, cts)), rel=1e-5)
+    assert torch.equal(ssq, segment_sumsq(sids, cts))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dcol", [511, 4096])
+def test_sparse_kernels_take_wide_rows_on_cuda(dcol):
+    """The widest logical rows sparse table Adam takes, 511 columns (a tile
+    of 8 rows, 9 pairs a window) and 4096 (a tile of one row, one pair a
+    window; segment_sumsq sums its columns in 16 passes), with a run
+    longer than LONG_RUN and than a window: mu and nu
+    bit for bit against the plain version, p within 1e-6, psq and the
+    segment sums rel 1e-5, the same bits twice."""
+    dev = _cuda()
+    rng = np.random.default_rng(dcol)
+    rows, n = 50, 400
+    ids = rng.integers(0, rows, n).astype(np.int32)
+    ids[:100] = 7
+    ct = rng.normal(size=(n, dcol)).astype(np.float32)
+    sids, cts = sort_pairs(torch.from_numpy(ids).to(dev),
+                           torch.from_numpy(ct).to(dev))
+    p = rng.normal(size=(rows, dcol)).astype(np.float32) * 0.05
+    mu = rng.normal(size=(rows, dcol)).astype(np.float32) * 0.01
+    nu = (rng.normal(size=(rows, dcol)).astype(np.float32) * 0.01) ** 2
+    args = (LR, WD, torch.tensor(3.0, device=dev), 1.0,
+            torch.tensor(2, dtype=torch.int32, device=dev))
+    for mdt in (torch.float32, torch.bfloat16):
+        def fresh():
+            return [torch.from_numpy(p.copy()).to(dev)] + [
+                torch.from_numpy(a.copy()).to(dev, mdt) for a in (mu, nu)]
+
+        k, k2, q = fresh(), fresh(), fresh()
+        *_, kpsq = sparse_table_adam(*k, sids, cts, *args)
+        *_, kpsq2 = sparse_table_adam(*k2, sids, cts, *args)
+        *_, qpsq = sparse_table_adam_plain(*q, sids, cts, *args)
+        assert torch.equal(k[1], q[1]) and torch.equal(k[2], q[2]), mdt
+        torch.testing.assert_close(k[0], q[0], rtol=1e-6, atol=0)
+        assert float(kpsq) == pytest.approx(float(qpsq), rel=1e-5)
+        assert all(torch.equal(a, b) for a, b in zip(k, k2))
+        assert torch.equal(kpsq, kpsq2)
+    ssq = segment_sumsq(sids, cts)
+    assert float(ssq) == pytest.approx(
+        float(segment_sumsq_plain(sids, cts)), rel=1e-5)
+    assert torch.equal(ssq, segment_sumsq(sids, cts))
     torch.cuda.synchronize()
 
 
