@@ -22,18 +22,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              that it went through its own kernel (in bf16 also read, not
              gated, at CIN_SWEEP_DRAWS other seeded draws), with
              the kernel's, the plain version's and a library yardstick's
-             median times (CUDA events) beside the shape's bound; in
-             bf16 the check must also refuse two controls, the plain
-             version without its hidden-state or outer-product rounding;
+             median times (CUDA events) beside the shape's bound
+             (below_library, the plan); in bf16 the check must also
+             refuse two controls, the plain version without its
+             hidden-state or outer-product rounding;
   cin_stack_bwd  the CIN-stack backward kernels (f32 on the FP32 pipes,
              bf16 on the tensor cores) against their plain version on the
-             card at bench.py's xDeepFM shape in f32 and bf16 and at the
-             ragged shape in f32 and bf16 (CIN_BWD_TOL), launched twice to
-             show the same bits and that each went through its own kernel,
-             timed beside its bound, its plain version and autograd
-             through the plain forward (below_library, TFLOP/s, the
-             plan); in bf16 the check must refuse the plain backward
-             without its dcomp rounding;
+             card at bench.py's xDeepFM shape in f32 and bf16, at the
+             ragged shape in f32 and bf16 and at the MovieLens configs'
+             CIN in f32 (CIN_BWD_TOL), launched twice to show the same
+             bits and that each went through its own kernel, timed beside
+             its bound, its plain version and autograd through the plain
+             forward (below_library, TFLOP/s, the plan), with its device
+             time split by kernel (launch_breakdown: the tile kernel, dW,
+             the split sums, db); in bf16 the check must refuse the plain
+             backward without its dcomp rounding;
   cin_compress  the per-layer CIN kernel against its plain version on the
              card in f32 at the three layer shapes of the xDeepFM paper's
              CIN (B=4096, F=27, D=10, 200 maps, H = 27, 200, 200) and a
@@ -262,6 +265,9 @@ CIN_BWD_SHAPES = [
     # off the 16-map tile, a batch off its 8-sample tile (last, so that the
     # shapes above keep their seeds)
     ("ragged_bf16", 1000, 13, 16, (10, 7), True, "bfloat16"),
+    # the MovieLens configs' CIN (configs/xdeepfm_movielens*.yaml) at their
+    # batch, in f32, the default compute dtype: one backward a train step
+    ("movielens_f32", 4096, 16, 16, (128, 128, 64), True, "float32"),
 ]
 # (name, B, F, d, attention_dim, heads, dtype) of the attention block with
 # residual + LayerNorm (bench.py's AttentionDeepFM: 4 heads of 16, d=16)
@@ -463,6 +469,7 @@ def phase_build() -> str:
         for src, log in logs.items()
     }
     for src in ("attention_block.cu", "attention_bwd.cu", "cin_compress.cu",
+                "cin_stack_fwd.cu", "cin_stack_bwd.cu",
                 "cin_stack_fwd_mma.cu", "cin_stack_bwd_mma.cu",
                 "fused_table_adam.cu", "row_gather.cu",
                 "sparse_table_adam.cu"):
@@ -599,12 +606,13 @@ def phase_cin_stack() -> dict:
         cin_stack_mma,
         cin_stack_plain,
         forward_plan,
-        plan_tile,
+        fp32_forward_plan,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results, failures = {}, []
     for k, (name, bsz, f, d, layers, split, dtype) in enumerate(CIN_SHAPES):
         gen = torch.Generator(device=dev).manual_seed(1000 + k)
@@ -669,12 +677,14 @@ def phase_cin_stack() -> dict:
             "phase": "cin_stack", "shape": name, "B": bsz, "F": f, "D": d,
             "layers": list(layers), "split_half": split, "dtype": dtype,
             "kernel": "cin_stack_fwd_mma" if bf16 else "cin_stack_fwd",
-            "tile": (forward_plan(bsz, f, d, layers, split)._asdict() if bf16
-                     else list(plan_tile(bsz, f, d, layers)[:2])),
+            "tile": (forward_plan(bsz, f, d, layers, split) if bf16
+                     else fp32_forward_plan(bsz, f, d, layers, split, sms)
+                     )._asdict(),
             **stats, "tol": tol, "controls": controls,
             "same_bits": same_bits, "launched": launched,
             "seed_sweep": sweep,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "below_library": ms < library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
             "tflops": flops / (ms * 1e-3) / 1e12,
             "launches": counter.launches,
@@ -758,13 +768,14 @@ def phase_cin_stack_bwd() -> dict:
         cin_stack_backward_plain,
         cin_stack_bwd_mma,
         cin_stack_plain,
+        fp32_backward_plan,
         mma_backward_plan,
-        plan_backward,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results, failures = {}, []
     for k, (name, bsz, f, d, layers, split, dtype) in enumerate(CIN_BWD_SHAPES):
         gen = torch.Generator(device=dev).manual_seed(2000 + k)
@@ -819,11 +830,9 @@ def phase_cin_stack_bwd() -> dict:
         plain_ms = time_ms(plain, reps=3 if big else 10, warmup=1)
         library_ms = time_ms(library, reps=3 if big else 10, warmup=1)
         bound_ms, bound_by, flops = cin_bwd_bound(bsz, f, d, layers, split, bf16)
-        if bf16:
-            plan = mma_backward_plan(bsz, f, d, layers, split)._asdict()
-        else:
-            plan = dict(zip(("tile_b", "ntp", "smem", "splits"),
-                            plan_backward(bsz, f, d, layers, split)))
+        plan = (mma_backward_plan(bsz, f, d, layers, split) if bf16
+                else fp32_backward_plan(bsz, f, d, layers, split, sms)
+                )._asdict()
         rec = {
             "phase": "cin_stack_bwd", "shape": name, "B": bsz, "F": f, "D": d,
             "layers": list(layers), "split_half": split, "dtype": dtype,
@@ -836,6 +845,7 @@ def phase_cin_stack_bwd() -> dict:
             "below_library": ms < library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
             "tflops": flops / (ms * 1e-3) / 1e12,
+            "breakdown": launch_breakdown(kernel),
             "launches": counter.launches,
         }
         emit(rec)
@@ -2061,6 +2071,28 @@ def device_events(prof) -> list:
 
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def launch_breakdown(fn, calls: int = 3) -> dict:
+    """torch.profiler over ``calls`` warm calls of ``fn``: the device time
+    (ms) and launches a call of each device kernel, largest first, and
+    their sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted(device_events(prof), key=lambda e: -e.self_device_time_total)
+    return {
+        "device_ms": sum(e.self_device_time_total for e in events) / 1e3 / calls,
+        "kernels": {e.key[:70]: {"ms": e.self_device_time_total / 1e3 / calls,
+                                 "launches": e.count / calls}
+                    for e in events},
+    }
 
 
 def step_profile(step, watch=()) -> dict:

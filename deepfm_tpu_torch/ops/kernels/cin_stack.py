@@ -20,9 +20,12 @@ shape (B=16384, F=27, D=16, [128,128] split) a forward is ~165 GFLOP
 against ~41 MB of f32 input and output; only x0, the weights and the
 pooled output touch device memory. Both kernels keep every per-layer
 feature map and the outer product in shared memory and registers. The
-f32 kernel (one block of 128 threads per tile of samples, an 8x8 register
-tile per thread, the outer product formed on the fly) is bounded by the
-FP32 FMA rate. The bf16 kernel runs each layer as mma.sync m16n8k16
+f32 kernel (``fp32_forward_plan``: a block of up to 256 threads per tile
+of samples, 8 x 8 register cells of maps by columns, each layer's
+weights staged by cp.async and its outer product formed once a block, in
+chunks of up to 32 rows of K; csrc/cin_stack.cuh's ``layer_product``,
+which the backward's remat shares) is bounded by the FP32 FMA rate. The
+bf16 kernel runs each layer as mma.sync m16n8k16
 products whose B fragments (the outer product, rounded to bf16) are
 formed in registers, with the weights streamed through shared memory; its
 tile is ``forward_plan``'s. See the .cu files for the designs.
@@ -75,6 +78,7 @@ instance.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Sequence
 
 import torch
@@ -82,6 +86,8 @@ import torch
 from deepfm_tpu_torch.ops.cin import cin_compress, cin_layer_sizes
 from deepfm_tpu_torch.ops.kernels import build
 from deepfm_tpu_torch.ops.kernels.cin import (
+    SMEM_PER_SM,
+    SMEM_RESERVED,
     _relayout,
     _round_up,
     _zero_padded,
@@ -95,9 +101,10 @@ MMA_SOURCE = "cin_stack_fwd_mma.cu"
 MAX_LAYERS = 8
 # Hopper: at most 227 KB of shared memory per block.
 SMEM_PER_BLOCK = 232_448
-HIDDEN_CHUNK = 4  # the backward's kHC: hidden rows per chunk of A = W^T dcomp
-# A block is 8 x 16 threads, each owning 8 columns and 8 maps: a column
-# chunk of 64 (kTX * kTN in the .cu file).
+# The route's count (``stack_smem``), kept from the first f32 kernels'
+# layout: columns padded to COLUMN_CHUNK, a chunk of A of HIDDEN_CHUNK
+# hidden rows. The f32 plans (below) take every shape it sends to the stack.
+HIDDEN_CHUNK = 4
 COLUMN_CHUNK = 64
 # The bf16 kernel (csrc/cin_stack_fwd_mma.cu): each warp owns 4 n8 tiles
 # (32 columns) and at most a number of m16 tiles of a pass. Two instances,
@@ -149,14 +156,17 @@ def stack_smem(
     batch: int, f: int, d: int, layer_sizes: Sequence[int],
     split_half: bool, backward: bool,
 ) -> tuple[int, int, int]:
-    """(tile_b, ntp, smem_bytes) of the stack kernel in one direction.
+    """(tile_b, ntp, smem_bytes) of the stack route's count in one
+    direction (the layout of the first f32 kernels; the
+    kernels' own layouts are ``fp32_forward_plan``'s and
+    ``fp32_backward_plan``'s, which fit wherever this does).
 
     A block holds tile_b samples as tile_b*d columns padded to ntp, a
     multiple of the column chunk. The forward keeps (f + 2*max(M)) rows of
     f32 shared memory; the backward, per column, x0, each hidden state but
     x0, one layer's comp / dcomp, dhid, dx0 and a chunk of 4F rows of A
     (rounded up to 8), and one sign bit per element of every comp but the
-    last layer's (the layout in csrc/cin_stack_bwd.cu)."""
+    last layer's."""
     tile_b = max(1, min(batch, COLUMN_CHUNK // d))
     ntp = _round_up(tile_b * d, COLUMN_CHUNK)
     if not backward:
@@ -185,8 +195,9 @@ def stack_route(
 def plan_tile(
     batch: int, f: int, d: int, layer_sizes: Sequence[int]
 ) -> tuple[int, int, int]:
-    """(tile_b, ntp, smem_bytes) for one forward launch (``stack_smem``).
-    Raises ValueError when that does not fit."""
+    """(tile_b, ntp, smem_bytes) of the forward's route count
+    (``stack_smem``). Raises ValueError when that does not fit: where
+    ``stack_route`` sends the forward to the layers route."""
     tile_b, ntp, smem = stack_smem(batch, f, d, layer_sizes, False, False)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
@@ -195,6 +206,139 @@ def plan_tile(
             f"{SMEM_PER_BLOCK}"
         )
     return tile_b, ntp, smem
+
+
+# The f32 kernels' plans (csrc/cin_stack.cuh and the .cu files recompute
+# them; the constants are theirs): a block of at most F32_THREADS threads,
+# 8 x 8 register cells, chunks of at most F32_CHUNK rows k of K, column
+# tiles of up to F32_COLUMNS columns.
+F32_THREADS = 256
+F32_CHUNK = 32
+F32_COLUMNS = 128
+FULL_WARPS = 16  # warps an SM needs to keep the FP32 pipes fed
+CHUNK_STEPS = 8  # a chunk's barrier and copies, in k steps of a cell
+_CHUNKS = tuple(F32_CHUNK >> i for i in range(F32_CHUNK.bit_length()))
+
+
+def _passes(groups: int, cx: int, threads: int) -> tuple[int, int, int]:
+    """(passes, row groups a pass, column groups a pass) of a product of
+    ``groups`` 8-row groups by ``cx`` 8-column groups on ``threads``
+    threads (``passes_of``): whole rows of cells in near-equal passes where
+    they fit, else one row group a pass in near-equal column windows."""
+    if cx > threads:
+        windows = -(-cx // threads)
+        return groups * windows, 1, -(-cx // windows)
+    n = -(-groups // (threads // cx))
+    return n, -(-groups // n), cx
+
+
+def _blocks_per_sm(threads: int, smem: int, max_regs: int) -> int:
+    """Blocks an SM holds (``blocks_per_sm``): at most ``max_regs``
+    registers a thread, 2048 threads, its shared memory, 32 blocks."""
+    return min(65536 // (threads * max_regs), 2048 // threads,
+               SMEM_PER_SM // (smem + SMEM_RESERVED), 32)
+
+
+def _launch_cost(tiles: int, sms: int, bps: int, threads: int,
+                 work: float) -> float:
+    """Rounds of blocks over the card's slots, each as long as a block's
+    work over the share of its SM it gets (``launch_cost``)."""
+    rounds = -(-tiles // (sms * bps))
+    return rounds * bps * threads * work / min(bps * threads // 32, FULL_WARPS)
+
+
+def _tile_candidates(batch: int, d: int) -> list[int]:
+    """Samples a tile: as many as fit 128, 64, 32, 16 and 8 columns, at
+    least one."""
+    out: list[int] = []
+    cols = F32_COLUMNS
+    while cols >= 8:
+        tb = max(1, min(batch, cols // d))
+        if not out or out[-1] != tb:
+            out.append(tb)
+        cols //= 2
+    return out
+
+
+class Fp32ForwardPlan(NamedTuple):
+    """One launch of the f32 forward (csrc/cin_stack_fwd.cu): ``tile_b``
+    samples a block, their columns padded to ``nt``; ``threads`` threads,
+    chunks of at most ``kc`` rows of K; ``nbuf`` hidden buffers of ``hn`` rows; a stage region of ``stage``
+    floats; ``smem`` bytes of shared memory; ``blocks_per_sm``."""
+
+    tile_b: int
+    nt: int
+    threads: int
+    kc: int
+    nbuf: int
+    hn: int
+    stage: int
+    smem: int
+    blocks_per_sm: int
+
+
+def _fp32_forward_layout(f, d, mpads, next_sizes, tile_b, kc, cap):
+    """(threads, nbuf, hn, stage floats, smem bytes) of one forward layout
+    of at most ``cap`` threads, the ``layout`` of csrc/cin_stack_fwd.cu."""
+    n = len(mpads)
+    nt = _round_up(tile_b * d, 8)
+    cx = nt // 8
+    threads = min(cap, _round_up(max(mpads) // 8 * cx, 32))
+    passes = [_passes(mp // 8, cx, threads) for mp in mpads]
+    nbuf = 0 if n == 1 else (
+        2 if any(p[0] > 1 for p in passes[1:n - 1]) else 1)
+    hn = max(next_sizes[: n - 1], default=0)
+    stage = 2 * kc * (8 * max(p[1] for p in passes) + 8 * passes[0][2])
+    return threads, nbuf, hn, stage, 4 * (f * nt + nbuf * hn * nt + stage)
+
+
+@functools.lru_cache(maxsize=256)
+def fp32_forward_plan(batch: int, f: int, d: int, layer_sizes: tuple,
+                      split_half: bool, sms: int = 132) -> Fp32ForwardPlan:
+    """The f32 forward's plan on a card of ``sms`` SMs: of every tile
+    (``_tile_candidates``), thread count (the cells of the widest layer,
+    at most 256, 128, 64 or 32: fewer threads make smaller weight stages)
+    and chunk of K rows (32, 16, .., 1) whose shared memory fits a block,
+    the one of least ``_launch_cost`` (the first, so the widest, on a
+    tie). The work of a block in k steps is every layer's passes x (K =
+    H*F and CHUNK_STEPS a chunk). It takes every shape that
+    ``stack_route`` sends to the stack forward. Raises ValueError when
+    nothing fits. The C launch recomputes it and refuses a mismatch."""
+    layer_sizes = tuple(int(m) for m in layer_sizes)
+    _, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    mpads = [_round_up(m, 8) for m in layer_sizes]
+    hs = [f, *next_sizes[:-1]]
+    best, best_cost = None, None
+    for tb in _tile_candidates(batch, d):
+        nt = _round_up(tb * d, 8)
+        cx = nt // 8
+        need = _round_up(max(mpads) // 8 * cx, 32)
+        caps = [F32_THREADS >> i for i in range(F32_THREADS.bit_length())
+                if F32_THREADS >> i >= 32
+                and (i == 0 or min(F32_THREADS >> i, need)
+                     != min(F32_THREADS >> (i - 1), need))]
+        for cap, kc in ((c, kc) for c in caps for kc in _CHUNKS):
+            threads, nbuf, hn, stage, smem = _fp32_forward_layout(
+                f, d, mpads, next_sizes, tb, kc, cap)
+            if smem > SMEM_PER_BLOCK:
+                continue
+            bps = _blocks_per_sm(threads, smem, 128)
+            work = 0.0
+            for mp, h in zip(mpads, hs):
+                work += _passes(mp // 8, cx, threads)[0] * (
+                    h * f + -(-h * f // kc) * CHUNK_STEPS)
+            cost = _launch_cost(-(-batch // tb), sms, bps, threads, work)
+            if best_cost is None or cost < best_cost:
+                best_cost = cost
+                best = Fp32ForwardPlan(tb, nt, threads, kc, nbuf, hn, stage,
+                                       smem, bps)
+    if best is None:
+        raise ValueError(
+            f"f32 CIN stack with F={f}, D={d}, layers {layer_sizes} needs "
+            f"{_fp32_forward_layout(f, d, mpads, next_sizes, 1, 1, 32)[4]} "
+            f"bytes of shared memory per block; the limit is "
+            f"{SMEM_PER_BLOCK}")
+    return best
 
 
 class ForwardPlan(NamedTuple):
@@ -280,22 +424,12 @@ def mma_weight(w: torch.Tensor, f: int) -> torch.Tensor:
     return _relayout(w, ("mma", fp), make)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    if not getattr(lib, "_argtypes_set", False):
-        ptrs = ctypes.POINTER(ctypes.c_void_p)
-        ints = ctypes.POINTER(ctypes.c_int)
-        lib.cin_stack_fwd.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p, ptrs, ptrs]
-            + [ints] * 4
-            + [ctypes.c_int] * 6
-            + [ctypes.c_void_p]
-        )
-        lib.cin_stack_fwd.restype = ctypes.c_int
-        lib.cin_stack_error_string.argtypes = [ctypes.c_int]
-        lib.cin_stack_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
-    return lib
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_IP = ctypes.POINTER(ctypes.c_int)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "cin_stack_fwd": [_P, _P, _PP, _PP, _IP, _IP, _IP, _IP] + [_I] * 9 + [_P],
+}
 
 
 def _check_shapes(x0, weights, biases, layer_sizes, next_sizes) -> None:
@@ -336,8 +470,8 @@ def _check_inputs(x0, weights, biases, layer_sizes, next_sizes) -> None:
 
 def _cin_stack_cuda(x0, weights, biases, layer_sizes,
                     split_half) -> torch.Tensor:
-    """The f32 kernel (csrc/cin_stack_fwd.cu); a bf16 x0 is computed in
-    f32 and the output cast back."""
+    """The f32 kernel (csrc/cin_stack_fwd.cu, ``fp32_forward_plan``); a
+    bf16 x0 is computed in f32 and the output cast back."""
     layer_sizes = tuple(int(m) for m in layer_sizes)
     direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
     _check_inputs(x0, weights, biases, layer_sizes, next_sizes)
@@ -347,7 +481,8 @@ def _cin_stack_cuda(x0, weights, biases, layer_sizes,
     if bsz == 0:
         return out.to(x0.dtype)
     x = x0.float().contiguous()
-    tile_b, ntp, _ = plan_tile(bsz, f, d, layer_sizes)
+    plan = fp32_forward_plan(bsz, f, d, layer_sizes, split_half,
+                             build.sm_count(x))
 
     # re-layout: k-major weights padded to mpad maps, f32 padded biases
     mpads = [_round_up(m, 8) for m in layer_sizes]
@@ -358,32 +493,26 @@ def _cin_stack_cuda(x0, weights, biases, layer_sizes,
             b, (mp,), torch.float32)))
 
     n = len(layer_sizes)
-    lib = _lib()
+
+    def ints(vs):
+        return (ctypes.c_int * n)(*vs)
+
+    lib = build.bind(SOURCE, _SIGNATURES)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cin_stack_fwd(
             x.data_ptr(), out.data_ptr(),
             (ctypes.c_void_p * n)(*[t.data_ptr() for t in wts]),
             (ctypes.c_void_p * n)(*[t.data_ptr() for t in bs]),
-            (ctypes.c_int * n)(*layer_sizes),
-            (ctypes.c_int * n)(*mpads),
-            (ctypes.c_int * n)(*direct_sizes),
-            (ctypes.c_int * n)(*next_sizes),
-            n, bsz, f, d, tile_b, ntp, stream,
+            ints(layer_sizes), ints(mpads), ints(direct_sizes),
+            ints(next_sizes), n, bsz, f, d, plan.tile_b, plan.nt,
+            plan.threads, plan.kc, plan.smem, build.stream_of(x),
         )
-    if err != 0:
-        raise RuntimeError(
-            "cin_stack_fwd launch failed: "
-            + lib.cin_stack_error_string(err).decode()
-        )
+    build.check(lib, SOURCE, "cin_stack_fwd", err)
     cin_stack_forward.launches += 1
     # wts/bs/x stay referenced until here; the stream orders their reuse
     return out.to(x0.dtype)
 
 
-_PP = ctypes.POINTER(ctypes.c_void_p)
-_IP = ctypes.POINTER(ctypes.c_int)
-_P, _I = ctypes.c_void_p, ctypes.c_int
 _MMA_SIGNATURES = {
     "cin_stack_fwd_mma": [_P, _P, _PP, _PP, _IP, _IP, _IP] + [_I] * 10 + [_P],
 }
@@ -529,13 +658,19 @@ cin_stack_forward.launches = 0
 
 BWD_SOURCE = "cin_stack_bwd.cu"
 BWD_MMA_SOURCE = "cin_stack_bwd_mma.cu"
-# dW is summed over K = B*D in at most MAX_SPLITS fixed chunks of at least
-# SPLIT_COLUMNS columns each, then the partials are added in order.
+# The bf16 backward sums dW over K = B*D in at most MAX_SPLITS fixed chunks
+# of at least SPLIT_COLUMNS columns each, then adds the partials in order.
 SPLIT_COLUMNS = 4096
 MAX_SPLITS = 64
+# The f32 backward's dW kernel (csrc/cin_stack_bwd.cu): tiles of F32_DW_MAPS
+# maps by F32_DW_ROWS outer rows, F32_DW_BLOCKS blocks an SM, steps of
+# F32_DW_STEP columns of K; each layer's K is cut into splits of at least
+# F32_SPLIT_COLUMNS columns, at most MAX_SPLITS (``dw_splits``).
+F32_DW_MAPS, F32_DW_ROWS, F32_DW_BLOCKS, F32_DW_STEP = 128, 128, 2, 32
+F32_SPLIT_COLUMNS = 512
 _BWD_SIGNATURES = {
     "cin_stack_bwd": [_P, _P, _PP, _PP, _PP, _IP, _IP, _IP, _IP, _IP]
-    + [_I] * 6 + [_P] * 5 + [_I, _PP, _P, _P],
+    + [_I] * 11 + [_IP] + [_P] * 5 + [_PP, _P, _P],
 }
 _BWD_MMA_SIGNATURES = {
     "cin_stack_bwd_mma": [_P, _P, _PP, _PP, _IP, _IP, _IP] + [_I] * 14
@@ -633,22 +768,127 @@ def cin_stack_backward_plain(
             [db.to(b.dtype) for db, b in zip(dbs, biases)])
 
 
+def dw_splits(m: int, hf: int, k: int, sms: int = 132) -> tuple[int, int]:
+    """(splits, columns a split) of one layer's f32 dW product over K = k
+    columns (``dw_splits`` of csrc/cin_stack_bwd.cu): of 1 .. min(64,
+    k // F32_SPLIT_COLUMNS) splits, a split's columns a multiple of 32, the
+    one whose rounds of the dW grid (128-map by 128-row tiles, times the
+    splits) over the card's slots times a split's columns is least, the
+    fewest on a tie."""
+    tiles = -(-hf // F32_DW_ROWS) * -(-m // F32_DW_MAPS)
+    slots = sms * F32_DW_BLOCKS
+    best, chunk = None, None
+    for s in range(1, min(MAX_SPLITS, max(1, k // F32_SPLIT_COLUMNS)) + 1):
+        c = _round_up(-(-k // s), F32_DW_STEP)
+        cost = -(-(tiles * -(-k // c)) // slots) * c
+        if best is None or cost < best:
+            best, chunk = cost, c
+    return -(-k // chunk), chunk
+
+
+class Fp32BackwardPlan(NamedTuple):
+    """One launch of the f32 backward (csrc/cin_stack_bwd.cu): the tile
+    kernel's ``tile_b`` samples a block, their columns padded to ``nt``,
+    ``threads`` threads; the remat's chunks of at most ``kc`` rows of K;
+    A = W^T dcomp in chunks of ``hc`` hidden rows (``arows`` rows of A),
+    ``mc`` maps a weight stage; ``smem`` bytes of shared memory,
+    ``blocks_per_sm``; and the dW product's ``splits`` of each layer."""
+
+    tile_b: int
+    nt: int
+    threads: int
+    kc: int
+    hc: int
+    mc: int
+    arows: int
+    smem: int
+    blocks_per_sm: int
+    splits: tuple
+
+
+@functools.lru_cache(maxsize=256)
+def fp32_backward_plan(batch: int, f: int, d: int, layer_sizes: tuple,
+                       split_half: bool, sms: int = 132) -> Fp32BackwardPlan:
+    """The f32 backward's plan on a card of ``sms`` SMs: of every tile
+    (``_tile_candidates``), hidden rows a chunk of A (8..1), maps a weight
+    stage of A (32, 16, .., 1) and rows of K a chunk of the remat (32, 16,
+    .., 1) whose shared memory fits a block, the one of least
+    ``_launch_cost`` (the first on a tie); a block's work in k steps: the
+    remat's passes x (K and CHUNK_STEPS a chunk), A's chunks x passes x (M
+    and CHUNK_STEPS a weight stage). The layout (csrc/cin_stack_bwd.cu):
+    x0, the hidden states of layers 1.. (each layer's dhid is written over
+    them), one layer's dcomp and dx0 as f32 rows of nt; one region for the
+    remat's stages or a chunk of A and its weight stages; a sign bit per
+    comp of every layer but the last. It takes every shape that
+    ``stack_route`` sends to the stack backward. Raises ValueError when
+    nothing fits. The C launch recomputes it and refuses a mismatch."""
+    layer_sizes = tuple(int(m) for m in layer_sizes)
+    _, next_sizes = cin_layer_sizes(layer_sizes, split_half)
+    mpads = [_round_up(m, 8) for m in layer_sizes]
+    hs = [f, *next_sizes[:-1]]
+    rows = 2 * f + sum(hs[1:]) + max(layer_sizes)
+    mask_maps = sum(layer_sizes) - layer_sizes[-1]
+    best, best_cost, least = None, None, None
+    for tb in _tile_candidates(batch, d):
+        nt = _round_up(tb * d, 8)
+        cx = nt // 8
+        words = -(-nt // 32)
+        for hc in range(8, 0, -1):
+            arows = _round_up(hc * f, 8)
+            gmax = max(arows // 8, max(mpads) // 8)
+            threads = min(F32_THREADS, _round_up(gmax * cx, 32))
+            passes = [_passes(mp // 8, cx, threads) for mp in mpads]
+            wgroups, cols = max(p[1] for p in passes), passes[0][2]
+            a_n, a_groups, _ = _passes(arows // 8, cx, threads)
+            base = rows * nt + mask_maps * words
+            for mc in (32, 16, 8, 4, 2, 1):
+                adj = arows * nt + 2 * mc * 8 * a_groups
+                adj_work = [-(-h // hc) * a_n * (m + -(-m // mc) * CHUNK_STEPS)
+                            for m, h in zip(layer_sizes, hs)]
+                for kc in _CHUNKS:
+                    stage = 2 * kc * (8 * wgroups + 8 * cols)
+                    smem = 4 * (base + max(stage, adj))
+                    least = smem if least is None else min(least, smem)
+                    if smem > SMEM_PER_BLOCK:
+                        continue
+                    bps = _blocks_per_sm(threads, smem, 255)
+                    work = 0.0
+                    for (p_n, _, _), h, aw in zip(passes, hs, adj_work):
+                        work += p_n * (h * f + -(-h * f // kc) * CHUNK_STEPS)
+                        work += aw
+                    cost = _launch_cost(-(-batch // tb), sms, bps, threads,
+                                        work)
+                    if best_cost is None or cost < best_cost:
+                        best_cost = cost
+                        best = (tb, nt, threads, kc, hc, mc, arows, smem, bps)
+    if best is None:
+        raise ValueError(
+            f"f32 CIN stack backward with F={f}, D={d}, layers "
+            f"{layer_sizes} needs {least} bytes of shared memory per block; "
+            f"the limit is {SMEM_PER_BLOCK}")
+    splits = tuple(dw_splits(m, h * f, batch * d, sms)[0]
+                   for m, h in zip(layer_sizes, hs))
+    return Fp32BackwardPlan(*best, splits)
+
+
 def plan_backward(
-    batch: int, f: int, d: int, layer_sizes: Sequence[int], split_half: bool
-) -> tuple[int, int, int, int]:
-    """(tile_b, ntp, smem_bytes, splits) for one backward launch
-    (``stack_smem``; the tile is the forward's). Raises ValueError when the
-    forward's or the backward's shared memory does not fit."""
+    batch: int, f: int, d: int, layer_sizes: Sequence[int], split_half: bool,
+    sms: int = 132,
+) -> tuple[int, int, int, tuple]:
+    """(tile_b, ntp, smem_bytes, splits) of one f32 backward launch: its
+    tile, shared memory and dW splits (``fp32_backward_plan``). Raises
+    ValueError where ``stack_route`` sends the backward to the layers route
+    (the forward's or the backward's ``stack_smem`` count does not fit)."""
     plan_tile(batch, f, d, layer_sizes)
-    tile_b, ntp, smem = stack_smem(batch, f, d, layer_sizes, split_half, True)
+    smem = stack_smem(batch, f, d, layer_sizes, split_half, True)[2]
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"CIN stack backward with F={f}, D={d}, layers "
             f"{tuple(layer_sizes)} needs {smem} bytes of shared memory per "
             f"block; the limit is {SMEM_PER_BLOCK}"
         )
-    splits = max(1, min(MAX_SPLITS, -(-batch * d // SPLIT_COLUMNS)))
-    return tile_b, ntp, smem, splits
+    p = fp32_backward_plan(batch, f, d, tuple(layer_sizes), split_half, sms)
+    return p.tile_b, p.nt, p.smem, p.splits
 
 
 class BackwardPlan(NamedTuple):
@@ -742,14 +982,13 @@ def mma_backward_plan(
     )
 
 
-def _chunked(w: torch.Tensor, h: int, f: int):
-    """W (M, H*F) in f32, m-major by chunks of HIDDEN_CHUNK hidden rows, each
-    chunk's HIDDEN_CHUNK*F columns zero-padded to a multiple of 8 (the f32
-    kernel reads 8 aligned weights at a time): (M, ceil(H / HIDDEN_CHUNK) *
-    that)."""
+def _chunked(w: torch.Tensor, h: int, f: int, hc: int = HIDDEN_CHUNK):
+    """W (M, H*F) in f32, m-major by chunks of ``hc`` hidden rows, each
+    chunk's hc*F columns zero-padded to a multiple of 8 (the f32 kernel
+    stages 8 aligned weights at a time): (M, ceil(H / hc) * that)."""
     m = w.shape[0]
-    chunks = -(-h // HIDDEN_CHUNK)
-    width = HIDDEN_CHUNK * f
+    chunks = -(-h // hc)
+    width = hc * f
     f32 = dict(dtype=torch.float32, device=w.device)
     out = torch.zeros(m, chunks, _round_up(width, 8), **f32)
     full = torch.zeros(m, chunks * width, **f32)
@@ -776,8 +1015,8 @@ def _zero_grads(x0, weights, biases):
 
 
 def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half):
-    """The f32 kernel (csrc/cin_stack_bwd.cu); a bf16 x0 is computed in f32
-    and dx0 cast back."""
+    """The f32 kernels (csrc/cin_stack_bwd.cu, ``fp32_backward_plan``); a
+    bf16 x0 is computed in f32 and dx0 cast back."""
     layer_sizes = tuple(int(m) for m in layer_sizes)
     direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
     _check_cotangent(x0, weights, biases, g, layer_sizes, next_sizes,
@@ -787,49 +1026,52 @@ def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half):
     n = len(layer_sizes)
     hs = [f, *next_sizes[:-1]]
     f32 = dict(dtype=torch.float32, device=dev)
-    dx0 = torch.zeros(bsz, f, d, **f32)
-    dws = [torch.zeros(m, h * f, **f32) for m, h in zip(layer_sizes, hs)]
-    db = torch.zeros(sum(layer_sizes), **f32)
-    if bsz > 0:
-        tile_b, ntp, _, splits = plan_backward(bsz, f, d, layer_sizes,
-                                               split_half)
-        x = x0.float().contiguous()
-        gg = g.float().contiguous()
-        mpads = [_round_up(m, 8) for m in layer_sizes]
-        wts, wms, bs = [], [], []
-        for w, b, mp, h in zip(weights, biases, mpads, hs):
-            wts.append(kmajor_weight(w, torch.float32))
-            wms.append(_relayout(w, ("chunked",),
-                                 lambda: _chunked(w, h, f)))
-            bs.append(_relayout(b, (mp,), lambda: _zero_padded(
-                b, (mp,), torch.float32)))
-        kpads = [t.shape[1] for t in wms]
-        tiles = -(-bsz // tile_b)
-        k = bsz * d
-        dcomp = torch.empty(sum(layer_sizes), k, **f32)
-        hid = torch.empty(max(sum(hs[1:]), 1), k, **f32)
-        db_part = torch.empty(tiles, sum(layer_sizes), **f32)
-        dw_part = torch.empty(
-            splits * sum(m * h * f for m, h in zip(layer_sizes, hs)), **f32)
+    if bsz == 0:
+        return _zero_grads(x0, weights, biases)
+    x = x0.float().contiguous()
+    plan = fp32_backward_plan(bsz, f, d, layer_sizes, split_half,
+                              build.sm_count(x))
+    gg = g.float().contiguous()
+    mpads = [_round_up(m, 8) for m in layer_sizes]
+    wts, wms, bs = [], [], []
+    for w, b, mp, h in zip(weights, biases, mpads, hs):
+        wts.append(kmajor_weight(w, torch.float32))
+        wms.append(_relayout(w, ("chunked", plan.hc),
+                             lambda: _chunked(w, h, f, plan.hc)))
+        bs.append(_relayout(b, (mp,), lambda: _zero_padded(
+            b, (mp,), torch.float32)))
+    kpads = [t.shape[1] for t in wms]
+    # every output element is written by the kernels
+    dx0 = torch.empty(bsz, f, d, **f32)
+    dws = [torch.empty(m, h * f, **f32) for m, h in zip(layer_sizes, hs)]
+    db = torch.empty(sum(layer_sizes), **f32)
+    k = bsz * d
+    dcomp = torch.empty(sum(layer_sizes), k, **f32)
+    hid = torch.empty(max(sum(hs[1:]), 1), k, **f32)
+    db_part = torch.empty(-(-bsz // plan.tile_b), sum(layer_sizes), **f32)
+    dw_part = torch.empty(sum(s * m * h * f for s, m, h in zip(
+        plan.splits, layer_sizes, hs)), **f32)
 
-        def ptrs(ts):
-            return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
+    def ptrs(ts):
+        return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
 
-        def ints(vs):
-            return (ctypes.c_int * n)(*vs)
+    def ints(vs):
+        return (ctypes.c_int * n)(*vs)
 
-        lib = build.bind(BWD_SOURCE, _BWD_SIGNATURES)
-        with torch.cuda.device(dev):
-            err = lib.cin_stack_bwd(
-                x.data_ptr(), gg.data_ptr(), ptrs(wts), ptrs(wms), ptrs(bs),
-                ints(layer_sizes), ints(mpads), ints(direct_sizes),
-                ints(next_sizes), ints(kpads), n, bsz, f, d, tile_b, ntp,
-                dx0.data_ptr(), dcomp.data_ptr(), hid.data_ptr(),
-                db_part.data_ptr(), dw_part.data_ptr(), splits, ptrs(dws),
-                db.data_ptr(), build.stream_of(x),
-            )
-        build.check(lib, BWD_SOURCE, "cin_stack_bwd", err)
-        cin_stack_backward.launches += 1
+    lib = build.bind(BWD_SOURCE, _BWD_SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.cin_stack_bwd(
+            x.data_ptr(), gg.data_ptr(), ptrs(wts), ptrs(wms), ptrs(bs),
+            ints(layer_sizes), ints(mpads), ints(direct_sizes),
+            ints(next_sizes), ints(kpads), n, bsz, f, d, plan.tile_b, plan.nt,
+            plan.threads, plan.kc, plan.hc, plan.mc, plan.smem,
+            ints(plan.splits), dx0.data_ptr(), dcomp.data_ptr(),
+            hid.data_ptr(), db_part.data_ptr(), dw_part.data_ptr(), ptrs(dws),
+            db.data_ptr(), build.stream_of(x),
+        )
+    build.check(lib, BWD_SOURCE, "cin_stack_bwd", err)
+    cin_stack_backward.launches += 1
+    # the workspace stays referenced until here; the stream orders its reuse
     dbs = torch.split(db, list(layer_sizes))
     return (dx0.to(x0.dtype),
             [dw.to(w.dtype) for dw, w in zip(dws, weights)],

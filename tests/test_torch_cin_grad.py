@@ -207,14 +207,21 @@ def test_cin_flag_off_refuses_non_cpu_tensors_in_training():
 
 def test_plan_backward_fits_the_bench_shape_and_refuses_oversize():
     tile_b, ntp, smem, splits = plan_backward(16384, 27, 16, (128, 128), True)
-    assert (tile_b, ntp) == (4, 64)
-    # x0, the hidden state, dcomp, dhid, dx0 and 4F rows of A (to 8), f32,
-    # per column, and a sign bit per element of layer 0's comp: two blocks
-    # fit on an SM
-    assert smem == 4 * 64 * (27 + 64 + 128 + 64 + 27 + 112) + 4 * 128 * 2
-    assert 2 * (smem + 1024) <= 233_472
-    assert splits == 64
-    assert plan_backward(3, 13, 16, (10, 7), True)[3] == 1
+    assert (tile_b, ntp) == (8, 128)
+    # x0, the hidden state (dhid is written over it), dcomp and dx0 as f32
+    # rows of 128 columns, a sign bit per element of layer 0's comp, and
+    # one region for the remat's stages (32 rows of K by 128 maps and by
+    # 128 columns, two of each) or a chunk of A (4 hidden rows: 112 rows)
+    # with its two weight stages of 32 maps by 14 row groups: one block an
+    # SM
+    region = max(2 * 32 * (128 + 128), 112 * 128 + 2 * 32 * 8 * 14)
+    assert smem == 4 * (128 * (27 + 64 + 128 + 27) + 128 * 4 + region)
+    assert smem + 1024 <= 233_472 < 2 * (smem + 1024)
+    # dW: each layer's grid (6 and 14 tiles of 128 maps by 128 outer rows)
+    # times its splits in the fewest rounds of 2 blocks on each of 132 SMs
+    # for their columns
+    assert splits == (44, 56)
+    assert plan_backward(3, 13, 16, (10, 7), True)[3] == (1, 1)
     with pytest.raises(ValueError, match="shared memory"):
         plan_backward(8, 27, 16, (256, 256, 256), False)
 
