@@ -85,13 +85,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              bf16 moments, the clip on and off) bit for bit against its
              plain version; fused_table_adam's and sparse_table_adam's
              device time and host time a call beside the single-call time,
-             and the device time's share of the bound;
+             and the device time's share of the bound; segment_sumsq's
+             plan, its device time by kernel (torch.profiler), its host
+             path (call_split) and its launches a call, which must be 1;
              then (long_runs) three of them again
              with two fields missing (id 0) in every row, runs of 16384
              equal ids, held to the plain versions and timed
              (sparse_table_adam with its call split, beside its uniform-ids
-             time; segment_sumsq twice for the same bits and under
-             LONG_RUN_SEGSQ_MS);
+             time; segment_sumsq twice for the same bits, under
+             LONG_RUN_SEGSQ_MS and one launch a call);
   packed_kernels  the packed layout's kernels at the same table packed
              (7 logical rows per 128-float row, 1,485,824 rows): the packed
              densify bit for bit against its plain version, twice, dead
@@ -159,6 +161,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
              kernel's launch count must have risen; the xDeepFM checkpoint
              is written packed and served under the config's logical
              tables, and then under packed ones (SERVE_LAYOUT_TOL);
+  train_loop the trainer loop through the CLI's commands at the full width
+             of configs/xdeepfm_movielens_cin_tuned.yaml on synthetic
+             ML-100K: `train` for TRAIN_LOOP_EPOCHS epochs (its
+             results.json's training_info.kernels must name
+             TRAIN_LOOP_KERNELS, each launched), `evaluate` on the best
+             checkpoint (the best epoch's val metrics exactly; the test
+             metrics exactly where the last epoch is the best), a run of
+             one epoch resumed to TRAIN_LOOP_EPOCHS whose history must
+             equal the unbroken run's, and `compare` over both runs; with
+             the epoch seconds split into steps and staging, examples/s
+             and the val and test evaluations' seconds; the inputs of the
+             resumed run's first step's segment_sumsq and
+             sparse_table_adam calls (each MovieLens table's sorted pairs
+             at batch 4096 and its state) are kept, and each kernel is
+             held there against its plain version (TABLE_TOL), twice for
+             the same bits;
   kernels    one line listing every ported kernel with its launch count
              on the path that runs it (serve for the f32 CIN-stack
              forward, the xDeepFM train step for the bf16 CIN-stack
@@ -255,6 +273,15 @@ SERVE_CONFIGS = (("xdeepfm_movielens_cin_tuned.yaml", "packed"),
 # Scores of one checkpoint served with packed and with logical tables: the
 # same weights and the same arithmetic, so equal but for summation order
 SERVE_LAYOUT_TOL = 1e-6
+# The trainer loop's config and depth, and the kernels its results.json
+# must name (training_info.kernels: those whose launch counts rose)
+TRAIN_LOOP_CONFIG = "xdeepfm_movielens_cin_tuned.yaml"
+TRAIN_LOOP_EPOCHS = 2
+TRAIN_LOOP_KERNELS = ("cin_stack_fwd", "cin_stack_bwd", "segment_sumsq",
+                      "sparse_table_adam")
+# history keys that are host-clock readings, left out where two runs'
+# histories are compared
+HISTORY_CLOCK = ("epoch_seconds", "examples_per_sec")
 
 # (name, B, F, D, layer_sizes, split_half, dtype) of the CIN-stack backward
 CIN_BWD_SHAPES = [
@@ -412,6 +439,16 @@ TRAIN_MODELS = ("xdeepfm", "attention_deepfm")
 # kernels that must show in each of PROFILED_STEPS profiled steps of a model
 PROFILE_WATCH = {"attention_deepfm": ("attn_fwd_kernel", "attn_bwd_kernel")}
 PROFILED_STEPS = 3
+# profiled steps taken again, at most, in place of those whose profile lost
+# a device record of the step's kernels (step_profile's "whole")
+PROFILE_RETRIES = 3
+# torch.profiler (Kineto over CUPTI; an H100, torch 2.11) loses the device
+# records of the first few kernels of a session, now and then of the last
+# few, and more of them the longer the process has run. Each profile is
+# padded with this many kernels of its own on either side (PAD_KERNEL, by
+# torch.cuda._sleep), which take the loss and are left out of every reading
+PROFILE_PAD = 256
+PAD_KERNEL = "spin_kernel"
 GRAD_BATCH = 1024  # their first-step gradients, card against CPU
 # (leaf, factor) planted into the card's first-step gradients per model;
 # the check must refuse each
@@ -1491,6 +1528,59 @@ def sparse_call_split(kernel, fresh, extra, args, bound_ms) -> dict:
             "device_share_of_bound": bound_ms / split["device_ms"]}
 
 
+def segment_sumsq_split(fn, sids, cts, calls: int = 20) -> dict:
+    """One segment_sumsq call on (sids, cts) taken apart: its device time
+    by kernel and its device launches a call (launch_breakdown over
+    ``calls`` calls: kernels, fills and copies), and its host path
+    (call_split; host_us_idle_queue is one call from an idle queue).
+    Should the profiler lose a kernel event (PROFILE_PAD), a kernel's time
+    is taken per event seen, and its launches a call rounded."""
+    bd = launch_breakdown(lambda: fn(sids, cts), calls=calls)
+    by_kernel = {name: {"ms": k["ms"] / k["launches"],
+                        "launches": round(k["launches"]),
+                        "events_seen_a_call": k["launches"]}
+                 for name, k in bd["kernels"].items()}
+    return {"device_ms": sum(k["ms"] * k["launches"]
+                             for k in by_kernel.values()),
+            "by_kernel": by_kernel,
+            "launches_a_call": sum(k["launches"] for k in by_kernel.values()),
+            "call_split": call_split(lambda: fn(sids, cts))}
+
+
+def segment_sumsq_probe() -> dict:
+    """segment_sumsq alone at the table phase's shape, on uniform ids and
+    on the long runs: its rel error against the plain version and its
+    call split (segment_sumsq_split). It drives whichever deepfm_tpu_torch
+    comes first on sys.path, so one call can measure two trees:
+
+        PYTHONPATH=<tree> python -c 'import chip_smoke as c; c.segment_sumsq_probe()'
+    """
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.grad import sort_pairs
+    from deepfm_tpu_torch.ops.kernels.sparse_adam import (
+        segment_sumsq,
+        segment_sumsq_plain,
+    )
+
+    dev = torch.device(DEVICE)
+    out = {"phase": "segment_sumsq_probe",
+           "package": str(Path(sys.modules["deepfm_tpu_torch"].__file__).parent)}
+    for name, missing in (("uniform", 0), ("long_runs", LONG_RUN_FIELDS)):
+        ids, ct, *_ = table_inputs(dev, missing_fields=missing)
+        sids, cts = sort_pairs(ids, ct)
+        got = segment_sumsq(sids, cts)
+        out[name] = {
+            "rel_err": rel_err(got, segment_sumsq_plain(sids, cts)),
+            "deterministic": bool(torch.equal(got, segment_sumsq(sids, cts))),
+            "ms": time_ms(lambda: segment_sumsq(sids, cts), reps=50),
+            **segment_sumsq_split(segment_sumsq, sids, cts),
+        }
+        del ids, ct, sids, cts
+    emit(out)
+    return out
+
+
 def phase_table_kernels() -> dict:
     """The four table-update kernels at bench.py's shape."""
     import torch
@@ -1507,6 +1597,7 @@ def phase_table_kernels() -> dict:
     from deepfm_tpu_torch.ops.kernels.sparse_adam import (
         segment_sumsq,
         segment_sumsq_plain,
+        segment_sumsq_plan,
         sparse_table_adam,
         sparse_table_adam_plain,
     )
@@ -1554,20 +1645,30 @@ def phase_table_kernels() -> dict:
     add_densify_edges(rec, densify_sorted, segment_rows_plain, rows, dev)
     record("densify_rows_grad", rec)
 
-    # segment_sumsq: rel 1e-5 against the plain version, deterministic
+    # segment_sumsq: rel 1e-5 against the plain version, deterministic, one
+    # launch a call; its device time by kernel and its host path
     got = segment_sumsq(sids, cts)
     want = segment_sumsq_plain(sids, cts)
     rel = rel_err(got, want)
     same = bool(torch.equal(got, segment_sumsq(sids, cts)))
+    ssq_plan = segment_sumsq_plan(n, D)
+    ssq_split = segment_sumsq_split(segment_sumsq, sids, cts)
+    ssq_bound = mem_bound_ms(pair_bytes)
     record("segment_sumsq", {
         "value": got.item(), "plain": want.item(),
         "max_abs_err": abs(got.item() - want.item()), "rel_err": rel,
-        "deterministic": same, "ok": rel <= TABLE_TOL["scalar_rel"] and same,
+        "deterministic": same,
+        "ok": (rel <= TABLE_TOL["scalar_rel"] and same
+               and ssq_split["launches_a_call"] == 1),
         "ms": time_ms(lambda: segment_sumsq(sids, cts), reps=50),
         "plain_ms": time_ms(lambda: segment_sumsq_plain(sids, cts), reps=5, warmup=1),
         "library_ms": None,
         "library": "none: no single PyTorch call sums squares of segment sums",
-        "bound_ms": mem_bound_ms(pair_bytes), "bound_by": "bytes",
+        "plan": {**dataclasses.asdict(ssq_plan), "grid": ssq_plan.grid,
+                 "smem": ssq_plan.smem},
+        **ssq_split,
+        "device_share_of_bound": ssq_bound / ssq_split["device_ms"],
+        "bound_ms": ssq_bound, "bound_by": "bytes",
     })
 
     def fresh():
@@ -1637,6 +1738,7 @@ def phase_table_kernels() -> dict:
     rec.update(sparse_call_split(sparse_table_adam, fresh, (sids, cts), args,
                                  sparse_bound))
     ssq_ms = time_ms(lambda: segment_sumsq(sids, cts), reps=10)
+    ssq_long = segment_sumsq_split(segment_sumsq, sids, cts)
     record("long_runs", {
         "missing_fields": LONG_RUN_FIELDS, "max_run": int(run_lengths.max()),
         "unique_ids": run_lengths.numel(),
@@ -1646,6 +1748,7 @@ def phase_table_kernels() -> dict:
         "sparse_table_adam": rec,
         "densify_rows_grad_ms": time_ms(lambda: densify_sorted(sids, cts, rows), reps=10),
         "segment_sumsq_ms": ssq_ms,
+        "segment_sumsq_split": ssq_long,
         "segment_sumsq_limit_ms": LONG_RUN_SEGSQ_MS,
         "sparse_table_adam_ms": rec["ms"],
         "sparse_table_adam_over_uniform": (
@@ -1655,7 +1758,8 @@ def phase_table_kernels() -> dict:
             / out["sparse_table_adam"]["call_split"]["device_ms"]),
         "ok": (dense_equal and rec["ok"] and ssq_same
                and ssq_rel <= TABLE_TOL["scalar_rel"]
-               and ssq_ms < LONG_RUN_SEGSQ_MS),
+               and ssq_ms < LONG_RUN_SEGSQ_MS
+               and ssq_long["launches_a_call"] == 1),
     })
     del ids, ct, p, mu, nu, sids, cts
     torch.cuda.empty_cache()
@@ -1902,41 +2006,9 @@ def paper_config(device: str, compute_dtype: str = "bfloat16", **training):
 def kernel_counters():
     """Every ported kernel's wrapper, whose ``launches`` counts its kernel's
     launches."""
-    from deepfm_tpu_torch.ops.kernels.adam import fused_table_adam
-    from deepfm_tpu_torch.ops.kernels.attention import (
-        attention_block_backward,
-        attention_block_forward,
-    )
-    from deepfm_tpu_torch.ops.kernels.cin import cin_compress_layer
-    from deepfm_tpu_torch.ops.kernels.cin_stack import (
-        cin_stack_backward,
-        cin_stack_bwd_mma,
-        cin_stack_forward,
-        cin_stack_mma,
-    )
-    from deepfm_tpu_torch.ops.kernels.gather import row_gather
-    from deepfm_tpu_torch.ops.kernels.grad import densify_rows_grad
-    from deepfm_tpu_torch.ops.kernels.packed_grad import (
-        densify_rows_grad_packed,
-    )
-    from deepfm_tpu_torch.ops.kernels.sparse_adam import (
-        segment_sumsq,
-        sparse_table_adam,
-    )
+    from deepfm_tpu_torch.ops.kernels import kernel_wrappers
 
-    return {"cin_stack_fwd": cin_stack_forward,
-            "cin_stack_fwd_mma": cin_stack_mma,
-            "cin_stack_bwd": cin_stack_backward,
-            "cin_stack_bwd_mma": cin_stack_bwd_mma,
-            "cin_compress": cin_compress_layer,
-            "attention_block_fwd": attention_block_forward,
-            "attention_block_bwd": attention_block_backward,
-            "densify_rows_grad": densify_rows_grad,
-            "segment_sumsq": segment_sumsq,
-            "sparse_table_adam": sparse_table_adam,
-            "fused_table_adam": fused_table_adam,
-            "densify_rows_grad_packed": densify_rows_grad_packed,
-            "row_gather": row_gather}
+    return kernel_wrappers()
 
 
 def reset_counts() -> None:
@@ -2063,14 +2135,52 @@ def phase_grads_card_vs_cpu(small, small_arrays,
     return out
 
 
+def profile_pad() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_PAD):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def profiling():
+    """torch.profiler over the CPU and the card, the work padded on either
+    side by PROFILE_PAD kernels of PAD_KERNEL."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profile_pad()
+        yield prof
+        profile_pad()
+
+
+def profile_whole(prof) -> bool:
+    """Whether every kernel launched between a profile's pads kept its
+    device record (matched by correlation id)."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    launches = sorted((e.start_ns(), e.correlation_id()) for e in events
+                      if e.device_type() == DeviceType.CPU
+                      and "Launch" in e.name() and "Kernel" in e.name())
+    recorded = {e.correlation_id() for e in events
+                if e.device_type() == DeviceType.CUDA}
+    return all(cid in recorded
+               for _, cid in launches[PROFILE_PAD:len(launches) - PROFILE_PAD])
+
+
 def device_events(prof) -> list:
-    """The profiler's device-side events (kernels, copies, fills). A CPU
-    op or autograd node also reports the device time of the kernels it
-    launched as its own, so only these events are summed."""
+    """The profiler's device-side events (kernels, copies, fills), the
+    pads' left out. A CPU op or autograd node also reports the device time
+    of the kernels it launched as its own, so only these events are
+    summed."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and PAD_KERNEL not in e.key]
 
 
 def launch_breakdown(fn, calls: int = 3) -> dict:
@@ -2078,11 +2188,10 @@ def launch_breakdown(fn, calls: int = 3) -> dict:
     (ms) and launches a call of each device kernel, largest first, and
     their sum."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling() as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -2098,11 +2207,12 @@ def launch_breakdown(fn, calls: int = 3) -> dict:
 def step_profile(step, watch=()) -> dict:
     """torch.profiler over one warm train step: the device's busy share of
     the host wall time and the device time by kernel; for each name in
-    ``watch``, the launches of the device events whose name holds it."""
+    ``watch``, the launches of the device events whose name holds it.
+    "whole" says whether every kernel of the step kept its device record
+    (profile_whole)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling() as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -2114,6 +2224,7 @@ def step_profile(step, watch=()) -> dict:
         "wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
         "device_busy_share": device_us / wall_us if wall_us else None,
         "device_kernels": sum(e.count for e in events),
+        "whole": profile_whole(prof),
         "top_device_ms": {e.key[:70]: e.self_device_time_total / 1e3 for e in top},
         "watched": {w: sum(e.count for e in events if w in e.key)
                     for w in watch},
@@ -2533,16 +2644,29 @@ def phase_train_models() -> dict:
         torch.cuda.synchronize()
         counts = read_counts()
         # --- end of the main path ------------------------------------------
-        # AttentionDeepFM's kernels must show in every profiled step (the
-        # profiler once lost the forward kernel from a step); the further
-        # profiled steps run outside the counted window, so every model's
-        # counts cover the same WARMUP_STEPS + TIMED_STEPS + 1 steps
-        profiles += [step_profile(lambda: trainer._train_step(*batch), watch)
-                     for _ in range(PROFILED_STEPS - 1 if watch else 0)]
-        profile = profiles[0]
+        # AttentionDeepFM's kernels must show in each of PROFILED_STEPS
+        # profiled steps whose profile is whole (the profiler once lost the
+        # attention forward's record); a step whose profile lost a record is
+        # profiled again, at most PROFILE_RETRIES times (PROFILE_PAD). The
+        # further profiled steps run outside the counted window,
+        # so every model's counts cover the same WARMUP_STEPS + TIMED_STEPS
+        # + 1 steps
+        for _ in range(PROFILED_STEPS - 1 + PROFILE_RETRIES if watch else 0):
+            if sum(p["whole"] for p in profiles) == PROFILED_STEPS:
+                break
+            profiles.append(
+                step_profile(lambda: trainer._train_step(*batch), watch))
+        whole = [p for p in profiles if p["whole"]]
+        profile = whole[0] if whole else profiles[0]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steps = WARMUP_STEPS + TIMED_STEPS + 1
+        if watch and len(whole) < PROFILED_STEPS:
+            failures.append(f"{name}: {len(whole)} of {len(profiles)} "
+                            f"profiled steps kept every kernel's device "
+                            f"event, expected {PROFILED_STEPS}")
         for i, prof in enumerate(profiles):
+            if not prof["whole"]:
+                continue
             for kernel, n in prof["watched"].items():
                 if n != config.attention.num_layers:
                     failures.append(f"{name}: profiled step {i} shows {n} "
@@ -2595,6 +2719,7 @@ def phase_train_models() -> dict:
             "examples_per_s": BENCH_BATCH / (step_ms / 1e3),
             "peak_memory_gb": peak_gb, "profile_step": profile,
             "profiled_steps_watched": [p["watched"] for p in profiles],
+            "profiled_steps_whole": [p["whole"] for p in profiles],
             "profiled_steps_device_ms": [p["device_ms"] for p in profiles],
             "launches": counts, "launches_expected": expected,
             "launches_first_step_grads_f32": grad_counts,
@@ -2787,10 +2912,9 @@ def device_profile(predictor, arrays) -> dict:
     """torch.profiler over one warm predict: device time by kernel and the
     device's busy share of the host wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     predictor.predict(arrays)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling() as prof:
         t0 = time.perf_counter()
         predictor.predict(arrays)
         torch.cuda.synchronize()
@@ -2816,17 +2940,13 @@ def phase_serve(tmp: Path, config_file: str, saved_layout: str) -> dict:
 
     from deepfm_tpu_torch.cli import _build_data, _restore_predictor
     from deepfm_tpu_torch.config import load_config
-    from deepfm_tpu_torch.data.synthetic import generate_movielens_like
     from deepfm_tpu_torch.models import create_model
     from deepfm_tpu_torch.serving import ScoringService, make_http_server
     from deepfm_tpu_torch.training.persistence import load_best, save_best
     from deepfm_tpu_torch.training.predict import Predictor
 
     t0 = time.perf_counter()
-    data_dir = tmp / "ml-100k"
-    if not (data_dir / "u.data").exists():
-        generate_movielens_like(data_dir, num_users=943, num_items=1682,
-                                num_rows=100_000, seed=0)
+    data_dir = movielens_data(tmp)
     config = load_config(
         REPO / "configs" / config_file,
         [f"data.data_dir={data_dir}",
@@ -2953,6 +3073,247 @@ def phase_serve(tmp: Path, config_file: str, saved_layout: str) -> dict:
     return out
 
 
+def movielens_data(tmp: Path) -> Path:
+    """Synthetic MovieLens at ML-100K scale (943 users, 1682 items, 100,000
+    ratings), written once under ``tmp``."""
+    from deepfm_tpu_torch.data.synthetic import generate_movielens_like
+
+    data_dir = tmp / "ml-100k"
+    if not (data_dir / "u.data").exists():
+        generate_movielens_like(data_dir, num_users=943, num_items=1682,
+                                num_rows=100_000, seed=0)
+    return data_dir
+
+
+class StepTableCalls:
+    """Copies of the inputs of one train step's segment_sumsq and
+    sparse_table_adam calls, one of each a table, made by wrappers that
+    ``patched()`` puts in the step's module while a run goes on (the
+    wrappers call the kernels as the step would, so the run is unchanged).
+    A step calls segment_sumsq for every table before its first
+    sparse_table_adam call, so the first step's calls are the
+    segment_sumsq calls before any sparse_table_adam call and as many
+    sparse_table_adam calls after them."""
+
+    def __init__(self):
+        self.sumsq, self.adam = [], []
+
+    @contextlib.contextmanager
+    def patched(self):
+        import torch
+
+        from deepfm_tpu_torch.training import steps
+
+        def copy(a):
+            return a.clone() if torch.is_tensor(a) else a
+
+        real_sumsq, real_adam = steps.segment_sumsq, steps.sparse_table_adam
+
+        def sumsq(sids, cts):
+            if not self.adam:
+                self.sumsq.append((sids.clone(), cts.clone()))
+            return real_sumsq(sids, cts)
+
+        def adam(*args, **kwargs):
+            if len(self.adam) < len(self.sumsq):
+                self.adam.append(([copy(a) for a in args], dict(kwargs)))
+            return real_adam(*args, **kwargs)
+
+        steps.segment_sumsq, steps.sparse_table_adam = sumsq, adam
+        try:
+            yield self
+        finally:
+            steps.segment_sumsq, steps.sparse_table_adam = real_sumsq, real_adam
+
+
+def step_table_checks(calls: StepTableCalls) -> list:
+    """segment_sumsq and sparse_table_adam held against their plain
+    versions on the inputs of a recorded step (``StepTableCalls``): the
+    sum within TABLE_TOL["scalar_rel"] and its bits twice; the table
+    update by adam_check (moments bit for bit, p and sum(p'^2) within
+    TABLE_TOL, a second launch's bits), with each table's pairs, runs and
+    segment_sumsq plan."""
+    import functools
+
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.sparse_adam import (
+        SCAN,
+        segment_sumsq,
+        segment_sumsq_plain,
+        segment_sumsq_plan,
+        sparse_table_adam,
+        sparse_table_adam_plain,
+    )
+
+    out = []
+    for (sids, cts), (args, kwargs) in zip(calls.sumsq, calls.adam):
+        state, extra, scalars = args[:3], args[3:5], args[5:]
+        _, runs = torch.unique_consecutive(sids, return_counts=True)
+        plan = segment_sumsq_plan(*cts.shape)
+        got = segment_sumsq(sids, cts)
+        rel = rel_err(got, segment_sumsq_plain(sids, cts))
+        same = bool(torch.equal(got, segment_sumsq(sids, cts)))
+        adam = adam_check(functools.partial(sparse_table_adam, **kwargs),
+                          functools.partial(sparse_table_adam_plain, **kwargs),
+                          lambda: [t.clone() for t in state], extra, scalars)
+        adam["moments"] = str(state[1].dtype).split(".")[-1]
+        out.append({
+            "table_rows": state[0].shape[0], "width": state[0].shape[1],
+            "pairs": cts.shape[0], "columns": cts.shape[1],
+            "unique_ids": runs.numel(), "max_run": int(runs.max()),
+            "runs_past_scan": int((runs > SCAN).sum()),
+            "segment_sumsq_grid": plan.grid,
+            "segment_sumsq_staged": plan.staged,
+            "segment_sumsq_rel_err": rel,
+            "segment_sumsq_deterministic": same,
+            "sparse_table_adam": adam,
+            "ok": rel <= TABLE_TOL["scalar_rel"] and same and adam["ok"],
+        })
+    return out
+
+
+def phase_train_loop(tmp: Path) -> dict:
+    """The trainer loop on the card through the CLI's commands, at the full
+    width of configs/xdeepfm_movielens_cin_tuned.yaml (f32, CIN
+    [128,128,64] split, DNN [256,128,64] with BatchNorm, dropout 0.1,
+    batch 4096, Adam, clip 1.0, sparse-fused, 999 eval negatives) on
+    synthetic ML-100K: ``train`` for TRAIN_LOOP_EPOCHS epochs (the main
+    path), ``evaluate`` on its best checkpoint (the best epoch's val
+    metrics exactly, and the test metrics exactly where the best epoch is
+    the last), a run of 1 epoch resumed to TRAIN_LOOP_EPOCHS whose history
+    must equal the unbroken run's, and ``compare`` over both runs. The
+    resumed run's first step's table kernels are held against their plain
+    versions on that step's inputs (step_table_checks)."""
+    import io
+
+    import torch
+
+    from deepfm_tpu_torch.cli import evaluate_command, main as cli_main
+    from deepfm_tpu_torch.cli import train_command
+    from deepfm_tpu_torch.config import load_config
+
+    def config(run: str, epochs: int):
+        return load_config(REPO / "configs" / TRAIN_LOOP_CONFIG, [
+            f"data.data_dir={data_dir}", f"training.num_epochs={epochs}",
+            "training.resume=true", "device=cuda",
+            f"output_dir={tmp / 'train_loop' / run}"])
+
+    def clock_free(history):
+        return [{k: v for k, v in h.items() if k not in HISTORY_CLOCK}
+                for h in history]
+
+    data_dir = movielens_data(tmp)
+    failures = []
+
+    # --- the main path: every kernel count starts at 0 here -------------
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_command(config("whole", TRAIN_LOOP_EPOCHS))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    # --- end of the main path --------------------------------------------
+
+    out_dir = tmp / "train_loop" / "whole"
+    results = json.loads((out_dir / "results.json").read_text())
+    info = results["training_info"]
+    timings = {k: list(v) for k, v in trainer.timings.items()}
+    history = results["history"]
+    del trainer
+    free_device()
+    missing = [k for k in TRAIN_LOOP_KERNELS if k not in info["kernels"]]
+    if missing or any(launches[k] < 1 for k in TRAIN_LOOP_KERNELS):
+        failures.append(f"kernels {missing} missing from training_info "
+                        f"{info['kernels']} or not launched: {launches}")
+    finite = all(math.isfinite(h["train_loss"]) for h in history) and all(
+        math.isfinite(v) for v in results["test_metrics"].values())
+    if len(history) != TRAIN_LOOP_EPOCHS or not finite:
+        failures.append(f"history {history} or test metrics not finite")
+    if not 0.0 <= results["test_metrics"]["auc"] <= 1.0:
+        failures.append(f"test AUC {results['test_metrics']['auc']}")
+
+    t0 = time.perf_counter()
+    evaluated = evaluate_command(config("whole", TRAIN_LOOP_EPOCHS))
+    evaluate_s = time.perf_counter() - t0
+    last_is_best = info["best_epoch"] == info["total_epochs"]
+    if evaluated["val"] != results["val_metrics"]:
+        failures.append(f"evaluate's val metrics {evaluated['val']} differ "
+                        f"from the best epoch's {results['val_metrics']}")
+    if last_is_best and evaluated["test"] != results["test_metrics"]:
+        failures.append(f"evaluate's test metrics {evaluated['test']} differ "
+                        f"from train's {results['test_metrics']}")
+    free_device()
+
+    t0 = time.perf_counter()
+    calls = StepTableCalls()
+    with calls.patched():
+        first = train_command(config("resumed", 1))
+    del first
+    free_device()
+    resumed = train_command(config("resumed", TRAIN_LOOP_EPOCHS))
+    resume_s = time.perf_counter() - t0
+    resumed_history = list(resumed.history)
+    del resumed
+    free_device()
+    same_history = clock_free(resumed_history) == clock_free(history)
+    if not same_history:
+        failures.append(f"the resumed history {resumed_history} differs from "
+                        f"the unbroken run's {history}")
+
+    step_tables = step_table_checks(calls)
+    del calls
+    free_device()
+    if not step_tables or not all(t["ok"] for t in step_tables):
+        failures.append(f"the step's table kernels against their plain "
+                        f"versions: {step_tables}")
+
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        cli_main(["compare", "--dir", str(tmp / "train_loop")])
+    rows = [line for line in table.getvalue().splitlines()
+            if line.startswith(("whole", "resumed"))]
+    if len(rows) != 2:
+        failures.append(f"compare printed {table.getvalue()}")
+
+    step_s = [e - s for e, s in zip(timings["epoch_seconds"],
+                                     timings["stage_seconds"])]
+    out = {
+        "phase": "train_loop", "config": f"configs/{TRAIN_LOOP_CONFIG}",
+        "users": 943, "items": 1682, "ratings": 100_000,
+        "epochs": TRAIN_LOOP_EPOCHS, "train_s": train_s,
+        "epoch_seconds": timings["epoch_seconds"],
+        "epoch_step_seconds": step_s,
+        "epoch_stage_seconds": timings["stage_seconds"],
+        "val_eval_seconds": timings["val_seconds"],
+        "val_predict_seconds": timings["val_predict_seconds"],
+        "test_eval_seconds": timings["test_seconds"],
+        "test_predict_seconds": timings["test_predict_seconds"],
+        "examples_per_sec": [h["examples_per_sec"] for h in history],
+        "train_loss": [h["train_loss"] for h in history],
+        "val_auc": [h["val_auc"] for h in history],
+        "test_metrics": results["test_metrics"],
+        "best_epoch": info["best_epoch"],
+        "training_info_kernels": info["kernels"], "backward": info["backward"],
+        "launches": launches,
+        "evaluate_s": evaluate_s, "evaluate_reproduces_val": (
+            evaluated["val"] == results["val_metrics"]),
+        "evaluate_reproduces_test": (
+            evaluated["test"] == results["test_metrics"]),
+        "resume_s": resume_s, "resumed_history_equal": same_history,
+        "step_tables": step_tables,
+        "ok": not failures,
+    }
+    emit(out)
+    print(f"train_loop: epoch seconds {timings['epoch_seconds']}, "
+          f"examples/s {out['examples_per_sec']}, val eval seconds "
+          f"{timings['val_seconds']}, test eval seconds "
+          f"{timings['test_seconds']}", flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2989,6 +3350,7 @@ def main() -> None:
         for cfg, layout in SERVE_CONFIGS:
             serve[cfg] = timed(f"serve {cfg}", phase_serve, Path(tmp), cfg,
                                layout)
+        timed("train_loop", phase_train_loop, Path(tmp))
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     kernels = []
     # (name, source, replaces, launches on its main path, its numbers at

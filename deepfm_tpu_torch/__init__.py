@@ -2,13 +2,13 @@
 
 A package of its own beside the JAX package, which stays the reference.
 It imports torch, numpy and pyyaml, never JAX and nothing of
-``deepfm_tpu``. It serves xDeepFM (config, data pipeline, embedding
-engine, DNN, the CIN stack as a hand-written CUDA kernel, best-checkpoint
-loading, batched scoring, the HTTP scoring service and the ``serve`` /
-``synth-data`` CLI) and trains DeepFM one step at a time
-(``training/trainer.py``), with the table update in hand-written CUDA
-kernels (``ops/kernels/{grad,adam,sparse_adam}.py``). Entry points run on
-CUDA unless the caller asks for the CPU.
+``deepfm_tpu``. It trains DeepFM, xDeepFM and AttentionDeepFM
+(``training/trainer.py``: the step, the epoch loop, evaluation, resume and
+results.json) and serves xDeepFM and AttentionDeepFM, through the
+``train``, ``evaluate``, ``compare``, ``serve`` and ``synth-data``
+commands, with every TPU kernel of the JAX package rewritten by hand in
+CUDA (``csrc/``, bound by ``ops/kernels/``). Entry points run on CUDA
+unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -108,9 +108,8 @@ class TrainingConfig:
     ranking_ks: tuple[int, ...] = (1, 5, 10, 20)
     # Additions of the JAX package. The port reads compute_dtype
     # ("float32" or "bfloat16" for the dense towers; params stay f32),
-    # fused_table_adam, moments_dtype, fused_backward and stage_budget_mb
-    # (Predictor's staging); resume belongs to a later slice and is kept so
-    # configs parse.
+    # fused_table_adam, moments_dtype, fused_backward, stage_budget_mb
+    # (the trainer's and Predictor's staging) and resume (Trainer.train).
     compute_dtype: str = "float32"
     resume: bool = False
     stage_budget_mb: int = 1024

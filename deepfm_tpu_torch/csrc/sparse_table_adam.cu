@@ -68,14 +68,44 @@
 //    sum over runs of equal sorted ids of ||sum of the run's rows||^2. The
 //    TPU kernel walks the stream sequentially and contracts (c, c) pairwise
 //    Gram blocks on the MXU, carrying the open run between grid steps;
-//    blocks here run in parallel, so each run belongs to the block holding
-//    its first pair. A run of at most kLongRun pairs is summed by that
-//    pair's thread, column after column, in stream order; a longer one
-//    (its end found by a binary search) by the whole block from staged rows
-//    (staged_column_sums: each column in stream order), its squares summed
-//    by a fixed tree over the columns. Run squares are reduced per block,
-//    then summed in a fixed order. The ids are logical in both layouts.
-//    What bounds it: bytes, the pairs read once (31 MB, about 9 us).
+//    warps here run in parallel, so each run belongs to the chunk holding
+//    its first pair.
+//    What bounds it: bytes, the pairs read once (31 MB at bench.py's
+//    425,984 x 17, about 9 us at 3.35 TB/s).
+//    Design (the plan, SsqPlan, comes from ops/kernels/sparse_adam.py::
+//    segment_sumsq_plan; the launch recomputes it and refuses a mismatch):
+//     * the pairs are cut into chunks of 32 (a lane each); each warp of a
+//       grid of one wave (kSsqWarps) takes a contiguous range of chunks,
+//       the ranges one chunk apart at most, and stages the next chunk's
+//       ids (with the pair before and after it) and rows in shared memory
+//       by coalesced 16-byte cp.async while it sums this one: warps never
+//       wait on each other until the block's end;
+//     * a run belongs to the chunk holding its first pair (its head, found
+//       from the staged ids). A run that ends in its chunk is summed by its
+//       head's lane from shared memory (rows D floats apart: D odd is
+//       conflict-free), eight columns at a time, so lanes whose runs differ
+//       in length do not split the warp; one that goes on past the chunk
+//       by the warp from device memory (lane c down column c) when it ends
+//       within kSsqScan pairs; a longer one is listed and summed by the
+//       whole block after its warps, from device memory through a ring of
+//       cp.async chunks (run_square_block), its end found by a binary
+//       search. All take each column in stream order from 0.0f and add its
+//       square column after column, so a run's square has the same bits
+//       whichever sums it;
+//     * a lane adds its runs' squares in chunk order, a warp its lanes' by
+//       a shuffle tree, a block its warps' in order and then its long
+//       runs' in the order of their heads; the last block to finish, found
+//       by an integer ticket, sums the blocks' partials in index order and
+//       resets the ticket: one launch a call, no float atomics, the same
+//       bits every call. Rows too wide to stage two chunks a warp in 48 KB
+//       (`staged` = 0, D > 22) are read by the lanes from device memory.
+//    Tried and slower on an H100 (chip_smoke.segment_sumsq_probe): a block
+//    a tile of 512 pairs staged whole before its sums (0.027 ms of device
+//    time at bench.py's shape against the parent's 0.024), and blocks
+//    taking tiles of 256 in turn, staging the next while summing this one
+//    (0.028): their barriers and the lanes' split between one-pair runs
+//    and longer ones held them.
+//    The ids are logical in both table layouts.
 
 #include "table_update.cuh"
 
@@ -86,9 +116,16 @@ using namespace table_update;
 constexpr int kThreadVectors = 2;  // 16-byte vectors of p a thread, at most
 constexpr int kTileElements = kThreadVectors * kThreads * kVector;  // a tile's elements
 constexpr int kWindowFloats = 4608;  // a window of staged pairs (rows and ids)
-constexpr int kLongRun = 64;          // segment_sumsq: a longer run is summed from staged rows
-constexpr int kStages = 3;            // its staging ring: kStages chunks of
+// segment_sumsq (its plan, SsqPlan, below)
+constexpr int kSsqChunk = 32;         // pairs a chunk: a lane each
+constexpr int kSsqScan = 64;          // a run reaching further past its chunk is long
+constexpr int kSsqSmemLimit = 48 * 1024;  // a block's shared memory without an opt-in
+constexpr int kSsqWarps = 132 * 4 * kWarps;  // warps of the grid, at most: a wave of an H100
+constexpr int kSsqIds = 36;           // ids a stage buffer: the pair before, 32, the pair after (+ pad)
+constexpr int kSsqWarpChunks = 15;    // chunks a warp, at most (the grid grows past a wave)
+constexpr int kStages = 3;            // the block's staging ring: kStages chunks of
 constexpr int kStageFloats = 1536;    // kStageFloats floats each
+constexpr int kRingFloats = kStages * kStageFloats;
 
 // A table and its tiles (the plan of ops/kernels/sparse_adam.py).
 struct Tile {
@@ -124,17 +161,19 @@ inline int smem_bytes(const Tile& g) {
          4 * window_pairs(g.dcol) * (g.dcol + 1);
 }
 
-// Column sums of `count` rows of dcol floats at src (one run of pairs), each
-// column summed in stream order from 0.0f, by the whole block, kThreads
-// columns a pass: the pass's columns of the rows arrive by cp.async in a
-// ring of kStages chunks, two in flight while thread j adds column c0 + j
-// of the third. fin(c, sum) runs on column c's thread once the ring is
-// free. Every thread of the block must call it with the same arguments.
-template <class Fin>
-__device__ void staged_column_sums(const float* __restrict__ src, int count,
-                                   int dcol, float* ring, const Fin& fin) {
-  for (int c0 = 0; c0 < dcol; c0 += kThreads) {
-    const int cw = dcol - c0 < kThreads ? dcol - c0 : kThreads;  // its columns
+// ||column sums||^2 of `count` rows of D floats at src in device memory
+// (one run of pairs), by the whole block, kThreads columns a pass: each
+// column summed in stream order from 0.0f, the pass's columns of the rows
+// arriving by cp.async in a ring of kStages chunks, two in flight while
+// thread j adds column c0 + j of the third; then thread 0 adds the pass's
+// squares in column order (colbuf: kThreads floats). The result is valid
+// on thread 0. Every thread of the block must call it with the same
+// arguments.
+__device__ float run_square_block(const float* __restrict__ src, int count,
+                                  int D, float* ring, float* colbuf) {
+  float sq = 0.0f;
+  for (int c0 = 0; c0 < D; c0 += kThreads) {
+    const int cw = D - c0 < kThreads ? D - c0 : kThreads;  // its columns
     const int per = kStageFloats / cw;  // rows a chunk
     const int chunks = (count + per - 1) / per;
     const int c = c0 + threadIdx.x;
@@ -142,13 +181,13 @@ __device__ void staged_column_sums(const float* __restrict__ src, int count,
       if (k < chunks) {
         const int first = k * per;
         const int n = (count - first < per ? count - first : per) * cw;
-        const float* from = src + static_cast<int64_t>(first) * dcol + c0;
+        const float* from = src + static_cast<int64_t>(first) * D + c0;
         float* to = ring + (k % kStages) * kStageFloats;
-        if (cw == dcol) {  // whole rows: one contiguous copy
+        if (cw == D) {  // whole rows: one contiguous copy
           for (int i = threadIdx.x; i < n; i += kThreads) cp_async4(to + i, from + i);
         } else {
           for (int i = threadIdx.x; i < n; i += kThreads) {
-            cp_async4(to + i, from + static_cast<int64_t>(i / cw) * dcol + i % cw);
+            cp_async4(to + i, from + static_cast<int64_t>(i / cw) * D + i % cw);
           }
         }
       }
@@ -161,16 +200,21 @@ __device__ void staged_column_sums(const float* __restrict__ src, int count,
       cp_async_wait<1>();  // this thread's copies of chunk k
       __syncthreads();     // everyone's; and chunk k-1, in chunk k+2's slot, is summed
       issue(k + 2);
-      if (c < dcol) {
+      if (c < D) {
         const float* buf = ring + (k % kStages) * kStageFloats + threadIdx.x;
         const int rows = count - k * per < per ? count - k * per : per;
         for (int j = 0; j < rows; ++j) acc = __fadd_rn(acc, buf[j * cw]);
       }
     }
     cp_async_wait<0>();
-    __syncthreads();  // the ring is free
-    if (c < dcol) fin(c, acc);
+    if (c < D) colbuf[threadIdx.x] = acc;
+    __syncthreads();  // the ring is free, the pass's sums are in colbuf
+    if (threadIdx.x == 0) {
+      for (int j = 0; j < cw; ++j) sq = __fadd_rn(sq, __fmul_rn(colbuf[j], colbuf[j]));
+    }
+    __syncthreads();  // colbuf is read
   }
+  return sq;
 }
 
 // bounds[t] = first stream position whose id is >= min(t * rows_per_tile,
@@ -348,50 +392,278 @@ sparse_adam_kernel(float* __restrict__ p, M* __restrict__ mu,
   if (tid == 0) partials[t] = total;
 }
 
+// One segment_sumsq launch (ops/kernels/sparse_adam.py::SegmentSumsqPlan):
+// the pairs cut into chunks of kSsqChunk; a grid of `grid` blocks of
+// kWarps warps (one wave, or more where a warp would take more than
+// kSsqWarpChunks chunks), warp w taking a contiguous range of chunks (the
+// ranges differ by one chunk at most); `staged`: a chunk's rows are staged in
+// shared memory with its ids (else its lanes read their rows from device
+// memory). Shared memory, in floats: two stage buffers a warp (each the
+// chunk's rows, then kSsqIds ids), or the block path's ring and a pass of
+// column sums where larger (they reuse them); the block's list of long-run
+// heads (`cap` of them), its warps' sums and the list's count.
+struct SsqPlan {
+  int64_t n;
+  int D;
+  int staged;
+  int64_t chunks, grid, q, r;  // warp w: q chunks, one more for w < r
+  int buf_floats, region_floats, cap;
+  int64_t smem;
+};
+
+inline SsqPlan ssq_plan_of(int64_t n, int D, int staged) {
+  SsqPlan g;
+  g.n = n;
+  g.D = D;
+  g.staged = staged;
+  g.chunks = (n + kSsqChunk - 1) / kSsqChunk;
+  const int64_t blocks = (g.chunks + kWarps - 1) / kWarps;
+  const int64_t wave = kSsqWarps / kWarps;
+  const int64_t least = (g.chunks + kWarps * kSsqWarpChunks - 1) / (kWarps * kSsqWarpChunks);
+  g.grid = blocks < wave ? blocks : wave;
+  if (g.grid < least) g.grid = least;
+  if (g.grid < 1) g.grid = 1;
+  g.q = g.chunks / (g.grid * kWarps);
+  g.r = g.chunks % (g.grid * kWarps);
+  const int64_t rows = staged ? static_cast<int64_t>(kSsqChunk) * D : 0;
+  const int64_t buf = ((rows + 3) & ~int64_t{3}) + kSsqIds;
+  const int64_t bufs = 2 * kWarps * buf;
+  const int64_t ring = kRingFloats + kThreads;  // and a pass of column sums
+  const int64_t region = bufs > ring ? bufs : ring;
+  g.buf_floats = buf > (int64_t{1} << 28) ? -1 : static_cast<int>(buf);
+  g.region_floats = region > (int64_t{1} << 28) ? -1 : static_cast<int>(region);
+  // the heads of a block's long runs lie more than kSsqScan pairs apart
+  const int64_t span = kWarps * (g.q + (g.r > 0)) * kSsqChunk;
+  g.cap = static_cast<int>(span / (kSsqScan + 1) + 1);
+  g.smem = 4 * (region + ((g.cap + 3) & ~3) + kWarps + 4);
+  return g;
+}
+
+// Rows staged when two stage buffers a warp fit kSsqSmemLimit.
+inline SsqPlan ssq_plan(int64_t n, int D) {
+  const SsqPlan g = ssq_plan_of(n, D, 1);
+  return g.smem <= kSsqSmemLimit ? g : ssq_plan_of(n, D, 0);
+}
+
+// ||column sums||^2 of `count` rows of D floats at src, by one thread:
+// each column in stream order from 0.0f, its square added column after
+// column. Eight columns at a time, so that a lane whose run is one pair
+// (most are) and a lane whose run is longer take the same instructions but
+// for the trip count of the row loop: the warp does not split.
+__device__ __forceinline__ float run_square_thread(const float* src,
+                                                   int count, int D) {
+  float sq = 0.0f;
+  int c = 0;
+  for (; c + 8 <= D; c += 8) {
+    float g[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) g[i] = 0.0f;
+    for (int k = 0; k < count; ++k) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) g[i] = __fadd_rn(g[i], src[k * D + c + i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sq = __fadd_rn(sq, __fmul_rn(g[i], g[i]));
+  }
+  for (; c < D; ++c) {
+    float g = 0.0f;
+    for (int k = 0; k < count; ++k) g = __fadd_rn(g, src[k * D + c]);
+    sq = __fadd_rn(sq, __fmul_rn(g, g));
+  }
+  return sq;
+}
+
+// The same by a warp from device memory, lane c down column c (and
+// c + 32, ...), four rows' loads in flight, the squares added in column
+// order on every lane. Every lane must call it.
+__device__ __forceinline__ float run_square_warp(const float* __restrict__ src,
+                                                 int count, int D) {
+  const int lane = threadIdx.x & 31;
+  float sq = 0.0f;
+  for (int c0 = 0; c0 < D; c0 += 32) {
+    float g = 0.0f;
+    if (c0 + lane < D) {
+      const float* col = src + c0 + lane;
+      int k = 0;
+      for (; k + 4 <= count; k += 4) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = col[static_cast<int64_t>(k + i) * D];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) g = __fadd_rn(g, v[i]);
+      }
+      for (; k < count; ++k) g = __fadd_rn(g, col[static_cast<int64_t>(k) * D]);
+    }
+    const int cw = D - c0 < 32 ? D - c0 : 32;
+    for (int j = 0; j < cw; ++j) {
+      const float v = __shfl_sync(0xffffffffu, g, j);
+      sq = __fadd_rn(sq, __fmul_rn(v, v));
+    }
+  }
+  return sq;
+}
+
+// Start this lane's cp.async copies of chunk c into buf: the ids of pairs
+// 32c - 1 .. 32c + 32 (those in [0, n)) at ids[0..33], and, staged, the
+// chunk's rows, by 16-byte copies when cts is 16-byte aligned and the
+// chunk whole (its rows then start and end on 16-byte boundaries).
+__device__ __forceinline__ void stage_chunk(const int* __restrict__ sids,
+                                            const float* __restrict__ cts,
+                                            const SsqPlan& g, int64_t c,
+                                            float* buf) {
+  const int lane = threadIdx.x & 31;
+  const int64_t p0 = c * kSsqChunk;
+  const int nv = g.n - p0 < kSsqChunk ? static_cast<int>(g.n - p0) : kSsqChunk;
+  const int rows = g.staged ? ((kSsqChunk * g.D + 3) & ~3) : 0;
+  int* ids = reinterpret_cast<int*>(buf + rows);
+  for (int i = lane; i < kSsqChunk + 2; i += 32) {
+    const int64_t pos = p0 - 1 + i;
+    if (pos >= 0 && pos < g.n) cp_async4(ids + i, sids + pos);
+  }
+  if (g.staged) {
+    const float* src = cts + p0 * g.D;
+    const int total = nv * g.D;
+    if (nv == kSsqChunk && (reinterpret_cast<uintptr_t>(cts) & 15) == 0) {
+      for (int v = lane; v < total / 4; v += 32) cp_async16(buf + 4 * v, src + 4 * v);
+    } else {
+      for (int i = lane; i < total; i += 32) cp_async4(buf + i, src + i);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 segment_sumsq_kernel(const int* __restrict__ sids,
-                     const float* __restrict__ cts, int64_t n, int D,
-                     float* __restrict__ partials) {
-  __shared__ __align__(16) float ring[kStages * kStageFloats];
-  __shared__ int64_t ends[kThreads];
-  __shared__ unsigned long_heads[kWarps];
+                     const float* __restrict__ cts, const SsqPlan g,
+                     float* __restrict__ out, float* __restrict__ partials,
+                     unsigned* __restrict__ ticket) {
+  extern __shared__ __align__(16) float sm[];
   __shared__ float red[kWarps];
-  const int tid = threadIdx.x;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads;
-  const int64_t i = first + tid;
-  float sq = 0.0f;
-  bool is_long = false;
-  if (i < n && (i == 0 || sids[i] != sids[i - 1])) {
-    const int id = sids[i];
-    int64_t end = i + 1;
-    while (end < n && end - i <= kLongRun && sids[end] == id) ++end;
-    if (end < n && sids[end] == id) {
-      ends[tid] = lower_bound(sids, end, n, static_cast<int64_t>(id) + 1);
-      is_long = true;
-    } else {
-      for (int c = 0; c < D; ++c) {
-        float g = 0.0f;
-        for (int64_t k = i; k < end; ++k) g = __fadd_rn(g, cts[k * D + c]);
-        sq = __fadd_rn(sq, __fmul_rn(g, g));
+  __shared__ bool last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int D = g.D;
+  int* long_heads = reinterpret_cast<int*>(sm + g.region_floats);
+  float* warp_sums = reinterpret_cast<float*>(long_heads + ((g.cap + 3) & ~3));
+  int* nlong = reinterpret_cast<int*>(warp_sums + kWarps);
+  if (tid == 0) *nlong = 0;
+  __syncthreads();
+
+  // 1. each warp its chunks, the next one's copies in flight while this
+  // one is summed; a lane adds its runs' squares in chunk order
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  const int64_t c0 = w * g.q + (w < g.r ? w : g.r);
+  const int64_t c1 = c0 + g.q + (w < g.r ? 1 : 0);
+  float* const bufs = sm + 2 * warp * g.buf_floats;  // this warp's two
+  const int rows_floats = g.staged ? ((kSsqChunk * D + 3) & ~3) : 0;
+  float acc = 0.0f;
+  if (c0 < c1) stage_chunk(sids, cts, g, c0, bufs);
+  cp_async_commit();
+  for (int64_t c = c0, it = 0; c < c1; ++c, ++it) {
+    if (c + 1 < c1) {
+      stage_chunk(sids, cts, g, c + 1, bufs + ((it + 1) & 1) * g.buf_floats);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this chunk's copies (the next chunk's may fly)
+    __syncwarp();
+    const float* buf = bufs + (it & 1) * g.buf_floats;
+    const int* ids = reinterpret_cast<const int*>(buf + rows_floats) + 1;
+    const int64_t p0 = c * kSsqChunk;
+    const int nv = g.n - p0 < kSsqChunk ? static_cast<int>(g.n - p0) : kSsqChunk;
+    const int id = lane < nv ? ids[lane] : 0;
+    const bool head = lane < nv && (p0 + lane == 0 || ids[lane - 1] != id);
+    const unsigned heads = __ballot_sync(0xffffffffu, head);
+    // the next head, or the chunk's end; a run reaching the end goes on
+    // when the pair after the chunk has its id
+    const unsigned after = lane < 31 ? heads >> (lane + 1) : 0u;
+    const int e = after ? lane + __ffs(after) : nv;
+    const bool goes_on = head && e == nv && p0 + nv < g.n && ids[nv] == id;
+    if (head && !goes_on) {
+      const float* src = g.staged ? buf + lane * D : cts + (p0 + lane) * D;
+      acc = __fadd_rn(acc, run_square_thread(src, e - lane, D));
+    }
+    // a run going on past the chunk (its last head): its end within
+    // kSsqScan pairs by the warp, from device memory, else a long run
+    const unsigned on = __ballot_sync(0xffffffffu, goes_on);
+    if (on != 0u) {
+      const int owner = __ffs(on) - 1;
+      const int run_id = __shfl_sync(0xffffffffu, id, owner);
+      const int64_t a = p0 + owner;
+      int64_t end = -1;
+      for (int64_t b = p0 + kSsqChunk; b < p0 + kSsqChunk + kSsqScan; b += 32) {
+        const int64_t j = b + lane;
+        const unsigned ended = __ballot_sync(0xffffffffu, j >= g.n || sids[j] != run_id);
+        if (ended != 0u) {
+          end = b + __ffs(ended) - 1;
+          break;
+        }
+      }
+      if (end >= 0) {
+        const float sq = run_square_warp(cts + a * D, static_cast<int>(end - a), D);
+        if (lane == owner) acc = __fadd_rn(acc, sq);
+      } else if (lane == 0) {
+        long_heads[atomicAdd(nlong, 1)] = static_cast<int>(a);
       }
     }
+    __syncwarp();  // the buffer is read: the chunk after next may take it
   }
-  const unsigned heads = __ballot_sync(0xffffffffu, is_long);
-  if ((tid & 31) == 0) long_heads[tid >> 5] = heads;
-  __syncthreads();
-  for (int w = 0; w < kWarps; ++w) {
-    for (unsigned h = long_heads[w]; h != 0u; h &= h - 1u) {
-      const int j = w * 32 + __ffs(h) - 1;
-      const int64_t a = first + j;
-      float part = 0.0f;  // this thread's columns' squares
-      staged_column_sums(cts + a * D, static_cast<int>(ends[j] - a), D, ring,
-                         [&](int, float v) { part = __fadd_rn(part, __fmul_rn(v, v)); });
-      const float run_sq = block_total(part, red);
-      if (tid == j) sq = run_sq;
+  cp_async_wait_all();
+  // the warp's sum: a shuffle tree over its lanes
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, o));
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();  // every warp done: the stage buffers may hold the ring
+
+  // 2. the block's sum: its warps' in order, then its long runs in the
+  // order of their heads, each summed by the block from device memory
+  const int count = *nlong;
+  if (tid == 0) {  // the heads in stream order (few: each run is long)
+    for (int i = 1; i < count; ++i) {
+      const int v = long_heads[i];
+      int k = i - 1;
+      while (k >= 0 && long_heads[k] > v) {
+        long_heads[k + 1] = long_heads[k];
+        --k;
+      }
+      long_heads[k + 1] = v;
     }
   }
-  const float total = block_total(sq, red);
-  if (tid == 0) partials[blockIdx.x] = total;
+  __syncthreads();
+  float part = 0.0f;
+  if (tid == 0) {
+    for (int k = 0; k < kWarps; ++k) part = __fadd_rn(part, warp_sums[k]);
+  }
+  for (int i = 0; i < count; ++i) {
+    const int64_t a = long_heads[i];
+    const int64_t end = lower_bound(sids, a + 1, g.n, static_cast<int64_t>(sids[a]) + 1);
+    const float sq = run_square_block(cts + a * D, static_cast<int>(end - a), D,
+                                      sm, sm + kRingFloats);
+    if (tid == 0) part = __fadd_rn(part, sq);
+  }
+
+  // 3. the last block to finish sums the blocks' partials in index order
+  if (tid == 0) {
+    partials[blockIdx.x] = part;
+    __threadfence();  // the partial before the ticket
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    float s = 0.0f;
+    int64_t i = tid;
+    for (; i + 3 * kThreads < gridDim.x; i += 4 * kThreads) {  // 4 loads in flight
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[k] = __ldcg(partials + i + k * kThreads);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s = __fadd_rn(s, v[k]);
+    }
+    for (; i < gridDim.x; i += kThreads) s = __fadd_rn(s, __ldcg(partials + i));
+    const float all = block_total(s, red);
+    if (tid == 0) {
+      out[0] = all;
+      *ticket = 0u;  // ready for the next call
+    }
+  }
 }
 
 template <typename M, bool kPacked>
@@ -482,23 +754,28 @@ extern "C" int sparse_table_adam_launch(float* p, void* mu, void* nu,
 }
 
 // segment_sumsq_launch: sids (n,) int32 sorted; cts (n, D) f32 in the same
-// order; partials scratch of ceil(n / 256) f32; out:
-// one f32.
+// order; staged, threads, smem and grid: the caller's plan
+// (segment_sumsq_plan), refused (cudaErrorInvalidValue) unless it is this
+// file's; scratch: 1 + grid f32, scratch[0] receives the sum, the rest
+// holds the blocks' partials; ticket: one unsigned, 0 before the call and
+// after it (calls that share a ticket must not overlap: one stream).
 extern "C" int segment_sumsq_launch(const int* sids, const float* cts,
-                                    long long n, int D, float* partials,
-                                    float* out, void* stream) {
+                                    long long n, int D, int staged,
+                                    int threads, int smem, long long grid,
+                                    float* scratch, unsigned* ticket,
+                                    void* stream) {
   if (D < 1 || n < 0 || n > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    segment_sumsq_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        sids, cts, n, D, partials);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  const SsqPlan g = ssq_plan(n, D);
+  if (staged != g.staged || threads != kThreads || smem != g.smem ||
+      grid != g.grid || g.smem > kSsqSmemLimit) {
+    return (int)cudaErrorInvalidValue;
   }
-  final_sum_kernel<<<1, kThreads, 0, s>>>(partials, blocks, out);
+  segment_sumsq_kernel<<<static_cast<unsigned>(g.grid), kThreads,
+                         static_cast<size_t>(g.smem),
+                         static_cast<cudaStream_t>(stream)>>>(
+      sids, cts, g, scratch, scratch + 1, ticket);
   return (int)cudaGetLastError();
 }
 

@@ -234,6 +234,14 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                : "memory");
 }
 
+// 16 bytes; dst and src 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -136,6 +136,14 @@ class MovieLensAdapter:
             raise RuntimeError("Call build() first")
         return self._assemble_train()
 
+    def rng_state(self) -> dict:
+        """The state of the RNG the resamples draw from (a resume
+        checkpoint carries it)."""
+        return self._rng.bit_generator.state
+
+    def set_rng_state(self, state: dict) -> None:
+        self._rng.bit_generator.state = state
+
     def score_interactions(
         self, path
     ) -> tuple[TabularDataset, np.ndarray, int]:

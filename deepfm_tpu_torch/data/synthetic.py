@@ -186,6 +186,14 @@ class SyntheticCTRAdapter:
     def resample_train(self) -> TabularDataset:
         return self._sample(self.config.synthetic_num_rows)
 
+    def rng_state(self) -> dict:
+        """The state of the RNG the resamples draw from (a resume
+        checkpoint carries it)."""
+        return self._rng.bit_generator.state
+
+    def set_rng_state(self, state: dict) -> None:
+        self._rng.bit_generator.state = state
+
 
 def build_adapter(config: DataConfig, seed: int = 0):
     """Dataset registry: name -> adapter instance."""

@@ -1,6 +1,7 @@
 """MLP tower: Linear -> (BatchNorm) -> activation -> dropout, stacked.
 
-Port of ``deepfm_tpu/ops/dnn.py``. BatchNorm follows
+Port of ``deepfm_tpu/ops/dnn.py``. Dropout draws from an explicit generator
+(``Dropout``). BatchNorm follows
 ``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` (``BatchNorm`` below):
 batch statistics in training, running averages in eval. Layers are named
 ``dense_{i}`` / ``bn_{i}`` as in the JAX tree; torch's Linear stores its
@@ -56,6 +57,26 @@ class BatchNorm(nn.BatchNorm1d):
             + self.bias
 
 
+class Dropout(nn.Module):
+    """Inverted dropout (``nn.Dropout``'s arithmetic) whose mask is drawn
+    from ``generator``: a ``torch.Generator`` on the input's device that
+    the trainer owns, seeds from ``config.seed`` and carries in its resume
+    checkpoint (``Trainer.dropout_generator``); PyTorch's global generator
+    while none is set. The masks are PyTorch's, not the JAX package's."""
+
+    def __init__(self, p: float) -> None:
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                              generator=self.generator)
+        return x * keep * (1.0 / (1.0 - self.p))
+
+
 def torch_linear(
     in_dim: int, out_dim: int, generator: torch.Generator
 ) -> nn.Linear:
@@ -92,7 +113,7 @@ class DNN(nn.Module):
         self.hidden_units = tuple(hidden_units)
         self.use_batch_norm = use_batch_norm
         self.compute_dtype = compute_dtype
-        self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
+        self.dropout = Dropout(dropout) if dropout > 0 else nn.Identity()
         for i, out_dim in enumerate(hidden_units):
             setattr(self, f"dense_{i}", torch_linear(in_dim, out_dim, g))
             if use_batch_norm:

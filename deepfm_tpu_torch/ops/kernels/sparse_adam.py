@@ -30,9 +30,17 @@ sum in the tile).
 rows||^2, the ||g||^2 term of the sparsely assembled clip norm
 sumsq(g + wd*p) = sumsq(g) + 2*wd*<g, p> + wd^2*sumsq(p). Bounded by
 reading the pairs once (31 MB, about 9 us). The TPU kernel's (c, c)
-pairwise Gram blocks are an MXU artifact; each run here is summed in
-stream order, by one thread, or by the block from staged rows past
-``LONG_RUN`` pairs (fault 3: one thread walked 16,384-pair runs).
+pairwise Gram blocks are an MXU artifact. Here the pairs are cut into
+chunks of 32 (``segment_sumsq_plan``); each warp of a grid of at most one
+wave takes a contiguous range of chunks, staging the next chunk's ids and
+rows in shared memory by 16-byte ``cp.async`` while it sums this one. A
+run that ends in its chunk is summed by its head's lane; one that goes on
+past the chunk by the warp from device memory, or, reaching more than
+``SCAN`` pairs further, by the block after its warps (fault 3: one thread
+walked 16,384-pair runs). Each takes every column in stream order from 0
+and adds its square column after column, so a run's square has the same
+bits on every path. The last block to finish (an integer ticket) sums
+the blocks' partials in order: one launch a call.
 
 Both reduce their scalar per block into partials and then in a fixed
 order, with no float atomics: the same inputs give the same bits.
@@ -46,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -70,7 +79,14 @@ SOURCE = "sparse_table_adam.cu"
 THREADS = 256  # kThreads: threads a block
 TILE_ELEMENTS = 2 * THREADS * VECTOR  # kTileElements: two vectors a thread
 WINDOW_FLOATS = 4608  # kWindowFloats: a window of staged pairs
-LONG_RUN = 64  # kLongRun: segment_sumsq sums a longer run from staged rows
+# segment_sumsq (its constants of the same names, kSsq...)
+CHUNK = 32  # kSsqChunk: pairs a chunk, a lane each
+SCAN = 64  # kSsqScan: a run reaching further past its chunk is long
+SSQ_SMEM_LIMIT = 48 * 1024  # a block's shared memory without an opt-in
+SSQ_WARPS = 132 * 4 * 8  # kSsqWarps: warps of the grid, at most (an H100 wave)
+SSQ_IDS = 36  # kSsqIds: ids a stage buffer (the pair before, 32, the one after)
+WARP_CHUNKS = 15  # kSsqWarpChunks: chunks a warp, at most
+RING_FLOATS = 3 * 1536  # kRingFloats: the block path's staging ring
 
 
 def tile_rows(width: int) -> int:
@@ -144,18 +160,116 @@ def sparse_adam_plan(rows: int, width: int, dcol: int, pack: int,
     return plan
 
 
+@dataclasses.dataclass(frozen=True)
+class SegmentSumsqPlan:
+    """One segment_sumsq launch (``SsqPlan`` in csrc/sparse_table_adam.cu):
+    the pairs cut into chunks of CHUNK; a grid of blocks of THREADS threads
+    (8 warps; one wave, more where a warp would take more than WARP_CHUNKS
+    chunks), warp w taking chunks [w * q + min(w, r), ...), q of them and
+    one more for w < r, staging the next chunk while it sums this one;
+    ``staged``: a chunk's rows are staged in shared memory with its ids
+    (else its lanes read their rows from device memory)."""
+
+    n: int
+    d: int
+    staged: bool
+    threads: int = THREADS
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.n // CHUNK)
+
+    @property
+    def warps(self) -> int:
+        return self.threads // 32
+
+    @property
+    def grid(self) -> int:
+        """One wave of blocks, or more where a warp would take more than
+        WARP_CHUNKS chunks (which bounds a block's long runs)."""
+        blocks = -(-self.chunks // self.warps)
+        least = -(-self.chunks // (self.warps * WARP_CHUNKS))
+        return max(1, min(blocks, SSQ_WARPS // self.warps), least)
+
+    @property
+    def warp_chunks(self) -> tuple[int, int]:
+        """(q, r): warp w takes q chunks, one more for w < r."""
+        return divmod(self.chunks, self.grid * self.warps)
+
+    @property
+    def buffer_floats(self) -> int:
+        """A stage buffer: the chunk's rows (a multiple of 4 floats), then
+        SSQ_IDS ids."""
+        rows = -(-(CHUNK * self.d) // 4) * 4 if self.staged else 0
+        return rows + SSQ_IDS
+
+    @property
+    def cap(self) -> int:
+        """Long-run heads a block can hold: they lie more than SCAN pairs
+        apart in its chunks."""
+        q, r = self.warp_chunks
+        return self.warps * (q + (r > 0)) * CHUNK // (SCAN + 1) + 1
+
+    @property
+    def smem(self) -> int:
+        """Bytes: two stage buffers a warp, or the block path's ring and a
+        pass of column sums where larger (they reuse them); the long-run
+        heads (a multiple of 4), the warps' sums and a count."""
+        region = max(2 * self.warps * self.buffer_floats,
+                     RING_FLOATS + self.threads)
+        return 4 * (region + -(-self.cap // 4) * 4 + self.warps + 4)
+
+    @property
+    def scratch(self) -> int:
+        """Floats of the call's scratch: the sum, then a partial a block."""
+        return 1 + self.grid
+
+
+@functools.lru_cache(maxsize=64)
+def segment_sumsq_plan(n: int, d: int) -> SegmentSumsqPlan:
+    """The plan of a segment_sumsq launch over ``n`` sorted pairs of ``d``
+    columns: rows staged where two stage buffers a warp fit
+    SSQ_SMEM_LIMIT, else read from device memory. The C launch recomputes
+    it and refuses a mismatch; raises ValueError where the kernel cannot
+    take the pairs (d < 1, or n outside [0, 2^31))."""
+    if d < 1 or not 0 <= n < 2 ** 31:
+        raise ValueError(
+            f"segment_sumsq takes 0 <= n < 2^31 pairs of at least 1 column, "
+            f"got {n} pairs of {d}")
+    plan = SegmentSumsqPlan(n, d, True)
+    return plan if plan.smem <= SSQ_SMEM_LIMIT else SegmentSumsqPlan(
+        n, d, False)
+
+
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """segment_sumsq's ticket for calls on ``stream`` of ``device``: one
+    zeroed int32, which each call's last block resets to 0. Calls on one
+    stream run one after another; calls on two streams may overlap, so
+    each stream has its own ticket."""
+    t = _tickets.get((device.index, stream))
+    if t is None:
+        t = _tickets[(device.index, stream)] = torch.zeros(
+            1, dtype=torch.int32, device=device)
+    return t
+
+
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "sparse_table_adam_launch": [
         _P, _P, _P, _I, _LL, _I, _I, _I, _P, _P, _LL, _P, _F, _F, _F, _F, _I,
         _I, _I, _P, _P, _P, _P,
     ],
-    "segment_sumsq_launch": [_P, _P, _LL, _I, _P, _P, _P],
+    "segment_sumsq_launch": [_P, _P, _LL, _I, _I, _I, _I, _LL, _P, _P, _P],
 }
 
 __all__ = [
     "segment_sumsq",
     "segment_sumsq_plain",
+    "segment_sumsq_plan",
+    "SegmentSumsqPlan",
     "SparseAdamPlan",
     "sort_pairs",
     "sparse_adam_plan",
@@ -194,7 +308,8 @@ def segment_sumsq_plain(sids: torch.Tensor, cts: torch.Tensor) -> torch.Tensor:
 def segment_sumsq(sids: torch.Tensor, cts: torch.Tensor) -> torch.Tensor:
     """sum_r ||sum_{i: sids[i] == r} cts[i]||^2 for SORTED ids, as an f32
     0-dim tensor. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (or raises)."""
+    launches the kernel (or raises): one launch and one allocation a call.
+    Calls on one stream share a ticket (``_ticket``)."""
     if cts.device.type == "cpu":
         return segment_sumsq_plain(sids, cts)
     if cts.device.type != "cuda":
@@ -202,19 +317,20 @@ def segment_sumsq(sids: torch.Tensor, cts: torch.Tensor) -> torch.Tensor:
     _check_pairs(sids, cts)
     sids, cts = sids.contiguous(), cts.contiguous()
     n, d = cts.shape
-    blocks = -(-n // THREADS)
-    partials = torch.empty(max(blocks, 1), dtype=torch.float32,
-                           device=cts.device)
-    out = torch.empty((), dtype=torch.float32, device=cts.device)
+    plan = segment_sumsq_plan(n, d)
+    scratch = torch.empty(plan.scratch, dtype=torch.float32,
+                          device=cts.device)
     lib = build.bind(SOURCE, _SIGNATURES)
+    stream = build.stream_of(cts)
     with torch.cuda.device(cts.device):
         err = lib.segment_sumsq_launch(
-            sids.data_ptr(), cts.data_ptr(), n, d, partials.data_ptr(),
-            out.data_ptr(), build.stream_of(cts),
+            sids.data_ptr(), cts.data_ptr(), n, d, int(plan.staged),
+            plan.threads, plan.smem, plan.grid, scratch.data_ptr(),
+            _ticket(cts.device, stream).data_ptr(), stream,
         )
     build.check(lib, SOURCE, "segment_sumsq", err)
     segment_sumsq.launches += 1
-    return out
+    return scratch[0]
 
 
 segment_sumsq.launches = 0

@@ -1,3 +1,4 @@
-"""Training: the DeepFM train step (``trainer.py``, ``steps.py``,
-``optim.py``, ``sparse_opt.py``), best-checkpoint persistence and batched
-prediction. The epoch loop, eval and resume come with a later slice."""
+"""Training: the trainer and its epoch loop (``trainer.py``), the train
+step (``steps.py``, ``optim.py``, ``sparse_opt.py``), schedulers, metrics,
+engagement telemetry, persistence (best checkpoints, resume, results.json)
+and batched prediction."""

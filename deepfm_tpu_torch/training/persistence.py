@@ -1,29 +1,52 @@
-"""Best-checkpoint persistence (port of the best-model part of
-``deepfm_tpu/training/persistence.py``).
+"""Trainer persistence: best checkpoints, resume and results.json.
 
-``save_best`` writes ``output_dir/best_model.pt`` (the model's
-``state_dict``) and ``output_dir/best_model_meta.json``, which records the
-model's table layout. ``load_best`` reads them back into a live model on
-its own device, layout-portable: it detects the saved tables' layout from
-their shapes (``utils/layout.py::tree_layout``) and converts them to the
-live model's, so a packed checkpoint serves under a logical config and the
-reverse. ``recompute_table_psq`` re-derives a trainer's carried sums of
-squares after a load (``Trainer.load_best`` does both). Resume checkpoints
-and results.json come with the trainer-loop slice.
+Port of ``deepfm_tpu/training/persistence.py``, with ``torch.save`` files
+for its Orbax checkpoints:
+
+* ``save_best`` writes ``output_dir/best_model.pt`` (the model's
+  ``state_dict``) and ``output_dir/best_model_meta.json``, which records
+  the model's table layout. ``load_best`` reads them back into a live
+  model on its own device, layout-portable: it detects the saved tables'
+  layout from their shapes (``utils/layout.py::tree_layout``) and converts
+  them to the live model's, so a packed checkpoint serves under a logical
+  config and the reverse. ``recompute_table_psq`` re-derives a trainer's
+  carried sums of squares after a load (``Trainer.load_best`` does both).
+* ``save_resume`` / ``try_resume``: mid-training resume.
+  ``output_dir/last_state.pt`` holds the model's ``state_dict``, the
+  ``OptState``, the table moments, the step count and the RNG states a
+  resumed run needs to repeat an unbroken one (dropout's generator, the
+  shuffle's and the adapter's); ``last_state_meta.json`` has the JAX
+  package's keys. A resume refuses a checkpoint of another table layout,
+  ``fused_table_adam`` resolution or scheduler type (the state's structure
+  follows them), casts the saved moments to this run's ``moments_dtype``
+  and recomputes the carried table sums of squares.
+* ``save_results_file``: results.json, the reference's contract (reference:
+  deepfm/training/trainer.py:171-195), with the JAX package's top-level
+  and ``training_info`` keys (throughput and engagement telemetry).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
+from datetime import datetime
 from pathlib import Path
 
 import torch
 
 from deepfm_tpu_torch.models.base import CTRModel
+from deepfm_tpu_torch.training.optim import OptState
+from deepfm_tpu_torch.training.schedulers import set_lr
+from deepfm_tpu_torch.training.sparse_opt import TableSlotState
+from deepfm_tpu_torch.training.telemetry import trainer_engagement
+from deepfm_tpu_torch.utils.io import save_results
 from deepfm_tpu_torch.utils.layout import convert_table_tree, tree_layout
 
 CHECKPOINT = "best_model.pt"
 META = "best_model_meta.json"
+RESUME = "last_state.pt"
+RESUME_META = "last_state_meta.json"
 
 
 def save_best(
@@ -33,12 +56,12 @@ def save_best(
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save(state, out / CHECKPOINT)
-    (out / META).write_text(json.dumps({
+    _save(state, out / CHECKPOINT)
+    save_results({
         "epoch": epoch,
         "best_metric": best_metric,
         "table_layout": model.table_layout,
-    }, indent=2))
+    }, out / META)
     return out / CHECKPOINT
 
 
@@ -64,10 +87,164 @@ def recompute_table_psq(trainer) -> None:
     """Re-derive the carried sum(p^2) of every table after a restore that
     replaced the tables (the sparse-fused update otherwise keeps them
     current as a by-product of each step)."""
-    if trainer.state.table_psq is None:
+    if not trainer.sparse_fused:
         return
     params = trainer.params
     with torch.no_grad():
         trainer.state.table_psq = {
             n: torch.sum(params[n].detach() ** 2) for n in trainer.table_names
         }
+
+
+def _save(obj, path: Path) -> None:
+    """torch.save to a temporary file, then rename: a reader never sees
+    half a checkpoint."""
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _cpu(x):
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+
+def save_resume(
+    trainer,
+    epoch: int,
+    best_metric: float,
+    best_epoch: int,
+    best_metrics: dict,
+    patience_counter: int,
+) -> None:
+    if not trainer.config.training.resume:
+        return
+    st = trainer.state
+    ckpt = {
+        "model": _cpu(trainer.model.state_dict()),
+        "opt_state": {f.name: _cpu(getattr(st.opt_state, f.name))
+                      for f in dataclasses.fields(OptState)},
+        "step": _cpu(st.step),
+        "table_opt": None if st.table_opt is None else {
+            n: {"mu": _cpu(s.mu), "nu": _cpu(s.nu)}
+            for n, s in st.table_opt.items()},
+        "dropout_rng": trainer.dropout_generator.get_state(),
+        "shuffle_rng": trainer.np_rng.bit_generator.state,
+        "adapter_rng": trainer._adapter_rng_state,
+    }
+    trainer.output_dir.mkdir(parents=True, exist_ok=True)
+    _save(ckpt, trainer.output_dir / RESUME)
+    save_results(
+        {
+            "epoch": epoch,
+            "best_metric": best_metric,
+            "best_epoch": best_epoch,
+            "best_metrics": best_metrics,
+            "patience_counter": patience_counter,
+            "scheduler": trainer.scheduler.state_dict(),
+            "scheduler_type": type(trainer.scheduler).__name__,
+            "history": trainer.history,
+            # the state's structure follows these two resolutions:
+            # recorded so that a mismatched resume fails with a message
+            "table_layout": trainer.model.table_layout,
+            "fused_table_adam": trainer.fused_tables,
+        },
+        trainer.output_dir / RESUME_META,
+    )
+
+
+def _refuse_mismatch(trainer, meta: dict) -> None:
+    layout = trainer.model.table_layout
+    saved_layout = meta.get("table_layout")
+    if saved_layout is not None and saved_layout != layout:
+        raise ValueError(
+            f"Cannot resume: checkpoint tables are {saved_layout} but the "
+            f"model uses {layout} (optimizer moments follow the table "
+            f"layout). Set pallas.table_layout={saved_layout} to resume "
+            f"this run, or start fresh. (best_model checkpoints DO convert "
+            f"across layouts — only mid-training resume is layout-pinned.)"
+        )
+    saved_fused = meta.get("fused_table_adam")
+    if saved_fused is not None and saved_fused != trainer.fused_tables:
+        raise ValueError(
+            f"Cannot resume: checkpoint was written with "
+            f"fused_table_adam={saved_fused} but this run resolves it to "
+            f"{trainer.fused_tables} (the optimizer states differ). Match "
+            f"training.fused_table_adam, or start fresh."
+        )
+    saved_sched = meta.get("scheduler_type")
+    sched = type(trainer.scheduler).__name__
+    if saved_sched is not None and saved_sched != sched:
+        raise ValueError(
+            f"Cannot resume: checkpoint was written with scheduler "
+            f"{saved_sched} but this run uses {sched} (their states are "
+            f"incompatible). Match training.scheduler, or start fresh."
+        )
+
+
+def try_resume(trainer) -> dict | None:
+    """Restore the last epoch's state from ``output_dir`` into the trainer;
+    returns the checkpoint's metadata, or None when there is none."""
+    path = trainer.output_dir / RESUME
+    meta_path = trainer.output_dir / RESUME_META
+    if not path.exists() or not meta_path.exists():
+        return None
+    meta = json.loads(meta_path.read_text())
+    _refuse_mismatch(trainer, meta)
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    dev = trainer.device
+
+    def to_dev(x):
+        if isinstance(x, dict):
+            return {k: to_dev(v) for k, v in x.items()}
+        return x.to(dev)
+
+    trainer.model.load_state_dict(ckpt["model"])
+    st = trainer.state
+    st.opt_state = OptState(**to_dev(ckpt["opt_state"]))
+    st.step = ckpt["step"].to(dev)
+    if ckpt["table_opt"] is not None:
+        # moments may have been saved under another training.moments_dtype
+        mdt = getattr(torch, trainer.config.training.moments_dtype)
+        st.table_opt = {
+            n: TableSlotState(mu=s["mu"].to(dev, mdt), nu=s["nu"].to(dev, mdt))
+            for n, s in ckpt["table_opt"].items()}
+    trainer.dropout_generator.set_state(ckpt["dropout_rng"])
+    trainer.np_rng.bit_generator.state = ckpt["shuffle_rng"]
+    if ckpt["adapter_rng"] is not None and trainer.adapter is not None:
+        trainer.adapter.set_rng_state(ckpt["adapter_rng"])
+        trainer._adapter_rng_state = ckpt["adapter_rng"]
+    trainer.epoch = meta["epoch"]
+    trainer.scheduler.load_state_dict(meta["scheduler"])
+    trainer.history = meta.get("history", [])
+    set_lr(st.opt_state, trainer.scheduler.lr)
+    recompute_table_psq(trainer)
+    trainer.logger.info(f"Resumed from epoch {meta['epoch']}")
+    return meta
+
+
+def save_results_file(
+    trainer,
+    val_metrics: dict[str, float],
+    test_metrics: dict[str, float],
+    best_epoch: int,
+    total_epochs: int,
+) -> None:
+    results = {
+        "run_id": trainer.output_dir.name,
+        "timestamp": datetime.now().isoformat(timespec="seconds"),
+        "config": trainer.config.to_dict(),
+        "val_metrics": val_metrics,
+        "test_metrics": test_metrics,
+        "training_info": {
+            "best_epoch": best_epoch,
+            "total_epochs": total_epochs,
+            **trainer.throughput,
+            **trainer_engagement(trainer, since=trainer._launches_at_start),
+        },
+        "history": trainer.history,
+    }
+    save_results(results, trainer.output_dir / "results.json")
+    trainer.logger.info(
+        f"Results saved to {trainer.output_dir / 'results.json'}")

@@ -24,8 +24,8 @@ both, so the sort and ``segment_sumsq`` do not see the layout; the table
 update takes the table's ``pack``. A packed table's sums of squares (the
 clip norm's, the carried ``table_psq``) run over the whole packed table,
 whose dead lanes are 0. Both fused paths share ``chain_second_half``.
-Dropout draws from PyTorch's generator, so with dropout > 0 the masks
-differ from the JAX package's.
+Dropout draws from the trainer's generator (``Trainer.dropout_generator``),
+so with dropout > 0 the masks differ from the JAX package's.
 """
 
 from __future__ import annotations

@@ -1,0 +1,41 @@
+"""Engagement telemetry: which backward path and kernels a Trainer used.
+
+Port of ``deepfm_tpu/training/telemetry.py::trainer_engagement``: a
+JSON-ready dict recorded in results.json's ``training_info``, with the same
+keys. ``backward`` is the label ``_backward_path`` gives for the same gates
+(the port has no mesh and no ``lazy_adam``). ``kernels`` does not come from
+the gates: it lists the port's CUDA kernels whose launch counters
+(``ops/kernels/__init__.py::launch_counts``) rose since ``since``, so it
+records what ran. It is empty on the CPU, where every wrapper takes its
+plain version. The JAX package's ``lowered_kernel_names`` and
+``expected_mosaic_kernels`` read TPU HLO and are not ported.
+"""
+
+from __future__ import annotations
+
+from deepfm_tpu_torch.ops.kernels import launch_counts
+
+__all__ = ["trainer_engagement"]
+
+
+def _backward_path(trainer) -> str:
+    """The JAX package's label for the trainer's resolved path."""
+    if trainer.sparse_fused:
+        return "sparse_fused"
+    if trainer.fused_tables:
+        return "fused_two_pass"
+    return "plain_optax"
+
+
+def trainer_engagement(trainer, since: dict[str, int] | None = None) -> dict:
+    """The trainer's backward path, the kernels launched since the counts
+    ``since`` (every kernel launched so far when None), its table layout
+    and its mesh (None: one device)."""
+    since = since or {}
+    return {
+        "backward": _backward_path(trainer),
+        "kernels": [name for name, count in launch_counts().items()
+                    if count > since.get(name, 0)],
+        "table_layout": trainer.model.table_layout,
+        "mesh": None,
+    }

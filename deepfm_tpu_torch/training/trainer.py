@@ -1,13 +1,21 @@
-"""The train step's state, gates and trainer.
+"""The trainer: the train step's state and gates, and the epoch loop.
 
-Port of ``deepfm_tpu/training/trainer.py``: ``TrainState``,
+Port of ``deepfm_tpu/training/trainer.py`` on one device: ``TrainState``,
 ``_is_table_name``, the gates ``_use_fused_table_adam`` /
-``sparse_fused_eligible`` and the ``Trainer``'s state construction and
-``_train_step`` — the seam
-``bench.py`` times — and its learning-rate scheduler (built as the JAX
-``Trainer`` builds it: the first step runs at ``scheduler.lr``). The epoch
-loop (and with it the schedulers' epoch steps), eval, staging, the mesh
-and checkpoints come with later slices (ROADMAP queue 1 items 3 and 10).
+``sparse_fused_eligible``, and the ``Trainer`` with the reference's
+constructor (train, val and test data, the adapter, ``rng_seed``): its
+state construction, ``_train_step`` (``training/steps.py``; the seam
+``bench.py`` times), ``_chunk_plan`` (the JAX shuffle stream, padding with
+weight 0, chunks capped by ``stage_budget_mb``), ``_train_epoch`` (chunks
+staged to the device one ahead, at most two resident, losses summed on the
+device with one host read a chunk), ``predict`` / ``evaluate`` (on
+``training/predict.py::Predictor``) and ``train``: per-epoch negative
+resampling prefetched on a worker thread, the learning-rate scheduler
+stepped once an epoch on the val metric (the first epoch runs at
+``scheduler.lr``), early stopping, best checkpoints, resume, throughput and
+history, an optional ``torch.profiler`` trace (``profile.trace_dir``), and
+the final test evaluation on the last epoch's state and results.json
+(``training/persistence.py``). The mesh waits for ROADMAP queue 1 item 10.
 
 The gates are resolved from the config alone, on every device: the CPU
 runs each kernel's plain version, so the tests take the same paths as the
@@ -22,26 +30,43 @@ on both table layouts (``pallas.table_layout``); the sparse-fused one also
 on the logical layout, where the JAX package needs packed tables. The
 TPU's width gate (128 // (d+1) > 1) and its f32-exact id limit do not
 apply and are dropped.
+
+Dropout draws from ``Trainer.dropout_generator`` (seeded from the seed,
+carried by the resume checkpoint with the shuffle's and the adapter's RNG
+states, so a resumed run repeats an unbroken one); its masks are
+PyTorch's, not the JAX package's.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
 
 from deepfm_tpu_torch.config import ExperimentConfig
-from deepfm_tpu_torch.data.packing import PackedSchema
+from deepfm_tpu_torch.data.packing import PackedArrays, PackedSchema
 from deepfm_tpu_torch.device import resolve_device
 from deepfm_tpu_torch.models.base import CTRModel
+from deepfm_tpu_torch.ops.dnn import Dropout
+from deepfm_tpu_torch.ops.kernels import launch_counts
+from deepfm_tpu_torch.training.metrics import (
+    compute_auc,
+    compute_calibration,
+    compute_logloss,
+    grouped_ranking_metrics,
+)
 from deepfm_tpu_torch.training.optim import OptState, build_optimizer
+from deepfm_tpu_torch.training.predict import Predictor
 from deepfm_tpu_torch.training.schedulers import build_scheduler, set_lr
 from deepfm_tpu_torch.training.sparse_opt import (
     TableSlotState,
     init_table_state,
 )
+from deepfm_tpu_torch.utils.logging import get_logger
 
 @dataclass
 class TrainState:
@@ -92,16 +117,42 @@ def sparse_fused_eligible(config: ExperimentConfig,
 
 class Trainer:
     """Trains a CTR model on one device (``config.device``: the GPU unless
-    the config asks for the CPU)."""
+    the config asks for the CPU). The data and the adapter are needed by
+    ``train`` only; a trainer built without them takes steps
+    (``_train_step``) and evaluates."""
 
-    def __init__(self, model: CTRModel, packed_schema: PackedSchema,
-                 config: ExperimentConfig) -> None:
+    def __init__(
+        self,
+        model: CTRModel,
+        packed_schema: PackedSchema,
+        config: ExperimentConfig,
+        train_data: PackedArrays | None = None,
+        val_data: PackedArrays | None = None,
+        test_data: PackedArrays | None = None,
+        adapter: Any | None = None,
+        rng_seed: int | None = None,
+    ) -> None:
         _refuse_lazy(config)
         self.scheduler = build_scheduler(config.training)
         self.config = config
         self.packed_schema = packed_schema
+        self.train_data = train_data
+        self.val_data = val_data
+        self.test_data = test_data
+        self.adapter = adapter
+        self.logger = get_logger("deepfm_tpu_torch.trainer")
+        self.output_dir = Path(config.output_dir)
         self.device = resolve_device(config.device)
         self.model = model.to(self.device)
+        seed = config.seed if rng_seed is None else rng_seed
+        self.np_rng = np.random.default_rng(seed)  # the epochs' shuffles
+        self.dropout_generator = torch.Generator(device=self.device)
+        self.dropout_generator.manual_seed(seed)
+        for m in self.model.modules():
+            if isinstance(m, Dropout):
+                m.generator = self.dropout_generator
+        self.predictor = Predictor(self.model, packed_schema, config,
+                                   device=self.device)
         self.fused_tables = _use_fused_table_adam(config)
         self.sparse_fused = (sparse_fused_eligible(config, packed_schema)
                              and not model.embedding.gather_kernel)
@@ -121,6 +172,24 @@ class Trainer:
         from deepfm_tpu_torch.training.steps import build_train_step
 
         self._step_fn = build_train_step(self)
+        self.epoch = 0
+        self.throughput: dict[str, float] = {}
+        # per-epoch records (train loss, lr, val metrics, throughput),
+        # shipped under results.json "history" and carried across resume
+        self.history: list[dict] = []
+        # where each epoch's seconds went (host clock): staging, the val
+        # evaluation and its scoring (the rest is the metrics' numpy); and
+        # the final test evaluation's
+        self.timings: dict[str, list[float]] = {
+            "epoch_seconds": [], "stage_seconds": [], "val_seconds": [],
+            "val_predict_seconds": [], "test_seconds": [],
+            "test_predict_seconds": []}
+        self._predict_seconds = 0.0
+        self._stage_seconds = 0.0
+        self._launches_at_start: dict[str, int] | None = None
+        # the adapter's RNG state before the next epoch's resample (what a
+        # resume from the end of the current epoch restores)
+        self._adapter_rng_state = None
 
     @property
     def params(self) -> dict[str, torch.nn.Parameter]:
@@ -141,16 +210,18 @@ class Trainer:
                                for n in self.table_names}
         return state
 
-    def load_best(self, output_dir) -> dict:
-        """Load a best checkpoint (either table layout) into the live model
-        and re-derive the carried table sums of squares; returns the
-        checkpoint's metadata."""
+    def load_best(self, output_dir=None) -> dict:
+        """Load a best checkpoint (either table layout; ``output_dir``
+        defaults to the config's) into the live model and re-derive the
+        carried table sums of squares; returns the checkpoint's
+        metadata."""
         from deepfm_tpu_torch.training.persistence import (
             load_best,
             recompute_table_psq,
         )
 
-        meta = load_best(self.model, output_dir)
+        meta = load_best(self.model,
+                         self.output_dir if output_dir is None else output_dir)
         recompute_table_psq(self)
         return meta
 
@@ -170,3 +241,274 @@ class Trainer:
             self._as_tensor(labels, torch.float32),
             self._as_tensor(weights, torch.float32),
         )
+
+    # ------------------------------------------------------------------
+    # staging
+    # ------------------------------------------------------------------
+
+    def _budget_batches(self, data: PackedArrays, batch_size: int) -> int:
+        """How many batches fit the staging budget (>= 1)."""
+        return self.predictor.budget_batches(data, batch_size)
+
+    def _chunk_plan(self, data: PackedArrays, batch_size: int, *,
+                    shuffle: bool, drop_remainder: bool):
+        """Yield (num_batches, host_arrays) chunks of the (shuffled,
+        padded) epoch without staging them: the JAX ``Trainer``'s batches
+        for the same ``np_rng`` state (ids, dense, labels and weights, the
+        padding's weight 0), in chunks of at most ``_budget_batches``. Lazy:
+        only the chunk being built holds host memory."""
+        n = len(data)
+        order = np.arange(n)
+        if shuffle:
+            self.np_rng.shuffle(order)
+        if drop_remainder and n >= batch_size:
+            usable = (n // batch_size) * batch_size
+            order = order[:usable]
+        nb = -(-len(order) // batch_size)
+        pad = nb * batch_size - len(order)
+        weights = np.ones(len(order), np.float32)
+        if pad:
+            order = np.concatenate([order, np.zeros(pad, np.int64)])
+            weights = np.concatenate([weights, np.zeros(pad, np.float32)])
+
+        chunk_nb = max(1, min(nb, self._budget_batches(data, batch_size)))
+
+        for start in range(0, nb, chunk_nb):
+            cb = min(chunk_nb, nb - start)
+            sl = order[start * batch_size : (start + cb) * batch_size]
+            wl = weights[start * batch_size : (start + cb) * batch_size]
+            yield cb, (
+                data.ids[sl].reshape(cb, batch_size, -1),
+                data.dense[sl].reshape(cb, batch_size, -1),
+                data.labels[sl].reshape(cb, batch_size),
+                wl.reshape(cb, batch_size),
+            )
+
+    def _stage(self, arrays) -> tuple[torch.Tensor, ...]:
+        """A chunk's host arrays on the device: ids as int64, the rest f32."""
+        dtypes = (torch.int64, torch.float32, torch.float32, torch.float32)
+        t0 = time.perf_counter()
+        out = tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device, non_blocking=True).to(dt)
+            for a, dt in zip(arrays, dtypes)
+        )
+        self._stage_seconds += time.perf_counter() - t0
+        return out
+
+    # ------------------------------------------------------------------
+    # training loop
+    # ------------------------------------------------------------------
+
+    def _train_epoch(self) -> tuple[float, int]:
+        """One epoch over ``train_data``; returns the mean loss over its
+        batches and its example count."""
+        tc = self.config.training
+        n = len(self.train_data)
+        drop = n >= tc.batch_size  # keep BN stats clean of padded rows
+        plan = self._chunk_plan(self.train_data, tc.batch_size, shuffle=True,
+                                drop_remainder=drop)
+        # chunk i + 1 is staged while chunk i's steps run; before staging
+        # chunk i + 2 the host reads chunk i's loss, so at most two staged
+        # chunks are on the device, whatever the epoch's size
+        nxt = next(plan, None)
+        staged_next = self._stage(nxt[1]) if nxt is not None else None
+        nb, losses, prev_loss = 0, [], None
+        while nxt is not None:
+            cb = nxt[0]
+            staged, staged_next = staged_next, None
+            chunk_loss = None
+            for i in range(cb):
+                loss = self._train_step(*(a[i] for a in staged))
+                chunk_loss = loss if chunk_loss is None else chunk_loss + loss
+            staged = None  # released once its steps have run
+            nxt = next(plan, None)
+            if nxt is not None:
+                if prev_loss is not None:
+                    float(prev_loss)
+                staged_next = self._stage(nxt[1])
+            losses.append(chunk_loss)
+            prev_loss = chunk_loss
+            nb += cb
+        total_loss = sum(float(x) for x in losses)
+        n_examples = (nb * tc.batch_size if drop
+                      else min(n, nb * tc.batch_size))
+        return total_loss / max(nb, 1), n_examples
+
+    def train(self) -> dict[str, float]:
+        """The epoch loop (see the module docstring); returns the best
+        epoch's val metrics."""
+        from deepfm_tpu_torch.training import persistence
+
+        tc = self.config.training
+        best_metric = -float("inf")
+        best_epoch = 0
+        patience_counter = 0
+        best_metrics: dict[str, float] = {}
+        self._launches_at_start = launch_counts()
+        if tc.resume:
+            resumed = persistence.try_resume(self)
+            if resumed:
+                best_metric = resumed.get("best_metric", best_metric)
+                best_epoch = resumed.get("best_epoch", 0)
+                best_metrics = resumed.get("best_metrics", {})
+                patience_counter = resumed.get("patience_counter", 0)
+        epoch = self.epoch
+
+        profiler = None
+        if self.config.profile.trace_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            profiler = profile(activities=activities)
+            profiler.start()
+
+        # The per-epoch resample runs on the host; the next epoch's is
+        # prefetched on a worker thread while this epoch trains. One
+        # resample an epoch, in order, so the adapter's RNG stream is the
+        # synchronous sequence's.
+        resample_pool = resample_future = None
+        resample = self.adapter is not None and hasattr(
+            self.adapter, "resample_train")
+        if resample and tc.num_epochs - epoch > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            resample_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="resample")
+        try:
+            for epoch in range(epoch + 1, tc.num_epochs + 1):
+                self.epoch = epoch
+                if resample and epoch > 1:
+                    ds = (resample_future.result()
+                          if resample_future is not None
+                          else self.adapter.resample_train())
+                    resample_future = None
+                    self.train_data = ds.pack(self.packed_schema)
+                if resample:
+                    self._adapter_rng_state = self.adapter.rng_state()
+                if resample_pool is not None and epoch < tc.num_epochs:
+                    resample_future = resample_pool.submit(
+                        self.adapter.resample_train)
+
+                self._stage_seconds = 0.0
+                t0 = time.perf_counter()
+                train_loss, n_examples = self._train_epoch()
+                dt = time.perf_counter() - t0
+                eps = n_examples / max(dt, 1e-9)
+                self.throughput = {
+                    "examples_per_sec": eps,
+                    "epoch_seconds": dt,
+                    "num_devices": 1,
+                    "examples_per_sec_per_device": eps,
+                }
+                ref_eps = self.config.benchmark.reference_eps
+                if ref_eps > 0:
+                    self.throughput["scaling_efficiency"] = eps / ref_eps
+
+                t1 = time.perf_counter()
+                val_metrics = self.evaluate(self.val_data, "val")
+                val_seconds = time.perf_counter() - t1
+                for key, v in (("epoch_seconds", dt),
+                               ("stage_seconds", self._stage_seconds),
+                               ("val_seconds", val_seconds),
+                               ("val_predict_seconds", self._predict_seconds)):
+                    self.timings[key].append(v)
+                current = val_metrics.get(tc.metric,
+                                          val_metrics.get("auc", 0.0))
+                self.logger.info(
+                    f"Epoch {epoch}/{tc.num_epochs}  "
+                    f"train_loss={train_loss:.4f}  "
+                    f"val_auc={val_metrics.get('auc', 0):.4f}  "
+                    f"val_logloss={val_metrics.get('logloss', 0):.4f}  "
+                    f"lr={self.scheduler.lr:.2e}  "
+                    f"ex/s={eps:,.0f}  epoch_s={dt:.2f} "
+                    f"(staging {self._stage_seconds:.2f})  "
+                    f"val_s={val_seconds:.2f}"
+                )
+                self.history.append({
+                    "epoch": epoch,
+                    "train_loss": float(train_loss),
+                    "lr": float(self.scheduler.lr),
+                    "epoch_seconds": dt,
+                    "examples_per_sec": eps,
+                    **{f"val_{k}": v for k, v in val_metrics.items()},
+                })
+
+                set_lr(self.state.opt_state, self.scheduler.step(current))
+
+                if current > best_metric:
+                    best_metric = current
+                    best_epoch = epoch
+                    patience_counter = 0
+                    best_metrics = val_metrics
+                    persistence.save_best(self.model, self.output_dir,
+                                          epoch, best_metric)
+                    self.logger.info(
+                        f"  -> New best {tc.metric}={current:.4f}, saved "
+                        f"checkpoint")
+                else:
+                    patience_counter += 1
+                    if patience_counter >= tc.early_stopping_patience:
+                        self.logger.info(
+                            f"Early stopping at epoch {epoch} (no "
+                            f"improvement for {tc.early_stopping_patience} "
+                            f"epochs)")
+                        break
+                persistence.save_resume(self, epoch, best_metric, best_epoch,
+                                        best_metrics, patience_counter)
+        finally:
+            if resample_pool is not None:
+                # join an in-flight resample: the worker draws from the
+                # adapter's RNG, which a later resample in this process
+                # must find where the synchronous sequence leaves it
+                resample_pool.shutdown(wait=True, cancel_futures=True)
+            if profiler is not None:
+                profiler.stop()
+                trace = Path(self.config.profile.trace_dir)
+                trace.mkdir(parents=True, exist_ok=True)
+                profiler.export_chrome_trace(str(trace / "trace.json"))
+
+        self.logger.info("--- Final evaluation on test set ---")
+        t1 = time.perf_counter()
+        test_metrics = self.evaluate(self.test_data, "test")
+        self.timings["test_seconds"].append(time.perf_counter() - t1)
+        self.timings["test_predict_seconds"].append(self._predict_seconds)
+        for k, v in test_metrics.items():
+            self.logger.info(f"  test_{k} = {v:.4f}")
+        persistence.save_results_file(self, best_metrics, test_metrics,
+                                      best_epoch, epoch)
+        return best_metrics
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+
+    def predict(self, data: PackedArrays) -> np.ndarray:
+        """Sigmoid probabilities for every row of ``data``, in order
+        (``Predictor.predict``: chunks of ``stage_budget_mb``, one host
+        fetch a chunk)."""
+        return self.predictor.predict(data)
+
+    def evaluate(self, data: PackedArrays,
+                 split_name: str = "eval") -> dict[str, float]:
+        """The reference's metric dict: AUC (0.0 for a single class),
+        logloss, calibration and, where the rows carry user ids, the
+        grouped ranking metrics at ``training.ranking_ks``."""
+        t0 = time.perf_counter()
+        scores = self.predict(data)  # ends in a host fetch
+        self._predict_seconds = time.perf_counter() - t0
+        labels = data.labels
+        metrics: dict[str, float] = {}
+        try:
+            metrics["auc"] = compute_auc(labels, scores)
+        except ValueError:
+            metrics["auc"] = 0.0
+        metrics["logloss"] = compute_logloss(labels, scores)
+        metrics.update(compute_calibration(labels, scores))
+        if data.user_ids is not None:
+            metrics.update(grouped_ranking_metrics(
+                data.user_ids, scores, labels,
+                self.config.training.ranking_ks))
+        return metrics

@@ -201,7 +201,11 @@ def test_sparse_table_adam_long_runs_and_offsets_on_cuda(moments, pack):
     boundary: every element scalar): mu and nu bit for bit against the
     plain version, p within 1e-6, psq rel 1e-5, the same bits twice, and
     packed equal to the logical kernel on the unpacked state."""
-    from deepfm_tpu_torch.ops.kernels.sparse_adam import LONG_RUN, window_pairs
+    from deepfm_tpu_torch.ops.kernels.sparse_adam import (
+        CHUNK,
+        SCAN,
+        window_pairs,
+    )
 
     dev = _cuda()
     mdt = getattr(torch, moments)
@@ -211,8 +215,8 @@ def test_sparse_table_adam_long_runs_and_offsets_on_cuda(moments, pack):
     n = 20_000
     ids = rng.integers(0, rows, n).astype(np.int32)
     ids[:5000] = 0
-    ids[5000:5001 + LONG_RUN] = 1234  # segment_sumsq: one past its short path
-    ids[6000:6000 + LONG_RUN] = 4321  # its longest short run
+    ids[5000:5001 + CHUNK] = 1234  # segment_sumsq: a run past its chunk
+    ids[6000:6000 + CHUNK + SCAN + 1] = 4321  # a long run (past SCAN)
     ids[7000:8000] = rows - 1
     ids[9000:9001 + window_pairs(D)] = 2345  # one pair more than a window
     ct = rng.normal(size=(n, D)).astype(np.float32)
@@ -261,7 +265,7 @@ def test_sparse_kernels_take_wide_rows_on_cuda(dcol):
     """The widest logical rows sparse table Adam takes, 511 columns (a tile
     of 8 rows, 9 pairs a window) and 4096 (a tile of one row, one pair a
     window; segment_sumsq sums its columns in 16 passes), with a run
-    longer than LONG_RUN and than a window: mu and nu
+    longer than a window (and, for segment_sumsq, long): mu and nu
     bit for bit against the plain version, p within 1e-6, psq and the
     segment sums rel 1e-5, the same bits twice."""
     dev = _cuda()
