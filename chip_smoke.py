@@ -6,7 +6,8 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
   build      compile every CUDA kernel of the port from csrc/ (nvcc, one
-             process per source, all at once), print the card's name
+             process per source, all at once) and the native negative
+             sampler (g++, native/sampler.cc), print the card's name
              and power limit as nvidia-smi reports them and the attention
              forward's and backward's, cin_compress's, the bf16 CIN-stack
              forward's and backward's, fused_table_adam's, the row
@@ -150,6 +151,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
              f32, the first-step gradients on the card against the CPU,
              with a planted fault that must be refused (layer 1's dW taken
              from the wrong hidden state);
+  train_baselines  the ablation baselines lr, fm and dnn (DNN [512,256,128]
+             with BatchNorm) at bench.py's full width and config on the
+             sparse-fused path, each timed and profiled as train_models,
+             segment_sumsq and sparse_table_adam launched once a table a
+             step and fused_table_adam never, and at 20k ids per field, f32,
+             each model's first-step gradients on the card against the CPU
+             with a planted fault (GRAD_FAULTS) that must be refused;
+  train_lazy DeepFM with training.optimizer: lazy_adam at the same width on
+             logical and packed tables, timed and profiled: the lookup's
+             backward (densify_rows_grad, or densify_rows_grad_packed on
+             packed tables) launched once a table a step, and no
+             sparse_table_adam, segment_sumsq or fused_table_adam; then 2
+             steps at 20k ids per field in f32 on the card against the CPU
+             (training/parity.py, the untouched rows to rtol / atol);
   serve      the port's serving path at full width: synthetic MovieLens
              at ML-100K scale, xDeepFM from
              configs/xdeepfm_movielens_cin_tuned.yaml and AttentionDeepFM
@@ -177,6 +192,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
              at batch 4096 and its state) are kept, and each kernel is
              held there against its plain version (TABLE_TOL), twice for
              the same bits;
+  predict_recommend  `predict` over the synthetic u.data and `recommend`
+             for one user on train_loop's output directory, on the card (the
+             f32 CIN-stack forward launched) and with device=cpu: the same
+             kept rows with scores within SERVE_TOL, the same top-K items
+             (ties of equal printed score aside);
+  packed_store  `synth-packed` at configs/deepfm_criteo_packed.yaml's
+             geometry (2M train rows, 26 fields of 100,000 ids), then `train`
+             with that config for 1 of its 3 epochs from the memory-mapped
+             store (segment_sumsq and sparse_table_adam once a table a step,
+             results.json's keys, epoch seconds and examples/s), then
+             `pack-data` of train_loop's MovieLens data, which must load
+             back equal to the adapter's arrays;
   kernels    one line listing every ported kernel with its launch count
              on the path that runs it (serve for the f32 CIN-stack
              forward, the xDeepFM train step for the bf16 CIN-stack
@@ -453,8 +480,25 @@ GRAD_BATCH = 1024  # their first-step gradients, card against CPU
 # (leaf, factor) planted into the card's first-step gradients per model;
 # the check must refuse each
 GRAD_FAULTS = {"xdeepfm": ("cin.conv_1_kernel", 1.05),
-               "attention_deepfm": ("attention.block_0.wo", -1.0)}
+               "attention_deepfm": ("attention.block_0.wo", -1.0),
+               "lr": ("bias", 1.05),
+               "fm": ("embedding.table_w16", 1.05),
+               "dnn": ("dnn.dense_1.weight", 1.05)}
 DEVICE = "cuda"  # the card the table-kernel and train phases run on
+# the ablation baselines (models/baselines.py), trained at bench.py's width
+BASELINE_MODELS = ("lr", "fm", "dnn")
+# lazy_adam's table layouts, and the densify kernel each one's lookup
+# backward launches
+LAZY_DENSIFY = {"logical": "densify_rows_grad",
+                "packed": "densify_rows_grad_packed"}
+# configs/deepfm_criteo_packed.yaml's store: its data_dir names 2M train
+# rows; synth-packed's default 26 fields of 100,000 ids
+PACKED_STORE_CONFIG = "deepfm_criteo_packed.yaml"
+PACKED_STORE_ROWS = 2_000_000
+PACKED_STORE_EPOCHS = 1  # cut from the config's 3
+RESULTS_KEYS = {"run_id", "timestamp", "config", "val_metrics",
+                "test_metrics", "training_info", "history"}
+RECOMMEND_USER, RECOMMEND_K = 20, 10
 
 
 def emit(obj: dict) -> None:
@@ -486,11 +530,15 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def phase_build() -> str:
+    from deepfm_tpu_torch.native import sampler
     from deepfm_tpu_torch.ops.kernels import build
 
     t0 = time.perf_counter()
     logs = build.build()
     seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler_lib = sampler.build()  # the native negative sampler (g++)
+    sampler_s = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -513,7 +561,9 @@ def phase_build() -> str:
         for line in ptxas.get(src, []):
             print(f"ptxas {src}: {line}", flush=True)
     emit({"phase": "build", "seconds": seconds,
-          "sources": sorted(logs), "gpu": gpu, "ptxas": ptxas})
+          "sources": sorted(logs), "gpu": gpu, "ptxas": ptxas,
+          "native_sampler": sampler_lib.name,
+          "native_sampler_seconds": sampler_s})
     return gpu
 
 
@@ -2046,19 +2096,22 @@ def first_step_grads(packed, arrays, device: str, cfg):
     ids, dense, labels, weights = batch_on(arrays, torch.device(device))
     loss = weighted_bce(model(ids, dense)[:, 0], labels, weights)
     names, params = zip(*model.named_parameters())
-    grads = torch.autograd.grad(loss, params)
+    # a leaf the model does not use (a baseline's) has a gradient of 0
+    grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                materialize_grads=True)
     return loss.item(), {n: g.detach().cpu() for n, g in zip(names, grads)}
 
 
-def grad_check(got: dict, want: dict) -> dict:
+def grad_check(got: dict, want: dict, zero_gradient=None) -> dict:
     """Per leaf, max|got - want| over max|want| and ||got - want|| over
-    ||want|| (a BN-fed Dense bias over its layer weight's), held to
-    GRAD_MAX_REL and GRAD_NORM_REL."""
+    ||want|| (a leaf of exact gradient 0, such as a BN-fed Dense bias,
+    over its reference's: ``training/parity.py``, with the model's
+    ``zero_gradient`` leaves), held to GRAD_MAX_REL and GRAD_NORM_REL."""
     from deepfm_tpu_torch.training.parity import zero_gradient_reference
 
     max_rel, norm_rel, failed = {}, {}, []
     for name, w in want.items():
-        scale_of = zero_gradient_reference(name) or name
+        scale_of = zero_gradient_reference(name, zero_gradient) or name
         diff = got[name] - w
         ref = want[scale_of]
         max_rel[name] = diff.abs().max().item() / max(ref.abs().max().item(), 1e-30)
@@ -2094,12 +2147,16 @@ def phase_grads_card_vs_cpu(small, small_arrays,
     ``cfg`` (f32) replaces bench.py's config; ``planted`` = (name, a
     context manager factory) replaces the faults with the card's gradients
     taken again inside that context."""
+    from deepfm_tpu_torch.models import create_model
+
     if cfg is None:
         cfg = bench_config("cpu", compute_dtype="float32",
                            model_name=model_name, pallas=pallas)
+    zero = create_model(cfg.model_name, small, cfg,
+                        device="cpu").zero_gradient_leaves
     cpu_loss, want = first_step_grads(small, small_arrays, "cpu", cfg)
     card_loss, got = first_step_grads(small, small_arrays, DEVICE, cfg)
-    out = grad_check(got, want)
+    out = grad_check(got, want, zero)
     out["loss_rel_err"] = rel_err(card_loss, cpu_loss)
     table = next(n for n in got if "table_w" in n)
     if planted is not None:
@@ -2124,7 +2181,7 @@ def phase_grads_card_vs_cpu(small, small_arrays,
                    {**got, leaf: got[leaf] * factor}),)
     controls = {}
     for name, fault in faults:
-        c = grad_check(fault, want)
+        c = grad_check(fault, want, zero)
         controls[name] = {"failed_leaves": c["failed_leaves"],
                           "worst_max_rel": c["worst_max_rel"],
                           "worst_norm_rel": c["worst_norm_rel"],
@@ -3314,6 +3371,425 @@ def phase_train_loop(tmp: Path) -> dict:
     return out
 
 
+def main_path(trainer, batch, watch=()) -> dict:
+    """A trainer's main path with every kernel count at 0 when it starts:
+    WARMUP_STEPS steps, TIMED_STEPS timed steps (host clock, each ending in
+    a synchronisation) and one profiled step (step_profile); returns the
+    losses, the step times, the profile and the launch counts."""
+    import torch
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer._train_step(*batch).item()
+              for _ in range(WARMUP_STEPS)]
+    times = timed_steps(trainer, batch)
+    profile = step_profile(lambda: trainer._train_step(*batch), watch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    losses.append(trainer._train_step(*batch).item())
+    step_ms = 1e3 * statistics.median(times)
+    return {
+        "losses": losses, "step_ms_median": step_ms,
+        "step_ms_min": 1e3 * min(times), "step_ms_max": 1e3 * max(times),
+        "timed_steps": TIMED_STEPS, "step_ms_all": [1e3 * t for t in times],
+        "examples_per_s": BENCH_BATCH / (step_ms / 1e3),
+        "device_ms": profile["device_ms"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "profile_step": profile, "launches": counts,
+        "steps": WARMUP_STEPS + TIMED_STEPS + 1,
+    }
+
+
+def check_launches(name: str, counts: dict, expected: dict,
+                   failures: list) -> None:
+    for kernel, n in expected.items():
+        if counts[kernel] != n:
+            failures.append(f"{name}: {kernel} launched {counts[kernel]} "
+                            f"times, expected {n}")
+
+
+def phase_train_baselines(gpu: str) -> dict:
+    """The ablation baselines (lr, fm, dnn: models/baselines.py) at
+    bench.py's full width and config on the default sparse-fused path,
+    each model's steps its own main path: segment_sumsq and
+    sparse_table_adam once a table a step, fused_table_adam never; then
+    each model's first-step gradients at 20k ids per field, f32, on the
+    card against the CPU, with a planted fault (GRAD_FAULTS) that must be
+    refused."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    packed, arrays = bench_workload(BENCH_VOCAB)
+    batch = batch_on(arrays, torch.device(DEVICE))
+    small, small_arrays = bench_workload(SMALL_VOCAB)
+    tables = len(packed.lookup_groups)
+    results, failures = {}, []
+    for name in BASELINE_MODELS:
+        t0 = time.perf_counter()
+        config = bench_config(DEVICE, model_name=name)
+        model = create_model(name, packed, config, device=DEVICE)
+        trainer = Trainer(model, packed, config)
+        setup_s = time.perf_counter() - t0
+        if trainer.path != "sparse_fused":
+            failures.append(f"{name}: the default config took the "
+                            f"{trainer.path} path")
+        # --- this model's main path: counts start at 0 in main_path ------
+        run = main_path(trainer, batch)
+        # --- end of the main path ------------------------------------------
+        steps = run["steps"]
+        expected = {"segment_sumsq": steps * tables,
+                    "sparse_table_adam": steps * tables,
+                    "fused_table_adam": 0}
+        check_launches(name, run["launches"], expected, failures)
+        if not all(map(math.isfinite, run["losses"])):
+            failures.append(f"{name}: a loss is not finite: {run['losses']}")
+        n_params = sum(p.numel() for p in model.parameters())
+        del trainer, model
+        free_device()
+        grads = phase_grads_card_vs_cpu(small, small_arrays, name)
+        if not grads["ok"]:
+            failures.append(f"{name}: first-step gradients: the card differs "
+                            f"from the CPU, or a planted fault passed: {grads}")
+        rec = {
+            "phase": "train_baselines", "model": name, "card": gpu,
+            "path": "sparse_fused", "batch": BENCH_BATCH,
+            "fields": BENCH_FIELDS, "vocab": BENCH_VOCAB,
+            "n_params": n_params, "compute_dtype": "bfloat16",
+            "moments_dtype": "bfloat16", "setup_s": setup_s, **run,
+            "launches_expected": expected,
+            "first_step_grads_card_vs_cpu_20k_f32": grads,
+            "tol": {"grad_max_rel": GRAD_MAX_REL,
+                    "grad_norm_rel": GRAD_NORM_REL,
+                    "cpu_loss_rel": TRAIN_TOL["cpu_loss_rel"]},
+        }
+        rec["ok"] = not [f for f in failures if f.startswith(name)]
+        emit(rec)
+        print(f"train_baselines {name}: step ms {rec['step_ms_median']:.3f} "
+              f"(host clock), device ms {rec['device_ms']:.3f} ({gpu})",
+              flush=True)
+        results[name] = rec
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
+def phase_train_lazy(gpu: str) -> dict:
+    """DeepFM with training.optimizer: lazy_adam at bench.py's full width,
+    on logical and on packed tables, each layout's steps its own main path:
+    the table gradient densified by its lookup's backward
+    (densify_rows_grad, or densify_rows_grad_packed on packed tables) once
+    a table a step, and no sparse_table_adam, segment_sumsq or
+    fused_table_adam; then 2 steps at 20k ids per field in f32 on the card
+    and on the CPU, held by training/parity.py's rule (the card's f32
+    gradient parts from the CPU's at ReLU kinks, so without the share
+    limit, the rows the batch did not touch to rtol / atol, moments
+    included)."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.parity import compare_leaves
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    packed, arrays = bench_workload(BENCH_VOCAB)
+    batch = batch_on(arrays, torch.device(DEVICE))
+    small, small_arrays = bench_workload(SMALL_VOCAB)
+    tables = len(packed.lookup_groups)
+    results, failures = {}, []
+    for layout, densify in LAZY_DENSIFY.items():
+        tag = f"lazy {layout}"
+        pallas = {"table_layout": layout}
+        t0 = time.perf_counter()
+        config = bench_config(DEVICE, pallas=pallas, optimizer="lazy_adam")
+        model = create_model("deepfm", packed, config, device=DEVICE)
+        trainer = Trainer(model, packed, config)
+        setup_s = time.perf_counter() - t0
+        moments = {str(s.mu.dtype) for s in trainer.state.table_opt.values()}
+        if trainer.path != "lazy" or moments != {"torch.float32"}:
+            failures.append(f"{tag}: path {trainer.path}, moments {moments}")
+        # --- this layout's main path: counts start at 0 in main_path -----
+        run = main_path(trainer, batch)
+        # --- end of the main path ------------------------------------------
+        steps = run["steps"]
+        other = next(k for k in LAZY_DENSIFY.values() if k != densify)
+        expected = {densify: steps * tables, other: 0,
+                    "sparse_table_adam": 0, "segment_sumsq": 0,
+                    "fused_table_adam": 0}
+        check_launches(tag, run["launches"], expected, failures)
+        if not all(map(math.isfinite, run["losses"])):
+            failures.append(f"{tag}: a loss is not finite: {run['losses']}")
+        del trainer, model
+        free_device()
+
+        trainers = {}
+        for device in ("cpu", DEVICE):
+            cfg = bench_config(device, compute_dtype="float32", pallas=pallas,
+                               optimizer="lazy_adam")
+            m = create_model("deepfm", small, cfg, device="cpu")
+            trainers[device] = Trainer(m, small, cfg)
+        got_l, want_l = [], []
+        for _ in range(2):
+            got_l.append(trainers[DEVICE]._train_step(
+                *batch_on(small_arrays, torch.device(DEVICE))).item())
+            want_l.append(trainers["cpu"]._train_step(
+                *batch_on(small_arrays, torch.device("cpu"))).item())
+        cpu_model = trainers["cpu"].model
+        rows = cpu_model.embedding.local_ids(0, torch.from_numpy(
+            small_arrays.ids)).reshape(-1)
+        pack = cpu_model.embedding.table_pack["table_w16"]
+        untouched = torch.ones(cpu_model.embedding.table_w16.shape[0],
+                               dtype=torch.bool)
+        untouched[rows // pack] = False
+        cmp = compare_leaves(snapshot(trainers[DEVICE]),
+                             snapshot(trainers["cpu"]), LR, steps=2,
+                             share_limit=False, untouched=untouched)
+        cmp["loss_rel_err"] = max(rel_err(a, b) for a, b in zip(got_l, want_l))
+        cmp["losses_card"], cmp["losses_cpu"] = got_l, want_l
+        if (cmp["loss_rel_err"] > TRAIN_TOL["cpu_loss_rel"]
+                or cmp["failed_leaves"]):
+            failures.append(f"{tag}: the card differs from the CPU: {cmp}")
+        del trainers, cpu_model
+        free_device()
+        rec = {
+            "phase": "train_lazy", "model": "deepfm", "card": gpu,
+            "path": "lazy", "table_layout": layout, "batch": BENCH_BATCH,
+            "fields": BENCH_FIELDS, "vocab": BENCH_VOCAB,
+            "compute_dtype": "bfloat16", "moments_dtype": "float32",
+            "setup_s": setup_s, **run, "launches_expected": expected,
+            "card_vs_cpu_20k_f32_2_steps": cmp,
+            "tol": {"cpu_loss_rel": TRAIN_TOL["cpu_loss_rel"],
+                    "parity": "training/parity.py, share_limit=False, "
+                              "untouched rows to rtol / atol"},
+        }
+        rec["ok"] = not [f for f in failures if f.startswith(tag)]
+        emit(rec)
+        print(f"train_lazy {layout}: step ms {rec['step_ms_median']:.3f} "
+              f"(host clock), device ms {rec['device_ms']:.3f} ({gpu})",
+              flush=True)
+        results[layout] = rec
+    if failures:
+        fail("; ".join(failures))
+    return results
+
+
+def phase_packed_store(tmp: Path, gpu: str) -> dict:
+    """The on-disk packed store (data/store.py) through the port's CLI:
+    ``synth-packed`` at configs/deepfm_criteo_packed.yaml's geometry
+    (PACKED_STORE_ROWS train rows, the CLI's default 26 fields of 100,000
+    ids) into ``tmp``, then ``train`` with that config on the card (its
+    data_dir and output_dir overridden, PACKED_STORE_EPOCHS epoch of its 3)
+    from the memory-mapped splits: the main path of the store, whose
+    sparse-fused steps launch segment_sumsq and sparse_table_adam once a
+    table a step; then ``pack-data`` of the MovieLens data the train_loop
+    phase used, which must load back equal to the adapter's arrays."""
+    import numpy as np
+    import torch
+
+    from deepfm_tpu_torch.cli import _build_data, main as cli_main
+    from deepfm_tpu_torch.cli import train_command
+    from deepfm_tpu_torch.config import load_config
+    from deepfm_tpu_torch.data.store import load_packed
+
+    failures = []
+    store = tmp / "ctr_packed_2m"
+    t0 = time.perf_counter()
+    cli_main(["synth-packed", "--dir", str(store),
+              "--rows", str(PACKED_STORE_ROWS)])
+    synth_s = time.perf_counter() - t0
+    config = load_config(REPO / "configs" / PACKED_STORE_CONFIG, [
+        f"data.data_dir={store}", f"output_dir={tmp / 'packed_run'}",
+        f"training.num_epochs={PACKED_STORE_EPOCHS}", f"device={DEVICE}"])
+
+    # --- the main path: every kernel count starts at 0 here -------------
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_command(config)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    # --- end of the main path --------------------------------------------
+
+    splits = {k: getattr(trainer, f"{k}_data") for k in ("train", "val",
+                                                          "test")}
+    memmapped = {k: isinstance(v.ids, np.memmap) for k, v in splits.items()}
+    rows = {k: len(v) for k, v in splits.items()}
+    steps = rows["train"] // config.training.batch_size
+    tables = len(trainer.packed_schema.lookup_groups)
+    timings = {k: list(v) for k, v in trainer.timings.items()}
+    path = trainer.path
+    del trainer, splits
+    free_device()
+    results = json.loads((tmp / "packed_run" / "results.json").read_text())
+    history = results["history"]
+    if not all(memmapped.values()):
+        failures.append(f"the splits are not memory-mapped: {memmapped}")
+    if path != "sparse_fused" or set(results) != RESULTS_KEYS:
+        failures.append(f"path {path}, results.json keys {sorted(results)}")
+    expected = {"segment_sumsq": steps * tables,
+                "sparse_table_adam": steps * tables}
+    check_launches("packed_store", launches, expected, failures)
+    if not (len(history) == PACKED_STORE_EPOCHS
+            and math.isfinite(history[0]["train_loss"])
+            and 0.0 <= results["test_metrics"]["auc"] <= 1.0):
+        failures.append(f"history {history}, test metrics "
+                        f"{results['test_metrics']}")
+
+    ml_config = load_config(REPO / "configs" / TRAIN_LOOP_CONFIG, [
+        f"data.data_dir={movielens_data(tmp)}", f"device={DEVICE}",
+        f"output_dir={tmp / 'pack_data_run'}"])
+    t0 = time.perf_counter()
+    cli_main(["pack-data", "--config",
+              str(REPO / "configs" / TRAIN_LOOP_CONFIG), "--override",
+              f"data.data_dir={movielens_data(tmp)}", f"device={DEVICE}",
+              f"output_dir={tmp / 'pack_data_run'}",
+              "--out", str(tmp / "ml_packed")])
+    pack_s = time.perf_counter() - t0
+    fresh = _build_data(ml_config)[3:]
+    unequal = [
+        f"{split}.{name}"
+        for split, want in zip(("train", "val", "test"), fresh)
+        for name in ("ids", "dense", "labels", "weights", "user_ids")
+        if not np.array_equal(
+            np.asarray(getattr(load_packed(tmp / "ml_packed" / split), name)),
+            np.asarray(getattr(want, name)))]
+    if unequal:
+        failures.append(f"pack-data's store differs from the adapter's "
+                        f"arrays: {unequal}")
+    out = {
+        "phase": "packed_store", "card": gpu,
+        "config": f"configs/{PACKED_STORE_CONFIG}",
+        "reduced": {"training.num_epochs": f"{PACKED_STORE_EPOCHS} of 3"},
+        "rows": rows, "fields": 26, "vocab": 100_000,
+        "synth_packed_s": synth_s, "train_s": train_s,
+        "memmapped": memmapped, "path": path,
+        "epoch_seconds": timings["epoch_seconds"],
+        "epoch_stage_seconds": timings["stage_seconds"],
+        "examples_per_sec": [h["examples_per_sec"] for h in history],
+        "val_eval_seconds": timings["val_seconds"],
+        "test_eval_seconds": timings["test_seconds"],
+        "train_loss": [h["train_loss"] for h in history],
+        "test_metrics": results["test_metrics"],
+        "training_info_kernels": results["training_info"]["kernels"],
+        "launches": launches, "launches_expected": expected,
+        "pack_data_s": pack_s, "pack_data_equal": not unequal,
+        "ok": not failures,
+    }
+    emit(out)
+    print(f"packed_store: epoch seconds {timings['epoch_seconds']}, "
+          f"examples/s {out['examples_per_sec']} ({gpu})", flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
+def read_scores(path: Path):
+    """A ``predict`` TSV as ([(user, item)], scores)."""
+    rows = [line.split("\t") for line in path.read_text().splitlines()]
+    return ([(int(u), int(i)) for u, i, _ in rows],
+            [float(s) for *_, s in rows])
+
+
+def read_top_k(text: str) -> list:
+    """``recommend``'s printed table as [(item, score)]."""
+    lines = text.splitlines()
+    start = next(i for i, line in enumerate(lines) if line.startswith("Top-"))
+    return [(int(r.split()[1]), float(r.split()[2]))
+            for r in lines[start + 2:] if r.strip()]
+
+
+def phase_predict_recommend(tmp: Path, gpu: str) -> dict:
+    """``predict`` and ``recommend`` on the train_loop phase's output
+    directory (xDeepFM, configs/xdeepfm_movielens_cin_tuned.yaml, f32): the
+    card's run is the main path (the f32 CIN-stack forward launched);
+    ``predict`` over the synthetic u.data on the card and with device=cpu
+    must keep the same rows with scores within SERVE_TOL, and ``recommend``
+    for RECOMMEND_USER must give the same top RECOMMEND_K items (ties of
+    equal printed score in either order) and scores within SERVE_TOL."""
+    import io
+
+    import torch
+
+    from deepfm_tpu_torch.cli import predict_command, recommend_command
+    from deepfm_tpu_torch.config import load_config
+
+    data_dir = movielens_data(tmp)
+    run_dir = tmp / "train_loop" / "whole"
+    failures = []
+
+    def config(device):
+        return load_config(REPO / "configs" / TRAIN_LOOP_CONFIG, [
+            f"data.data_dir={data_dir}", f"output_dir={run_dir}",
+            f"device={device}"])
+
+    def recommend(device):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            recommend_command(config(device), RECOMMEND_USER, RECOMMEND_K,
+                              include_seen=False)
+        return read_top_k(text.getvalue())
+
+    # --- the main path: every kernel count starts at 0 here -------------
+    reset_counts()
+    t0 = time.perf_counter()
+    predict_command(config(DEVICE), str(data_dir / "u.data"),
+                    str(tmp / "scores_card.tsv"))
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    top_card = recommend(DEVICE)
+    torch.cuda.synchronize()
+    recommend_s = time.perf_counter() - t0
+    launches = read_counts()
+    # --- end of the main path --------------------------------------------
+    free_device()
+    t0 = time.perf_counter()
+    predict_command(config("cpu"), str(data_dir / "u.data"),
+                    str(tmp / "scores_cpu.tsv"))
+    predict_cpu_s = time.perf_counter() - t0
+    top_cpu = recommend("cpu")
+
+    keys_card, scores_card = read_scores(tmp / "scores_card.tsv")
+    keys_cpu, scores_cpu = read_scores(tmp / "scores_cpu.tsv")
+    same_rows = keys_card == keys_cpu
+    score_err = max((abs(a - b) for a, b in zip(scores_card, scores_cpu)),
+                    default=math.inf)
+    if not same_rows or score_err > SERVE_TOL or not all(
+            0.0 < s < 1.0 for s in scores_card):
+        failures.append(f"predict: same rows {same_rows}, max score error "
+                        f"{score_err} (tol {SERVE_TOL})")
+    top_err = max((abs(a[1] - b[1]) for a, b in zip(top_card, top_cpu)),
+                  default=math.inf)
+    ties_aside = len(top_card) == len(top_cpu) == RECOMMEND_K and all(
+        {i for i, s in top_card if s == score}
+        == {i for i, s in top_cpu if s == score}
+        for score in {s for _, s in top_cpu})
+    if not ties_aside or top_err > SERVE_TOL:
+        failures.append(f"recommend: card {top_card}, cpu {top_cpu}")
+    if launches["cin_stack_fwd"] < 1:
+        failures.append(f"cin_stack_fwd was not launched: {launches}")
+    out = {
+        "phase": "predict_recommend", "card": gpu,
+        "config": f"configs/{TRAIN_LOOP_CONFIG}", "rows": len(keys_card),
+        "predict_s": predict_s, "predict_cpu_s": predict_cpu_s,
+        "recommend_s": recommend_s, "same_rows": same_rows,
+        "max_score_err": score_err, "top_k_card": top_card,
+        "top_k_cpu": top_cpu, "top_k_max_err": top_err,
+        "launches": launches, "tol": SERVE_TOL, "ok": not failures,
+    }
+    emit(out)
+    print(f"predict_recommend: predict {len(keys_card)} rows in "
+          f"{predict_s:.2f} s, recommend in {recommend_s:.2f} s ({gpu})",
+          flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3334,7 +3810,7 @@ def main() -> None:
         seconds[name] = time.perf_counter() - t0
         return result
 
-    timed("build", phase_build)
+    gpu = timed("build", phase_build)
     cin = timed("cin_stack", phase_cin_stack)
     cin_bwd = timed("cin_stack_bwd", phase_cin_stack_bwd)
     cin_layer = timed("cin_compress", phase_cin_compress)
@@ -3345,12 +3821,16 @@ def main() -> None:
     train_packed = timed("train_packed", phase_train_packed)
     models = timed("train_models", phase_train_models)
     paper = timed("train_xdeepfm_paper", phase_train_xdeepfm_paper)
+    timed("train_baselines", phase_train_baselines, gpu)
+    timed("train_lazy", phase_train_lazy, gpu)
     serve = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for cfg, layout in SERVE_CONFIGS:
             serve[cfg] = timed(f"serve {cfg}", phase_serve, Path(tmp), cfg,
                                layout)
         timed("train_loop", phase_train_loop, Path(tmp))
+        timed("predict_recommend", phase_predict_recommend, Path(tmp), gpu)
+        timed("packed_store", phase_packed_store, Path(tmp), gpu)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     kernels = []
     # (name, source, replaces, launches on its main path, its numbers at

@@ -1,20 +1,33 @@
-"""CLI of the port: ``train``, ``evaluate``, ``compare``, ``serve`` and
-``synth-data``.
+"""CLI of the port: ``train``, ``evaluate``, ``compare``, ``predict``,
+``recommend``, ``serve``, ``pack-data``, ``synth-data`` and
+``synth-packed``.
 
 Port of the matching parts of ``deepfm_tpu/cli.py``: ``train`` (the data
 pipeline, the model and ``Trainer.train``, which writes best checkpoints,
 the resume state and results.json under ``output_dir``), ``evaluate`` (the
 best checkpoint on the val and test splits: with the same seed the same
 eval negatives, so it reproduces the test metrics ``train`` wrote when its
-last epoch was its best), ``compare`` (the results.json table), ``serve``
-with its ``_build_data`` / ``_restore_predictor`` prologue, and
-``synth-data``. ``predict``, ``recommend``, ``export``, ``pack-data`` and
-``synth-packed`` come with later slices.
+last epoch was its best), ``compare`` (the results.json table), the serving
+commands over the ``_build_data`` / ``_restore_predictor`` prologue
+(``predict``: a u.data-format file scored to tab-separated user, item and
+score rows; ``recommend``: one user's top-K unseen items; ``serve``: the
+HTTP server),
+``pack-data`` (the configured dataset's splits written as an on-disk packed
+store, ``data/store.py``), ``synth-data`` and ``synth-packed`` (a
+Criteo-scale synthetic packed store written in bounded chunks). A packed
+store trains with ``data.dataset_name=packed data.data_dir=DIR``, its
+splits memory-mapped. ``export`` waits for ROADMAP queue 1 item 8.
 
     python -m deepfm_tpu_torch train --config configs/xdeepfm_movielens_cin_tuned.yaml \\
         --override data.data_dir=DIR output_dir=RUN
     python -m deepfm_tpu_torch evaluate --config ... --override ... (the same)
+    python -m deepfm_tpu_torch predict --config ... --override ... \\
+        --input DIR/u.data --output scores.tsv
+    python -m deepfm_tpu_torch recommend --config ... --override ... --user 20 --k 5
     python -m deepfm_tpu_torch compare --dir RUN
+    python -m deepfm_tpu_torch synth-packed --dir STORE --rows 2000000
+    python -m deepfm_tpu_torch train --config configs/deepfm_criteo_packed.yaml \\
+        --override data.data_dir=STORE output_dir=RUN
 
 The model runs on CUDA (``device: auto`` or ``cuda``) or, with
 ``--override device=cpu``, on the host.
@@ -35,11 +48,16 @@ logger = logging.getLogger("deepfm_tpu_torch")
 
 def _build_data(config: ExperimentConfig):
     """Fit the dataset's adapter and pack its splits: (adapter, schema,
-    packed, train, val, test)."""
+    packed, train, val, test). An on-disk packed store gives its splits
+    memory-mapped (``data/store.py``), and the trainer reads one chunk of
+    rows at a time."""
     from deepfm_tpu_torch.data.packing import pack_schema
     from deepfm_tpu_torch.data.synthetic import build_adapter
 
     adapter = build_adapter(config.data, seed=config.seed)
+    if hasattr(adapter, "build_packed"):
+        schema, packed, train_d, val_d, test_d = adapter.build_packed()
+        return adapter, schema, packed, train_d, val_d, test_d
     schema, train_ds, val_ds, test_ds = adapter.build()
     packed = pack_schema(schema)
     return (
@@ -214,6 +232,75 @@ def _restore_predictor(
     return adapter, packed, val_d, test_d, model, predictor
 
 
+def predict_command(
+    config: ExperimentConfig, input_path: str, output_path: str
+) -> None:
+    """Batch scoring: load the best checkpoint and score every row of a
+    u.data-format file through the fitted pipeline, writing
+    ``user \\t item \\t score`` per kept row. Rows whose raw ids have no
+    metadata are dropped (logged as a warning)."""
+    import time
+
+    import numpy as np
+
+    seed_everything(config.seed)
+    adapter, packed, _, _, _, predictor = _restore_predictor(
+        config, require=("predict", "score_interactions")
+    )
+    score_ds, kept, total = adapter.score_interactions(input_path)
+    if len(kept) < total:
+        logger.warning(
+            "dropped %d/%d rows with unknown user/item ids",
+            total - len(kept), total,
+        )
+    score_d = score_ds.pack(packed)
+
+    t0 = time.perf_counter()
+    scores = predictor.predict(score_d)
+    dt = time.perf_counter() - t0
+
+    raw = np.loadtxt(input_path, dtype=np.int64).reshape(-1, 4)[kept]
+    with open(output_path, "w") as f:
+        for (u, m), s in zip(raw[:, :2], scores):
+            f.write(f"{u}\t{m}\t{s:.6f}\n")
+    logger.info(
+        "Scored %d rows in %.2fs (%.0f rows/s incl. kernel build) -> %s",
+        len(scores), dt, len(scores) / max(dt, 1e-9), output_path,
+    )
+
+
+def recommend_command(
+    config: ExperimentConfig, user: int, k: int, include_seen: bool
+) -> None:
+    """Top-K retrieval for one user: score the item catalog (unseen items
+    unless ``include_seen``) through the best checkpoint and print the K
+    highest-scoring items."""
+    import numpy as np
+
+    seed_everything(config.seed)
+    if k < 1:
+        raise SystemExit(f"recommend: --k must be >= 1, got {k}")
+    adapter, packed, _, _, _, predictor = _restore_predictor(
+        config, require=("recommend", "recommend_candidates")
+    )
+    try:
+        ds, item_ids = adapter.recommend_candidates(
+            user, exclude_seen=not include_seen
+        )
+    except ValueError as e:
+        raise SystemExit(f"recommend: {e}") from None
+    if len(item_ids) == 0:
+        raise SystemExit(f"recommend: user {user} has no unseen items")
+
+    scores = predictor.predict(ds.pack(packed))
+    top = np.argsort(-scores)[:k]
+    print(f"Top-{min(k, len(top))} items for user {user}:")
+    print(f"{'rank':>4}  {'item':>6}  score")
+    for r, i in enumerate(top, 1):
+        print(f"{r:>4}  {int(item_ids[i]):>6}  {scores[i]:.4f}")
+    logger.info("Scored %d candidate items for user %d", len(item_ids), user)
+
+
 def serve_command(
     config: ExperimentConfig,
     host: str,
@@ -258,6 +345,54 @@ def serve_command(
         server.server_close()
 
 
+def pack_data_command(config: ExperimentConfig, out_dir: str) -> None:
+    """Convert the configured dataset into an on-disk packed store
+    (``data/store.py``): fit the adapter once, pack every split, write
+    schema.json and the memory-mappable ``.npy`` splits. Training then takes
+    ``data.dataset_name=packed data.data_dir=<out>``."""
+    from deepfm_tpu_torch.data.store import save_packed, save_schema
+
+    seed_everything(config.seed)
+    adapter, schema, packed, train_d, val_d, test_d = _build_data(config)
+    if hasattr(adapter, "resample_train"):
+        logger.warning(
+            "pack-data freezes ONE draw of train negatives: dataset %r "
+            "resamples them per epoch when trained directly, so training "
+            "from this packed directory changes the negative-sampling "
+            "protocol (expect a quality delta vs direct training)",
+            config.data.dataset_name,
+        )
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    save_schema(schema, out / "schema.json")
+    for split, arrays in (("train", train_d), ("val", val_d),
+                          ("test", test_d)):
+        save_packed(arrays, out / split)
+        logger.info("%s: %d rows -> %s", split, len(arrays), out / split)
+    logger.info(
+        "Packed dataset written to %s (train with data.dataset_name="
+        "packed data.data_dir=%s)", out, out,
+    )
+
+
+def synth_packed_command(args) -> None:
+    import dataclasses
+
+    from deepfm_tpu_torch.config import DataConfig
+    from deepfm_tpu_torch.data.store import write_synthetic_packed
+
+    dcfg = dataclasses.replace(
+        DataConfig(),
+        dataset_name="criteo_synthetic",
+        synthetic_num_rows=args.rows,
+        synthetic_num_fields=args.fields,
+        synthetic_vocab_size=args.vocab,
+    )
+    path = write_synthetic_packed(args.dir, dcfg, seed=args.seed,
+                                  chunk_rows=args.chunk_rows)
+    print(f"Packed synthetic dataset written to {path}")
+
+
 def synth_data_command(args) -> None:
     from deepfm_tpu_torch.data.synthetic import generate_movielens_like
 
@@ -275,13 +410,16 @@ def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(
         prog="deepfm_tpu_torch",
         description="CTR prediction on PyTorch/CUDA: DeepFM, xDeepFM, "
-        "AttentionDeepFM",
+        "AttentionDeepFM and the LR / FM / DNN baselines",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
     for name, help_ in [
         ("train", "Train a model"),
         ("evaluate", "Evaluate a saved model"),
+        ("predict", "Batch-score an interactions file (serving)"),
+        ("pack-data", "Convert the configured dataset to a packed dir"),
+        ("recommend", "Top-K item retrieval for a user (serving)"),
         ("serve", "JSON-over-HTTP scoring/retrieval endpoint (serving)"),
     ]:
         p = sub.add_parser(name, help=help_)
@@ -290,6 +428,30 @@ def main(argv: list[str] | None = None) -> None:
             "--override", nargs="*", default=[],
             help="Override config values, e.g. training.num_epochs=10",
         )
+        if name == "pack-data":
+            p.add_argument(
+                "--out", required=True,
+                help="Output directory for the packed dataset",
+            )
+        if name == "recommend":
+            p.add_argument(
+                "--user", type=int, required=True, help="Raw user id"
+            )
+            p.add_argument("--k", type=int, default=10)
+            p.add_argument(
+                "--include-seen", action="store_true",
+                help="Rank already-interacted items too",
+            )
+        if name == "predict":
+            p.add_argument(
+                "--input", required=True,
+                help="u.data-format file (user\\titem\\trating\\tts; "
+                "rating may be 0 for unlabeled traffic)",
+            )
+            p.add_argument(
+                "--output", required=True,
+                help="Output TSV path (user\\titem\\tscore per kept row)",
+            )
         if name == "serve":
             p.add_argument("--host", default="127.0.0.1")
             p.add_argument("--port", type=int, default=8080)
@@ -315,12 +477,27 @@ def main(argv: list[str] | None = None) -> None:
     sd.add_argument("--rows", type=int, default=20000)
     sd.add_argument("--seed", type=int, default=0)
 
+    sp = sub.add_parser(
+        "synth-packed",
+        help="Generate an on-disk packed Criteo-scale dataset "
+        "(bounded-memory; train with data.dataset_name=packed)",
+    )
+    sp.add_argument("--dir", default="data/criteo-packed")
+    sp.add_argument("--rows", type=int, default=1_000_000)
+    sp.add_argument("--fields", type=int, default=26)
+    sp.add_argument("--vocab", type=int, default=100_000)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--chunk-rows", type=int, default=1_000_000)
+
     args = parser.parse_args(argv)
     if args.command == "compare":
         compare_command(args)
         return
     if args.command == "synth-data":
         synth_data_command(args)
+        return
+    if args.command == "synth-packed":
+        synth_packed_command(args)
         return
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s"
@@ -330,6 +507,12 @@ def main(argv: list[str] | None = None) -> None:
         train_command(config)
     elif args.command == "evaluate":
         evaluate_command(config)
+    elif args.command == "predict":
+        predict_command(config, args.input, args.output)
+    elif args.command == "recommend":
+        recommend_command(config, args.user, args.k, args.include_seen)
+    elif args.command == "pack-data":
+        pack_data_command(config, args.out)
     else:
         serve_command(
             config, args.host, args.port,

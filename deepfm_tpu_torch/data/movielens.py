@@ -2,14 +2,16 @@
 
 The port's own copy of ``deepfm_tpu/data/movielens.py``: the same 16-field
 schema, feature engineering, split protocols and negative sampling, so a
-given seed yields the same packed arrays as the JAX package's adapter run
-with ``data.use_native_sampler=false``. Negatives always come from the
-numpy sampler; the native C sampler belongs to the training slice.
+given seed yields the same packed arrays as the JAX package's adapter
+with the same ``data.use_native_sampler``. With it on (the default) the
+negatives come from the port's native sampler (``native/sampler.py``,
+built with g++ at first use; a build that fails raises), which takes its
+seed from the adapter's RNG where the JAX adapter takes it; with it off,
+from the numpy sampler.
 """
 
 from __future__ import annotations
 
-import logging
 from pathlib import Path
 
 import numpy as np
@@ -103,11 +105,6 @@ class MovieLensAdapter:
         self.seed = seed
         self._rng = np.random.default_rng(seed)
         self._schema: DatasetSchema | None = None
-        if config.use_native_sampler:
-            logging.getLogger("deepfm_tpu_torch").info(
-                "data.use_native_sampler is set, but the native sampler "
-                "is not part of the port yet: using the numpy sampler"
-            )
 
     # ------------------------------------------------------------------
     # build
@@ -607,14 +604,29 @@ class MovieLensAdapter:
         return DatasetSchema(fields=fields, label_field="label")
 
     # ------------------------------------------------------------------
-    # negative sampling (vectorized numpy)
+    # negative sampling (vectorized numpy / native)
     # ------------------------------------------------------------------
+
+    def _native(self):
+        """The native sampler module when the config asks for it (built at
+        its first call, raising if it cannot be), else None."""
+        if not self.config.use_native_sampler:
+            return None
+        from deepfm_tpu_torch.native import sampler
+
+        return sampler
 
     def _sample_train_negs(
         self, uids: np.ndarray, k: int
     ) -> tuple[np.ndarray, np.ndarray]:
         """Uniform unseen items, without replacement per row; returns
         (flat_items, per_row_counts)."""
+        native = self._native()
+        if native is not None:
+            seed = int(self._rng.integers(0, 2**62))
+            out = native.uniform_unseen_batch(self._seen, uids, k, seed)
+            return out.reshape(-1), np.full(len(uids), k, np.int64)
+
         rng = self._rng
         r = len(uids)
         n_unseen = self._n_items - self._seen.sum(1)
@@ -658,6 +670,13 @@ class MovieLensAdapter:
     ) -> tuple[np.ndarray, np.ndarray]:
         """Popularity-weighted unseen items WITH replacement per row
         (random.choices semantics, reference ml:575-580)."""
+        native = self._native()
+        if native is not None:
+            seed = int(self._rng.integers(0, 2**62))
+            return native.weighted_unseen_batch(
+                self._seen, self._pop_weights, uids, k, seed
+            )
+
         rng = self._rng
         m = self._n_items
         rows, counts = [], np.zeros(len(uids), np.int64)

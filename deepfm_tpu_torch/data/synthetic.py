@@ -2,8 +2,9 @@
 
 The port's own copy of ``deepfm_tpu/data/synthetic.py``:
 ``generate_movielens_like`` writes the same files for the same seed, and
-``build_adapter`` is the dataset registry the CLI uses. The on-disk
-``packed`` dataset belongs to a later slice.
+``build_adapter`` is the dataset registry the CLI uses (``movielens``,
+``criteo_synthetic`` and the on-disk ``packed`` store of
+``data/store.py``).
 """
 
 from __future__ import annotations
@@ -205,10 +206,9 @@ def build_adapter(config: DataConfig, seed: int = 0):
     if name in ("synthetic", "criteo_synthetic"):
         return SyntheticCTRAdapter(config, seed=seed)
     if name == "packed":
-        raise NotImplementedError(
-            "dataset 'packed' (on-disk packed store) is not ported yet: it "
-            "comes with the training slice"
-        )
+        from deepfm_tpu_torch.data.store import PackedDirAdapter
+
+        return PackedDirAdapter(config, seed=seed)
     raise ValueError(
         f"Unknown dataset: {name!r} "
         "(choose movielens / criteo_synthetic / packed)"

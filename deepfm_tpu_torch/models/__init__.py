@@ -1,9 +1,9 @@
 """CTR model registry and factory (port of ``deepfm_tpu/models/__init__.py``).
 
-The port has DeepFM, xDeepFM and AttentionDeepFM, each trained by
-``training/trainer.py`` and served by ``serving.py``. The other models of
-the JAX registry come with later slices; asking for one raises and names
-the slice.
+The port has every model of the JAX registry: DeepFM, xDeepFM and
+AttentionDeepFM, and the ablation baselines ``lr``, ``fm`` and ``dnn``
+(``models/baselines.py``), each trained by ``training/trainer.py`` and
+served by ``serving.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from deepfm_tpu_torch.data.schema import DatasetSchema
 from deepfm_tpu_torch.device import resolve_device
 from deepfm_tpu_torch.models.attention_deepfm import AttentionDeepFM
 from deepfm_tpu_torch.models.base import CTRModel
+from deepfm_tpu_torch.models.baselines import DNNOnly, FM, LogisticRegression
 from deepfm_tpu_torch.models.deepfm import DeepFM
 from deepfm_tpu_torch.models.xdeepfm import xDeepFM
 
@@ -23,14 +24,10 @@ MODEL_REGISTRY: dict[str, type[CTRModel]] = {
     "deepfm": DeepFM,
     "xdeepfm": xDeepFM,
     "attention_deepfm": AttentionDeepFM,
-}
-
-# models of the JAX registry that are not ported yet -> the slice that
-# brings each one
-LATER_SLICES = {
-    "lr": "the baselines slice",
-    "fm": "the baselines slice",
-    "dnn": "the baselines slice",
+    # ablation baselines (models/baselines.py)
+    "lr": LogisticRegression,
+    "fm": FM,
+    "dnn": DNNOnly,
 }
 
 
@@ -68,11 +65,6 @@ def create_model(
     and lookup follow ``tables_packed`` and
     ``pallas.use_embedding_kernel``."""
     if name not in MODEL_REGISTRY:
-        if name in LATER_SLICES:
-            raise NotImplementedError(
-                f"model {name!r} is not ported yet: it comes with "
-                f"{LATER_SLICES[name]}"
-            )
         raise ValueError(
             f"Unknown model: {name}. Choose from {list(MODEL_REGISTRY)}"
         )
@@ -88,7 +80,10 @@ def create_model(
 __all__ = [
     "AttentionDeepFM",
     "CTRModel",
+    "DNNOnly",
     "DeepFM",
+    "FM",
+    "LogisticRegression",
     "MODEL_REGISTRY",
     "create_model",
     "resolve_table_layout",

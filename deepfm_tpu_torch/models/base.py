@@ -13,6 +13,7 @@ from torch import nn
 from deepfm_tpu_torch.config import ExperimentConfig
 from deepfm_tpu_torch.data.packing import PackedSchema
 from deepfm_tpu_torch.ops.embedding import FeatureEmbedding
+from deepfm_tpu_torch.training.optim import leaf_order
 
 
 def compute_dtype_of(config: ExperimentConfig) -> torch.dtype:
@@ -54,6 +55,13 @@ class CTRModel(nn.Module):
         records (``Trainer._table_layout`` of the JAX package)."""
         return "packed" if self.embedding.packed_tables else "logical"
 
+    @property
+    def zero_gradient_leaves(self) -> dict[str, str]:
+        """Leaves this architecture gives an exact gradient of 0 beyond
+        those ``training/parity.py`` knows by name (name -> the leaf whose
+        gradient sets its scale); none for most models."""
+        return {}
+
     def _build_components(self, generator: torch.Generator) -> None:
         raise NotImplementedError
 
@@ -85,3 +93,19 @@ class CTRModel(nn.Module):
     def predict(self, ids: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
         """Probabilities in [0, 1] — sigmoid over the raw logit."""
         return torch.sigmoid(self(ids, dense))
+
+
+def embedding_l2_loss(params: dict[str, torch.Tensor], l2_reg: float,
+                      exclude_tables: bool = False) -> torch.Tensor:
+    """``l2_reg`` times the sum of squared embedding parameters (names
+    ``embedding.*``), summed leaf by leaf in the JAX tree's leaf order.
+
+    ``exclude_tables`` skips the fused lookup tables (``table_w*``,
+    ``fo_table*``): the lazy_adam path applies their L2 row-wise inside
+    the sparse update instead of as a loss term over the whole table.
+    """
+    names = [n for n in params if n.startswith("embedding.") and not (
+        exclude_tables
+        and n.split(".")[-1].startswith(("table_w", "fo_table")))]
+    sq = sum(torch.sum(torch.square(params[n])) for n in leaf_order(names))
+    return l2_reg * sq

@@ -3,8 +3,9 @@ as plain functions on tensors.
 
 The chain is optax's ``inject_hyperparams(chain(add_decayed_weights(2*l2,
 mask=embedding), clip_by_global_norm(clip), adam|adamw|sgd(0.9)))``; on
-the fused table paths it is ``masked(adam)`` over the non-table leaves,
-and the decay and clip run in ``steps.chain_second_half``. Every update
+the fused table paths and under ``lazy_adam`` it is ``masked(adam)`` over
+the non-table leaves, and the decay and clip run in the step
+(``steps.chain_second_half``; the lazy step's global clip). Every update
 keeps optax's literal f32 op order, because Adam's normalisation turns
 last-ulp differences into lr-sized ones within two steps:
 
@@ -159,11 +160,14 @@ class Optimizer:
 
 def build_optimizer(config: ExperimentConfig, table_names,
                     fused: bool) -> Optimizer:
-    """The chain for ``config``; on the fused table paths (``fused``) the
-    tables are masked out of it, their update being the kernels'."""
+    """The chain for ``config``; on the fused table paths (``fused``) and
+    under ``lazy_adam`` the tables are masked out of an Adam, their update
+    being the kernels' or the row-sparse one (``training/sparse_opt.py``),
+    and the step applies the masked Adam alone (``Optimizer.apply``)."""
     tc = config.training
+    lazy = tc.optimizer == "lazy_adam"
     return Optimizer(
-        tc.optimizer, tc.lr, config.feature.embedding_l2_reg,
-        tc.gradient_clip_norm,
-        masked=frozenset(table_names) if fused else frozenset(),
+        "adam" if lazy else tc.optimizer, tc.lr,
+        config.feature.embedding_l2_reg, tc.gradient_clip_norm,
+        masked=frozenset(table_names) if fused or lazy else frozenset(),
     )

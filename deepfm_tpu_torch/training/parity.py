@@ -23,7 +23,10 @@ g / (|g| + eps) turns that into a step difference of up to lr. So:
     shifts every DNN input column it reaches by a constant that the
     train-mode BatchNorm of AttentionDeepFM's DNN removes (exactly so for
     the last block, which the configs use; an earlier block's is held to
-    the band as well).
+    the band as well). A model names further leaves of this kind for its
+    own architecture (``CTRModel.zero_gradient_leaves``: DNNOnly's
+    dense-field biases, which reach the loss only through its DNN's first
+    train-mode BatchNorm), passed as ``zero_gradient``.
 
 ``share_limit=False`` drops the 0.1 % limit and the moments' bound, for
 two devices whose f32 gradients part at ReLU kinks; ``untouched`` (a row
@@ -41,9 +44,14 @@ RTOL, ATOL = 1e-5, 1e-7
 OUTSIDE_SHARE = 1e-3
 
 
-def zero_gradient_reference(name: str) -> str | None:
+def zero_gradient_reference(name: str,
+                            zero_gradient: dict[str, str] | None = None
+                            ) -> str | None:
     """For a leaf whose exact gradient is 0 (see the module docstring), the
-    leaf of the same layer whose gradient sets its scale; else None."""
+    leaf of the same layer whose gradient sets its scale; else None.
+    ``zero_gradient`` adds a model's own such leaves (name -> reference)."""
+    if zero_gradient and name in zero_gradient:
+        return zero_gradient[name]
     head, _, leaf = name.rpartition(".")
     if head.startswith("dnn.dense_") and leaf == "bias":
         return f"{head}.weight"
@@ -54,8 +62,10 @@ def zero_gradient_reference(name: str) -> str | None:
 
 def compare_leaves(got: dict, want: dict, lr: float, steps: int,
                    share_limit: bool = True,
-                   untouched: torch.Tensor | None = None) -> dict:
-    """Each leaf of ``want`` (name -> tensor or array) against ``got``.
+                   untouched: torch.Tensor | None = None,
+                   zero_gradient: dict[str, str] | None = None) -> dict:
+    """Each leaf of ``want`` (name -> tensor or array) against ``got``;
+    ``zero_gradient``: the model's ``zero_gradient_leaves``.
 
     Returns ``failed_leaves`` (a list, empty when every leaf passes) and
     the worst readings over the leaves the share limit applies to."""
@@ -66,7 +76,7 @@ def compare_leaves(got: dict, want: dict, lr: float, steps: int,
         w = torch.as_tensor(w).detach().float().cpu()
         err = (g - w).abs()
         moment = name.endswith((".mu", ".nu"))
-        zero = zero_gradient_reference(name) is not None
+        zero = zero_gradient_reference(name, zero_gradient) is not None
         exempt = zero or name.endswith("running_mean")
         if moment and not share_limit:
             limit = torch.full_like(w, math.inf)  # they follow the gradient

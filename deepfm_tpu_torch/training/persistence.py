@@ -17,9 +17,11 @@ for its Orbax checkpoints:
   resumed run needs to repeat an unbroken one (dropout's generator, the
   shuffle's and the adapter's); ``last_state_meta.json`` has the JAX
   package's keys. A resume refuses a checkpoint of another table layout,
-  ``fused_table_adam`` resolution or scheduler type (the state's structure
-  follows them), casts the saved moments to this run's ``moments_dtype``
-  and recomputes the carried table sums of squares.
+  ``fused_table_adam`` resolution, optimizer (recorded in ``last_state.pt``)
+  or scheduler type (the state's structure follows them), casts the saved
+  table moments to this run's ``moments_dtype`` (the fused paths; the
+  lazy_adam moments stay f32) and recomputes the carried table sums of
+  squares.
 * ``save_results_file``: results.json, the reference's contract (reference:
   deepfm/training/trainer.py:171-195), with the JAX package's top-level
   and ``training_info`` keys (throughput and engagement telemetry).
@@ -126,6 +128,7 @@ def save_resume(
         "opt_state": {f.name: _cpu(getattr(st.opt_state, f.name))
                       for f in dataclasses.fields(OptState)},
         "step": _cpu(st.step),
+        "optimizer": trainer.config.training.optimizer,
         "table_opt": None if st.table_opt is None else {
             n: {"mu": _cpu(s.mu), "nu": _cpu(s.nu)}
             for n, s in st.table_opt.items()},
@@ -193,6 +196,14 @@ def try_resume(trainer) -> dict | None:
     meta = json.loads(meta_path.read_text())
     _refuse_mismatch(trainer, meta)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    saved_opt = ckpt.get("optimizer")
+    opt = trainer.config.training.optimizer
+    if saved_opt is not None and saved_opt != opt:
+        raise ValueError(
+            f"Cannot resume: checkpoint was written with optimizer "
+            f"{saved_opt} but this run uses {opt} (the optimizer states "
+            f"differ). Match training.optimizer, or start fresh."
+        )
     dev = trainer.device
 
     def to_dev(x):
@@ -205,8 +216,10 @@ def try_resume(trainer) -> dict | None:
     st.opt_state = OptState(**to_dev(ckpt["opt_state"]))
     st.step = ckpt["step"].to(dev)
     if ckpt["table_opt"] is not None:
-        # moments may have been saved under another training.moments_dtype
-        mdt = getattr(torch, trainer.config.training.moments_dtype)
+        # fused moments may have been saved under another
+        # training.moments_dtype; lazy_adam's are f32 (the tables')
+        mdt = (getattr(torch, trainer.config.training.moments_dtype)
+               if trainer.fused_tables else torch.float32)
         st.table_opt = {
             n: TableSlotState(mu=s["mu"].to(dev, mdt), nu=s["nu"].to(dev, mdt))
             for n, s in ckpt["table_opt"].items()}

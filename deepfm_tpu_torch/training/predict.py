@@ -53,7 +53,10 @@ class Predictor:
         return max(1, budget // max(bytes_per_batch, 1))
 
     def _stage(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
+        """A chunk on the device. A chunk of a read-only memory-mapped
+        split (``data/store.py``) is read into a host copy first; an
+        in-memory one is not copied on the host."""
+        return torch.from_numpy(np.require(a, requirements=("C", "W"))).to(
             self.device, non_blocking=True
         )
 

@@ -1,9 +1,9 @@
-"""The train step's three paths.
+"""The train step's four paths.
 
 Port of ``deepfm_tpu/training/steps.py`` on one device (the replicated,
 sharded and routed branches of the sparse-fused path wait for ROADMAP
-queue 1 item 10; ``lazy_adam`` for item 6). PyTorch's autograd does the
-model's backward. Paths (``Trainer.path``):
+queue 1 item 10, multi-device). PyTorch's autograd does the model's
+backward. Paths (``Trainer.path``):
 
   * ``plain``: the optimizer chain over every leaf, tables included;
   * ``two_pass``: the table gradient is densified by the kernel
@@ -17,7 +17,15 @@ model's backward. Paths (``Trainer.path``):
     segment_sumsq(ct) + 2*wd*<ct, rows> + wd^2*sumsq(p) with sumsq(p)
     carried from the last step, and ``sparse_table_adam`` densifies,
     decays, clips and updates each table in one pass, returning the next
-    sumsq(p). The dense table gradient never exists.
+    sumsq(p). The dense table gradient never exists;
+  * ``lazy`` (``optimizer: lazy_adam``): the loss adds the L2 of the
+    non-table embedding leaves; the dense table gradient comes from the
+    lookup's backward (the densify kernel, logical or packed); the clip
+    scale min(1, clip / max(norm, 1e-12)) takes the global norm of every
+    gradient, the whole dense table gradients included; the masked dense
+    Adam runs on the scaled non-table gradients, and each table takes
+    ``lazy_adam_table_update`` on the rows of the batch (physical rows on
+    packed tables) at the optimizer's current learning rate.
 
 Every path runs on both table layouts. The pairs carry logical ids in
 both, so the sort and ``segment_sumsq`` do not see the layout; the table
@@ -33,6 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from deepfm_tpu_torch.models.base import embedding_l2_loss
 from deepfm_tpu_torch.ops.embedding import gather_group_rows
 from deepfm_tpu_torch.ops.kernels.adam import fused_table_adam
 from deepfm_tpu_torch.ops.kernels.sparse_adam import (
@@ -45,6 +54,10 @@ from deepfm_tpu_torch.training.optim import (
     global_norm,
     leaf_order,
     sumsq,
+)
+from deepfm_tpu_torch.training.sparse_opt import (
+    lazy_adam_table_update,
+    table_ids_for_batch,
 )
 from deepfm_tpu_torch.training.trainer import _is_table_name
 
@@ -70,7 +83,8 @@ def build_train_step(trainer):
     model = trainer.model
     tx = trainer.tx
     config = trainer.config
-    wd = 2.0 * config.feature.embedding_l2_reg
+    l2 = config.feature.embedding_l2_reg
+    wd = 2.0 * l2
     clip = config.training.gradient_clip_norm
     params = dict(model.named_parameters())
     order = leaf_order(params)
@@ -161,10 +175,35 @@ def build_train_step(trainer):
                 state.table_psq[name] = psq
         return loss
 
+    def lazy_step(trainer, ids, dense, labels, weights):
+        state = trainer.state
+        loss = forward_loss(ids, dense, labels, weights)
+        if l2 > 0:
+            loss = loss + embedding_l2_loss(params, l2, exclude_tables=True)
+        grads, _ = grads_of(loss, order)
+        with torch.no_grad():
+            if clip > 0:
+                gnorm = global_norm([sumsq(grads[n]) for n in order])
+                scale = torch.clamp(clip / torch.clamp_min(gnorm, 1e-12),
+                                    max=1.0)
+            else:
+                scale = torch.ones((), device=loss.device)
+            tx.apply({n: grads[n] * scale for n in order
+                      if not _is_table_name(n)}, params, state.opt_state)
+            for key, row_ids in table_ids_for_batch(model.embedding,
+                                                    ids).items():
+                name = f"embedding.{key}"
+                lazy_adam_table_update(
+                    params[name].data, grads[name], state.table_opt[name],
+                    row_ids, lr=state.opt_state.lr, step=state.step, l2=l2,
+                    grad_scale=scale)
+        return loss
+
     step_fn = {
         "plain": plain_step,
         "two_pass": two_pass_step,
         "sparse_fused": sparse_fused_step,
+        "lazy": lazy_step,
     }[trainer.path]
 
     def train_step(trainer, ids, dense, labels, weights):

@@ -3,7 +3,7 @@
 Port of ``deepfm_tpu/training/telemetry.py::trainer_engagement``: a
 JSON-ready dict recorded in results.json's ``training_info``, with the same
 keys. ``backward`` is the label ``_backward_path`` gives for the same gates
-(the port has no mesh and no ``lazy_adam``). ``kernels`` does not come from
+(the port has no mesh). ``kernels`` does not come from
 the gates: it lists the port's CUDA kernels whose launch counters
 (``ops/kernels/__init__.py::launch_counts``) rose since ``since``, so it
 records what ran. It is empty on the CPU, where every wrapper takes its
@@ -22,6 +22,8 @@ def _backward_path(trainer) -> str:
     """The JAX package's label for the trainer's resolved path."""
     if trainer.sparse_fused:
         return "sparse_fused"
+    if trainer.lazy_tables:
+        return "lazy_adam"
     if trainer.fused_tables:
         return "fused_two_pass"
     return "plain_optax"

@@ -15,21 +15,24 @@ stepped once an epoch on the val metric (the first epoch runs at
 ``scheduler.lr``), early stopping, best checkpoints, resume, throughput and
 history, an optional ``torch.profiler`` trace (``profile.trace_dir``), and
 the final test evaluation on the last epoch's state and results.json
-(``training/persistence.py``). The mesh waits for ROADMAP queue 1 item 10.
+(``training/persistence.py``). The mesh waits for ROADMAP queue 1 item 10
+(multi-device).
 
 The gates are resolved from the config alone, on every device: the CPU
 runs each kernel's plain version, so the tests take the same paths as the
 card. With the defaults (``adam``, ``fused_table_adam``,
 ``fused_backward``) the step takes the sparse-fused path;
 ``fused_backward: false`` takes the two-pass path (densify, then fused
-table Adam); ``fused_table_adam: false``, ``adamw`` or ``sgd`` take the
+table Adam); ``optimizer: lazy_adam`` the lazy path (the densified table
+gradient, a global clip, masked dense Adam and row-sparse table Adam with
+f32 moments); ``fused_table_adam: false``, ``adamw`` or ``sgd`` take the
 plain optax chain. With ``pallas.use_embedding_kernel`` the row-gather
-kernel is the lookup, and the step takes two-pass or plain, as in the JAX
-package, whose sparse-fused gate wants the default lookup. Every path runs
-on both table layouts (``pallas.table_layout``); the sparse-fused one also
-on the logical layout, where the JAX package needs packed tables. The
-TPU's width gate (128 // (d+1) > 1) and its f32-exact id limit do not
-apply and are dropped.
+kernel is the lookup, and the step takes two-pass, lazy or plain, as in
+the JAX package, whose sparse-fused gate wants the default lookup. Every
+path runs on both table layouts (``pallas.table_layout``); the
+sparse-fused one also on the logical layout, where the JAX package needs
+packed tables. The TPU's width gate (128 // (d+1) > 1) and its f32-exact
+id limit do not apply and are dropped.
 
 Dropout draws from ``Trainer.dropout_generator`` (seeded from the seed,
 carried by the resume checkpoint with the shuffle's and the adapter's RNG
@@ -75,7 +78,8 @@ class TrainState:
 
     step: torch.Tensor  # completed steps, int32 0-dim
     opt_state: OptState
-    # fused table paths: per-table Adam moments (name -> state)
+    # fused table paths and lazy_adam: per-table Adam moments (name ->
+    # state)
     table_opt: dict[str, TableSlotState] | None = None
     # sparse-fused path: per-table sum(p^2), carried across steps from the
     # kernel so the decayed clip norm is assembled without reading the
@@ -85,14 +89,6 @@ class TrainState:
 
 def _is_table_name(name: str) -> bool:
     return name.split(".")[-1].startswith(("table_w", "fo_table"))
-
-
-def _refuse_lazy(config: ExperimentConfig) -> None:
-    if config.training.optimizer == "lazy_adam":
-        raise NotImplementedError(
-            "optimizer lazy_adam is not ported yet: it comes with ROADMAP "
-            "queue 1 item 6 (baselines and lazy_adam)"
-        )
 
 
 def _use_fused_table_adam(config: ExperimentConfig) -> bool:
@@ -106,7 +102,8 @@ def sparse_fused_eligible(config: ExperimentConfig,
                           packed_schema: PackedSchema) -> bool:
     """True when the step takes the fused sparse backward-optimizer path
     (``ops/kernels/sparse_adam.py``): it gathers the rows itself, so it
-    wants the default lookup, not the row-gather kernel."""
+    wants the default lookup, not the row-gather kernel. Never under
+    ``lazy_adam``, which is not fused table Adam."""
     return (
         _use_fused_table_adam(config)
         and config.training.fused_backward
@@ -132,7 +129,6 @@ class Trainer:
         adapter: Any | None = None,
         rng_seed: int | None = None,
     ) -> None:
-        _refuse_lazy(config)
         self.scheduler = build_scheduler(config.training)
         self.config = config
         self.packed_schema = packed_schema
@@ -153,11 +149,13 @@ class Trainer:
                 m.generator = self.dropout_generator
         self.predictor = Predictor(self.model, packed_schema, config,
                                    device=self.device)
+        self.lazy_tables = config.training.optimizer == "lazy_adam"
         self.fused_tables = _use_fused_table_adam(config)
         self.sparse_fused = (sparse_fused_eligible(config, packed_schema)
                              and not model.embedding.gather_kernel)
         self.path = ("sparse_fused" if self.sparse_fused
-                     else "two_pass" if self.fused_tables else "plain")
+                     else "two_pass" if self.fused_tables
+                     else "lazy" if self.lazy_tables else "plain")
         self.table_names = [n for n, _ in model.named_parameters()
                             if _is_table_name(n)]
         # table name -> logical rows per physical row (1: logical layout)
@@ -201,8 +199,11 @@ class Trainer:
             step=torch.zeros((), dtype=torch.int32, device=self.device),
             opt_state=self.tx.init(params),
         )
-        if self.fused_tables:
-            mdt = getattr(torch, self.config.training.moments_dtype)
+        if self.fused_tables or self.lazy_tables:
+            # bf16 moments apply only to the fused kernels: lazy_adam's
+            # row-sparse update keeps the table's f32
+            mdt = (getattr(torch, self.config.training.moments_dtype)
+                   if self.fused_tables else None)
             state.table_opt = {n: init_table_state(params[n].detach(), mdt)
                                for n in self.table_names}
         if self.sparse_fused:

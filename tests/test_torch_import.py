@@ -32,8 +32,16 @@ for m in pkgutil.walk_packages(deepfm_tpu_torch.__path__, "deepfm_tpu_torch."):
         importlib.import_module(m.name)
         names.append(m.name)
 assert not [k for k in sys.modules if k.split(".")[0] in %r]
-print(len(names))
+print(" ".join(names))
 """ % (FORBIDDEN, FORBIDDEN)
+# modules the walk must reach (the latest slice's among them)
+REQUIRED = {
+    "deepfm_tpu_torch.models.baselines",
+    "deepfm_tpu_torch.training.sparse_opt",
+    "deepfm_tpu_torch.native.sampler",
+    "deepfm_tpu_torch.data.store",
+    "deepfm_tpu_torch.cli",
+}
 
 
 def _sources():
@@ -46,7 +54,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 20 and REQUIRED <= names, REQUIRED - names
 
 
 @pytest.mark.parametrize(

@@ -184,10 +184,17 @@ def test_paper_cin_leaves_carry_across_unchanged():
 
 
 def test_create_model_refuses_what_later_slices_bring():
+    """Every model of the JAX registry is ported (the baselines last), so
+    only a name outside it is refused."""
+    from deepfm_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
+    from deepfm_tpu_torch.models import MODEL_REGISTRY
+
     _, tconfig = _config()
     _, tpacked, _, _ = _batch(SYNTH_SPEC)
-    with pytest.raises(NotImplementedError, match="baselines slice"):
-        create_model("lr", tpacked, tconfig, device="cpu")
+    assert list(MODEL_REGISTRY) == list(JAX_REGISTRY)
+    for name in ("lr", "fm", "dnn"):
+        model = create_model(name, tpacked, tconfig, device="cpu")
+        assert type(model).__name__ == JAX_REGISTRY[name].__name__
     with pytest.raises(ValueError, match="Unknown model"):
         create_model("nope", tpacked, tconfig, device="cpu")
     _, packed_cfg = _config(pallas={"table_layout": "packed"})

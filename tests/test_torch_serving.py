@@ -261,8 +261,17 @@ def test_serve_refuses_a_dataset_without_a_serving_path(tmp_path):
     })
     with pytest.raises(SystemExit, match="serve: dataset"):
         serve_command(config, "127.0.0.1", 0)
-    packed_cfg = config_from_dict({"data": {"dataset_name": "packed"}})
-    with pytest.raises(NotImplementedError, match="packed"):
+    # an on-disk packed store has no serving path either
+    from deepfm_tpu_torch.cli import main
+
+    main(["synth-packed", "--dir", str(tmp_path / "store"), "--rows", "40",
+          "--fields", "3", "--vocab", "20"])
+    packed_cfg = config_from_dict({
+        "model_name": "xdeepfm", "device": "cpu",
+        "output_dir": str(tmp_path),
+        "data": {"dataset_name": "packed",
+                 "data_dir": str(tmp_path / "store")}})
+    with pytest.raises(SystemExit, match="serve: dataset 'packed'"):
         serve_command(packed_cfg, "127.0.0.1", 0)
 
 

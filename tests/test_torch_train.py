@@ -116,7 +116,7 @@ def _raw(training, model="deepfm", **extra):
     tr.update(training)
     raw = {"model_name": model,
            "dnn": {"hidden_units": HIDDEN, "dropout": 0.0},
-           "training": tr, **MODELS[model]}
+           "training": tr, **MODELS.get(model, {})}
     raw.update(extra)
     return raw
 
@@ -184,7 +184,8 @@ def _assert_state_matches(trainer, jstate, tpacked, steps):
                 assert str(g.dtype).endswith(str(w.dtype))
                 want[f"{name}.{m}"] = w.astype(np.float32)
                 got[f"{name}.{m}"] = g
-    failed = compare_leaves(got, want, LR, steps)["failed_leaves"]
+    failed = compare_leaves(got, want, LR, steps, zero_gradient=(
+        trainer.model.zero_gradient_leaves))["failed_leaves"]
     assert not failed, failed
     if jstate.table_psq is not None:
         for name, v in jstate.table_psq.items():
@@ -469,6 +470,7 @@ def test_paths_resolve_from_the_config():
         (("fused_table_adam", False),): "plain",
         (("optimizer", "adamw"),): "plain",
         (("optimizer", "sgd"),): "plain",
+        (("optimizer", "lazy_adam"),): "lazy",
     }
     for overrides, path in cases.items():
         trainer = _port_trainer(tpacked, dict(overrides))
@@ -484,9 +486,20 @@ def test_paths_resolve_from_the_config():
 
 
 def test_lazy_adam_is_refused():
+    """lazy_adam is refused by the fused table paths, as in the JAX
+    package: it takes its own lazy path, with f32 table moments whatever
+    ``moments_dtype`` says (tests/test_torch_lazy_adam.py holds the path
+    against JAX)."""
     _, _, tpacked, _ = _data()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        _port_trainer(tpacked, {"optimizer": "lazy_adam"})
+    config = config_from_dict(_raw({"optimizer": "lazy_adam"}, device="cpu"))
+    assert not sparse_fused_eligible(config, tpacked)
+    trainer = _port_trainer(tpacked, {"optimizer": "lazy_adam",
+                                      "moments_dtype": "bfloat16"})
+    assert trainer.path == "lazy"
+    assert not trainer.fused_tables and not trainer.sparse_fused
+    assert trainer.state.table_psq is None
+    assert all(s.mu.dtype == torch.float32
+               for s in trainer.state.table_opt.values())
 
 
 def test_trainer_defaults_to_cuda_and_raises_without_it():
