@@ -197,6 +197,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
              f32 CIN-stack forward launched) and with device=cpu: the same
              kept rows with scores within SERVE_TOL, the same top-K items
              (ties of equal printed score aside);
+  export     `export` on train_loop's best checkpoint (f32 xDeepFM at full
+             width, its val split at EXPORT_NEG_EVAL eval negatives): f32
+             for the host and for the card, int8 for the card and a pinned
+             batch for the card (EXPORT_ARTIFACTS), each verified by the
+             command; one process that imports nothing of the package
+             loads them with torch.export and scores the val split and one
+             request; each is held to the card's Predictor on the same
+             rows (the f32 CIN-stack forward launched) within SERVE_TOL,
+             int8 within SERVE_TOL of the Predictor on the dequantized
+             int8 tables and within EXPORT_QUANT_TOL of the f32 one, and
+             the planted int8 faults outside both; with the artifacts' bytes,
+             export and load seconds, the int8 val AUC delta; then `train`
+             must refuse configs/deepfm_criteo_multichip.yaml with the JAX
+             package's mesh error before building data, and a step under
+             profile.debug_nans must raise FloatingPointError on a
+             planted NaN;
   packed_store  `synth-packed` at configs/deepfm_criteo_packed.yaml's
              geometry (2M train rows, 26 fields of 100,000 ids), then `train`
              with that config for 1 of its 3 epochs from the memory-mapped
@@ -499,6 +515,28 @@ PACKED_STORE_EPOCHS = 1  # cut from the config's 3
 RESULTS_KEYS = {"run_id", "timestamp", "config", "val_metrics",
                 "test_metrics", "training_info", "history"}
 RECOMMEND_USER, RECOMMEND_K = 20, 10
+# the export phase: its val split takes 99 eval negatives a user (cut from
+# the config's 999, so the command's CPU reference scores it in seconds),
+# its pinned artifact the config's batch. The int8 artifact is held within
+# SERVE_TOL to the card's Predictor with the tables replaced by their
+# dequantized int8 rows (the same function by another route), and within
+# EXPORT_QUANT_TOL, a bound on quality, to the f32 Predictor; the limit lies
+# between the sound reading and those of the planted faults of the int8
+# lookup (EXPORT_INT8_FAULTS), which must each exceed both limits (PERF.md
+# section 6, PR 16)
+EXPORT_NEG_EVAL = 99
+EXPORT_PINNED = 4096
+EXPORT_QUANT_TOL = 0.04
+# planted faults of an int8 lookup, as dequantized rows from (q, scale):
+# each row scaled by the row before's scale, and every row read as zeros
+EXPORT_INT8_FAULTS = ("scales_rolled", "rows_zeroed")
+# (name, --platforms, --batch-size, --quantize) of the exported artifacts
+EXPORT_ARTIFACTS = (("f32_cpu", "cpu", None, None),
+                    ("f32_cuda", "cuda", None, None),
+                    ("int8_cuda", "cuda", None, "int8"),
+                    ("pinned_cuda", "cuda", EXPORT_PINNED, None))
+MULTICHIP_CONFIG = "deepfm_criteo_multichip.yaml"
+MULTICHIP_REFUSAL = "mesh 0x2 != 1 available devices"
 
 
 def emit(obj: dict) -> None:
@@ -3790,6 +3828,296 @@ def phase_predict_recommend(tmp: Path, gpu: str) -> dict:
     return out
 
 
+# Loads each artifact named on its command line with torch.export alone,
+# scores the rows in ids.npy / dense.npy on the program's own device
+# (a pinned batch in chunks, the last padded with id-0 rows) and one request
+# of the first row (symbolic batches), and checks that it imported nothing
+# of the package. Prints one JSON object; the scores go to <artifact>.npy.
+EXPORT_LOADER = """
+import json, sys, time
+import numpy as np
+import torch
+
+ids, dense = np.load(sys.argv[1]), np.load(sys.argv[2])
+out = {}
+for path in sys.argv[3:]:
+    t0 = time.perf_counter()
+    program = torch.export.load(path)
+    score = program.module()
+    tensors = [*program.state_dict.values(), *program.constants.values()]
+    device = next(t.device for t in tensors if isinstance(t, torch.Tensor))
+    load_s = time.perf_counter() - t0
+    first = program.graph_signature.user_inputs[0]
+    batch = next(n.meta["val"].shape[0] for n in program.graph.nodes
+                 if n.name == first)
+    pinned = isinstance(batch, int)
+    step = batch if pinned else len(ids)
+
+    def run(i, d):
+        n = len(i)
+        if pinned and n < step:
+            i = np.concatenate([i, np.zeros((step - n, i.shape[1]), i.dtype)])
+            d = np.concatenate([d, np.zeros((step - n, d.shape[1]), d.dtype)])
+        with torch.no_grad():
+            got = score(torch.from_numpy(i).to(device),
+                        torch.from_numpy(d).to(device))
+        return got.cpu().numpy()[:n]
+
+    t0 = time.perf_counter()
+    scores = np.concatenate([run(ids[lo:lo + step], dense[lo:lo + step])
+                             for lo in range(0, len(ids), step)])
+    score_s = time.perf_counter() - t0
+    np.save(path + ".npy", scores)
+    out[path] = {"device": str(device), "batch": str(batch),
+                 "fresh_load_s": load_s, "fresh_score_s": score_s,
+                 "request": None if pinned else float(run(ids[:1],
+                                                          dense[:1])[0])}
+leaked = [m for m in sys.modules if m.startswith("deepfm_tpu")]
+assert not leaked, leaked
+print(json.dumps(out))
+"""
+
+
+def export_refusals(tmp: Path, gpu: str) -> dict:
+    """Faults 5 and 6 on the card: ``train`` refuses
+    configs/deepfm_criteo_multichip.yaml (model_axis 2) with the JAX
+    package's mesh error before it builds any data; and under
+    ``profile.debug_nans`` a DeepFM step (bench.py's width at SMALL_VOCAB
+    ids, batch 1024, sparse-fused) runs clean, then raises
+    FloatingPointError on a planted NaN before its update."""
+    import torch
+
+    from deepfm_tpu_torch import cli
+    from deepfm_tpu_torch.config import load_config
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    failures = []
+    built = []
+    real_build = cli._build_data
+
+    def build_data(config):
+        built.append(config)
+        return real_build(config)
+
+    cli._build_data = build_data
+    try:
+        cli.train_command(load_config(
+            REPO / "configs" / MULTICHIP_CONFIG,
+            ["device=cuda", f"output_dir={tmp / 'multichip'}"]))
+        mesh_error = None
+    except ValueError as e:
+        mesh_error = str(e)
+    finally:
+        cli._build_data = real_build
+    if not (mesh_error or "").startswith(MULTICHIP_REFUSAL) or built:
+        failures.append(f"mesh: {MULTICHIP_CONFIG} gave {mesh_error!r}, "
+                        f"data built {len(built)} times")
+
+    packed, arrays = bench_workload(SMALL_VOCAB)
+    arrays = head_rows(arrays, GRAD_BATCH)
+    config = bench_config(DEVICE)
+    config = dataclasses.replace(config, profile=dataclasses.replace(
+        config.profile, debug_nans=True))
+    trainer = Trainer(create_model("deepfm", packed, config, device=DEVICE),
+                      packed, config)
+    ids, dense, labels, weights = batch_on(arrays, torch.device(DEVICE))
+    clean_loss = float(trainer._train_step(ids, dense, labels, weights))
+    dense = dense.clone()
+    dense[3, 0] = float("nan")
+    before = {n: p.detach().clone()
+              for n, p in trainer.model.named_parameters()}
+    try:
+        trainer._train_step(ids, dense, labels, weights)
+        nan_error = None
+    except FloatingPointError as e:
+        nan_error = str(e)
+    unchanged = all(torch.equal(p, before[n])
+                    for n, p in trainer.model.named_parameters())
+    if nan_error is None or not unchanged or not math.isfinite(clean_loss):
+        failures.append(f"debug_nans: clean loss {clean_loss}, planted NaN "
+                        f"gave {nan_error!r}, parameters unchanged "
+                        f"{unchanged}")
+    del trainer
+    free_device()
+    return {"mesh_error": mesh_error, "data_built": len(built),
+            "debug_nans_path": "sparse_fused", "clean_loss": clean_loss,
+            "debug_nans_error": nan_error,
+            "params_unchanged_at_error": unchanged, "failures": failures}
+
+
+def int8_predictor_scores(predictor, data) -> dict:
+    """``predictor``'s scores of ``data`` with its model's embedding tables
+    replaced by their dequantized int8 rows ``q * scale``
+    (``quantize_embedding_tables``): "sound", the function an int8 artifact
+    computes, by the f32 model's route on the card; then each planted fault
+    of EXPORT_INT8_FAULTS in their place. The f32 tables are restored."""
+    import numpy as np
+    import torch
+
+    from deepfm_tpu_torch.utils.export import quantize_embedding_tables
+    from deepfm_tpu_torch.utils.layout import convert_table_tree
+
+    model = predictor.model
+    f32_state = {n: v.detach().clone() for n, v in model.state_dict().items()}
+    qtabs = {dcol: (q.astype(np.float32), scale) for dcol, (q, scale)
+             in quantize_embedding_tables(model).items()}
+    to_packed = any(p > 1 for p in model.embedding.table_pack.values())
+    dequantize = {
+        "sound": lambda q, s: q * s[:, None],
+        "scales_rolled": lambda q, s: q * np.roll(s, 1)[:, None],
+        "rows_zeroed": lambda q, s: np.zeros_like(q),
+    }
+    scores = {}
+    try:
+        for name in ("sound", *EXPORT_INT8_FAULTS):
+            tables = {f"embedding.table_w{dcol - 1}":
+                      torch.from_numpy(dequantize[name](q, s))
+                      for dcol, (q, s) in qtabs.items()}
+            model.load_state_dict({**f32_state, **convert_table_tree(
+                tables, predictor.packed, to_packed=to_packed)})
+            scores[name] = predictor.predict(data)
+    finally:
+        model.load_state_dict(f32_state)
+    return scores
+
+
+def phase_export(tmp: Path, gpu: str) -> dict:
+    """``export`` on train_loop's best checkpoint (xDeepFM,
+    configs/xdeepfm_movielens_cin_tuned.yaml, f32, full width; the val
+    split at EXPORT_NEG_EVAL eval negatives): the artifacts of
+    EXPORT_ARTIFACTS, each verified by the command itself, then loaded in
+    one process that imports nothing of the package (EXPORT_LOADER),
+    which scores the val split and one request. The cuda artifacts are held
+    to the card's Predictor on the same rows (the main path: the f32
+    CIN-stack forward launched) within SERVE_TOL, and the cpu artifact (the
+    plain version on the host) too. The int8 one is held within SERVE_TOL
+    to the Predictor on its dequantized tables and within EXPORT_QUANT_TOL
+    to the f32 one, where each planted fault of EXPORT_INT8_FAULTS must
+    fall outside both (``int8_predictor_scores``); then the two refusals
+    (``export_refusals``)."""
+    import numpy as np
+    import torch
+
+    from deepfm_tpu_torch.cli import _restore_predictor, export_command
+    from deepfm_tpu_torch.config import load_config
+
+    data_dir = movielens_data(tmp)
+    run_dir = tmp / "train_loop" / "whole"
+    out_dir = tmp / "export"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    config = load_config(REPO / "configs" / TRAIN_LOOP_CONFIG, [
+        f"data.data_dir={data_dir}", f"output_dir={run_dir}",
+        f"data.num_neg_eval={EXPORT_NEG_EVAL}", f"device={DEVICE}"])
+    failures = []
+    artifacts = {}
+    for name, platform, batch, quantize in EXPORT_ARTIFACTS:
+        path = out_dir / f"{name}.pt2"
+        t0 = time.perf_counter()
+        res = export_command(config, str(path), platform, batch, quantize)
+        res["command_s"] = time.perf_counter() - t0
+        res["inputs"] = [list(s) for s in res["inputs"]]
+        artifacts[name] = res
+
+    # --- the main path: every kernel count starts at 0 here -------------
+    reset_counts()
+    t0 = time.perf_counter()
+    _, _, val_d, _, _, predictor = _restore_predictor(config)
+    want = predictor.predict(val_d)
+    torch.cuda.synchronize()
+    predictor_s = time.perf_counter() - t0
+    launches = read_counts()
+    # --- end of the main path --------------------------------------------
+    int8_ref = int8_predictor_scores(predictor, val_d)
+    del predictor
+    free_device()
+    if launches["cin_stack_fwd"] < 1:
+        failures.append(f"cin_stack_fwd was not launched: {launches}")
+    # the readings of the planted faults: each must fail both int8 checks
+    int8_faults = {
+        name: {"max_abs_err_vs_dequantized":
+               float(np.abs(int8_ref[name] - int8_ref["sound"]).max()),
+               "max_abs_err_vs_card": float(np.abs(int8_ref[name] - want).max())}
+        for name in EXPORT_INT8_FAULTS}
+    for name, rec in int8_faults.items():
+        if not (rec["max_abs_err_vs_dequantized"] > SERVE_TOL
+                and rec["max_abs_err_vs_card"] > EXPORT_QUANT_TOL):
+            failures.append(f"planted int8 fault {name} passes a check: "
+                            f"{rec} (tols {SERVE_TOL}, {EXPORT_QUANT_TOL})")
+
+    np.save(out_dir / "ids.npy", val_d.ids)
+    np.save(out_dir / "dense.npy", val_d.dense)
+    paths = [str(out_dir / f"{name}.pt2") for name, *_ in EXPORT_ARTIFACTS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", EXPORT_LOADER, str(out_dir / "ids.npy"),
+         str(out_dir / "dense.npy"), *paths],
+        cwd=out_dir, capture_output=True, text=True, timeout=600)
+    loader_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"export: loading the artifacts without the package failed: "
+             f"{proc.stderr[-2000:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    for (name, platform, _, quantize), path in zip(EXPORT_ARTIFACTS, paths):
+        rec = artifacts[name]
+        rec.update(loaded[path])
+        got = np.load(path + ".npy")
+        tol = EXPORT_QUANT_TOL if quantize else SERVE_TOL
+        rec["max_abs_err_vs_card"] = float(np.abs(got - want).max())
+        rec["request_abs_err_vs_card"] = (
+            None if rec["request"] is None
+            else abs(rec["request"] - float(want[0])))
+        rec["tol"] = tol
+        if not rec["device"].startswith(platform):
+            failures.append(f"{name}: loaded on {rec['device']}")
+        if got.shape != want.shape or not rec["max_abs_err_vs_card"] <= tol \
+                or not (rec["request_abs_err_vs_card"] or 0.0) <= tol:
+            failures.append(f"{name}: shape {got.shape}, max error "
+                            f"{rec['max_abs_err_vs_card']}, request error "
+                            f"{rec['request_abs_err_vs_card']} (tol {tol})")
+        if quantize:
+            sound = int8_ref["sound"]
+            rec["max_abs_err_vs_dequantized"] = float(
+                np.abs(got - sound).max())
+            rec["request_abs_err_vs_dequantized"] = (
+                None if rec["request"] is None
+                else abs(rec["request"] - float(sound[0])))
+            if not (rec["max_abs_err_vs_dequantized"] <= SERVE_TOL and
+                    (rec["request_abs_err_vs_dequantized"] or 0.0)
+                    <= SERVE_TOL):
+                failures.append(
+                    f"{name}: against the dequantized tables, max error "
+                    f"{rec['max_abs_err_vs_dequantized']}, request error "
+                    f"{rec['request_abs_err_vs_dequantized']} "
+                    f"(tol {SERVE_TOL})")
+
+    refusals = export_refusals(tmp, gpu)
+    failures += refusals.pop("failures")
+    f32, int8 = artifacts["f32_cuda"], artifacts["int8_cuda"]
+    out = {
+        "phase": "export", "card": gpu,
+        "config": f"configs/{TRAIN_LOOP_CONFIG}", "val_rows": len(val_d),
+        "artifacts": artifacts, "bytes_f32": f32["bytes"],
+        "bytes_int8": int8["bytes"],
+        "shrink_int8": f32["bytes"] / int8["bytes"],
+        "auc_delta_int8": int8.get("auc_delta"), "int8_faults": int8_faults,
+        "predictor_s": predictor_s, "loader_process_s": loader_s,
+        "launches": launches, **refusals, "ok": not failures,
+    }
+    emit(out)
+    print(f"export: f32 {f32['bytes']} B, int8 {int8['bytes']} B, export "
+          f"{f32['export_s']:.2f} s, max error against the card "
+          f"{f32['max_abs_err_vs_card']:.2e}, int8 "
+          f"{int8['max_abs_err_vs_card']:.2e} (dequantized "
+          f"{int8['max_abs_err_vs_dequantized']:.2e}), planted faults "
+          + ", ".join(f"{n} {r['max_abs_err_vs_card']:.2e}"
+                      for n, r in int8_faults.items()) + f" ({gpu})",
+          flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3830,6 +4158,7 @@ def main() -> None:
                                layout)
         timed("train_loop", phase_train_loop, Path(tmp))
         timed("predict_recommend", phase_predict_recommend, Path(tmp), gpu)
+        timed("export", phase_export, Path(tmp), gpu)
         timed("packed_store", phase_packed_store, Path(tmp), gpu)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     kernels = []

@@ -1,5 +1,5 @@
 """CLI of the port: ``train``, ``evaluate``, ``compare``, ``predict``,
-``recommend``, ``serve``, ``pack-data``, ``synth-data`` and
+``recommend``, ``serve``, ``export``, ``pack-data``, ``synth-data`` and
 ``synth-packed``.
 
 Port of the matching parts of ``deepfm_tpu/cli.py``: ``train`` (the data
@@ -16,7 +16,20 @@ HTTP server),
 store, ``data/store.py``), ``synth-data`` and ``synth-packed`` (a
 Criteo-scale synthetic packed store written in bounded chunks). A packed
 store trains with ``data.dataset_name=packed data.data_dir=DIR``, its
-splits memory-mapped. ``export`` waits for ROADMAP queue 1 item 8.
+splits memory-mapped. ``export`` writes the best checkpoint as a
+``torch.export`` scoring artifact (``utils/export.py``: the plain forward,
+a symbolic batch unless ``--batch-size`` pins it, optionally int8 tables)
+for one platform, ``cpu`` or ``cuda``, and verifies it against the
+in-process scores.
+
+``train``, ``evaluate`` and the serving commands first check the ``mesh``
+section as the JAX CLI does (``parallel/mesh.py``), for one device: the
+port drives one until ROADMAP queue 1 item 10, so a mesh of more is
+refused with the JAX package's message, and so is ``mesh.multihost``
+without ``allow_single_process``; ``export`` checks them on its serving
+config, whose mesh is 1x1. ``profile.debug_nans`` makes ``train`` raise
+``FloatingPointError`` at the first step whose loss or gradients are not
+finite (``training/steps.py``).
 
     python -m deepfm_tpu_torch train --config configs/xdeepfm_movielens_cin_tuned.yaml \\
         --override data.data_dir=DIR output_dir=RUN
@@ -25,6 +38,8 @@ splits memory-mapped. ``export`` waits for ROADMAP queue 1 item 8.
         --input DIR/u.data --output scores.tsv
     python -m deepfm_tpu_torch recommend --config ... --override ... --user 20 --k 5
     python -m deepfm_tpu_torch compare --dir RUN
+    python -m deepfm_tpu_torch export --config ... --override ... \
+        --output model.pt2 [--platforms cpu|cuda] [--quantize int8] [--batch-size N]
     python -m deepfm_tpu_torch synth-packed --dir STORE --rows 2000000
     python -m deepfm_tpu_torch train --config configs/deepfm_criteo_packed.yaml \\
         --override data.data_dir=STORE output_dir=RUN
@@ -38,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 from pathlib import Path
 
 from deepfm_tpu_torch.config import ExperimentConfig, load_config
@@ -70,15 +86,34 @@ def _build_data(config: ExperimentConfig):
     )
 
 
+def _check_runtime(config: ExperimentConfig) -> None:
+    """The JAX CLI's ``maybe_init_multihost`` and ``build_runtime`` checks
+    of ``config.mesh``, for the one device the port drives (whatever
+    ``torch.cuda.device_count()`` says) until ROADMAP queue 1 item 10."""
+    from deepfm_tpu_torch.parallel import check_multihost, resolve_mesh
+
+    check_multihost(config, os.environ)
+    try:
+        resolve_mesh(config, n_devices=1)
+    except ValueError as e:
+        raise ValueError(
+            f"{e} (the port drives one device: multi-device training and "
+            "serving wait for ROADMAP queue 1 item 10)") from None
+
+
 def train_command(config: ExperimentConfig):
     """Train ``config``'s model on its dataset (``Trainer.train``), its log
     lines also in ``output_dir/train.log``; returns the trainer."""
     from deepfm_tpu_torch.models import create_model
     from deepfm_tpu_torch.training.trainer import Trainer
 
+    _check_runtime(config)
     log = get_logger("deepfm_tpu_torch",
                      log_file=f"{config.output_dir}/train.log")
     seed_everything(config.seed)
+    if config.profile.debug_nans:
+        log.info("profile.debug_nans: each step checks that its loss and "
+                 "gradients are finite (one host read a step)")
     log.info("Loading and preparing data...")
     adapter, schema, packed, train_d, val_d, test_d = _build_data(config)
     log.info(f"Data ready: train={len(train_d)}, val={len(val_d)}, "
@@ -105,6 +140,7 @@ def evaluate_command(config: ExperimentConfig) -> dict[str, dict]:
     from deepfm_tpu_torch.models import create_model
     from deepfm_tpu_torch.training.trainer import Trainer
 
+    _check_runtime(config)
     log = get_logger("deepfm_tpu_torch")
     seed_everything(config.seed)
     _, _, packed, _, val_d, test_d = _build_data(config)
@@ -208,15 +244,17 @@ def _restore_predictor(
     config: ExperimentConfig,
     require: tuple[str, ...] | None = None,
 ):
-    """Shared serving prologue: build the fitted data pipeline, the model
-    on ``config.device``, load the best checkpoint, and wrap it in a
-    ``Predictor``. Returns (adapter, packed, val_d, test_d, model,
-    predictor). ``require=(command, *adapter_methods)`` fails fast, before
-    the model build, when the dataset's adapter lacks a serving method."""
+    """Shared serving prologue: check the mesh settings, build the fitted
+    data pipeline, the model on ``config.device``, load the best
+    checkpoint, and wrap it in a ``Predictor``. Returns (adapter, packed,
+    val_d, test_d, model, predictor). ``require=(command,
+    *adapter_methods)`` fails fast, before the model build, when the
+    dataset's adapter lacks a serving method."""
     from deepfm_tpu_torch.models import create_model
     from deepfm_tpu_torch.training.persistence import load_best
     from deepfm_tpu_torch.training.predict import Predictor
 
+    _check_runtime(config)
     adapter, schema, packed, train_d, val_d, test_d = _build_data(config)
     if require is not None:
         missing = [m for m in require[1:] if not hasattr(adapter, m)]
@@ -267,6 +305,117 @@ def predict_command(
         "Scored %d rows in %.2fs (%.0f rows/s incl. kernel build) -> %s",
         len(scores), dt, len(scores) / max(dt, 1e-9), output_path,
     )
+
+
+def _export_platform(config: ExperimentConfig, platforms: str | None) -> str:
+    """``--platforms`` as one platform: by default the one ``device``
+    resolves to (``auto`` and ``cuda`` -> cuda). A ``torch.export``
+    program is bound to one device, so a list is refused, where the JAX
+    command lowers for several."""
+    from deepfm_tpu_torch.utils.export import PLATFORMS
+
+    if platforms is None:
+        return "cpu" if str(config.device) == "cpu" else "cuda"
+    names = [p.strip() for p in platforms.split(",") if p.strip()]
+    if len(names) != 1 or names[0] not in PLATFORMS:
+        raise SystemExit(
+            f"export: --platforms takes one of {', '.join(PLATFORMS)} (a "
+            f"torch.export program is bound to one device), got "
+            f"{platforms!r}")
+    return names[0]
+
+
+def export_command(
+    config: ExperimentConfig,
+    output_path: str,
+    platforms: str | None,
+    batch_size: int | None,
+    quantize: str | None = None,
+) -> dict:
+    """Export the best checkpoint as a self-contained ``torch.export``
+    scoring artifact (``utils/export.py``): the plain forward with its
+    parameters, a symbolic batch unless ``batch_size`` pins it, for one
+    platform. ``quantize="int8"`` swaps the embedding tables for per-row
+    int8 ones (~3.2x smaller). Before it reports success the artifact is
+    loaded back and scored on up to 256 val rows (pinned batches padded
+    with id-0 rows) against the in-process CPU predict, within 1e-4, or
+    0.05 quantized; a quantized symbolic-batch artifact also logs its val
+    AUC against the f32 model's. Returns what it measured."""
+    import time
+
+    import numpy as np
+
+    from deepfm_tpu_torch.data.packing import PackedArrays
+    from deepfm_tpu_torch.utils.export import (
+        export_scoring,
+        input_shapes,
+        load_scoring,
+        quantized_scoring_model,
+        save_scoring,
+        serving_config,
+    )
+
+    seed_everything(config.seed)
+    platform = _export_platform(config, platforms)
+    if quantize is not None and quantize != "int8":
+        raise SystemExit(f"--quantize supports 'int8', got {quantize!r}")
+
+    scfg = serving_config(config)
+    # the artifact is one program on one device; cross-layout restore
+    # loads a packed checkpoint into the serving model's logical tables
+    _, packed, val_d, _, model, predictor = _restore_predictor(scfg)
+    export_model = model
+    if quantize is not None:
+        export_model = quantized_scoring_model(config, packed, model)
+
+    t0 = time.perf_counter()
+    try:  # cuda needs a card in this process
+        program = export_scoring(export_model, packed.num_slots,
+                                 packed.num_dense, platform=platform,
+                                 batch_size=batch_size)
+    except RuntimeError as e:
+        raise SystemExit(f"export: {e}") from None
+    export_s = time.perf_counter() - t0
+    n_bytes = save_scoring(output_path, program)
+    shapes = input_shapes(program)
+    logger.info(
+        "Exported %s -> %s (%.1f MB, platform=%s, inputs=%s) in %.2f s",
+        scfg.model_name, output_path, n_bytes / 1e6, platform, shapes,
+        export_s,
+    )
+    out = {"bytes": n_bytes, "platform": platform, "inputs": shapes,
+           "export_s": export_s}
+
+    t0 = time.perf_counter()
+    score = load_scoring(output_path)
+    out["load_s"] = time.perf_counter() - t0
+    k = min(len(val_d), batch_size or 256)
+    ids, dense = val_d.ids[:k], val_d.dense[:k]
+    if batch_size is not None and k < batch_size:
+        # a static batch: pad the verification rows with id-0 (OOV) rows
+        # up to the pinned batch and compare only the real k
+        pad = batch_size - k
+        ids = np.concatenate([ids, np.zeros((pad, ids.shape[1]), np.int32)])
+        dense = np.concatenate(
+            [dense, np.zeros((pad, dense.shape[1]), np.float32)])
+    head = PackedArrays(val_d.ids[:k], val_d.dense[:k], val_d.labels[:k],
+                        val_d.weights[:k])
+    err = float(np.abs(score(ids, dense)[:k] - predictor.predict(head)).max())
+    logger.info("Round-trip verification on %d rows: max|Δ|=%.2e", k, err)
+    out["max_abs_err"] = err
+    tol = 0.05 if quantize else 1e-4
+    if not err <= tol:
+        raise SystemExit(f"export verification failed: max|Δ|={err}")
+    if quantize and batch_size is None:
+        # quality delta of the quantized tables on the val split
+        from deepfm_tpu_torch.training.metrics import compute_auc
+
+        q_auc = compute_auc(val_d.labels, score(val_d.ids, val_d.dense))
+        f_auc = compute_auc(val_d.labels, predictor.predict(val_d))
+        logger.info("Quantized val AUC %.4f vs f32 %.4f (Δ=%+.4f)",
+                    q_auc, f_auc, q_auc - f_auc)
+        out["auc_delta"] = q_auc - f_auc
+    return out
 
 
 def recommend_command(
@@ -421,6 +570,7 @@ def main(argv: list[str] | None = None) -> None:
         ("pack-data", "Convert the configured dataset to a packed dir"),
         ("recommend", "Top-K item retrieval for a user (serving)"),
         ("serve", "JSON-over-HTTP scoring/retrieval endpoint (serving)"),
+        ("export", "Export a torch.export scoring artifact (serving)"),
     ]:
         p = sub.add_parser(name, help=help_)
         p.add_argument("--config", required=True, help="Path to YAML config")
@@ -451,6 +601,25 @@ def main(argv: list[str] | None = None) -> None:
             p.add_argument(
                 "--output", required=True,
                 help="Output TSV path (user\\titem\\tscore per kept row)",
+            )
+        if name == "export":
+            p.add_argument(
+                "--output", required=True,
+                help="Artifact path (e.g. model.pt2)",
+            )
+            p.add_argument(
+                "--platforms", default=None,
+                help="The one platform the program runs on: cpu or cuda "
+                "(default: the config's device)",
+            )
+            p.add_argument(
+                "--batch-size", type=int, default=None,
+                help="Pin a static batch size (default: symbolic batch)",
+            )
+            p.add_argument(
+                "--quantize", default=None, choices=["int8"],
+                help="Quantize embedding tables (per-row int8 scales; "
+                "~3.2x smaller artifact)",
             )
         if name == "serve":
             p.add_argument("--host", default="127.0.0.1")
@@ -513,6 +682,9 @@ def main(argv: list[str] | None = None) -> None:
         recommend_command(config, args.user, args.k, args.include_seen)
     elif args.command == "pack-data":
         pack_data_command(config, args.out)
+    elif args.command == "export":
+        export_command(config, args.output, args.platforms, args.batch_size,
+                       args.quantize)
     else:
         serve_command(
             config, args.host, args.port,

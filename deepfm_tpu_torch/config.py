@@ -2,7 +2,7 @@
 
 The port's own copy of ``deepfm_tpu/config.py``: the same dataclasses and
 the same YAML contract, so every file under ``configs/`` loads unchanged.
-Sections the port does not read yet (``mesh``, ``benchmark``, most of
+Sections the port does not read yet (``benchmark``, most of
 ``training``) are kept so those files still parse. The port reads:
 
   * ``device`` — "auto" and "cuda" run on the GPU, "cpu" on the host;
@@ -20,7 +20,13 @@ Sections the port does not read yet (``mesh``, ``benchmark``, most of
   * ``training``: ``optimizer``, ``lr``, ``gradient_clip_norm``,
     ``compute_dtype``, ``fused_table_adam``, ``fused_backward`` and
     ``moments_dtype`` (training/trainer.py picks the step's path from
-    them), and ``feature.embedding_l2_reg``.
+    them), and ``feature.embedding_l2_reg``;
+  * ``mesh`` — resolved by the JAX CLI's rules for one device
+    (``parallel/mesh.py``): a mesh of more devices, or ``multihost``
+    without ``allow_single_process``, is refused;
+  * ``profile.debug_nans`` — the train step raises ``FloatingPointError``
+    at the first non-finite loss or gradient (``training/steps.py``), and
+    ``profile.trace_dir`` — a ``torch.profiler`` trace of ``train``.
 """
 
 from __future__ import annotations
@@ -132,8 +138,12 @@ class TrainingConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout of the JAX package; not read by the port yet
-    (multi-device paths come in a later slice)."""
+    """Device-mesh layout of the JAX package. The port resolves it for one
+    device by the JAX CLI's rules (``parallel/mesh.py``: ``data_axis`` is
+    ignored on one device, a ``model_axis`` of 1 or -1 needs no mesh, and
+    a mesh of more devices is refused) and checks ``multihost`` /
+    ``allow_single_process``; ``embedding_strategy`` is not read. The
+    multi-device runtime is ROADMAP queue 1 item 10."""
 
     data_axis: int = -1
     model_axis: int = 1

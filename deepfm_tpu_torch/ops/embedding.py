@@ -39,10 +39,19 @@ gathers, each with a kernel for its backward:
   * packed: plain indexing into a strided view, the gradient densified
     straight into the packed layout (``ops/kernels/packed_grad.py``).
 
-A CPU table takes the kernels' plain versions. The trainer's sparse-fused
-path gathers the rows itself (``gather_group_rows``) and hands them back
-through ``rows_override``, so autograd yields the per-occurrence
-cotangents and never the dense table gradient.
+A CPU table takes the kernels' plain versions. For a serving export
+with ``--quantize int8`` (``utils/export.py``), ``quantize_tables`` swaps
+the f32 tables for per-row int8 ones (``QuantizedTables``), whose lookup
+gathers int8 rows and scales them in f32: the JAX package's ``qlookup``.
+The f32 ``table_w*`` parameters are deleted, so an exported program holds
+only the int8 tables and their scales (the JAX package passes ``qlookup``
+to ``create_model`` as ``lookup_fn`` and lets XLA drop the unused f32
+tables; ``torch.export`` keeps every registered parameter).
+
+The trainer's sparse-fused path gathers the rows itself
+(``gather_group_rows``) and hands them back through ``rows_override``, so
+autograd yields the per-occurrence cotangents and never the dense table
+gradient.
 """
 
 from __future__ import annotations
@@ -84,6 +93,26 @@ def table_row_scale(
     return scale
 
 
+class QuantizedTables(nn.Module):
+    """Per-row symmetric int8 tables of a serving model: buffers
+    ``q_w{d}`` (rows, d+1) int8 and ``scale_w{d}`` (rows,) f32, built from
+    ``{d+1: (q, scale)}`` (``utils/export.py::quantize_embedding_tables``).
+    A row is gathered as int8, widened to f32 and multiplied by its
+    scale."""
+
+    def __init__(self, qtabs: dict[int, tuple[np.ndarray, np.ndarray]]):
+        super().__init__()
+        for dcol, (q, scale) in qtabs.items():
+            self.register_buffer(f"q_w{dcol - 1}", torch.from_numpy(q))
+            self.register_buffer(f"scale_w{dcol - 1}",
+                                 torch.from_numpy(scale))
+
+    def forward(self, d: int, flat_ids: torch.Tensor) -> torch.Tensor:
+        q = getattr(self, f"q_w{d}")
+        scale = getattr(self, f"scale_w{d}")
+        return q[flat_ids].to(torch.float32) * scale[flat_ids][:, None]
+
+
 class FeatureEmbedding(nn.Module):
     """Shared embedding engine emitting the three standard views.
 
@@ -113,6 +142,8 @@ class FeatureEmbedding(nn.Module):
         self.gather_kernel = gather_kernel
         # table name -> logical rows per physical row (1: logical layout)
         self.table_pack: dict[str, int] = {}
+        # int8 serving tables in place of table_w* (``quantize_tables``)
+        self.quantized: QuantizedTables | None = None
 
         for gi, group in enumerate(packed.lookup_groups):
             d = group.width
@@ -177,10 +208,30 @@ class FeatureEmbedding(nn.Module):
         ids_g = ids[:, group.slot_start : group.slot_end].long()
         return ids_g + getattr(self, f"_offsets_{gi}")[None, :]
 
+    def quantize_tables(
+        self, qtabs: dict[int, tuple[np.ndarray, np.ndarray]]
+    ) -> None:
+        """Serve from per-row int8 tables ``{d+1: (q, scale)}`` of the
+        logical shape: the f32 ``table_w*`` parameters are deleted and
+        every lookup reads ``QuantizedTables``."""
+        widths = [group.width for group in self.packed.lookup_groups]
+        for d, group in zip(widths, self.packed.lookup_groups):
+            q, scale = qtabs[d + 1]
+            rows = pad_rows(group.total_rows)
+            if q.shape != (rows, d + 1) or scale.shape != (rows,):
+                raise ValueError(
+                    f"table_w{d}: int8 table {q.shape} and scales "
+                    f"{scale.shape} do not match the logical ({rows}, {d + 1})")
+        for d in widths:
+            delattr(self, f"table_w{d}")
+        self.quantized = QuantizedTables(qtabs)
+
     def lookup(self, d: int, flat_ids: torch.Tensor) -> torch.Tensor:
         """(n, d+1) rows of the width-``d`` table at logical ids
         ``flat_ids``, by the table's layout and the configured gather
         (module docstring)."""
+        if self.quantized is not None:
+            return self.quantized(d, flat_ids)
         table = getattr(self, f"table_w{d}")
         pack = self.table_pack[f"table_w{d}"]
         if pack > 1:

@@ -32,6 +32,13 @@ both, so the sort and ``segment_sumsq`` do not see the layout; the table
 update takes the table's ``pack``. A packed table's sums of squares (the
 clip norm's, the carried ``table_psq``) run over the whole packed table,
 whose dead lanes are 0. Both fused paths share ``chain_second_half``.
+
+With ``profile.debug_nans`` (the JAX package turns on ``jax_debug_nans``)
+each path reads one flag back to the host before it updates anything:
+whether the loss and the step's global gradient norm are finite (the
+fused paths' clip norm, the lazy path's when it clips, else the plain
+norm of the gradients the step has). The first step where either is not
+raises ``FloatingPointError``. Unset, the step reads nothing back.
 Dropout draws from the trainer's generator (``Trainer.dropout_generator``),
 so with dropout > 0 the masks differ from the JAX package's.
 """
@@ -88,6 +95,24 @@ def build_train_step(trainer):
     clip = config.training.gradient_clip_norm
     params = dict(model.named_parameters())
     order = leaf_order(params)
+    debug_nans = config.profile.debug_nans
+
+    def check_finite(trainer, loss, gnorm):
+        """``profile.debug_nans``: one host read of whether the loss and
+        the global gradient norm are finite; raises ``FloatingPointError``
+        at the first step where one is not. A no-op when unset."""
+        if not debug_nans:
+            return
+        ok_loss, ok_grads = torch.isfinite(
+            torch.stack([loss.detach().float(), gnorm.float()])
+        ).tolist()
+        if not (ok_loss and ok_grads):
+            what = " and ".join(
+                w for w, ok in (("loss", ok_loss), ("gradients", ok_grads))
+                if not ok)
+            raise FloatingPointError(
+                f"profile.debug_nans: non-finite {what} at step "
+                f"{int(trainer.state.step) + 1}")
 
     def forward_loss(ids, dense, labels, weights, rows_override=None):
         model.train()
@@ -101,11 +126,11 @@ def build_train_step(trainer):
                  for n, g in zip(names, got)}
         return grads, got[len(names):]
 
-    def chain_second_half(grads, table_sq, opt_state):
+    def chain_second_half(trainer, loss, grads, table_sq, opt_state):
         """The optax-chain tail of both fused paths: the decayed global
         norm with each table's sumsq(g + wd*p) from ``table_sq``, in the
-        JAX tree's leaf order, then clip and the masked dense update (in
-        place). Returns the norm."""
+        JAX tree's leaf order, then (after ``check_finite``) clip and the
+        masked dense update (in place). Returns the norm."""
         def decayed(name):
             g = grads[name]
             return g + wd * params[name] if name.startswith("embedding.") \
@@ -116,6 +141,7 @@ def build_train_step(trainer):
             table_sq[n] if _is_table_name(n) else sumsq(dense[n])
             for n in order
         ])
+        check_finite(trainer, loss, gnorm)
         if clip > 0:
             trigger = gnorm < clip
             dense = {n: clip_fn(g, gnorm, clip, trigger)
@@ -127,6 +153,9 @@ def build_train_step(trainer):
         loss = forward_loss(ids, dense, labels, weights)
         grads, _ = grads_of(loss, order)
         with torch.no_grad():
+            if debug_nans:
+                check_finite(trainer, loss, global_norm(
+                    [sumsq(grads[n]) for n in order]))
             tx.update(grads, params, trainer.state.opt_state)
         return loss
 
@@ -137,7 +166,8 @@ def build_train_step(trainer):
         with torch.no_grad():
             table_sq = {n: sumsq(grads[n] + wd * params[n])
                         for n in trainer.table_names}
-            gnorm = chain_second_half(grads, table_sq, state.opt_state)
+            gnorm = chain_second_half(trainer, loss, grads, table_sq,
+                                      state.opt_state)
             lr = state.opt_state.lr
             for n in trainer.table_names:
                 topt = state.table_opt[n]
@@ -163,7 +193,8 @@ def build_train_step(trainer):
                 table_sq[name] = (segment_sumsq(sids, sorted_ct)
                                   + (2.0 * wd) * dotgp
                                   + (wd * wd) * state.table_psq[name])
-            gnorm = chain_second_half(grads, table_sq, state.opt_state)
+            gnorm = chain_second_half(trainer, loss, grads, table_sq,
+                                      state.opt_state)
             lr = state.opt_state.lr
             for name, (sids, sorted_ct) in pairs.items():
                 topt = state.table_opt[name]
@@ -182,8 +213,10 @@ def build_train_step(trainer):
             loss = loss + embedding_l2_loss(params, l2, exclude_tables=True)
         grads, _ = grads_of(loss, order)
         with torch.no_grad():
+            gnorm = (global_norm([sumsq(grads[n]) for n in order])
+                     if clip > 0 or debug_nans else None)
+            check_finite(trainer, loss, gnorm)
             if clip > 0:
-                gnorm = global_norm([sumsq(grads[n]) for n in order])
                 scale = torch.clamp(clip / torch.clamp_min(gnorm, 1e-12),
                                     max=1.0)
             else:

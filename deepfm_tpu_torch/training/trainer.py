@@ -15,8 +15,11 @@ stepped once an epoch on the val metric (the first epoch runs at
 ``scheduler.lr``), early stopping, best checkpoints, resume, throughput and
 history, an optional ``torch.profiler`` trace (``profile.trace_dir``), and
 the final test evaluation on the last epoch's state and results.json
-(``training/persistence.py``). The mesh waits for ROADMAP queue 1 item 10
-(multi-device).
+(``training/persistence.py``). With ``profile.debug_nans`` a step raises
+``FloatingPointError`` before its update when its loss or global gradient
+norm is not finite (``training/steps.py``; one host read a step, none
+when unset). The mesh waits for ROADMAP queue 1 item 10 (multi-device;
+the CLI refuses a mesh of more than one device, ``parallel/mesh.py``).
 
 The gates are resolved from the config alone, on every device: the CPU
 runs each kernel's plain version, so the tests take the same paths as the

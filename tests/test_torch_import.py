@@ -41,6 +41,8 @@ REQUIRED = {
     "deepfm_tpu_torch.native.sampler",
     "deepfm_tpu_torch.data.store",
     "deepfm_tpu_torch.cli",
+    "deepfm_tpu_torch.parallel.mesh",
+    "deepfm_tpu_torch.utils.export",
 }
 
 
