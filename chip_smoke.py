@@ -220,6 +220,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
              results.json's keys, epoch seconds and examples/s), then
              `pack-data` of train_loop's MovieLens data, which must load
              back equal to the adapter's arrays;
+  data_parallel  data-parallel training on torch.distributed: DP_WORLD
+             rank processes on the one card, spawned with torchrun's
+             environment (gloo by the backend rule: NCCL refuses two ranks
+             on one device), each on its rows of DP_STEPS global batches of
+             bench.py's DeepFM at full width (DP_CASES: sparse-fused and
+             two-pass, logical and packed tables), the replicas' bits
+             checked after every step by an all-gathered fingerprint, each
+             rank's launches counted from 0 (DP_LAUNCHES), its host-clock
+             steps, one profiled step and one step's collectives (host
+             clock, bytes); rank 0 holds the state after DP_STEPS steps
+             against one process on the same global batches (DP_LOSS_REL,
+             DP_BAND); at SMALL_VOCAB ids, GRAD_BATCH rows, f32, one step
+             of each path against one process (training/parity.py, share
+             limit on), the two-pass first-step gradients (the sparse
+             gradient exchange's) against the CPU's (grad_check), and the
+             planted faults (DP_FAULTS, and the exchange without its
+             gather), each of which must be refused; a world of one rank
+             under NCCL through the same code path, bit for bit the
+             mesh-less trainer; then `python -m torch.distributed.run
+             --nproc-per-node DP_WORLD -m deepfm_tpu_torch train` on
+             train_loop's MovieLens xDeepFM for TRAIN_LOOP_EPOCHS epochs
+             (one checkpoint and one results.json, cin_stack_fwd and
+             cin_stack_bwd launched on every rank), a one-process
+             `evaluate` reproducing its metrics, and a 1-epoch run resumed
+             to TRAIN_LOOP_EPOCHS with the unbroken run's history;
   kernels    one line listing every ported kernel with its launch count
              on the path that runs it (serve for the f32 CIN-stack
              forward, the xDeepFM train step for the bf16 CIN-stack
@@ -245,6 +270,8 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -535,6 +562,33 @@ EXPORT_ARTIFACTS = (("f32_cpu", "cpu", None, None),
                     ("f32_cuda", "cuda", None, None),
                     ("int8_cuda", "cuda", None, "int8"),
                     ("pinned_cuda", "cuda", EXPORT_PINNED, None))
+DP_WORLD = 2  # ranks on the one card (gloo: NCCL refuses two on one device)
+DP_STEPS = 5
+DP_CASES = (("sparse_fused", "logical"), ("sparse_fused", "packed"),
+            ("two_pass", "logical"), ("two_pass", "packed"))
+# a rank's launches in DP_STEPS steps of bench.py's DeepFM (one table)
+DP_LAUNCHES = {
+    (path, layout): {
+        "segment_sumsq": DP_STEPS * (path == "sparse_fused"),
+        "sparse_table_adam": DP_STEPS * (path == "sparse_fused"),
+        "densify_rows_grad": DP_STEPS * ((path, layout) == (
+            "two_pass", "logical")),
+        "densify_rows_grad_packed": DP_STEPS * ((path, layout) == (
+            "two_pass", "packed")),
+        "fused_table_adam": DP_STEPS * (path == "two_pass"),
+    } for path, layout in DP_CASES}
+# two ranks against one process after DP_STEPS bf16 Adam steps, a sanity
+# bound (the JAX package reads ~1e-3 for data parallelism; the tight
+# check is one f32 step, dp_checks): the losses within DP_LOSS_REL, every
+# parameter element within training/parity.py's band 2 * lr * steps (the
+# moments follow the gradient; the BatchNorm statistics are read, not
+# gated: state_diff)
+DP_LOSS_REL = 1e-2
+DP_BAND = 2 * LR * DP_STEPS
+# planted fault -> the check that must refuse it
+DP_FAULTS = {"skip_reduce": "replicas", "skip_pair_gather": "one_process",
+             "local_bn": "one_process"}
+DP_RANK_TIMEOUT = 600  # seconds a rank run or a torchrun launch may take
 MULTICHIP_CONFIG = "deepfm_criteo_multichip.yaml"
 MULTICHIP_REFUSAL = "mesh 0x2 != 1 available devices"
 
@@ -2014,10 +2068,11 @@ def phase_packed_kernels() -> dict:
     return out
 
 
-def bench_workload(vocab: int, width: int = 16):
+def bench_workload(vocab: int, width: int = 16, seed: int = 0):
     """bench.py's _workload at ``vocab`` ids per field, in the port's own
     data classes: 26 sparse fields of width ``width`` (bench.py's 16) and
-    one dense field, one batch of 16384 rows from numpy seed 0."""
+    one dense field, one batch of 16384 rows from numpy seed ``seed``
+    (bench.py's 0)."""
     import numpy as np
 
     from deepfm_tpu_torch.data.packing import pack_features, pack_schema
@@ -2033,7 +2088,7 @@ def bench_workload(vocab: int, width: int = 16):
             f"cat_{i}", FeatureType.SPARSE, vocab, width, "user" if i % 2 else "item")
     fields["dense_0"] = FieldSchema("dense_0", FeatureType.DENSE, 0, width, "context")
     packed = pack_schema(DatasetSchema(fields=fields))
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     feats = {f"cat_{i}": rng.integers(1, vocab, BENCH_BATCH)
              for i in range(BENCH_FIELDS)}
     feats["dense_0"] = rng.normal(size=BENCH_BATCH).astype(np.float32)
@@ -4118,6 +4173,620 @@ def phase_export(tmp: Path, gpu: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# data_parallel
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_rank_main(rank: int, world: int, port: int, part: str,
+                 out: str) -> None:
+    """One rank of a DP_PARTS run: torchrun's environment for it, the
+    process group started from there (``initialize_distributed``; a world
+    of one names no coordinator and is started explicitly), the part run
+    on the mesh, its JSON result written to ``out``."""
+    import traceback
+
+    os.environ.update({"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+                       "RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_RANK": str(rank),
+                       "LOCAL_WORLD_SIZE": str(world)})
+    import torch.distributed as dist
+
+    from deepfm_tpu_torch.parallel import build_mesh, initialize_distributed
+    from deepfm_tpu_torch.parallel.mesh import backend_rule
+
+    try:
+        if world == 1:
+            initialize_distributed(env=os.environ, device=DEVICE,
+                                   init_method=f"tcp://localhost:{port}",
+                                   rank=0, world_size=1)
+        else:
+            initialize_distributed(env=os.environ, device=DEVICE)
+        mesh = build_mesh(device=DEVICE)
+        result = DP_PARTS[part](mesh)
+        result.update(rank=rank, backend=mesh.backend,
+                      device=str(mesh.device),
+                      rule=backend_rule(mesh.device.type, world, 1)[1])
+        Path(out).write_text(json.dumps(result))
+    except BaseException:
+        Path(f"{out}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, part: str, tmp: Path) -> list:
+    """``world`` rank processes (spawned, one card) running ``part``; their
+    results in rank order. Every rank is killed past DP_RANK_TIMEOUT."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    outs = [tmp / f"{part}_rank{r}.json" for r in range(world)]
+    procs = [ctx.Process(target=dp_rank_main,
+                         args=(r, world, port, part, str(outs[r])))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_RANK_TIMEOUT
+    try:
+        # a rank that fails leaves its peers waiting in a collective: stop
+        # them at once rather than at the collectives' timeout
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    errors = [Path(f"{o}.err").read_text() for o in outs
+              if Path(f"{o}.err").exists()]
+    if errors or any(p.exitcode != 0 for p in procs):
+        fail(f"data_parallel {part}: rank exit codes "
+             f"{[p.exitcode for p in procs]}: " + " | ".join(errors)[-3000:])
+    return [json.loads(o.read_text()) for o in outs]
+
+
+@contextlib.contextmanager
+def timed_collectives(log: list):
+    """Each collective of the port (``parallel/collectives.py``'s
+    all_reduce_ and all_gather_rows, which the flat all-reduce and
+    BatchNorm's sum call) timed on the host clock between two device
+    synchronisations, with the bytes this rank sends, while the context
+    is open."""
+    import torch
+
+    from deepfm_tpu_torch.parallel import collectives
+
+    real = {n: getattr(collectives, n)
+            for n in ("all_reduce_", "all_gather_rows")}
+
+    def timed(name, fn):
+        def call(mesh, t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(mesh, t)
+            torch.cuda.synchronize()
+            log.append({"op": name, "bytes": t.numel() * t.element_size(),
+                        "shape": list(t.shape), "dtype": str(t.dtype),
+                        "ms": 1e3 * (time.perf_counter() - t0)})
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(collectives, name, timed(name, fn))
+    try:
+        yield log
+    finally:
+        for name, fn in real.items():
+            setattr(collectives, name, fn)
+
+
+@contextlib.contextmanager
+def dp_fault(name: str | None):
+    """A planted fault of the data-parallel step (DP_FAULTS), undone on
+    exit: "skip_reduce" (rank 1 takes part in the flat all-reduce but
+    keeps its own dense gradients), "skip_pair_gather" (the sparse-fused
+    step's (id, cotangent) pairs are not all-gathered), "local_bn"
+    (BatchNorm's statistics stay per rank), "skip_exchange_gather" (the
+    lookup's sparse gradient exchange densifies its own pairs only)."""
+    from deepfm_tpu_torch.parallel import collectives, embedding_shard
+    from deepfm_tpu_torch.training import steps
+
+    undo = []
+
+    def swap(owner, attr, value):
+        undo.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, value)
+
+    class Proxy:
+        """``collectives`` with all_gather_rows an identity."""
+
+        def __getattr__(self, attr):
+            if attr == "all_gather_rows":
+                return lambda mesh, t: t
+            return getattr(collectives, attr)
+
+    if name == "skip_reduce":
+        real = collectives.all_reduce_flat
+
+        def own_on_rank_1(mesh, tensors):
+            summed = real(mesh, tensors)
+            return list(tensors) if mesh.rank == 1 else summed
+
+        swap(collectives, "all_reduce_flat", own_on_rank_1)
+    elif name == "skip_pair_gather":
+        swap(steps, "collectives", Proxy())
+    elif name == "local_bn":
+        swap(collectives, "all_reduce_sum", lambda mesh, t: t)
+    elif name == "skip_exchange_gather":
+        swap(embedding_shard, "collectives", Proxy())
+    try:
+        yield
+    finally:
+        for owner, attr, value in reversed(undo):
+            setattr(owner, attr, value)
+
+
+def state_diff(got: dict, want: dict, band: float) -> dict:
+    """max |got - want| over the table leaves, their moments and the dense
+    parameters of two train-state snapshots, with the parameters (tables
+    and dense) that have an element outside ``band``; and the BatchNorm
+    running statistics' largest error relative to their largest value
+    (they are averages of the batches' statistics, not steps of lr, so the
+    band does not bound them)."""
+    out = {"tables": 0.0, "table_moments": 0.0, "dense": 0.0,
+           "bn_stats_rel": 0.0, "outside_band": []}
+    for name, w in want.items():
+        err = (got[name].float() - w.float()).abs().max().item()
+        if "running_" in name:
+            scale = max(w.float().abs().max().item(), 1e-30)
+            out["bn_stats_rel"] = max(out["bn_stats_rel"], err / scale)
+            continue
+        kind = ("table_moments" if name.endswith((".mu", ".nu"))
+                else "tables" if "table_w" in name else "dense")
+        out[kind] = max(out[kind], err)
+        if kind != "table_moments" and err > band:
+            out["outside_band"].append(name)
+    return out
+
+
+def collective_summary(log: list) -> dict:
+    """A step's collectives by op: calls, bytes sent, host ms, and the
+    largest call's."""
+    out = {}
+    for c in log:
+        rec = out.setdefault(c["op"], {"calls": 0, "bytes": 0, "ms": 0.0,
+                                       "largest": None})
+        rec["calls"] += 1
+        rec["bytes"] += c["bytes"]
+        rec["ms"] += c["ms"]
+        if rec["largest"] is None or c["bytes"] > rec["largest"]["bytes"]:
+            rec["largest"] = c
+    return out
+
+
+def dp_local(arrays, mesh, dev):
+    """The rank's rows of a global batch, on its device."""
+    import dataclasses as dc
+
+    from deepfm_tpu_torch.parallel import batch_rows
+
+    rows = batch_rows(mesh, len(arrays.labels))
+    return batch_on(dc.replace(
+        arrays, ids=arrays.ids[rows], dense=arrays.dense[rows],
+        labels=arrays.labels[rows], weights=arrays.weights[rows]), dev)
+
+
+def dp_full_width(mesh) -> dict:
+    """DP_CASES at bench.py's full width on the mesh: DP_STEPS steps on
+    each rank's rows of DP_STEPS global batches, the replicas checked
+    after every step, the launches counted from 0; rank 0 then takes the
+    same global batches in one process for the comparison; then one
+    profiled step and one step with its collectives timed."""
+    import numpy as np
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.parallel import collectives
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    packed, _ = bench_workload(BENCH_VOCAB)
+    batches = [bench_workload(BENCH_VOCAB, seed=s)[1]
+               for s in range(DP_STEPS)]
+    out, failures = {}, []
+    for path, layout in DP_CASES:
+        case = f"{path}_{layout}"
+        extra = {} if path == "sparse_fused" else {"fused_backward": False}
+        cfg = bench_config(DEVICE, pallas={"table_layout": layout}, **extra)
+        trainer = Trainer(create_model("deepfm", packed, cfg, mesh=mesh),
+                          packed, cfg, mesh=mesh)
+        if trainer.path != path:
+            failures.append(f"{case}: took the {trainer.path} path")
+        local = [dp_local(b, mesh, dev) for b in batches]
+        # --- the main path: every kernel count starts at 0 here ---------
+        reset_counts()
+        losses, times = [], []
+        for i, batch in enumerate(local):
+            s0 = time.perf_counter()
+            loss = trainer._train_step(*batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - s0)
+            losses.append(loss.item())
+            trainer.check_replicas(f"{case} step {i + 1}")
+        counts = read_counts()
+        # --- end of the main path ----------------------------------------
+        check_launches(case, counts, DP_LAUNCHES[path, layout], failures)
+        rec = {"losses": losses, "step_ms": [1e3 * t for t in times],
+               "step_ms_median": 1e3 * statistics.median(times),
+               "launches": {k: counts[k] for k in DP_LAUNCHES[path, layout]},
+               "replicas_equal_every_step": True}
+        if mesh.rank == 0:
+            state = snapshot(trainer)
+            ref = Trainer(create_model("deepfm", packed, cfg, device=DEVICE),
+                          packed, cfg)
+            ref_losses = [ref._train_step(*batch_on(b, dev)).item()
+                          for b in batches]
+            diff = state_diff(state, snapshot(ref), DP_BAND)
+            loss_rel = max(rel_err(a, b) for a, b in zip(losses, ref_losses))
+            rec["one_process"] = {
+                "losses": ref_losses, "loss_rel_err": loss_rel,
+                "max_abs_err": diff,
+                # one process's device ms at the rank's row count
+                "device_ms_rank_rows": step_profile(
+                    lambda: ref._train_step(*local[0]))["device_ms"]}
+            if loss_rel > DP_LOSS_REL or diff["outside_band"]:
+                failures.append(f"{case}: two ranks against one process: "
+                                f"{rec['one_process']}")
+            if case == "sparse_fused_logical":
+                # the control: one process again on the same batches with
+                # their rows permuted (the same sums in another order),
+                # how far DP_STEPS bf16 steps part when nothing but the
+                # order of the sums changes
+                control = Trainer(create_model("deepfm", packed, cfg,
+                                               device=DEVICE), packed, cfg)
+                for b, seed in zip(batches, range(DP_STEPS)):
+                    order = np.random.default_rng(seed).permutation(
+                        len(b.labels))
+                    control._train_step(*batch_on(dataclasses.replace(
+                        b, ids=b.ids[order], dense=b.dense[order],
+                        labels=b.labels[order], weights=b.weights[order]),
+                        dev))
+                rec["one_process"]["control_permuted_rows"] = state_diff(
+                    snapshot(control), snapshot(ref), DP_BAND)
+                del control
+            del ref, state
+            free_device()
+        collectives.barrier(mesh)
+        rec["profile_step"] = step_profile(
+            lambda: trainer._train_step(*local[0]))
+        log = []
+        with timed_collectives(log):
+            trainer._train_step(*local[0])
+        trainer.check_replicas(f"{case} after the profiled steps")
+        rec["collectives"] = collective_summary(log)
+        rec["collective_bytes"] = sum(c["bytes"] for c in log)
+        rec["collective_ms"] = sum(c["ms"] for c in log)
+        if not all(map(math.isfinite, losses)):
+            failures.append(f"{case}: a loss is not finite: {losses}")
+        out[case] = rec
+        del trainer, local
+        free_device()
+    return {"cases": out, "failures": failures}
+
+
+def dp_small_step(mesh, small, arrays, path: str, fault: str | None):
+    """One DP step at SMALL_VOCAB ids, f32, GRAD_BATCH rows on ``path``
+    under a planted ``fault``: the state after it, whether the replicas
+    agree, and (rank 0) the comparison with one process on the card."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.parity import compare_leaves
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    extra = {} if path == "sparse_fused" else {"fused_backward": False}
+    cfg = bench_config(DEVICE, compute_dtype="float32",
+                       moments_dtype="float32", **extra)
+    trainer = Trainer(create_model("deepfm", small, cfg, mesh=mesh), small,
+                      cfg, mesh=mesh)
+    with dp_fault(fault):
+        loss = trainer._train_step(*dp_local(arrays, mesh, mesh.device))
+    try:
+        trainer.check_replicas(f"{path} under {fault}")
+        replica_refusal = None
+    except RuntimeError as e:
+        replica_refusal = str(e)
+    rec = {"loss": loss.item(), "replica_refusal": replica_refusal}
+    if mesh.rank == 0:
+        ref = Trainer(create_model("deepfm", small, cfg, device=DEVICE),
+                      small, cfg)
+        ref_loss = ref._train_step(*batch_on(arrays, mesh.device)).item()
+        cmp = compare_leaves(snapshot(trainer), snapshot(ref), LR, steps=1,
+                             zero_gradient=trainer.model.zero_gradient_leaves)
+        rec["one_process"] = {"loss_rel_err": rel_err(loss.item(), ref_loss),
+                              **cmp}
+        rec["one_process_refused"] = bool(
+            cmp["failed_leaves"]
+            or rec["one_process"]["loss_rel_err"] > TRAIN_TOL["cpu_loss_rel"])
+        del ref
+    del trainer
+    torch.cuda.synchronize()
+    return rec
+
+
+def dp_checks(mesh) -> dict:
+    """At SMALL_VOCAB ids per field, f32, GRAD_BATCH rows: one step of each
+    path against one process (training/parity.py, the share limit on: the
+    first step is held tighter), the first-step gradients of the two-pass
+    path (the exchange's table gradient) against the CPU's (grad_check),
+    and the planted faults (DP_FAULTS), each of which must be refused."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    small, arrays = bench_workload(SMALL_VOCAB)
+    arrays = head_rows(arrays, GRAD_BATCH)
+    failures = []
+    steps = {p: dp_small_step(mesh, small, arrays, p, None)
+             for p in ("sparse_fused", "two_pass")}
+    for p, rec in steps.items():
+        if rec["replica_refusal"] or rec.get("one_process_refused"):
+            failures.append(f"{p}: one f32 step against one process: {rec}")
+
+    cfg = bench_config(DEVICE, compute_dtype="float32", fused_backward=False)
+    cpu_cfg = bench_config("cpu", compute_dtype="float32",
+                           fused_backward=False)
+
+    def dp_grads(fault):
+        trainer = Trainer(create_model("deepfm", small, cfg, mesh=mesh),
+                          small, cfg, mesh=mesh)
+        with dp_fault(fault):
+            loss, grads = trainer._step_fn.loss_and_grads(
+                trainer, *dp_local(arrays, mesh, mesh.device))
+        return loss.item(), {n: g.detach().cpu() for n, g in grads.items()}
+
+    grads = {"sound": dp_grads(None),
+             "skip_exchange_gather": dp_grads("skip_exchange_gather")}
+    faults = {f: dp_small_step(mesh, small, arrays, "sparse_fused", f)
+              for f in DP_FAULTS}
+    out = {"one_step": steps, "faults": faults}
+    if mesh.rank == 0:
+        zero = create_model("deepfm", small, cpu_cfg,
+                            device="cpu").zero_gradient_leaves
+        cpu_loss, want = first_step_grads(small, arrays, "cpu", cpu_cfg)
+        checks = {}
+        for name, (loss, got) in grads.items():
+            c = grad_check(got, want, zero)
+            checks[name] = {"loss_rel_err": rel_err(loss, cpu_loss),
+                            "worst_max_rel": c["worst_max_rel"],
+                            "worst_norm_rel": c["worst_norm_rel"],
+                            "failed_leaves": c["failed_leaves"],
+                            "refused": not c["ok"] or rel_err(
+                                loss, cpu_loss) > TRAIN_TOL["cpu_loss_rel"]}
+        out["first_step_grads_vs_cpu"] = checks
+        if checks["sound"]["refused"]:
+            failures.append(f"first-step gradients, two ranks against the "
+                            f"CPU: {checks['sound']}")
+        if not checks["skip_exchange_gather"]["refused"]:
+            failures.append("the exchange without its gather passed the "
+                            "first-step gradient check")
+        for f, by in DP_FAULTS.items():
+            refused = (faults[f]["replica_refusal"] is not None
+                       if by == "replicas"
+                       else faults[f]["one_process_refused"])
+            faults[f]["refused"] = refused
+            if not refused:
+                failures.append(f"planted fault {f} was not refused by the "
+                                f"{by} check: {faults[f]}")
+    torch.cuda.synchronize()
+    out["failures"] = failures
+    return out
+
+
+def dp_steps(mesh) -> dict:
+    full = dp_full_width(mesh)
+    checks = dp_checks(mesh)
+    return {"full_width": full["cases"], "checks": checks,
+            "failures": full["failures"] + checks["failures"]}
+
+
+def dp_world1(mesh) -> dict:
+    """A world of one rank under NCCL, through the data-parallel code path
+    (a mesh, its collectives, the replicated sparse-fused path), against
+    the mesh-less trainer: DP_STEPS steps at bench.py's full width, every
+    state tensor and loss equal bit for bit."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    packed, _ = bench_workload(BENCH_VOCAB)
+    batches = [batch_on(bench_workload(BENCH_VOCAB, seed=s)[1], mesh.device)
+               for s in range(DP_STEPS)]
+    cfg = bench_config(DEVICE)
+    runs = {}
+    for name, m in (("mesh", mesh), ("mesh_less", None)):
+        trainer = Trainer(create_model("deepfm", packed, cfg, device=DEVICE,
+                                       mesh=m), packed, cfg, mesh=m)
+        losses = [trainer._train_step(*b).item() for b in batches]
+        runs[name] = (losses, trainer.replica_state(), trainer.path)
+    (l0, s0, p0), (l1, s1, p1) = runs["mesh"], runs["mesh_less"]
+    differ = [n for n in s1 if not torch.equal(s0[n], s1[n])]
+    failures = [] if (l0 == l1 and not differ and p0 == p1) else [
+        f"world 1 under NCCL against the mesh-less trainer: losses {l0} / "
+        f"{l1}, paths {p0} / {p1}, differing tensors {differ[:8]}"]
+    return {"losses": l0, "tensors_compared": len(s1),
+            "bit_equal": not failures, "failures": failures}
+
+
+DP_PARTS = {"steps": dp_steps, "world1": dp_world1}
+
+
+def dp_train_loop(tmp: Path) -> dict:
+    """``python -m torch.distributed.run --nproc-per-node DP_WORLD -m
+    deepfm_tpu_torch train`` on train_loop's MovieLens xDeepFM (f32, full
+    width; EXPORT_NEG_EVAL eval negatives, cut from 999 for the phase's
+    time) for TRAIN_LOOP_EPOCHS epochs; a one-process ``evaluate`` of its
+    checkpoint; a run of 1 epoch resumed to TRAIN_LOOP_EPOCHS under the
+    same launch."""
+    from deepfm_tpu_torch.cli import evaluate_command
+    from deepfm_tpu_torch.config import load_config
+
+    data_dir = movielens_data(tmp)
+    root = tmp / "dp_loop"
+
+    def overrides(run, epochs):
+        return [f"data.data_dir={data_dir}", f"training.num_epochs={epochs}",
+                f"data.num_neg_eval={EXPORT_NEG_EVAL}",
+                "training.resume=true", f"device={DEVICE}",
+                f"output_dir={root / run}"]
+
+    def torchrun(run, epochs):
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc-per-node", str(DP_WORLD), "--master-addr",
+               "localhost", "--master-port", str(free_port()),
+               "-m", "deepfm_tpu_torch", "train", "--config",
+               str(REPO / "configs" / TRAIN_LOOP_CONFIG), "--override",
+               *overrides(run, epochs)]
+        t0 = time.perf_counter()
+        # its own session, so that a launch past its time is stopped with
+        # every rank it started
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=DP_RANK_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"data_parallel: {' '.join(cmd[2:6])} train {run} exited "
+                 f"{proc.returncode}: {out[-3000:]}")
+        return time.perf_counter() - t0
+
+    def clock_free(history):
+        return [{k: v for k, v in h.items() if k not in HISTORY_CLOCK}
+                for h in history]
+
+    failures = []
+    whole_s = torchrun("whole", TRAIN_LOOP_EPOCHS)
+    files = sorted(p.name for p in (root / "whole").iterdir())
+    results = json.loads((root / "whole" / "results.json").read_text())
+    info = results["training_info"]
+    if files.count("results.json") != 1 or files.count("best_model.pt") != 1 \
+            or any("rank" in f for f in files):
+        failures.append(f"files written: {files}")
+    missing = [k for k in ("cin_stack_fwd", "cin_stack_bwd")
+               if k not in info["kernels"]]
+    if missing or info["mesh"] != {"data": DP_WORLD, "model": 1} \
+            or info["num_devices"] != DP_WORLD:
+        failures.append(f"training_info {info}: {missing} not launched on "
+                        f"every rank, or not a {DP_WORLD}x1 mesh")
+    t0 = time.perf_counter()
+    evaluated = evaluate_command(load_config(
+        REPO / "configs" / TRAIN_LOOP_CONFIG,
+        overrides("whole", TRAIN_LOOP_EPOCHS)))
+    evaluate_s = time.perf_counter() - t0
+    last_is_best = info["best_epoch"] == info["total_epochs"]
+    if evaluated["val"] != results["val_metrics"] or (
+            last_is_best and evaluated["test"] != results["test_metrics"]):
+        failures.append(f"one-process evaluate {evaluated} differs from "
+                        f"the two-rank run's {results['val_metrics']} / "
+                        f"{results['test_metrics']}")
+    free_device()
+    first_s = torchrun("resumed", 1)
+    resume_s = torchrun("resumed", TRAIN_LOOP_EPOCHS)
+    resumed = json.loads((root / "resumed" / "results.json").read_text())
+    same = clock_free(resumed["history"]) == clock_free(results["history"])
+    if not same:
+        failures.append(f"the resumed history {resumed['history']} differs "
+                        f"from the unbroken run's {results['history']}")
+    return {"config": f"configs/{TRAIN_LOOP_CONFIG}", "ranks": DP_WORLD,
+            "epochs": TRAIN_LOOP_EPOCHS, "files": files,
+            "train_s": whole_s, "first_epoch_s": first_s,
+            "resume_s": resume_s, "evaluate_s": evaluate_s,
+            "epoch_seconds": [h["epoch_seconds"] for h in results["history"]],
+            "examples_per_sec": [h["examples_per_sec"]
+                                 for h in results["history"]],
+            "examples_per_sec_per_device": info[
+                "examples_per_sec_per_device"],
+            "training_info_kernels": info["kernels"],
+            "backward": info["backward"], "mesh": info["mesh"],
+            "test_metrics": results["test_metrics"],
+            "evaluate_reproduces_val": evaluated["val"] == results[
+                "val_metrics"],
+            "evaluate_reproduces_test": evaluated["test"] == results[
+                "test_metrics"],
+            "resumed_history_equal": same, "failures": failures}
+
+
+def phase_data_parallel(tmp: Path, gpu: str) -> dict:
+    """Data-parallel training on torch.distributed (module docstring)."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(DP_WORLD, "steps", tmp)
+    steps_s = time.perf_counter() - t0
+    world1 = spawn_ranks(1, "world1", tmp)[0]
+    t0 = time.perf_counter()
+    loop = dp_train_loop(tmp)
+    loop_s = time.perf_counter() - t0
+    failures = [f for r in ranks for f in r["failures"]]
+    failures += world1["failures"] + loop["failures"]
+    full = {case: {"rank": [r["full_width"][case] for r in ranks]}
+            for case in ranks[0]["full_width"]}
+    out = {
+        "phase": "data_parallel", "gpu": gpu, "ranks": DP_WORLD,
+        "backend": ranks[0]["backend"], "backend_rule": ranks[0]["rule"],
+        "devices": [r["device"] for r in ranks],
+        "batch": BENCH_BATCH, "rows_per_rank": BENCH_BATCH // DP_WORLD,
+        "steps": DP_STEPS, "steps_s": steps_s, "full_width": full,
+        "checks": ranks[0]["checks"],
+        "world1_nccl": {k: world1[k] for k in
+                        ("backend", "bit_equal", "tensors_compared",
+                         "losses")},
+        "train_loop": loop, "train_loop_s": loop_s,
+        "tol": {"loss_rel": DP_LOSS_REL, "band": DP_BAND,
+                "one_step": "training/parity.py, share limit on",
+                "grads": {"max_rel": GRAD_MAX_REL, "norm_rel": GRAD_NORM_REL}},
+        "ok": not failures,
+    }
+    emit(out)
+    summary = {case: {
+        "step_ms_median": [r["step_ms_median"] for r in rec["rank"]],
+        "device_ms": [r["profile_step"]["device_ms"] for r in rec["rank"]],
+        "collective_ms": [r["collective_ms"] for r in rec["rank"]],
+        "collective_mb": [r["collective_bytes"] / 1e6 for r in rec["rank"]],
+        "one_process_device_ms_rank_rows":
+            rec["rank"][0]["one_process"]["device_ms_rank_rows"],
+        "vs_one_process": {
+            "loss_rel_err": rec["rank"][0]["one_process"]["loss_rel_err"],
+            **rec["rank"][0]["one_process"]["max_abs_err"]},
+        "control_permuted_rows": rec["rank"][0]["one_process"].get(
+            "control_permuted_rows")}
+        for case, rec in full.items()}
+    print(f"data_parallel ({gpu}; {DP_WORLD} ranks, {out['backend']}: "
+          f"{out['backend_rule']}): {json.dumps(summary)}", flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4160,6 +4829,7 @@ def main() -> None:
         timed("predict_recommend", phase_predict_recommend, Path(tmp), gpu)
         timed("export", phase_export, Path(tmp), gpu)
         timed("packed_store", phase_packed_store, Path(tmp), gpu)
+        timed("data_parallel", phase_data_parallel, Path(tmp), gpu)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     kernels = []
     # (name, source, replaces, launches on its main path, its numbers at

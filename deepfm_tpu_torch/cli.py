@@ -22,17 +22,29 @@ a symbolic batch unless ``--batch-size`` pins it, optionally int8 tables)
 for one platform, ``cpu`` or ``cuda``, and verifies it against the
 in-process scores.
 
-``train``, ``evaluate`` and the serving commands first check the ``mesh``
-section as the JAX CLI does (``parallel/mesh.py``), for one device: the
-port drives one until ROADMAP queue 1 item 10, so a mesh of more is
-refused with the JAX package's message, and so is ``mesh.multihost``
-without ``allow_single_process``; ``export`` checks them on its serving
-config, whose mesh is 1x1. ``profile.debug_nans`` makes ``train`` raise
-``FloatingPointError`` at the first step whose loss or gradients are not
-finite (``training/steps.py``).
+``train`` and ``evaluate`` first build the runtime (``build_runtime``,
+the JAX CLI's ``maybe_init_multihost`` and ``build_runtime``): under
+``python -m torch.distributed.run --nproc-per-node N`` each of the N
+processes is one rank on one device, the process group starts
+(``parallel/mesh.py``; with ``mesh.multihost: false`` too, since the port
+runs one process per device where JAX runs one per host), and the
+``mesh`` section resolves to a data-parallel mesh over the N ranks, each
+rank training on its rows of every global batch and rank 0 alone logging
+and writing files. A mesh the ranks cannot form is refused with the JAX
+package's message, a model axis above 1 with ROADMAP queue 1 item 10(b),
+``mesh.multihost`` without a coordinator unless ``allow_single_process``,
+and a batch the data axis does not divide, all before any data is built.
+The serving commands (``predict``, ``recommend``, ``serve``, ``export``)
+run on one device: launched as more than one rank, each refuses by name
+(sharded batch scoring is ROADMAP queue 1 item 10(d)); ``export`` checks
+its serving config, whose mesh is 1x1. ``profile.debug_nans`` makes
+``train`` raise ``FloatingPointError`` at the first step whose loss or
+gradients are not finite (``training/steps.py``).
 
     python -m deepfm_tpu_torch train --config configs/xdeepfm_movielens_cin_tuned.yaml \\
         --override data.data_dir=DIR output_dir=RUN
+    python -m torch.distributed.run --nproc-per-node 2 -m deepfm_tpu_torch \\
+        train --config ... --override ... (the same, data-parallel)
     python -m deepfm_tpu_torch evaluate --config ... --override ... (the same)
     python -m deepfm_tpu_torch predict --config ... --override ... \\
         --input DIR/u.data --output scores.tsv
@@ -86,30 +98,88 @@ def _build_data(config: ExperimentConfig):
     )
 
 
-def _check_runtime(config: ExperimentConfig) -> None:
-    """The JAX CLI's ``maybe_init_multihost`` and ``build_runtime`` checks
-    of ``config.mesh``, for the one device the port drives (whatever
-    ``torch.cuda.device_count()`` says) until ROADMAP queue 1 item 10."""
-    from deepfm_tpu_torch.parallel import check_multihost, resolve_mesh
+def build_runtime(config: ExperimentConfig):
+    """The JAX CLI's ``maybe_init_multihost`` and ``build_runtime``: start
+    the process group where a coordinator is named (``mesh.multihost``, or
+    a torchrun launch of more than one rank), resolve ``config.mesh`` over
+    the ranks, and return the data-parallel mesh, or None for one device
+    without a mesh. Raises where the JAX CLI would, and for a model axis
+    above 1 (ROADMAP queue 1 item 10(b))."""
+    from deepfm_tpu_torch.parallel import (
+        build_hybrid_mesh,
+        build_mesh,
+        check_multihost,
+        initialize_distributed,
+        resolve_mesh,
+    )
+    from deepfm_tpu_torch.parallel.mesh import world_size
 
+    if not check_multihost(config, os.environ):
+        initialize_distributed(env=os.environ, device=config.device)
+    n = world_size()
+    try:
+        shape = resolve_mesh(config, n_devices=n)
+    except ValueError as e:
+        raise ValueError(
+            f"{e} (the port runs one rank a device: launch N ranks with "
+            "python -m torch.distributed.run --nproc-per-node N; ROADMAP "
+            "queue 1 item 10)") from None
+    if shape is None:
+        return None
+    m = config.mesh
+    if m.num_slices > 1:
+        return build_hybrid_mesh(m.num_slices, m.data_axis, m.model_axis,
+                                 device=config.device)
+    return build_mesh(m.data_axis, m.model_axis, device=config.device)
+
+
+def _check_serving_runtime(config: ExperimentConfig, command: str) -> None:
+    """The runtime checks of a serving command, which runs on one device:
+    more than one rank is refused by name, then ``mesh.multihost`` and the
+    mesh are checked as the JAX CLI checks them, for one device."""
+    from deepfm_tpu_torch.parallel import (
+        check_multihost,
+        multiprocess_env_configured,
+        resolve_mesh,
+    )
+
+    if multiprocess_env_configured(os.environ):
+        raise RuntimeError(
+            f"{command} runs on one device, and this process is one rank of "
+            "several (the environment names a coordinator): sharded batch "
+            "scoring waits for ROADMAP queue 1 item 10(d); run it as one "
+            "process")
     check_multihost(config, os.environ)
     try:
         resolve_mesh(config, n_devices=1)
     except ValueError as e:
         raise ValueError(
-            f"{e} (the port drives one device: multi-device training and "
-            "serving wait for ROADMAP queue 1 item 10)") from None
+            f"{e} ({command} runs on one device; ROADMAP queue 1 item "
+            "10(d))") from None
+
+
+def _run_logger(mesh, log_file: str | None = None):
+    """The package's logger: rank 0 (or a run without a mesh) logs to the
+    console and to ``log_file``; every other rank only warns."""
+    import logging
+
+    if mesh is not None and mesh.rank != 0:
+        log = get_logger("deepfm_tpu_torch")
+        log.setLevel(logging.WARNING)
+        return log
+    return get_logger("deepfm_tpu_torch", log_file=log_file)
 
 
 def train_command(config: ExperimentConfig):
     """Train ``config``'s model on its dataset (``Trainer.train``), its log
     lines also in ``output_dir/train.log``; returns the trainer."""
     from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.parallel import check_batch
     from deepfm_tpu_torch.training.trainer import Trainer
 
-    _check_runtime(config)
-    log = get_logger("deepfm_tpu_torch",
-                     log_file=f"{config.output_dir}/train.log")
+    mesh = build_runtime(config)
+    check_batch(mesh, config.training.batch_size)
+    log = _run_logger(mesh, f"{config.output_dir}/train.log")
     seed_everything(config.seed)
     if config.profile.debug_nans:
         log.info("profile.debug_nans: each step checks that its loss and "
@@ -120,14 +190,16 @@ def train_command(config: ExperimentConfig):
              f"test={len(test_d)}")
     log.info(f"Schema: {schema.field_names}")
     model = create_model(config.model_name, packed, config,
-                         device=config.device)
+                         device=config.device, mesh=mesh)
     trainer = Trainer(
         model, packed, config, train_data=train_d, val_data=val_d,
         test_data=test_d,
         # the adapter drives per-epoch train resampling
         adapter=adapter if hasattr(adapter, "resample_train") else None,
+        mesh=mesh,
     )
-    log.info(f"Device: {trainer.device}")
+    log.info(f"Device: {trainer.device}" + ("" if mesh is None else (
+        f" (rank 0 of a {mesh.data}x{mesh.model} mesh, {mesh.backend})")))
     log.info(f"Model: {config.model_name} "
              f"({trainer.predictor.n_params:,} parameters)")
     trainer.train()
@@ -138,16 +210,18 @@ def evaluate_command(config: ExperimentConfig) -> dict[str, dict]:
     """The best checkpoint's metrics on the val and test splits, logged;
     returns {"val": ..., "test": ...}."""
     from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.parallel import check_batch
     from deepfm_tpu_torch.training.trainer import Trainer
 
-    _check_runtime(config)
-    log = get_logger("deepfm_tpu_torch")
+    mesh = build_runtime(config)
+    check_batch(mesh, config.training.batch_size)
+    log = _run_logger(mesh)
     seed_everything(config.seed)
     _, _, packed, _, val_d, test_d = _build_data(config)
     model = create_model(config.model_name, packed, config,
-                         device=config.device)
+                         device=config.device, mesh=mesh)
     trainer = Trainer(model, packed, config, val_data=val_d,
-                      test_data=test_d)
+                      test_data=test_d, mesh=mesh)
     trainer.load_best()
     out = {}
     for split, title, data in (("val", "Validation", val_d),
@@ -243,8 +317,11 @@ def compare_command(args) -> None:
 def _restore_predictor(
     config: ExperimentConfig,
     require: tuple[str, ...] | None = None,
+    command: str | None = None,
 ):
-    """Shared serving prologue: check the mesh settings, build the fitted
+    """Shared serving prologue: check the runtime
+    (``_check_serving_runtime``, for ``command``: ``require``'s first
+    item by default), build the fitted
     data pipeline, the model on ``config.device``, load the best
     checkpoint, and wrap it in a ``Predictor``. Returns (adapter, packed,
     val_d, test_d, model, predictor). ``require=(command,
@@ -254,7 +331,7 @@ def _restore_predictor(
     from deepfm_tpu_torch.training.persistence import load_best
     from deepfm_tpu_torch.training.predict import Predictor
 
-    _check_runtime(config)
+    _check_serving_runtime(config, command or (require or ("serving",))[0])
     adapter, schema, packed, train_d, val_d, test_d = _build_data(config)
     if require is not None:
         missing = [m for m in require[1:] if not hasattr(adapter, m)]
@@ -363,7 +440,8 @@ def export_command(
     scfg = serving_config(config)
     # the artifact is one program on one device; cross-layout restore
     # loads a packed checkpoint into the serving model's logical tables
-    _, packed, val_d, _, model, predictor = _restore_predictor(scfg)
+    _, packed, val_d, _, model, predictor = _restore_predictor(
+        scfg, command="export")
     export_model = model
     if quantize is not None:
         export_model = quantized_scoring_model(config, packed, model)

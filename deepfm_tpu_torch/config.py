@@ -138,12 +138,18 @@ class TrainingConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout of the JAX package. The port resolves it for one
-    device by the JAX CLI's rules (``parallel/mesh.py``: ``data_axis`` is
-    ignored on one device, a ``model_axis`` of 1 or -1 needs no mesh, and
-    a mesh of more devices is refused) and checks ``multihost`` /
-    ``allow_single_process``; ``embedding_strategy`` is not read. The
-    multi-device runtime is ROADMAP queue 1 item 10."""
+    """Device-mesh layout of the JAX package, over the port's ranks (one
+    process a device, ``parallel/mesh.py``), by the JAX CLI's rules:
+    ``data_axis`` and ``model_axis`` resolve against the world size (one
+    rank with a model axis of 1 or -1 needs no mesh; an axis of -1 takes
+    the ranks left over; a model axis above 1 is refused until ROADMAP
+    queue 1 item 10(b)); ``num_slices`` groups the ranks as
+    ``build_hybrid_mesh`` does; ``multihost`` starts the process group
+    from torchrun's environment or refuses without a coordinator unless
+    ``allow_single_process``; ``embedding_strategy`` "auto" all-reduces
+    the dense table gradient of the two-pass, lazy and plain paths, and
+    any other strategy gives them the sparse gradient exchange
+    (``parallel/embedding_shard.py``)."""
 
     data_axis: int = -1
     model_axis: int = 1

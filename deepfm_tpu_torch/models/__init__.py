@@ -59,22 +59,47 @@ def create_model(
     config: ExperimentConfig,
     device: str | torch.device = "cuda",
     seed: int | None = None,
+    mesh=None,
 ) -> CTRModel:
     """Instantiate a model by registry name, initialised from ``seed``
     (default ``config.seed``) and moved to ``device``. The tables' layout
     and lookup follow ``tables_packed`` and
-    ``pallas.use_embedding_kernel``."""
+    ``pallas.use_embedding_kernel``.
+
+    Under a data-parallel ``mesh`` (``parallel.Mesh``) the model goes to
+    the rank's device, ``mesh.device``, and the paths that look
+    the tables up inside the loss graph (two-pass, lazy, plain) get the
+    sparse gradient exchange around that lookup for
+    ``mesh.embedding_strategy`` (``parallel/embedding_shard.py``; "auto"
+    keeps the plain lookup, whose dense gradient the step all-reduces).
+    The sparse-fused path gathers the pairs itself and keeps the default
+    lookup, as in the JAX package, whatever the strategy."""
     if name not in MODEL_REGISTRY:
         raise ValueError(
             f"Unknown model: {name}. Choose from {list(MODEL_REGISTRY)}"
         )
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     packed = schema if isinstance(schema, PackedSchema) else pack_schema(schema)
     gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
-    return MODEL_REGISTRY[name](
+    model = MODEL_REGISTRY[name](
         packed, config, generator=gen, packed_tables=tables_packed(config),
         gather_kernel=config.pallas.use_embedding_kernel,
     ).to(dev)
+    from deepfm_tpu_torch.training.trainer import sparse_fused_eligible
+
+    if mesh is not None and not sparse_fused_eligible(config, packed):
+        from deepfm_tpu_torch.ops.kernels.gather import row_gather
+        from deepfm_tpu_torch.parallel import (
+            make_lookup_fn,
+            make_packed_lookup_factory,
+        )
+
+        strategy = config.mesh.embedding_strategy
+        model.embedding.install_lookups(
+            make_lookup_fn(mesh, strategy, gather=(
+                row_gather if config.pallas.use_embedding_kernel else None)),
+            make_packed_lookup_factory(mesh, strategy))
+    return model
 
 
 __all__ = [

@@ -39,6 +39,11 @@ gathers, each with a kernel for its backward:
   * packed: plain indexing into a strided view, the gradient densified
     straight into the packed layout (``ops/kernels/packed_grad.py``).
 
+Under a data-parallel mesh, ``create_model`` installs the sparse
+gradient exchange (``parallel/embedding_shard.py``) around the table's
+lookup with ``install_lookups``: the same forward, and a backward that
+densifies every rank's all-gathered (id, cotangent) pairs.
+
 A CPU table takes the kernels' plain versions. For a serving export
 with ``--quantize int8`` (``utils/export.py``), ``quantize_tables`` swaps
 the f32 tables for per-row int8 ones (``QuantizedTables``), whose lookup
@@ -144,6 +149,9 @@ class FeatureEmbedding(nn.Module):
         self.table_pack: dict[str, int] = {}
         # int8 serving tables in place of table_w* (``quantize_tables``)
         self.quantized: QuantizedTables | None = None
+        # table name -> the lookup installed in place of the layout's own
+        # (``install_lookups``: the data-parallel gradient exchange)
+        self.lookup_fns: dict = {}
 
         for gi, group in enumerate(packed.lookup_groups):
             d = group.width
@@ -226,13 +234,29 @@ class FeatureEmbedding(nn.Module):
             delattr(self, f"table_w{d}")
         self.quantized = QuantizedTables(qtabs)
 
+    def install_lookups(self, lookup_fn, packed_lookup_factory) -> None:
+        """Look up each logical table with ``lookup_fn(table, flat_ids)``
+        and each packed one with ``packed_lookup_factory(dcol, pack)``'s
+        lookup (``parallel/embedding_shard.py``); None keeps the layout's
+        own lookup."""
+        for name, pack in self.table_pack.items():
+            dcol = int(name[len("table_w"):]) + 1
+            fn = (packed_lookup_factory(dcol, pack)
+                  if pack > 1 and packed_lookup_factory is not None
+                  else lookup_fn if pack == 1 else None)
+            if fn is not None:
+                self.lookup_fns[name] = fn
+
     def lookup(self, d: int, flat_ids: torch.Tensor) -> torch.Tensor:
         """(n, d+1) rows of the width-``d`` table at logical ids
-        ``flat_ids``, by the table's layout and the configured gather
-        (module docstring)."""
+        ``flat_ids``, by an installed lookup, else the table's layout and
+        the configured gather (module docstring)."""
         if self.quantized is not None:
             return self.quantized(d, flat_ids)
         table = getattr(self, f"table_w{d}")
+        installed = self.lookup_fns.get(f"table_w{d}")
+        if installed is not None:
+            return installed(table, flat_ids)
         pack = self.table_pack[f"table_w{d}"]
         if pack > 1:
             return packed_lookup(table, flat_ids, d + 1, pack)

@@ -197,7 +197,7 @@ def fused_table_adam(param, mu, nu, grad, lr, weight_decay, global_norm,
     split = vector_split(param.numel(), [
         (t.data_ptr(), t.element_size()) for t in (param, grad, mu, nu)])
     lib = build.bind(SOURCE, _SIGNATURES)
-    with torch.cuda.device(param.device):
+    with build.launch_device(param.device):
         err = lib.fused_table_adam_launch(
             param.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             int(mu.dtype == torch.bfloat16), grad.data_ptr(), param.numel(),

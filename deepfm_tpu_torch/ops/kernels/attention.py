@@ -361,7 +361,7 @@ def _forward_cuda(x, p, num_heads, use_residual) -> torch.Tensor:
     x = x.contiguous()
     wqkv, bqkv, wo, bo, ls, lb = _operands(x, p, use_residual)
     lib = build.bind(SOURCE, _SIGNATURES)
-    with torch.cuda.device(x.device):
+    with build.launch_device(x.device):
         err = lib.attention_block_fwd(
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), ls.data_ptr(), lb.data_ptr(), out.data_ptr(),
@@ -381,7 +381,7 @@ def forward_attributes(x: torch.Tensor, fp: ForwardPlan) -> dict:
     blocks an SM holds at the plan's shared memory."""
     lib = build.bind(SOURCE, _SIGNATURES)
     out = (ctypes.c_int * 4)()
-    with torch.cuda.device(x.device):
+    with build.launch_device(x.device):
         err = lib.attention_block_fwd_attributes(
             int(x.dtype == torch.bfloat16), fp.smem, ctypes.addressof(out))
     build.check(lib, SOURCE, "attention_block_fwd_attributes", err)
@@ -408,7 +408,7 @@ def _backward_cuda(x, p, g, num_heads, use_residual):
         grid = bp.grid(bsz)
         part = torch.empty(grid, n, dtype=torch.float32, device=x.device)
         lib = build.bind(BWD_SOURCE, _BWD_SIGNATURES)
-        with torch.cuda.device(x.device):
+        with build.launch_device(x.device):
             err = lib.attention_bwd(
                 x.data_ptr(), gg.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
                 wo.data_ptr(), bo.data_ptr(), ls.data_ptr(), dx.data_ptr(),

@@ -144,6 +144,31 @@ def sm_count(t) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
+def launch_device(t):
+    """The device context of a launch on ``t``'s device (``t`` a tensor or a
+    CUDA device), after a guard: that device must be the current one. A
+    process drives one card (a rank sets its own with
+    ``torch.cuda.set_device`` before it launches anything), so a kernel's
+    tensors on another card are a placement fault, which raises here
+    rather than launching on the wrong card or stream."""
+    import torch
+
+    dev = t.device if isinstance(t, torch.Tensor) else torch.device(t)
+    check_current(dev.index)
+    return torch.cuda.device(dev)
+
+
+def check_current(index: int) -> None:
+    """Raise RuntimeError unless ``cuda:index`` is the current device."""
+    import torch
+
+    current = torch.cuda.current_device()
+    if index != current:
+        raise RuntimeError(
+            f"a kernel's tensors are on cuda:{index}, but this process's "
+            f"current device is cuda:{current} (torch.cuda.set_device)")
+
+
 def stream_of(t) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as a C pointer, read
     without building a ``torch.cuda.Stream`` object (the call PyTorch's own

@@ -223,7 +223,7 @@ def compress_attributes(t: torch.Tensor, plan: CompressPlan) -> dict:
     holds at the plan's threads and shared memory."""
     lib = build.bind(SOURCE, _SIGNATURES)
     out = (ctypes.c_int * 4)()
-    with torch.cuda.device(t.device):
+    with build.launch_device(t.device):
         err = lib.cin_compress_attributes(plan.threads, plan.smem,
                                           ctypes.addressof(out))
     build.check(lib, SOURCE, "cin_compress_attributes", err)
@@ -275,7 +275,7 @@ def _cin_compress_cuda(hidden, x0, w, b) -> torch.Tensor:
     bias = b.float().contiguous()
     plan = compress_plan(bsz, f, d, m, sms=build.sm_count(hid))
     lib = build.bind(SOURCE, _SIGNATURES)
-    with torch.cuda.device(dev):
+    with build.launch_device(dev):
         err = lib.cin_compress(
             hid.data_ptr(), x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
             out.data_ptr(), bsz, h, f, d, m, wt.shape[1], plan.tile_maps,

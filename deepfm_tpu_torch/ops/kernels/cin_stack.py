@@ -498,7 +498,7 @@ def _cin_stack_cuda(x0, weights, biases, layer_sizes,
         return (ctypes.c_int * n)(*vs)
 
     lib = build.bind(SOURCE, _SIGNATURES)
-    with torch.cuda.device(dev):
+    with build.launch_device(dev):
         err = lib.cin_stack_fwd(
             x.data_ptr(), out.data_ptr(),
             (ctypes.c_void_p * n)(*[t.data_ptr() for t in wts]),
@@ -538,7 +538,7 @@ def _cin_stack_mma_cuda(x0, weights, biases, layer_sizes,
         return (ctypes.c_int * n)(*vs)
 
     lib = build.bind(MMA_SOURCE, _MMA_SIGNATURES)
-    with torch.cuda.device(x0.device):
+    with build.launch_device(x0.device):
         err = lib.cin_stack_fwd_mma(
             x.data_ptr(), out.data_ptr(),
             (ctypes.c_void_p * n)(*[t.data_ptr() for t in wts]),
@@ -1059,7 +1059,7 @@ def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half):
         return (ctypes.c_int * n)(*vs)
 
     lib = build.bind(BWD_SOURCE, _BWD_SIGNATURES)
-    with torch.cuda.device(dev):
+    with build.launch_device(dev):
         err = lib.cin_stack_bwd(
             x.data_ptr(), gg.data_ptr(), ptrs(wts), ptrs(wms), ptrs(bs),
             ints(layer_sizes), ints(mpads), ints(direct_sizes),
@@ -1116,7 +1116,7 @@ def _cin_stack_bwd_mma_cuda(x0, weights, biases, g, layer_sizes, split_half):
         return (ctypes.c_int * n)(*vs)
 
     lib = build.bind(BWD_MMA_SOURCE, _BWD_MMA_SIGNATURES)
-    with torch.cuda.device(dev):
+    with build.launch_device(dev):
         err = lib.cin_stack_bwd_mma(
             x.data_ptr(), gg.data_ptr(), ptrs(wts), ptrs(bs),
             ints(layer_sizes), ints(direct_sizes), ints(next_sizes),

@@ -79,8 +79,8 @@ def row_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
     The host path is kept short, since a gather of tens of MB takes tens of
     microseconds on the card: the library is bound once, the stream is read
-    without building a Stream object, and the C launch switches devices
-    only when the table is not on the current one."""
+    without building a Stream object, and a table off the current device
+    raises (``build.check_current``)."""
     if not table.is_cuda:
         if table.device.type == "cpu":
             return row_gather_plain(table, ids)
@@ -93,6 +93,7 @@ def row_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return out
     lib = _library()
     dev = table.get_device()
+    build.check_current(dev)
     err = lib.row_gather_launch(
         table.data_ptr(), v, c, ids.data_ptr(), n, out.data_ptr(), dev,
         torch._C._cuda_getCurrentRawStream(dev),

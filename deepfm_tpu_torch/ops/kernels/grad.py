@@ -175,7 +175,7 @@ def _densify_cuda(sids, cts, num_rows: int) -> torch.Tensor:
     plan = densify_plan(num_rows, d, sms=build.sm_count(cts))
     out = torch.empty(num_rows, d, dtype=torch.float32, device=cts.device)
     lib = build.bind(SOURCE, _SIGNATURES)
-    with torch.cuda.device(cts.device):
+    with build.launch_device(cts.device):
         err = lib.densify_rows_grad_launch(
             sids.data_ptr(), cts.data_ptr(), n, d, num_rows, plan.tile_phys,
             plan.chunk_pairs, plan.grid, plan.smem_bytes, out.data_ptr(),

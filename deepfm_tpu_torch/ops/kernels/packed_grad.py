@@ -104,7 +104,7 @@ def _densify_packed_cuda(sids, cts, num_rows: int, pack: int) -> torch.Tensor:
     out = torch.empty(plan.phys, LANES, dtype=torch.float32,
                       device=cts.device)
     lib = build.bind(SOURCE, _SIGNATURES)
-    with torch.cuda.device(cts.device):
+    with build.launch_device(cts.device):
         err = lib.densify_rows_grad_packed_launch(
             sids.data_ptr(), cts.data_ptr(), n, dcol, pack, num_rows,
             plan.tile_phys, plan.chunk_pairs, plan.grid, plan.smem_bytes,

@@ -322,7 +322,7 @@ def segment_sumsq(sids: torch.Tensor, cts: torch.Tensor) -> torch.Tensor:
                           device=cts.device)
     lib = build.bind(SOURCE, _SIGNATURES)
     stream = build.stream_of(cts)
-    with torch.cuda.device(cts.device):
+    with build.launch_device(cts.device):
         err = lib.segment_sumsq_launch(
             sids.data_ptr(), cts.data_ptr(), n, d, int(plan.staged),
             plan.threads, plan.smem, plan.grid, scratch.data_ptr(),
@@ -405,7 +405,7 @@ def sparse_table_adam(param, mu, nu, sids, cts, lr, weight_decay,
                            device=param.device)
     psq = torch.empty((), dtype=torch.float32, device=param.device)
     lib = build.bind(SOURCE, _SIGNATURES)
-    with torch.cuda.device(param.device):
+    with build.launch_device(param.device):
         err = lib.sparse_table_adam_launch(
             param.data_ptr(), mu.data_ptr(), nu.data_ptr(),
             int(mu.dtype == torch.bfloat16), rows, width, cts.shape[1], pack,

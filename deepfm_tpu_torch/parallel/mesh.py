@@ -1,24 +1,46 @@
-"""Resolution of the ``mesh`` config section, without a runtime.
+"""The distributed runtime and the device mesh, on ``torch.distributed``.
 
-The port's copy of the resolution half of ``deepfm_tpu/parallel/mesh.py``
-(``build_mesh`` and ``build_hybrid_mesh``: their axis arithmetic and their
-refusals, with the JAX package's words) and of ``deepfm_tpu/cli.py``'s
-``build_runtime`` (one device and a model axis of 1 or -1 need no mesh)
-and ``maybe_init_multihost``. Nothing here starts ``torch.distributed``:
-the port drives one device until ROADMAP queue 1 item 10 adds the
-multi-device runtime on top of these functions. So the CLI resolves the
-mesh for one device, and a config that asks for more is refused by the
-JAX package's own rule rather than trained on one card without a word.
+Port of ``deepfm_tpu/parallel/mesh.py`` (``initialize_distributed``,
+``build_mesh``, ``build_hybrid_mesh``, ``AXIS_DATA`` / ``AXIS_MODEL``) and
+of ``deepfm_tpu/cli.py``'s ``maybe_init_multihost`` and ``build_runtime``
+(``resolve_mesh``, ``check_multihost``).
+
+The JAX package runs one process per host and a mesh over every device
+it sees; the port runs one process per device (a rank), launched by
+``python -m torch.distributed.run --nproc-per-node N``, which names the
+coordinator in each rank's environment: ``MASTER_ADDR``, ``MASTER_PORT``,
+``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``. ``initialize_distributed``
+starts the process group from there. A ``Mesh`` is a small record of the
+(data, model) axes over the ranks and of this rank's place in them; the
+collectives that act on it are ``parallel/collectives.py``'s.
+
+Only the data axis is ported (ROADMAP queue 1 item 10(a)): every leaf is
+replicated on every rank and the batch is split over the ranks
+(``parallel/sharding.py``). A model axis above 1 (row-sharded tables) is
+refused with a message that names ROADMAP queue 1 item 10(b).
+
+The backend rule: NCCL when every local rank has a card of its own; gloo
+when the local ranks share a card (NCCL refuses two ranks on one device)
+or run on the CPU (``parallel/collectives.py`` says which tensors each
+backend takes). Rank 0 logs the rule it applied.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Mapping
+import os
+from dataclasses import dataclass
+from datetime import timedelta
+from typing import Any, Mapping
+
+import torch
 
 from deepfm_tpu_torch.config import ExperimentConfig
 
 logger = logging.getLogger("deepfm_tpu_torch")
+
+AXIS_DATA = "data"
+AXIS_MODEL = "model"
 
 # environment variables that name a coordinator (``_multiprocess_env_
 # configured`` of the JAX package), plus torchrun's WORLD_SIZE > 1
@@ -28,6 +50,38 @@ COORDINATOR_ENV = (
     "MEGASCALE_COORDINATOR_ADDRESS",
     "OMPI_MCA_orte_hnp_uri",
 )
+# what torchrun sets for every rank, and what the port starts from
+TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+# how long the rendezvous and each collective may wait for the other
+# ranks before the rank raises
+TIMEOUT_S = 600
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The (data, model) mesh over the ranks and this rank's place in it:
+    ``world`` ranks, this one ``rank`` (``local_rank`` on its host) on
+    ``device``; ``backend`` is the process group's ("nccl" or "gloo"; None
+    for a mesh of one rank without a process group) and ``group`` the
+    group the collectives run on (None: the default group)."""
+
+    data: int
+    model: int
+    rank: int
+    world: int
+    local_rank: int
+    device: torch.device
+    backend: str | None
+    group: Any = None
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """{"data": ..., "model": ...}, as a JAX mesh's ``shape``."""
+        return {AXIS_DATA: self.data, AXIS_MODEL: self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
 
 
 def mesh_shape(data_axis: int, model_axis: int, n: int) -> tuple[int, int]:
@@ -49,9 +103,9 @@ def mesh_shape(data_axis: int, model_axis: int, n: int) -> tuple[int, int]:
 
 def hybrid_mesh_shape(num_slices: int, data_axis: int, model_axis: int,
                       n: int) -> tuple[int, int]:
-    """(data, model) of ``build_hybrid_mesh`` for ``num_slices`` > 1 (one
-    slice is ``mesh_shape``'s): the model axis stays inside one slice and
-    the data axis spans them."""
+    """(data, model) of ``build_hybrid_mesh``: the model axis stays inside
+    one slice and the data axis spans them (with one slice, the JAX
+    function checks its own arithmetic before it calls ``build_mesh``)."""
     if n % num_slices != 0:
         raise ValueError(f"{n} devices not divisible by {num_slices} slices")
     per_slice = n // num_slices
@@ -105,24 +159,162 @@ def multiprocess_env_configured(env: Mapping[str, str]) -> bool:
     return False
 
 
-def check_multihost(config: ExperimentConfig, env: Mapping[str, str]) -> None:
-    """``maybe_init_multihost`` without a runtime to start.
+def backend_rule(device_type: str, local_world: int,
+                 cards: int) -> tuple[str, str]:
+    """(backend, why) for ``local_world`` ranks on a host with ``cards``
+    cards: NCCL when every local rank has a card of its own, gloo when
+    they share one or run on the CPU."""
+    if device_type != "cuda":
+        return "gloo", "the ranks run on the CPU"
+    if cards >= local_world:
+        return "nccl", (f"each of the {local_world} local ranks has a card "
+                        f"of its own ({cards} cards)")
+    return "gloo", (f"{local_world} local ranks share {cards} card(s), and "
+                    "NCCL refuses two ranks on one device")
 
-    ``mesh.multihost: false`` does nothing. With ``multihost: true``, a
-    coordinator in ``env`` is refused (the port has no multi-process
-    runtime until ROADMAP queue 1 item 10), and no coordinator is refused
-    with the JAX package's message unless ``mesh.allow_single_process``,
-    which logs its warning and goes on. There is no probe of a TPU
-    metadata server.
+
+def rank_device(device: str | torch.device, local_rank: int) -> torch.device:
+    """The device of local rank ``local_rank``: the CPU when ``device``
+    is the CPU, else ``cuda:(local_rank % device_count)``."""
+    from deepfm_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return dev
+    return torch.device("cuda", local_rank % torch.cuda.device_count())
+
+
+def initialize_distributed(probe: bool = False, *,
+                           env: Mapping[str, str] | None = None,
+                           device: str | torch.device = "cuda",
+                           init_method: str | None = None,
+                           rank: int | None = None,
+                           world_size: int | None = None,
+                           timeout_s: float = TIMEOUT_S) -> bool:
+    """Start this rank's process group; True when it runs (or already
+    ran), False when nothing names a coordinator.
+
+    With no explicit ``init_method`` (plus ``rank`` and ``world_size``)
+    and no coordinator in ``env`` (``multiprocess_env_configured``), the
+    runtime is not touched and the call returns False: the JAX package's
+    guard, which never waits for a coordinator that does not exist. The
+    JAX ``probe`` asks a TPU pod's metadata server for one; a GPU host has
+    none (torchrun names the coordinator in each rank's environment), so
+    ``probe`` changes nothing here. Otherwise the coordinator is torchrun's
+    (``TORCHRUN_ENV``; a coordinator named only by the JAX package's
+    variables is refused, since torch cannot start from them), the rank
+    takes its device (``rank_device``, set as the current CUDA device
+    before anything launches) and the process group starts with
+    ``backend_rule``'s backend. The rendezvous and every collective wait
+    at most ``timeout_s`` for the other ranks, then raise.
+    """
+    import torch.distributed as dist
+
+    del probe  # no metadata server to ask (see above)
+    env = os.environ if env is None else env
+    if dist.is_initialized():
+        return True
+    if init_method is None:
+        if not multiprocess_env_configured(env):
+            return False
+        missing = [k for k in TORCHRUN_ENV if not env.get(k)]
+        if missing:
+            raise RuntimeError(
+                "the environment names a coordinator, but not torchrun's "
+                f"{'/'.join(missing)}: launch the ranks with python -m "
+                "torch.distributed.run (the port runs one process per "
+                "device)")
+        init_method = f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+        rank, world_size = int(env["RANK"]), int(env["WORLD_SIZE"])
+    if rank is None or world_size is None:
+        raise ValueError("an explicit init_method needs rank and world_size")
+    local_rank = int(env.get("LOCAL_RANK", rank))
+    local_world = int(env.get("LOCAL_WORLD_SIZE", world_size))
+    dev = rank_device(device, local_rank)
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend, why = backend_rule(dev.type, local_world, cards)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size,
+                            timeout=timedelta(seconds=timeout_s))
+    if rank == 0:
+        logger.info("torch.distributed: %d ranks, backend %s (%s)",
+                    world_size, backend, why)
+    return True
+
+
+def world_size() -> int:
+    """The number of ranks (1 without a process group)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def refuse_model_axis(data: int, model: int) -> None:
+    """Raise ValueError for a model axis above 1 (row-sharded tables)."""
+    if model > 1:
+        raise ValueError(
+            f"mesh {data}x{model}: a model axis above 1 row-shards the "
+            "embedding tables, which waits for ROADMAP queue 1 item 10(b); "
+            "the port's mesh is data-parallel (model_axis 1 or -1)")
+
+
+def _mesh(data: int, model: int, n: int | None,
+          device: str | torch.device) -> Mesh:
+    import torch.distributed as dist
+
+    refuse_model_axis(data, model)
+    up = dist.is_initialized()
+    rank = dist.get_rank() if up else 0
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    return Mesh(data=data, model=model, rank=rank,
+                world=world_size() if n is None else n,
+                local_rank=local_rank,
+                device=rank_device(device, local_rank),
+                backend=dist.get_backend() if up else None)
+
+
+def build_mesh(data_axis: int = -1, model_axis: int = 1,
+               n: int | None = None,
+               device: str | torch.device = "cuda") -> Mesh:
+    """The ("data", "model") mesh over ``n`` ranks (default: the world
+    size): an axis of -1 takes the ranks left over, and the product must
+    be ``n`` (``mesh_shape``, the JAX function's words). A model axis
+    above 1 is refused (ROADMAP queue 1 item 10(b)). ``device`` is the
+    config's; the rank takes its own card of it (``rank_device``). A mesh
+    over another ``n`` than the world's describes a shape only: no
+    collective may run on it."""
+    data, model = mesh_shape(data_axis, model_axis,
+                             world_size() if n is None else n)
+    return _mesh(data, model, n, device)
+
+
+def build_hybrid_mesh(num_slices: int, data_axis: int = -1,
+                      model_axis: int = 1, n: int | None = None,
+                      device: str | torch.device = "cuda") -> Mesh:
+    """``build_mesh`` over ``num_slices`` host groups
+    (``hybrid_mesh_shape``): the data axis spans them, slice index
+    outermost, which is the rank order torchrun gives."""
+    data, model = hybrid_mesh_shape(num_slices, data_axis, model_axis,
+                                    world_size() if n is None else n)
+    return _mesh(data, model, n, device)
+
+
+def check_multihost(config: ExperimentConfig,
+                    env: Mapping[str, str]) -> bool:
+    """``maybe_init_multihost``: True when the process group runs.
+
+    ``mesh.multihost: false`` does nothing here (a torchrun launch still
+    starts, ``cli.build_runtime``). With ``multihost: true`` a coordinator
+    in ``env`` starts the process group (``initialize_distributed``), and
+    no coordinator is refused with the JAX package's message unless
+    ``mesh.allow_single_process``, which logs its warning and goes on.
     """
     if not config.mesh.multihost:
-        return
-    if multiprocess_env_configured(env):
-        raise RuntimeError(
-            "mesh.multihost=true and the environment names a coordinator, "
-            "but the port runs one process on one device: the multi-process "
-            "runtime waits for ROADMAP queue 1 item 10"
-        )
+        return False
+    if initialize_distributed(probe=True, env=env, device=config.device):
+        return True
     if not config.mesh.allow_single_process:
         raise RuntimeError(
             "mesh.multihost=true but no coordinator could be found (no "
@@ -133,3 +325,4 @@ def check_multihost(config: ExperimentConfig, env: Mapping[str, str]) -> None:
         "mesh.multihost=true but no coordinator is configured; "
         "running single-process (mesh.allow_single_process=true)"
     )
+    return False

@@ -25,6 +25,17 @@ for its Orbax checkpoints:
 * ``save_results_file``: results.json, the reference's contract (reference:
   deepfm/training/trainer.py:171-195), with the JAX package's top-level
   and ``training_info`` keys (throughput and engagement telemetry).
+
+Under a data-parallel mesh every rank holds the same state, so rank 0
+alone writes (the ``Trainer`` calls ``save_best`` on rank 0 only;
+``save_resume`` and ``save_results_file`` are called on every rank and
+write on rank 0), and a barrier after each write keeps a rank from reading
+a file before it is there; every rank reads. A checkpoint holds no trace
+of the world size, so one written at N ranks restores at 1 and the
+reverse. The resume state records each rank's dropout generator (the one
+state that is per rank; the shuffle's and the adapter's are the same on
+every rank), and a resume into another world size is refused only where
+that state would matter: when the model has dropout.
 """
 
 from __future__ import annotations
@@ -38,6 +49,8 @@ from pathlib import Path
 import torch
 
 from deepfm_tpu_torch.models.base import CTRModel
+from deepfm_tpu_torch.ops.dnn import Dropout
+from deepfm_tpu_torch.parallel import collectives
 from deepfm_tpu_torch.training.optim import OptState
 from deepfm_tpu_torch.training.schedulers import set_lr
 from deepfm_tpu_torch.training.sparse_opt import TableSlotState
@@ -122,7 +135,14 @@ def save_resume(
 ) -> None:
     if not trainer.config.training.resume:
         return
+    mesh = trainer.mesh
     st = trainer.state
+    # every rank's dropout generator state, rank 0's first
+    dropout_rngs = collectives.all_gather_rows(
+        mesh, trainer.dropout_generator.get_state()[None]).cpu()
+    if not trainer.is_writer:
+        collectives.barrier(mesh)
+        return
     ckpt = {
         "model": _cpu(trainer.model.state_dict()),
         "opt_state": {f.name: _cpu(getattr(st.opt_state, f.name))
@@ -132,7 +152,7 @@ def save_resume(
         "table_opt": None if st.table_opt is None else {
             n: {"mu": _cpu(s.mu), "nu": _cpu(s.nu)}
             for n, s in st.table_opt.items()},
-        "dropout_rng": trainer.dropout_generator.get_state(),
+        "dropout_rngs": dropout_rngs,
         "shuffle_rng": trainer.np_rng.bit_generator.state,
         "adapter_rng": trainer._adapter_rng_state,
     }
@@ -155,6 +175,11 @@ def save_resume(
         },
         trainer.output_dir / RESUME_META,
     )
+    collectives.barrier(mesh)
+
+
+def uses_dropout(model: CTRModel) -> bool:
+    return any(isinstance(m, Dropout) for m in model.modules())
 
 
 def _refuse_mismatch(trainer, meta: dict) -> None:
@@ -204,6 +229,16 @@ def try_resume(trainer) -> dict | None:
             f"{saved_opt} but this run uses {opt} (the optimizer states "
             f"differ). Match training.optimizer, or start fresh."
         )
+    # one dropout generator state a rank ("dropout_rng" before the mesh)
+    rngs = ckpt.get("dropout_rngs", [ckpt.get("dropout_rng")])
+    world = 1 if trainer.mesh is None else trainer.mesh.world
+    if len(rngs) != world and uses_dropout(trainer.model):
+        raise ValueError(
+            f"Cannot resume: checkpoint was written by {len(rngs)} ranks "
+            f"and this run has {world}. The dropout generator's state is "
+            f"per rank (dropout_rngs), so the masks would not continue the "
+            f"run; the shuffle's and the adapter's states are the same on "
+            f"every rank. Resume with {len(rngs)} ranks, or start fresh.")
     dev = trainer.device
 
     def to_dev(x):
@@ -223,7 +258,9 @@ def try_resume(trainer) -> dict | None:
         st.table_opt = {
             n: TableSlotState(mu=s["mu"].to(dev, mdt), nu=s["nu"].to(dev, mdt))
             for n, s in ckpt["table_opt"].items()}
-    trainer.dropout_generator.set_state(ckpt["dropout_rng"])
+    rank = 0 if trainer.mesh is None else trainer.mesh.rank
+    if rank < len(rngs):  # else unused: the model has no dropout
+        trainer.dropout_generator.set_state(rngs[rank].clone())
     trainer.np_rng.bit_generator.state = ckpt["shuffle_rng"]
     if ckpt["adapter_rng"] is not None and trainer.adapter is not None:
         trainer.adapter.set_rng_state(ckpt["adapter_rng"])
@@ -258,6 +295,8 @@ def save_results_file(
         },
         "history": trainer.history,
     }
-    save_results(results, trainer.output_dir / "results.json")
-    trainer.logger.info(
-        f"Results saved to {trainer.output_dir / 'results.json'}")
+    if trainer.is_writer:
+        save_results(results, trainer.output_dir / "results.json")
+        trainer.logger.info(
+            f"Results saved to {trainer.output_dir / 'results.json'}")
+    collectives.barrier(trainer.mesh)

@@ -1,8 +1,9 @@
 """The train step's four paths.
 
-Port of ``deepfm_tpu/training/steps.py`` on one device (the replicated,
-sharded and routed branches of the sparse-fused path wait for ROADMAP
-queue 1 item 10, multi-device). PyTorch's autograd does the model's
+Port of ``deepfm_tpu/training/steps.py``, on one device and under a
+data-parallel mesh (``Trainer.mesh``; the sharded and routed branches of
+the sparse-fused path, and every model-sharded table update, wait for
+ROADMAP queue 1 item 10(b)). PyTorch's autograd does the model's
 backward. Paths (``Trainer.path``):
 
   * ``plain``: the optimizer chain over every leaf, tables included;
@@ -33,6 +34,34 @@ update takes the table's ``pack``. A packed table's sums of squares (the
 clip norm's, the carried ``table_psq``) run over the whole packed table,
 whose dead lanes are 0. Both fused paths share ``chain_second_half``.
 
+Under a mesh of W ranks each rank holds B / W rows of the global batch
+of B and reproduces what GSPMD does with them in the JAX package:
+
+  * the loss divides by max(sum of the global batch's weights, 1), and
+    the loss returned is the global one;
+  * BatchNorm takes the global batch's statistics (``ops/dnn.py``);
+  * the gradients each rank forms from its own rows (every non-table
+    leaf, and a table looked up without the exchange, i.e. under
+    ``mesh.embedding_strategy: auto``), the loss and, on the sparse-fused
+    path, each table's <ct, rows> go through one flat all-reduce a step
+    (``parallel/collectives.py::all_reduce_flat``), before the global
+    norm;
+  * sparse-fused (the JAX ``_replicate`` branch): each table's (id,
+    cotangent) pairs are all-gathered, ids as int32, rank 0's first, so
+    every rank sorts the one-process stream of the global batch (the sort
+    is stable) and applies the same full-batch update, and ``table_psq``
+    stays the same on every rank;
+  * two-pass, lazy and plain: the table gradient comes from the lookup's
+    sparse gradient exchange (``parallel/embedding_shard.py``), the same
+    on every rank; ``lazy_adam`` updates the rows of the global batch
+    (its ids all-gathered), and the loss's L2 term of the non-table
+    embedding leaves is added on rank 0 alone, so that the ranks' losses
+    sum to the global one.
+
+So every rank takes the same update and the replicas keep the same bits;
+against one process at the same global batch only the order of some
+sums differs.
+
 With ``profile.debug_nans`` (the JAX package turns on ``jax_debug_nans``)
 each path reads one flag back to the host before it updates anything:
 whether the loss and the step's global gradient norm are finite (the
@@ -56,6 +85,7 @@ from deepfm_tpu_torch.ops.kernels.sparse_adam import (
     sort_pairs,
     sparse_table_adam,
 )
+from deepfm_tpu_torch.parallel import collectives
 from deepfm_tpu_torch.training.optim import (
     clip_fn,
     global_norm,
@@ -70,13 +100,16 @@ from deepfm_tpu_torch.training.trainer import _is_table_name
 
 
 def weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
-                 weights: torch.Tensor) -> torch.Tensor:
+                 weights: torch.Tensor,
+                 weight_sum: torch.Tensor | None = None) -> torch.Tensor:
     """optax's ``sigmoid_binary_cross_entropy``,
     -(y * log sigmoid(x) + (1 - y) * log sigmoid(-x)), weighted and divided
-    by max(sum(weights), 1)."""
+    by max(sum(weights), 1); ``weight_sum`` replaces sum(weights) (a rank's
+    rows divided by the global batch's sum)."""
     per_row = (-labels * F.logsigmoid(logits)
                - (1.0 - labels) * F.logsigmoid(-logits))
-    denom = torch.clamp_min(torch.sum(weights), 1.0)
+    total = torch.sum(weights) if weight_sum is None else weight_sum
+    denom = torch.clamp_min(total, 1.0)
     return torch.sum(per_row * weights) / denom
 
 
@@ -96,6 +129,11 @@ def build_train_step(trainer):
     params = dict(model.named_parameters())
     order = leaf_order(params)
     debug_nans = config.profile.debug_nans
+    mesh = trainer.mesh
+    dp = mesh is not None and mesh.world > 1
+    # tables whose gradient every rank already holds whole (the lookup's
+    # sparse gradient exchange)
+    exchanged = {f"embedding.{k}" for k in model.embedding.lookup_fns}
 
     def check_finite(trainer, loss, gnorm):
         """``profile.debug_nans``: one host read of whether the loss and
@@ -117,7 +155,25 @@ def build_train_step(trainer):
     def forward_loss(ids, dense, labels, weights, rows_override=None):
         model.train()
         logits = model(ids, dense, rows_override)[:, 0]
-        return weighted_bce(logits, labels, weights)
+        weight_sum = (collectives.all_reduce_(mesh, torch.sum(weights))
+                      if dp else None)
+        return weighted_bce(logits, labels, weights, weight_sum)
+
+    def reduce_partials(loss, grads, extra=()):
+        """Under a mesh, the step's one all-reduce: the gradients of
+        ``grads`` that each rank formed from its own rows, the loss and
+        ``extra`` (scalars), summed over the ranks in one flat buffer.
+        Returns (loss, grads, extra) as given without a mesh."""
+        if not dp:
+            return loss, grads, list(extra)
+        names = [n for n in grads
+                 if not _is_table_name(n) or n not in exchanged]
+        parts = collectives.all_reduce_flat(
+            mesh, [grads[n] for n in names] + [loss.detach().reshape(1)]
+            + [e.reshape(1) for e in extra])
+        k = len(names)
+        return (parts[k].reshape(()), {**grads, **dict(zip(names, parts))},
+                [e.reshape(()) for e in parts[k + 1:]])
 
     def grads_of(loss, names, extra=()):
         inputs = [params[n] for n in names] + list(extra)
@@ -149,9 +205,18 @@ def build_train_step(trainer):
         tx.apply(dense, params, opt_state)
         return gnorm
 
-    def plain_step(trainer, ids, dense, labels, weights):
+    def loss_and_grads(trainer, ids, dense, labels, weights):
+        """The loss and every leaf's gradient, the table's densified by
+        its lookup's backward, summed over the ranks under a mesh (the
+        plain and two-pass paths)."""
         loss = forward_loss(ids, dense, labels, weights)
         grads, _ = grads_of(loss, order)
+        with torch.no_grad():
+            loss, grads, _ = reduce_partials(loss, grads)
+        return loss, grads
+
+    def plain_step(trainer, ids, dense, labels, weights):
+        loss, grads = loss_and_grads(trainer, ids, dense, labels, weights)
         with torch.no_grad():
             if debug_nans:
                 check_finite(trainer, loss, global_norm(
@@ -161,8 +226,7 @@ def build_train_step(trainer):
 
     def two_pass_step(trainer, ids, dense, labels, weights):
         state = trainer.state
-        loss = forward_loss(ids, dense, labels, weights)
-        grads, _ = grads_of(loss, order)
+        loss, grads = loss_and_grads(trainer, ids, dense, labels, weights)
         with torch.no_grad():
             table_sq = {n: sumsq(grads[n] + wd * params[n])
                         for n in trainer.table_names}
@@ -184,10 +248,18 @@ def build_train_step(trainer):
         dense_names = [n for n in order if not _is_table_name(n)]
         grads, cts = grads_of(loss, dense_names, rows_in.values())
         with torch.no_grad():
+            # <ct, rows> on each rank's own pairs, summed with the
+            # gradients; the pairs are all-gathered, not the rows
+            loss, grads, dots = reduce_partials(loss, grads, [
+                torch.sum(ct * rows)
+                for (rows, _), ct in zip(gathered.values(), cts)])
             pairs, table_sq = {}, {}
-            for (key, (rows, fids)), ct in zip(gathered.items(), cts):
+            for (key, (_, fids)), ct, dotgp in zip(gathered.items(), cts,
+                                                    dots):
                 name = f"embedding.{key}"
-                dotgp = torch.sum(ct * rows)
+                fids = collectives.all_gather_rows(mesh,
+                                                   fids.to(torch.int32))
+                ct = collectives.all_gather_rows(mesh, ct)
                 sids, sorted_ct = sort_pairs(fids, ct)
                 pairs[name] = (sids, sorted_ct)
                 table_sq[name] = (segment_sumsq(sids, sorted_ct)
@@ -209,10 +281,11 @@ def build_train_step(trainer):
     def lazy_step(trainer, ids, dense, labels, weights):
         state = trainer.state
         loss = forward_loss(ids, dense, labels, weights)
-        if l2 > 0:
+        if l2 > 0 and (not dp or mesh.rank == 0):
             loss = loss + embedding_l2_loss(params, l2, exclude_tables=True)
         grads, _ = grads_of(loss, order)
         with torch.no_grad():
+            loss, grads, _ = reduce_partials(loss, grads)
             gnorm = (global_norm([sumsq(grads[n]) for n in order])
                      if clip > 0 or debug_nans else None)
             check_finite(trainer, loss, gnorm)
@@ -223,8 +296,11 @@ def build_train_step(trainer):
                 scale = torch.ones((), device=loss.device)
             tx.apply({n: grads[n] * scale for n in order
                       if not _is_table_name(n)}, params, state.opt_state)
+            batch_ids = (collectives.all_gather_rows(mesh,
+                                                     ids.to(torch.int32))
+                         if dp else ids)
             for key, row_ids in table_ids_for_batch(model.embedding,
-                                                    ids).items():
+                                                    batch_ids).items():
                 name = f"embedding.{key}"
                 lazy_adam_table_update(
                     params[name].data, grads[name], state.table_opt[name],
@@ -244,4 +320,5 @@ def build_train_step(trainer):
         trainer.state.step = trainer.state.step + 1
         return loss.detach()
 
+    train_step.loss_and_grads = loss_and_grads
     return train_step

@@ -3,17 +3,22 @@
 Port of ``deepfm_tpu/training/telemetry.py::trainer_engagement``: a
 JSON-ready dict recorded in results.json's ``training_info``, with the same
 keys. ``backward`` is the label ``_backward_path`` gives for the same gates
-(the port has no mesh). ``kernels`` does not come from
+and mesh (a data-parallel mesh's sparse-fused path is
+"sparse_fused_replicated"). ``kernels`` does not come from
 the gates: it lists the port's CUDA kernels whose launch counters
 (``ops/kernels/__init__.py::launch_counts``) rose since ``since``, so it
-records what ran. It is empty on the CPU, where every wrapper takes its
-plain version. The JAX package's ``lowered_kernel_names`` and
+records what ran; under a mesh, what ran on every rank (the counters are
+all-gathered, and every rank takes part). It is empty on the CPU, where
+every wrapper takes its plain version. The JAX package's ``lowered_kernel_names`` and
 ``expected_mosaic_kernels`` read TPU HLO and are not ported.
 """
 
 from __future__ import annotations
 
+import torch
+
 from deepfm_tpu_torch.ops.kernels import launch_counts
+from deepfm_tpu_torch.parallel import collectives
 
 __all__ = ["trainer_engagement"]
 
@@ -21,7 +26,8 @@ __all__ = ["trainer_engagement"]
 def _backward_path(trainer) -> str:
     """The JAX package's label for the trainer's resolved path."""
     if trainer.sparse_fused:
-        return "sparse_fused"
+        return ("sparse_fused" if trainer.mesh is None
+                else "sparse_fused_replicated")
     if trainer.lazy_tables:
         return "lazy_adam"
     if trainer.fused_tables:
@@ -32,12 +38,17 @@ def _backward_path(trainer) -> str:
 def trainer_engagement(trainer, since: dict[str, int] | None = None) -> dict:
     """The trainer's backward path, the kernels launched since the counts
     ``since`` (every kernel launched so far when None), its table layout
-    and its mesh (None: one device)."""
+    and its mesh's shape (None: one device without a mesh)."""
     since = since or {}
+    counts = launch_counts()
+    rose = torch.tensor([[count - since.get(name, 0)
+                          for name, count in counts.items()]],
+                        dtype=torch.int64)
+    every = collectives.all_gather_rows(trainer.mesh, rose).amin(dim=0)
     return {
         "backward": _backward_path(trainer),
-        "kernels": [name for name, count in launch_counts().items()
-                    if count > since.get(name, 0)],
+        "kernels": [name for name, n in zip(counts, every.tolist())
+                    if n > 0],
         "table_layout": trainer.model.table_layout,
-        "mesh": None,
+        "mesh": None if trainer.mesh is None else trainer.mesh.shape,
     }

@@ -18,8 +18,21 @@ the final test evaluation on the last epoch's state and results.json
 (``training/persistence.py``). With ``profile.debug_nans`` a step raises
 ``FloatingPointError`` before its update when its loss or global gradient
 norm is not finite (``training/steps.py``; one host read a step, none
-when unset). The mesh waits for ROADMAP queue 1 item 10 (multi-device;
-the CLI refuses a mesh of more than one device, ``parallel/mesh.py``).
+when unset).
+
+Under a data-parallel ``mesh`` (``parallel.Mesh``, one rank a device;
+ROADMAP queue 1 item 10(a)) the trainer is one rank's: its state lives on
+``mesh.device``; at construction an all-gathered fingerprint of the
+parameters shows that every rank built the same model from the seed
+(nothing is broadcast to cover a difference); every rank draws the same
+shuffles and resamples (they all build the dataset from the seed) and
+stages only its rows of each global batch (``parallel/sharding.py``);
+``predict`` / ``evaluate`` score the rank's contiguous share of the split
+in whole batches and all-gather the scores, so every rank computes the
+same metrics; rank 0 alone writes the checkpoints and results.json
+(``training/persistence.py``). ``throughput`` reports the global
+examples/s, ``num_devices`` and ``examples_per_sec_per_device``. Model
+sharding waits for item 10(b).
 
 The gates are resolved from the config alone, on every device: the CPU
 runs each kernel's plain version, so the tests take the same paths as the
@@ -37,10 +50,10 @@ sparse-fused one also on the logical layout, where the JAX package needs
 packed tables. The TPU's width gate (128 // (d+1) > 1) and its f32-exact
 id limit do not apply and are dropped.
 
-Dropout draws from ``Trainer.dropout_generator`` (seeded from the seed,
-carried by the resume checkpoint with the shuffle's and the adapter's RNG
-states, so a resumed run repeats an unbroken one); its masks are
-PyTorch's, not the JAX package's.
+Dropout draws from ``Trainer.dropout_generator`` (seeded from the seed
+and the rank, ``dropout_seed``; carried by the resume checkpoint with the
+shuffle's and the adapter's RNG states, so a resumed run repeats an
+unbroken one); its masks are PyTorch's, not the JAX package's.
 """
 
 from __future__ import annotations
@@ -57,8 +70,15 @@ from deepfm_tpu_torch.config import ExperimentConfig
 from deepfm_tpu_torch.data.packing import PackedArrays, PackedSchema
 from deepfm_tpu_torch.device import resolve_device
 from deepfm_tpu_torch.models.base import CTRModel
-from deepfm_tpu_torch.ops.dnn import Dropout
+from deepfm_tpu_torch.ops.dnn import BatchNorm, Dropout
 from deepfm_tpu_torch.ops.kernels import launch_counts
+from deepfm_tpu_torch.parallel import collectives
+from deepfm_tpu_torch.parallel.sharding import (
+    batch_rows,
+    check_batch,
+    check_replicated,
+    split_bounds,
+)
 from deepfm_tpu_torch.training.metrics import (
     compute_auc,
     compute_calibration,
@@ -90,6 +110,14 @@ class TrainState:
     table_psq: dict[str, torch.Tensor] | None = None
 
 
+def dropout_seed(seed: int, rank: int) -> int:
+    """The dropout generator's seed on ``rank``: ``seed`` on rank 0 (a
+    mesh-less run's), one drawn from (seed, rank) on the others."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+
+
 def _is_table_name(name: str) -> bool:
     return name.split(".")[-1].startswith(("table_w", "fo_table"))
 
@@ -117,9 +145,10 @@ def sparse_fused_eligible(config: ExperimentConfig,
 
 class Trainer:
     """Trains a CTR model on one device (``config.device``: the GPU unless
-    the config asks for the CPU). The data and the adapter are needed by
+    the config asks for the CPU), or as one rank of a data-parallel
+    ``mesh`` on ``mesh.device``. The data and the adapter are needed by
     ``train`` only; a trainer built without them takes steps
-    (``_train_step``) and evaluates."""
+    (``_train_step``, on the rank's rows under a mesh) and evaluates."""
 
     def __init__(
         self,
@@ -131,7 +160,10 @@ class Trainer:
         test_data: PackedArrays | None = None,
         adapter: Any | None = None,
         rng_seed: int | None = None,
+        mesh=None,
     ) -> None:
+        check_batch(mesh, config.training.batch_size)
+        self.mesh = mesh
         self.scheduler = build_scheduler(config.training)
         self.config = config
         self.packed_schema = packed_schema
@@ -141,15 +173,22 @@ class Trainer:
         self.adapter = adapter
         self.logger = get_logger("deepfm_tpu_torch.trainer")
         self.output_dir = Path(config.output_dir)
-        self.device = resolve_device(config.device)
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(config.device))
         self.model = model.to(self.device)
         seed = config.seed if rng_seed is None else rng_seed
-        self.np_rng = np.random.default_rng(seed)  # the epochs' shuffles
+        # the epochs' shuffles: the same on every rank
+        self.np_rng = np.random.default_rng(seed)
         self.dropout_generator = torch.Generator(device=self.device)
-        self.dropout_generator.manual_seed(seed)
+        self.dropout_generator.manual_seed(
+            dropout_seed(seed, 0 if mesh is None else mesh.rank))
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
+            if isinstance(m, BatchNorm):
+                m.mesh = mesh
+        check_replicated(mesh, dict(self.model.named_parameters()),
+                         "the parameters built from the seed")
         self.predictor = Predictor(self.model, packed_schema, config,
                                    device=self.device)
         self.lazy_tables = config.training.optimizer == "lazy_adam"
@@ -195,6 +234,33 @@ class Trainer:
     @property
     def params(self) -> dict[str, torch.nn.Parameter]:
         return dict(self.model.named_parameters())
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def replica_state(self) -> dict[str, torch.Tensor]:
+        """Every tensor a step changes, by name: the parameters and
+        BatchNorm statistics, the optimizer state, the table moments and
+        the carried table sums of squares."""
+        st = self.state
+        out = dict(self.model.state_dict())
+        out["step"] = st.step
+        out["opt.lr"], out["opt.count"] = st.opt_state.lr, st.opt_state.count
+        for kind in ("mu", "nu"):
+            for n, t in getattr(st.opt_state, kind).items():
+                out[f"opt.{kind}.{n}"] = t
+        for n, s in (st.table_opt or {}).items():
+            out[f"{n}.mu"], out[f"{n}.nu"] = s.mu, s.nu
+        for n, t in (st.table_psq or {}).items():
+            out[f"{n}.psq"] = t
+        return out
+
+    def check_replicas(self, what: str = "the train state") -> None:
+        """Raise unless every rank's ``replica_state`` has the same bits
+        (an all-gathered fingerprint); nothing without a mesh."""
+        check_replicated(self.mesh, self.replica_state(), what)
 
     def _init_state(self) -> TrainState:
         params = self.params
@@ -289,11 +355,13 @@ class Trainer:
             )
 
     def _stage(self, arrays) -> tuple[torch.Tensor, ...]:
-        """A chunk's host arrays on the device: ids as int64, the rest f32."""
+        """A chunk's host arrays (batches, rows, ...) on the device, only
+        the rank's rows of each batch: ids as int64, the rest f32."""
         dtypes = (torch.int64, torch.float32, torch.float32, torch.float32)
+        rows = batch_rows(self.mesh, arrays[0].shape[1])
         t0 = time.perf_counter()
         out = tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(
+            torch.from_numpy(np.ascontiguousarray(a[:, rows])).to(
                 self.device, non_blocking=True).to(dt)
             for a, dt in zip(arrays, dtypes)
         )
@@ -401,15 +469,17 @@ class Trainer:
                 train_loss, n_examples = self._train_epoch()
                 dt = time.perf_counter() - t0
                 eps = n_examples / max(dt, 1e-9)
+                n_dev = 1 if self.mesh is None else self.mesh.size
                 self.throughput = {
                     "examples_per_sec": eps,
                     "epoch_seconds": dt,
-                    "num_devices": 1,
-                    "examples_per_sec_per_device": eps,
+                    "num_devices": n_dev,
+                    "examples_per_sec_per_device": eps / n_dev,
                 }
                 ref_eps = self.config.benchmark.reference_eps
                 if ref_eps > 0:
-                    self.throughput["scaling_efficiency"] = eps / ref_eps
+                    self.throughput["scaling_efficiency"] = eps / (
+                        n_dev * ref_eps)
 
                 t1 = time.perf_counter()
                 val_metrics = self.evaluate(self.val_data, "val")
@@ -447,8 +517,10 @@ class Trainer:
                     best_epoch = epoch
                     patience_counter = 0
                     best_metrics = val_metrics
-                    persistence.save_best(self.model, self.output_dir,
-                                          epoch, best_metric)
+                    if self.is_writer:
+                        persistence.save_best(self.model, self.output_dir,
+                                              epoch, best_metric)
+                    collectives.barrier(self.mesh)
                     self.logger.info(
                         f"  -> New best {tc.metric}={current:.4f}, saved "
                         f"checkpoint")
@@ -472,7 +544,9 @@ class Trainer:
                 profiler.stop()
                 trace = Path(self.config.profile.trace_dir)
                 trace.mkdir(parents=True, exist_ok=True)
-                profiler.export_chrome_trace(str(trace / "trace.json"))
+                name = ("trace.json" if self.is_writer
+                        else f"trace_rank{self.mesh.rank}.json")
+                profiler.export_chrome_trace(str(trace / name))
 
         self.logger.info("--- Final evaluation on test set ---")
         t1 = time.perf_counter()
@@ -492,8 +566,26 @@ class Trainer:
     def predict(self, data: PackedArrays) -> np.ndarray:
         """Sigmoid probabilities for every row of ``data``, in order
         (``Predictor.predict``: chunks of ``stage_budget_mb``, one host
-        fetch a chunk)."""
-        return self.predictor.predict(data)
+        fetch a chunk). Under a mesh each rank scores its contiguous share
+        in whole batches (``split_bounds``: each batch the one a single
+        process scores) and the shares are all-gathered, padded to one
+        length and trimmed, so every rank returns every score, each the
+        bits one process gives it."""
+        if self.mesh is None or self.mesh.world == 1:
+            return self.predictor.predict(data)
+        bounds = split_bounds(self.mesh.world, len(data),
+                              self.config.training.batch_size)
+        lo, hi = bounds[self.mesh.rank]
+        longest = max(h - l for l, h in bounds)
+        part = PackedArrays(data.ids[lo:hi], data.dense[lo:hi],
+                            data.labels[lo:hi], data.weights[lo:hi])
+        scores = torch.zeros(longest, dtype=torch.float32,
+                             device=self.device)
+        scores[:hi - lo] = torch.from_numpy(self.predictor.predict(part))
+        every = collectives.all_gather_rows(self.mesh, scores).cpu().numpy()
+        every = every.reshape(self.mesh.world, longest)
+        return np.concatenate([every[r, :h - l]
+                               for r, (l, h) in enumerate(bounds)])
 
     def evaluate(self, data: PackedArrays,
                  split_name: str = "eval") -> dict[str, float]:

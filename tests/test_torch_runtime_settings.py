@@ -5,11 +5,13 @@ package on the CPU.
   exactly where the JAX package's ``build_runtime`` / ``build_mesh`` /
   ``build_hybrid_mesh`` refuse (with the same words) and resolves the same
   shape where they do not, over a table of axes, slices and device counts
-  (this process has 8 CPU devices, tests/conftest.py); the ``train``
-  command refuses ``configs/deepfm_criteo_multichip.yaml`` on the one
-  device the port drives before it builds any data; ``check_multihost``
-  with and without a coordinator and ``allow_single_process``, from
-  explicit environments (no JAX distributed probe runs).
+  (this process has 8 CPU devices, tests/conftest.py); on one rank the
+  ``train`` command refuses ``configs/deepfm_criteo_multichip.yaml``
+  before it builds any data; ``check_multihost`` with and without a
+  coordinator and ``allow_single_process``, from explicit environments:
+  torchrun's starts the process group (``init_process_group`` replaced
+  by a recorder), a coordinator named only by the JAX package's variables
+  is refused (no JAX distributed probe runs).
 * ``profile.debug_nans``: on each ``Trainer`` path (plain, two-pass,
   sparse-fused, lazy) a planted NaN raises ``FloatingPointError`` before
   the step updates a parameter; a clean run with it set equals one
@@ -114,6 +116,14 @@ def test_train_refuses_the_multichip_config_before_building_data(
                                "output_dir": str(tmp_path)})
         with pytest.raises(AssertionError, match="data built"):
             cli.train_command(ok)
+    # over two ranks the same config forms a 1x2 mesh, whose model axis is
+    # refused (ROADMAP item 10(b)), still before any data is built
+    monkeypatch.setattr(tmesh, "world_size", lambda: 2)
+    for command in (cli.train_command, cli.evaluate_command):
+        with pytest.raises(ValueError, match=(
+                r"^mesh 1x2: a model axis above 1 row-shards the embedding "
+                r"tables, which waits for ROADMAP queue 1 item 10\(b\)")):
+            command(config)
 
 
 # (environment, names a coordinator in the JAX package's rule)
@@ -152,19 +162,37 @@ def _warnings():
     return messages, handler
 
 
+# torchrun's environment for rank 1 of 4
+TORCHRUN = {"WORLD_SIZE": "4", "RANK": "1", "LOCAL_RANK": "1",
+            "MASTER_ADDR": "h", "MASTER_PORT": "1"}
+
+
 @pytest.mark.parametrize("allow", [False, True])
 @pytest.mark.parametrize("env", [{}, {"JAX_COORDINATOR_ADDRESS": "h:1"},
-                                 {"WORLD_SIZE": "4"}])
-def test_check_multihost(env, allow):
+                                 TORCHRUN])
+def test_check_multihost(env, allow, monkeypatch):
+    started = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda *a, **k: started.append((a, k)))
     messages, handler = _warnings()
     try:
-        # multihost off: nothing is checked, whatever the environment
-        check_multihost(_mesh_config(-1, 1, 1, allow_single_process=allow),
-                        env)
-        config = _mesh_config(-1, 1, 1, multihost=True,
-                              allow_single_process=allow)
-        if env:  # a coordinator: the port has no multi-process runtime
-            with pytest.raises(RuntimeError, match="item 10"):
+        # multihost off: nothing is checked or started, whatever the
+        # environment
+        assert check_multihost(config_from_dict({
+            "device": "cpu", "mesh": {"allow_single_process": allow}}),
+            env) is False
+        config = config_from_dict({"device": "cpu", "mesh": {
+            "multihost": True, "allow_single_process": allow}})
+        if env == TORCHRUN:  # a coordinator: the process group starts
+            assert check_multihost(config, env) is True
+            (args, kwargs), = started
+            assert args == ("gloo",)  # the ranks run on the CPU
+            assert kwargs["init_method"] == "tcp://h:1"
+            assert (kwargs["rank"], kwargs["world_size"]) == (1, 4)
+        elif env:  # a coordinator torch cannot start from
+            with pytest.raises(RuntimeError, match=(
+                    r"names a coordinator, but not torchrun's "
+                    r"MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE")):
                 check_multihost(config, env)
         elif not allow:  # the JAX CLI's refusal
             with pytest.raises(RuntimeError, match=(
@@ -172,7 +200,7 @@ def test_check_multihost(env, allow):
                     r"found .*set mesh\.allow_single_process=true")):
                 check_multihost(config, env)
         else:  # the JAX CLI's warn-and-continue
-            check_multihost(config, env)
+            assert check_multihost(config, env) is False
             assert messages == [
                 "mesh.multihost=true but no coordinator is configured; "
                 "running single-process (mesh.allow_single_process=true)"]
@@ -180,6 +208,8 @@ def test_check_multihost(env, allow):
         logging.getLogger("deepfm_tpu_torch").removeHandler(handler)
     if env or not allow:
         assert not messages
+    if env != TORCHRUN:
+        assert not started
 
 
 def test_serving_commands_check_multihost(monkeypatch):
