@@ -245,6 +245,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
              cin_stack_bwd launched on every rank), a one-process
              `evaluate` reproducing its metrics, and a 1-epoch run resumed
              to TRAIN_LOOP_EPOCHS with the unbroken run's history;
+  model_sharded  configs/deepfm_criteo_multichip.yaml's model (bench.py's
+             26 x 400,000-id DeepFM) at global batch BENCH_BATCH on four
+             gloo ranks at a MS_AXES (data, model) mesh on the one card,
+             every table cut into two slabs: MS_STEPS steps of each of
+             MS_CASES (routed packed sparse-fused, the config as written;
+             psum sparse-fused; routed two-pass; logical psum two-pass),
+             the replicas checked after every step (slabs over each data
+             group), each rank's launches counted from 0 (MS_LAUNCHES),
+             rank 0 holding the gathered state against one process on the
+             same global batches (DP_LOSS_REL, MS_BAND; the first case
+             beside a row-permuted control), one profiled step and one
+             step's collectives by kind (all-to-all, model-group sum and
+             gather, data-group gather); at SMALL_VOCAB ids, GRAD_BATCH
+             rows, f32: one step of each case and of the row-gather case
+             (MS_GATHER_CASE, its kernels counted) against one process
+             under training/parity.py's one-step rule, the routed cases
+             with their capacities shrunk (MS_SHRUNK) against the same
+             step unshrunk, the fallbacks counted, every case's
+             first-step gradients against the CPU's, and the planted
+             faults (MS_FAULTS), each refused by the same comparison; then on
+             two ranks at (1, 2) in f32 with clip 0 (MS_EXACT_CASES) every
+             slab and leaf bit for bit one process's after MS_STEPS
+             full-width steps; sparse_table_adam on each slab of a (., 2)
+             mesh, both layouts, on the global stream shifted by -j *
+             rows, against its plain version and the whole table's update;
+             and `python -m torch.distributed.run --nproc-per-node 2 -m
+             deepfm_tpu_torch train` on train_loop's MovieLens xDeepFM at
+             mesh.model_axis=2 (one checkpoint of whole tables, a
+             one-process `evaluate` reproducing it, a resumed run the
+             unbroken history);
   kernels    one line listing every ported kernel with its launch count
              on the path that runs it (serve for the f32 CIN-stack
              forward, the xDeepFM train step for the bf16 CIN-stack
@@ -591,6 +621,49 @@ DP_FAULTS = {"skip_reduce": "replicas", "skip_pair_gather": "one_process",
 DP_RANK_TIMEOUT = 600  # seconds a rank run or a torchrun launch may take
 MULTICHIP_CONFIG = "deepfm_criteo_multichip.yaml"
 MULTICHIP_REFUSAL = "mesh 0x2 != 1 available devices"
+# the model_sharded phase: configs/deepfm_criteo_multichip.yaml's model
+# (bench.py's 26 x 400,000-id DeepFM) on a (2, 2) mesh of 4 ranks on the
+# one card (gloo by the backend rule), MS_STEPS steps of each case
+MS_AXES = (2, 2)
+MS_STEPS = 3
+# (case, table layout, embedding strategy, fused_backward): the config as
+# written (routed sparse-fused), the psum strategy's replicated
+# sparse-fused branch, two-pass with the routed exchange, and logical
+# tables under psum two-pass
+MS_CASES = (("routed_packed", "packed", "all_to_all", True),
+            ("psum_sparse_fused", "packed", "psum", True),
+            ("routed_two_pass", "packed", "all_to_all", False),
+            ("psum_two_pass_logical", "logical", "psum", False))
+# a rank's launches in MS_STEPS steps of each case (one table; every
+# kernel on the rank's slab)
+MS_LAUNCHES = {
+    case: {"segment_sumsq": MS_STEPS * fused,
+           "sparse_table_adam": MS_STEPS * fused,
+           "densify_rows_grad": MS_STEPS * (not fused and layout == "logical"),
+           "densify_rows_grad_packed": MS_STEPS * (not fused
+                                                   and layout == "packed"),
+           "fused_table_adam": MS_STEPS * (not fused)}
+    for case, layout, _, fused in MS_CASES}
+MS_BAND = 2 * LR * MS_STEPS
+# the capacity factors shrunk so that the routed paths' buckets overflow
+# (parallel/embedding_shard.py's constants)
+MS_SHRUNK = {"ALL_TO_ALL_CAPACITY": 0.5, "ROUTED_EXCHANGE_CAPACITY": 0.25,
+             "ROUTE_PAIRS_CAPACITY": 0.25}
+# planted fault -> the case it runs on; each must be refused by the
+# replica check or the one-step comparison with one process
+MS_FAULTS = {"world_reduce": "psum_sparse_fused",
+             "no_shift": "psum_sparse_fused",
+             "peer_rows": "psum_two_pass_logical"}
+# the row-gather kernel on the slabs (pallas.use_embedding_kernel: logical
+# tables, two-pass, row_gather the all-to-all lookup's local gather), run
+# at SMALL_VOCAB beside the MS_CASES there, with the kernels its step must
+# launch
+MS_GATHER_CASE = ("routed_row_gather", "logical", "all_to_all", False)
+MS_GATHER_LAUNCHES = ("row_gather", "densify_rows_grad", "fused_table_adam")
+# the cases held bit for bit to one process at (1, 2), f32, clip 0
+MS_EXACT_CASES = ("psum_sparse_fused", "routed_two_pass")
+# the (data, model) mesh of each spawned part (default: data only)
+PART_AXES = {"ms_steps": MS_AXES, "ms_exact": (1, 2)}
 
 
 def emit(obj: dict) -> None:
@@ -4211,7 +4284,7 @@ def dp_rank_main(rank: int, world: int, port: int, part: str,
                                    rank=0, world_size=1)
         else:
             initialize_distributed(env=os.environ, device=DEVICE)
-        mesh = build_mesh(device=DEVICE)
+        mesh = build_mesh(*PART_AXES.get(part, (-1, 1)), device=DEVICE)
         result = DP_PARTS[part](mesh)
         result.update(rank=rank, backend=mesh.backend,
                       device=str(mesh.device),
@@ -4260,28 +4333,40 @@ def spawn_ranks(world: int, part: str, tmp: Path) -> list:
 
 
 @contextlib.contextmanager
-def timed_collectives(log: list):
+def timed_collectives(log: list, mesh=None):
     """Each collective of the port (``parallel/collectives.py``'s
-    all_reduce_ and all_gather_rows, which the flat all-reduce and
-    BatchNorm's sum call) timed on the host clock between two device
-    synchronisations, with the bytes this rank sends, while the context
-    is open."""
+    all_reduce_, all_gather_rows and all_to_all_rows, which the flat
+    all-reduce, BatchNorm's sum, the model-group sum and the overflow flag
+    call) timed on the host clock between two device synchronisations,
+    with the bytes this rank sends, while the context is open; with
+    ``mesh``, the group each ran on ("data", "model" or "world")."""
     import torch
 
     from deepfm_tpu_torch.parallel import collectives
 
     real = {n: getattr(collectives, n)
-            for n in ("all_reduce_", "all_gather_rows")}
+            for n in ("all_reduce_", "all_gather_rows", "all_to_all_rows")}
+
+    def group_of(g):
+        if mesh is None:
+            return None
+        for kind in ("data", "model", "world"):
+            if g is getattr(mesh, f"{kind}_group"):
+                return kind
+        return "world" if g is mesh else None
 
     def timed(name, fn):
-        def call(mesh, t):
+        def call(g, t, *args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(mesh, t)
+            out = fn(g, t, *args, **kwargs)
             torch.cuda.synchronize()
-            log.append({"op": name, "bytes": t.numel() * t.element_size(),
-                        "shape": list(t.shape), "dtype": str(t.dtype),
-                        "ms": 1e3 * (time.perf_counter() - t0)})
+            rec = {"op": name, "bytes": t.numel() * t.element_size(),
+                   "shape": list(t.shape), "dtype": str(t.dtype),
+                   "ms": 1e3 * (time.perf_counter() - t0)}
+            if mesh is not None:
+                rec["group"] = group_of(g)
+            log.append(rec)
             return out
         return call
 
@@ -4636,35 +4721,587 @@ def dp_world1(mesh) -> dict:
             "bit_equal": not failures, "failures": failures}
 
 
-DP_PARTS = {"steps": dp_steps, "world1": dp_world1}
+# ---------------------------------------------------------------------------
+# model_sharded
+# ---------------------------------------------------------------------------
 
 
-def dp_train_loop(tmp: Path) -> dict:
-    """``python -m torch.distributed.run --nproc-per-node DP_WORLD -m
+def ms_case(name: str):
+    return next(c for c in (*MS_CASES, MS_GATHER_CASE) if c[0] == name)
+
+
+def ms_config(case: str, **training):
+    """configs/deepfm_criteo_multichip.yaml on the card for ``case``: its
+    table layout, embedding strategy and fused_backward (and the row-gather
+    kernel for MS_GATHER_CASE), and ``training`` overrides."""
+    from deepfm_tpu_torch.config import load_config
+
+    _, layout, strategy, fused = ms_case(case)
+    gather = str(case == MS_GATHER_CASE[0]).lower()
+    return load_config(REPO / "configs" / MULTICHIP_CONFIG, [
+        f"device={DEVICE}", f"pallas.table_layout={layout}",
+        f"pallas.use_embedding_kernel={gather}",
+        f"mesh.embedding_strategy={strategy}",
+        f"training.fused_backward={str(fused).lower()}",
+        *(f"training.{k}={v}" for k, v in training.items())])
+
+
+def ms_whole(trainer) -> dict:
+    """``snapshot`` of a sharded trainer with whole tables and moments:
+    the slabs gathered over the model group, on the card (every rank
+    calls it)."""
+    from deepfm_tpu_torch.parallel import collectives, is_table_path
+
+    group = trainer.mesh.model_group
+    out = {}
+    for name, t in snapshot(trainer).items():
+        if is_table_path(name):
+            t = collectives.all_gather_rows(group, t.float()).to(t.dtype)
+        out[name] = t
+    return out
+
+
+def ms_trainer(mesh, packed, case: str, **training):
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    cfg = ms_config(case, **training)
+    return Trainer(create_model(cfg.model_name, packed, cfg, mesh=mesh),
+                   packed, cfg, mesh=mesh), cfg
+
+
+def ms_one_process(packed, cfg, batches):
+    """One process on the card at the same global batches: (trainer,
+    losses)."""
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    ref = Trainer(create_model(cfg.model_name, packed, cfg, device=DEVICE),
+                  packed, cfg)
+    return ref, [ref._train_step(*batch_on(b, ref.device)).item()
+                 for b in batches]
+
+
+def collective_kinds(log: list) -> dict:
+    """A step's collectives by kind: the all-to-alls (the lookup's
+    buckets and rows), the data-group gathers (pairs, scores), the
+    model-group sums (the psum lookup, the clip norm's table terms,
+    table_psq) and gathers (the all-to-all lookup's rows), the data-group
+    all-reduces (the flat one, BatchNorm's, the weight sum) and the
+    world's flags: calls, bytes sent, host ms."""
+    out = {}
+    for c in log:
+        kind = {"all_to_all_rows": "all_to_all",
+                "all_gather_rows": f"{c['group']}_gather",
+                "all_reduce_": f"{c['group']}_sum"}[c["op"]]
+        rec = out.setdefault(kind, {"calls": 0, "bytes": 0, "ms": 0.0})
+        rec["calls"] += 1
+        rec["bytes"] += c["bytes"]
+        rec["ms"] += c["ms"]
+    return out
+
+
+def ms_full_width(mesh) -> dict:
+    """MS_CASES at the multichip config's full width on the (2, 2) mesh:
+    MS_STEPS steps on each rank's data index's rows of MS_STEPS global
+    batches, the replicas checked after every step, the launches counted
+    from 0; the whole state (slabs gathered) then held by rank 0 against
+    one process on the same global batches (MS_BAND, DP_LOSS_REL; the
+    first case also beside a one-process control on row-permuted
+    batches); then one profiled step and one step with its collectives
+    timed by kind."""
+    import numpy as np
+    import torch
+
+    from deepfm_tpu_torch.parallel import collectives, embedding_shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    packed, _ = bench_workload(BENCH_VOCAB)
+    batches = [bench_workload(BENCH_VOCAB, seed=s)[1]
+               for s in range(MS_STEPS)]
+    out, failures = {}, []
+    for case, layout, strategy, fused in MS_CASES:
+        trainer, cfg = ms_trainer(mesh, packed, case)
+        path = "sparse_fused" if fused else "two_pass"
+        if trainer.path != path:
+            failures.append(f"{case}: took the {trainer.path} path")
+        local = [dp_local(b, mesh, dev) for b in batches]
+        for k in embedding_shard.fallbacks:
+            embedding_shard.fallbacks[k] = 0
+        # --- the main path: every kernel count starts at 0 here ---------
+        reset_counts()
+        losses, times = [], []
+        for i, batch in enumerate(local):
+            s0 = time.perf_counter()
+            loss = trainer._train_step(*batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - s0)
+            losses.append(loss.item())
+            trainer.check_replicas(f"{case} step {i + 1}")
+        counts = read_counts()
+        # --- end of the main path ----------------------------------------
+        check_launches(case, counts, MS_LAUNCHES[case], failures)
+        rec = {"layout": layout, "strategy": strategy, "path": trainer.path,
+               "losses": losses, "step_ms": [1e3 * t for t in times],
+               "step_ms_median": 1e3 * statistics.median(times),
+               "launches": {k: counts[k] for k in MS_LAUNCHES[case]},
+               "fallbacks": dict(embedding_shard.fallbacks),
+               "slab_rows": {n: trainer.params[n].shape[0]
+                             for n in trainer.table_names},
+               "replicas_equal_every_step": True}
+        whole = ms_whole(trainer)
+        if mesh.rank == 0:
+            ref, ref_losses = ms_one_process(packed, cfg, batches)
+            diff = state_diff(whole, snapshot(ref), MS_BAND)
+            loss_rel = max(rel_err(a, b) for a, b in zip(losses, ref_losses))
+            rec["one_process"] = {"losses": ref_losses,
+                                  "loss_rel_err": loss_rel,
+                                  "max_abs_err": diff}
+            if loss_rel > DP_LOSS_REL or diff["outside_band"]:
+                failures.append(f"{case}: (2, 2) against one process: "
+                                f"{rec['one_process']}")
+            if case == MS_CASES[0][0]:
+                control, _ = ms_one_process(packed, cfg, [])
+                for b, seed in zip(batches, range(MS_STEPS)):
+                    order = np.random.default_rng(seed).permutation(
+                        len(b.labels))
+                    control._train_step(*batch_on(dataclasses.replace(
+                        b, ids=b.ids[order], dense=b.dense[order],
+                        labels=b.labels[order], weights=b.weights[order]),
+                        dev))
+                rec["one_process"]["control_permuted_rows"] = state_diff(
+                    snapshot(control), snapshot(ref), MS_BAND)
+                del control
+            del ref
+        del whole
+        free_device()
+        collectives.barrier(mesh)
+        rec["profile_step"] = step_profile(
+            lambda: trainer._train_step(*local[0]))
+        log = []
+        with timed_collectives(log, mesh):
+            trainer._train_step(*local[0])
+        trainer.check_replicas(f"{case} after the profiled steps")
+        rec["collectives"] = collective_kinds(log)
+        rec["collective_bytes"] = sum(c["bytes"] for c in log)
+        rec["collective_ms"] = sum(c["ms"] for c in log)
+        if not all(map(math.isfinite, losses)):
+            failures.append(f"{case}: a loss is not finite: {losses}")
+        out[case] = rec
+        del trainer, local
+        free_device()
+    return {"cases": out, "failures": failures}
+
+
+@contextlib.contextmanager
+def ms_fault(name: str | None, mesh):
+    """A planted fault of the model-sharded step (MS_FAULTS), undone on
+    exit: "world_reduce" (the flat all-reduce of the dense gradients over
+    the world, not the data group), "no_shift" (each slab takes the
+    global sorted ids unshifted); "peer_rows" is ``ms_rows``'."""
+    from deepfm_tpu_torch.parallel import collectives
+    from deepfm_tpu_torch.training import steps
+
+    undo = []
+    if name == "world_reduce":
+        real = collectives.all_reduce_flat
+        undo.append((collectives, "all_reduce_flat", real))
+        collectives.all_reduce_flat = lambda g, ts: real(mesh.world_group,
+                                                         ts)
+    elif name == "no_shift":
+        undo.append((steps, "slab_ids", steps.slab_ids))
+        steps.slab_ids = lambda sids, j, rows: sids
+    try:
+        yield
+    finally:
+        for owner, attr, value in undo:
+            setattr(owner, attr, value)
+
+
+def ms_rows(arrays, mesh, fault):
+    """The rank's rows of a global batch on its device; under "peer_rows"
+    those of data index rank % data (model peers get different rows)."""
+    if fault != "peer_rows":
+        return dp_local(arrays, mesh, mesh.device)
+    per = len(arrays.labels) // mesh.data
+    i = mesh.rank % mesh.data
+    return batch_on(head_rows(dataclasses.replace(
+        arrays, ids=arrays.ids[i * per:], dense=arrays.dense[i * per:],
+        labels=arrays.labels[i * per:], weights=arrays.weights[i * per:]),
+        per), mesh.device)
+
+
+def ms_small_step(mesh, small, arrays, case: str, fault=None,
+                  shrunk: bool = False):
+    """One step at SMALL_VOCAB ids, f32, GRAD_BATCH rows of ``case``
+    (under a planted ``fault``, or with the capacities MS_SHRUNK): this
+    rank's state after it, the fallbacks taken, the kernels it launched,
+    and whether the replicas agree."""
+    import torch
+
+    from deepfm_tpu_torch.parallel import embedding_shard
+
+    saved = {k: getattr(embedding_shard, k) for k in MS_SHRUNK}
+    if shrunk:
+        for k, v in MS_SHRUNK.items():
+            setattr(embedding_shard, k, v)
+    for k in embedding_shard.fallbacks:
+        embedding_shard.fallbacks[k] = 0
+    try:
+        trainer, cfg = ms_trainer(mesh, small, case, compute_dtype="float32",
+                                  moments_dtype="float32")
+        batch = ms_rows(arrays, mesh, fault)
+        reset_counts()
+        with ms_fault(fault, mesh):
+            loss = trainer._train_step(*batch).item()
+        launches = {k: v for k, v in read_counts().items() if v}
+    finally:
+        for k, v in saved.items():
+            setattr(embedding_shard, k, v)
+    try:
+        trainer.check_replicas(f"{case} under {fault}")
+        refusal = None
+    except RuntimeError as e:
+        refusal = str(e)
+    whole = ms_whole(trainer)
+    out = {"loss": loss, "replica_refusal": refusal, "state": snapshot(
+        trainer), "whole": whole if mesh.rank == 0 else None,
+        "fallbacks": dict(embedding_shard.fallbacks), "cfg": cfg,
+        "launches": launches}
+    del trainer
+    torch.cuda.synchronize()
+    return out
+
+
+def ms_vs_one_process(mesh, small, arrays, got: dict) -> dict:
+    """``ms_small_step``'s result against one process's step on the same
+    global batch (rank 0; every rank gives its replica check): the whole
+    state under training/parity.py's one-step f32 rule, the share limit
+    on, and the loss within TRAIN_TOL's cpu_loss_rel; ``refused`` when
+    either check or the replica check fails."""
+    from deepfm_tpu_torch.training.parity import compare_leaves
+
+    rec = {"replica_refusal": got["replica_refusal"]}
+    if mesh.rank != 0:
+        return rec
+    ref, ref_loss = ms_one_process(small, got["cfg"], [arrays])
+    cmp = compare_leaves(got["whole"], snapshot(ref), LR, steps=1,
+                         zero_gradient=ref.model.zero_gradient_leaves)
+    rec.update(loss_rel_err=rel_err(got["loss"], ref_loss[0]),
+               max_abs_err=cmp["max_abs_err"],
+               max_share_outside_tol=cmp["max_share_outside_tol"],
+               failed_leaves=cmp["failed_leaves"][:8])
+    rec["refused"] = bool(got["replica_refusal"] or cmp["failed_leaves"]
+                          or rec["loss_rel_err"] > TRAIN_TOL["cpu_loss_rel"])
+    del ref
+    return rec
+
+
+def ms_fused_grads(mesh, small, arrays, case: str):
+    """The first-step gradients of a sparse-fused ``case`` on the mesh (f32,
+    clip 0), where no table gradient is formed: each table's densified
+    from the pairs the step hands ``sparse_table_adam`` on the rank's slab
+    (the ids outside it dropped; plain densify), the slabs gathered over
+    the model group; the dense leaves' as the step hands them to the
+    dense update, less the decay wd * p of the embedding leaves. (loss,
+    name -> gradient on the CPU), the same on every rank."""
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.grad import densify_rows_grad_plain
+    from deepfm_tpu_torch.ops.kernels.packed_grad import (
+        densify_rows_grad_packed_plain,
+    )
+    from deepfm_tpu_torch.parallel import collectives
+    from deepfm_tpu_torch.training import steps
+
+    trainer, cfg = ms_trainer(mesh, small, case, compute_dtype="float32",
+                              moments_dtype="float32", gradient_clip_norm=0.0)
+    wd = 2.0 * cfg.feature.embedding_l2_reg
+    name_of = {t.data_ptr(): n for n, t in trainer.params.items()}
+    got, slabs = {}, {}
+    real_adam, real_apply = steps.sparse_table_adam, trainer.tx.apply
+
+    def adam_spy(p, mu, nu, sids, cts, *args, pack):
+        rows = p.shape[0] * pack
+        keep = (sids >= 0) & (sids < rows)
+        ids, ct = sids[keep].long().cpu(), cts[keep].float().cpu()
+        slabs[name_of[p.data_ptr()]] = (
+            densify_rows_grad_plain(ct, ids, rows) if pack == 1 else
+            densify_rows_grad_packed_plain(ct, ids, rows, pack))
+        return real_adam(p, mu, nu, sids, cts, *args, pack=pack)
+
+    def apply_spy(dense, params, opt_state):
+        for n, g in dense.items():
+            got[n] = (g - wd * params[n] if n.startswith("embedding.")
+                      else g).detach().cpu()
+        return real_apply(dense, params, opt_state)
+
+    steps.sparse_table_adam, trainer.tx.apply = adam_spy, apply_spy
+    try:
+        loss = trainer._train_step(*dp_local(arrays, mesh, mesh.device))
+    finally:
+        steps.sparse_table_adam = real_adam
+        del trainer.tx.apply
+    for n in sorted(slabs):
+        got[n] = collectives.all_gather_rows(
+            mesh.model_group, slabs[n].to(mesh.device)).cpu()
+    del trainer
+    return loss.item(), got, cfg
+
+
+def ms_checks(mesh) -> dict:
+    """At SMALL_VOCAB ids per field, f32, GRAD_BATCH rows on the (2, 2)
+    mesh: one step of every MS_CASE and of MS_GATHER_CASE against one
+    process (``ms_vs_one_process``: training/parity.py's one-step f32
+    rule, the share limit on; the gather case's kernels counted); the
+    routed cases with their capacities shrunk (MS_SHRUNK) against the same
+    steps unshrunk (the one-step f32 rule, every rank on its own slabs;
+    the fallbacks counted); every case's first-step gradients, slabs
+    gathered, against the CPU's (grad_check: the two-pass cases' from the
+    exchange, the sparse-fused cases' from the pairs their kernel takes,
+    ``ms_fused_grads``); and the planted faults (MS_FAULTS), each refused
+    by the same comparison with one process or the replica check, their
+    readings beside the sound steps'."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.parallel import collectives, is_table_path
+    from deepfm_tpu_torch.training.parity import compare_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small, arrays = bench_workload(SMALL_VOCAB)
+    arrays = head_rows(arrays, GRAD_BATCH)
+    failures = []
+    out = {"sound": {}, "overflow": {}, "grads": {}, "faults": {}}
+    plain = {}
+    for case in (*(c[0] for c in MS_CASES), MS_GATHER_CASE[0]):
+        got = ms_small_step(mesh, small, arrays, case)
+        rec = ms_vs_one_process(mesh, small, arrays, got)
+        rec["launches"] = got["launches"]
+        if got["replica_refusal"] or rec.get("refused"):
+            failures.append(f"{case}: one f32 step at (2, 2) against one "
+                            f"process: {rec}")
+        if case == MS_GATHER_CASE[0] and not all(
+                got["launches"].get(k, 0) > 0 for k in MS_GATHER_LAUNCHES):
+            failures.append(f"{case}: launched {got['launches']}, not each "
+                            f"of {MS_GATHER_LAUNCHES}")
+        out["sound"][case] = rec
+        if case in ("routed_packed", "routed_two_pass"):
+            plain[case] = got
+        del got
+    for case, unshrunk in plain.items():
+        shrunk = ms_small_step(mesh, small, arrays, case, shrunk=True)
+        cmp = compare_leaves(shrunk["state"], unshrunk["state"], LR, steps=1)
+        rec = {"fallbacks": shrunk["fallbacks"],
+               "unshrunk_fallbacks": unshrunk["fallbacks"],
+               "failed_leaves": cmp["failed_leaves"],
+               "loss_rel_err": rel_err(shrunk["loss"], unshrunk["loss"])}
+        taken = ("lookup", "route_sorted_pairs") if case == "routed_packed" \
+            else ("lookup", "exchange")
+        if cmp["failed_leaves"] or rec["loss_rel_err"] > TRAIN_TOL[
+                "cpu_loss_rel"] or not all(
+                    shrunk["fallbacks"][k] > 0 for k in taken) or any(
+                    unshrunk["fallbacks"].values()):
+            failures.append(f"{case} with its capacities shrunk: {rec}")
+        out["overflow"][case] = rec
+        del shrunk
+    del plain
+
+    def two_pass_grads(case):
+        trainer, cfg = ms_trainer(mesh, small, case, compute_dtype="float32")
+        loss, grads = trainer._step_fn.loss_and_grads(
+            trainer, *dp_local(arrays, mesh, mesh.device))
+        whole = {n: (collectives.all_gather_rows(mesh.model_group, g)
+                     if is_table_path(n) else g).detach().cpu()
+                 for n, g in grads.items()}
+        del trainer
+        return loss.item(), whole, cfg
+
+    for case, _, _, fused in MS_CASES:
+        loss, got, cfg = (ms_fused_grads(mesh, small, arrays, case) if fused
+                          else two_pass_grads(case))
+        if mesh.rank == 0:
+            cpu_cfg = dataclasses.replace(cfg, device="cpu")
+            zero = create_model("deepfm", small, cpu_cfg,
+                                device="cpu").zero_gradient_leaves
+            cpu_loss, want = first_step_grads(small, arrays, "cpu", cpu_cfg)
+            c = grad_check(got, want, zero)
+            rec = {"loss_rel_err": rel_err(loss, cpu_loss),
+                   "worst_max_rel": c["worst_max_rel"],
+                   "worst_norm_rel": c["worst_norm_rel"],
+                   "failed_leaves": c["failed_leaves"]}
+            out["grads"][case] = rec
+            if not c["ok"] or rec["loss_rel_err"] > TRAIN_TOL["cpu_loss_rel"]:
+                failures.append(f"{case}: first-step gradients against the "
+                                f"CPU: {rec}")
+    for fault, case in MS_FAULTS.items():
+        got = ms_small_step(mesh, small, arrays, case, fault)
+        rec = ms_vs_one_process(mesh, small, arrays, got)
+        if mesh.rank == 0 and not rec["refused"]:
+            failures.append(f"planted fault {fault} was not refused: {rec}")
+        out["faults"][fault] = rec
+        del got
+    torch.cuda.synchronize()
+    out["failures"] = failures
+    return out
+
+
+def ms_steps(mesh) -> dict:
+    full = ms_full_width(mesh)
+    checks = ms_checks(mesh)
+    return {"full_width": full["cases"], "checks": checks,
+            "failures": full["failures"] + checks["failures"]}
+
+
+def ms_exact(mesh) -> dict:
+    """MS_EXACT_CASES on a (1, 2) mesh at full width, f32, clip 0,
+    MS_STEPS steps: with one data row every sum but the clip norm's table
+    terms is the one process's, in its order, so every slab (gathered),
+    table moment and dense leaf must equal the one-process run's bit for
+    bit; the leaves that do not are named, and held to training/parity.py's
+    f32 rule."""
+    import torch
+
+    from deepfm_tpu_torch.training.parity import compare_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    packed, _ = bench_workload(BENCH_VOCAB)
+    batches = [bench_workload(BENCH_VOCAB, seed=s)[1]
+               for s in range(MS_STEPS)]
+    out, failures = {}, []
+    for case in MS_EXACT_CASES:
+        trainer, cfg = ms_trainer(mesh, packed, case,
+                                  compute_dtype="float32",
+                                  moments_dtype="float32",
+                                  gradient_clip_norm=0.0)
+        losses = [trainer._train_step(*dp_local(b, mesh, mesh.device)).item()
+                  for b in batches]
+        whole = ms_whole(trainer)
+        del trainer
+        free_device()
+        if mesh.rank == 0:
+            ref, ref_losses = ms_one_process(packed, cfg, batches)
+            want = snapshot(ref)
+            differ = [n for n in want if not torch.equal(whole[n], want[n])]
+            cmp = compare_leaves({n: whole[n] for n in differ},
+                                 {n: want[n] for n in differ}, LR,
+                                 steps=MS_STEPS)
+            out[case] = {"losses_equal": losses == ref_losses,
+                         "tensors": len(want), "differing": differ,
+                         "differing_failed_f32_rule": cmp["failed_leaves"]}
+            if losses != ref_losses or differ:
+                failures.append(f"{case} at (1, 2) is not one process's bits: "
+                                f"{out[case]}")
+            del ref, want
+        del whole
+        free_device()
+    return {"cases": out, "failures": failures}
+
+
+def ms_kernel_slabs() -> dict:
+    """sparse_table_adam on each slab of a (., 2) mesh, both layouts: the
+    table-kernel phase's inputs (bench.py's 10.4M x 17 table, bf16
+    moments, an active clip), the sorted global stream shifted by -j *
+    (the slab's logical rows), so slab 0 sees ids past its top and slab 1
+    negative ones; against the plain version on the slab (adam_check: the
+    moments bit for bit, p within TABLE_TOL, sum(p'^2), a second launch
+    the same bits) and the whole table's kernel update on the slab's rows
+    (bit for bit); timed beside the slab's bound."""
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.sparse_adam import (
+        sort_pairs,
+        sparse_table_adam,
+        sparse_table_adam_plain,
+    )
+    from deepfm_tpu_torch.utils.layout import pack_table
+
+    dev = torch.device(DEVICE)
+    ids, ct, p, mu, nu, args = table_inputs(dev)
+    sids, cts = sort_pairs(ids, ct)
+    rows = BENCH_FIELDS * BENCH_VOCAB
+    phys = packed_rows_of(rows)
+    out, failures = {}, []
+    for layout, pack in (("logical", 1), ("packed", PACK)):
+        state = ([p, mu, nu] if pack == 1 else
+                 [pack_table(t, D, PACK, phys) for t in (p, mu, nu)])
+        whole = [t.clone() for t in state]
+        sparse_table_adam(*whole, sids, cts, *args, pack=pack)
+        half = state[0].shape[0] // 2
+        for j in (0, 1):
+            lo = j * half
+            local = sids - j * half * pack
+
+            def fresh(lo=lo):
+                return [t[lo:lo + half].clone() for t in state]
+
+            def kernel(*a):
+                return sparse_table_adam(*a, pack=pack)
+
+            def plain(*a):
+                return sparse_table_adam_plain(*a, pack=pack)
+
+            rec = adam_check(kernel, plain, fresh, (local, cts), args)
+            k = fresh()
+            kernel(*k, local, cts, *args)
+            rec["bit_equal_to_whole_table_update"] = all(
+                bool(torch.equal(a, b[lo:lo + half]))
+                for a, b in zip(k, whole))
+            inside = int(((local >= 0) & (local < half * pack)).sum())
+            rec["ids_outside_slab"] = sids.numel() - inside
+            # the slab's p, mu and nu read and written once, and the
+            # slab's own pairs read (a tile finds its range by a search)
+            rec["bound_ms"] = mem_bound_ms(
+                half * state[0].shape[1] * (8 + 2 * 2 * 2)
+                + inside * (4 + 4 * D))
+            rec["bound_by"] = "bytes"
+            if not (rec["ok"] and rec["bit_equal_to_whole_table_update"]):
+                failures.append(f"sparse_table_adam on slab {j} ({layout}): "
+                                f"{rec}")
+            out[f"{layout}_slab{j}"] = rec
+            del k
+        del state, whole
+        torch.cuda.empty_cache()
+    return {"cases": out, "failures": failures}
+
+
+DP_PARTS = {"steps": dp_steps, "world1": dp_world1, "ms_steps": ms_steps,
+            "ms_exact": ms_exact}
+
+
+def dp_train_loop(tmp: Path, ranks: int = DP_WORLD, extra=(),
+                  run: str = "dp_loop", phase: str = "data_parallel"
+                  ) -> dict:
+    """``python -m torch.distributed.run --nproc-per-node ranks -m
     deepfm_tpu_torch train`` on train_loop's MovieLens xDeepFM (f32, full
     width; EXPORT_NEG_EVAL eval negatives, cut from 999 for the phase's
-    time) for TRAIN_LOOP_EPOCHS epochs; a one-process ``evaluate`` of its
+    time; ``extra`` overrides, such as a model axis) for
+    TRAIN_LOOP_EPOCHS epochs; a one-process ``evaluate`` of its
     checkpoint; a run of 1 epoch resumed to TRAIN_LOOP_EPOCHS under the
-    same launch."""
+    same launch. The checkpoint's tables must be whole: the one-process
+    evaluate loads them strictly."""
+    import torch
+
     from deepfm_tpu_torch.cli import evaluate_command
     from deepfm_tpu_torch.config import load_config
 
     data_dir = movielens_data(tmp)
-    root = tmp / "dp_loop"
+    root = tmp / run
 
-    def overrides(run, epochs):
+    def overrides(name, epochs):
         return [f"data.data_dir={data_dir}", f"training.num_epochs={epochs}",
                 f"data.num_neg_eval={EXPORT_NEG_EVAL}",
                 "training.resume=true", f"device={DEVICE}",
-                f"output_dir={root / run}"]
+                f"output_dir={root / name}", *extra]
 
-    def torchrun(run, epochs):
+    def torchrun(name, epochs):
         cmd = [sys.executable, "-m", "torch.distributed.run",
-               "--nproc-per-node", str(DP_WORLD), "--master-addr",
+               "--nproc-per-node", str(ranks), "--master-addr",
                "localhost", "--master-port", str(free_port()),
                "-m", "deepfm_tpu_torch", "train", "--config",
                str(REPO / "configs" / TRAIN_LOOP_CONFIG), "--override",
-               *overrides(run, epochs)]
+               *overrides(name, epochs)]
         t0 = time.perf_counter()
         # its own session, so that a launch past its time is stopped with
         # every rank it started
@@ -4677,7 +5314,7 @@ def dp_train_loop(tmp: Path) -> dict:
             os.killpg(proc.pid, signal.SIGKILL)
             out, _ = proc.communicate()
         if proc.returncode != 0:
-            fail(f"data_parallel: {' '.join(cmd[2:6])} train {run} exited "
+            fail(f"{phase}: {' '.join(cmd[2:6])} train {name} exited "
                  f"{proc.returncode}: {out[-3000:]}")
         return time.perf_counter() - t0
 
@@ -4690,25 +5327,35 @@ def dp_train_loop(tmp: Path) -> dict:
     files = sorted(p.name for p in (root / "whole").iterdir())
     results = json.loads((root / "whole" / "results.json").read_text())
     info = results["training_info"]
+    config = load_config(REPO / "configs" / TRAIN_LOOP_CONFIG,
+                         overrides("whole", TRAIN_LOOP_EPOCHS))
+    want_mesh = {"data": ranks // max(config.mesh.model_axis, 1),
+                 "model": max(config.mesh.model_axis, 1)}
     if files.count("results.json") != 1 or files.count("best_model.pt") != 1 \
             or any("rank" in f for f in files):
         failures.append(f"files written: {files}")
     missing = [k for k in ("cin_stack_fwd", "cin_stack_bwd")
                if k not in info["kernels"]]
-    if missing or info["mesh"] != {"data": DP_WORLD, "model": 1} \
-            or info["num_devices"] != DP_WORLD:
+    if missing or info["mesh"] != want_mesh or info["num_devices"] != ranks:
         failures.append(f"training_info {info}: {missing} not launched on "
-                        f"every rank, or not a {DP_WORLD}x1 mesh")
+                        f"every rank, or not a {want_mesh} mesh")
+    # the one-process evaluate loads the checkpoint strictly into a model
+    # of whole tables: slabs would not load
+    saved = torch.load(root / "whole" / "best_model.pt", weights_only=True)
+    table_shapes = {n: list(saved[n].shape) for n in saved
+                    if "table_w" in n}
+    del saved
     t0 = time.perf_counter()
     evaluated = evaluate_command(load_config(
         REPO / "configs" / TRAIN_LOOP_CONFIG,
-        overrides("whole", TRAIN_LOOP_EPOCHS)))
+        [o for o in overrides("whole", TRAIN_LOOP_EPOCHS)
+         if not o.startswith("mesh.")]))
     evaluate_s = time.perf_counter() - t0
     last_is_best = info["best_epoch"] == info["total_epochs"]
     if evaluated["val"] != results["val_metrics"] or (
             last_is_best and evaluated["test"] != results["test_metrics"]):
         failures.append(f"one-process evaluate {evaluated} differs from "
-                        f"the two-rank run's {results['val_metrics']} / "
+                        f"the {ranks}-rank run's {results['val_metrics']} / "
                         f"{results['test_metrics']}")
     free_device()
     first_s = torchrun("resumed", 1)
@@ -4718,8 +5365,10 @@ def dp_train_loop(tmp: Path) -> dict:
     if not same:
         failures.append(f"the resumed history {resumed['history']} differs "
                         f"from the unbroken run's {results['history']}")
-    return {"config": f"configs/{TRAIN_LOOP_CONFIG}", "ranks": DP_WORLD,
+    return {"config": f"configs/{TRAIN_LOOP_CONFIG}", "ranks": ranks,
+            "overrides": list(extra),
             "epochs": TRAIN_LOOP_EPOCHS, "files": files,
+            "checkpoint_tables": table_shapes,
             "train_s": whole_s, "first_epoch_s": first_s,
             "resume_s": resume_s, "evaluate_s": evaluate_s,
             "epoch_seconds": [h["epoch_seconds"] for h in results["history"]],
@@ -4787,6 +5436,76 @@ def phase_data_parallel(tmp: Path, gpu: str) -> dict:
     return out
 
 
+def phase_model_sharded(tmp: Path, gpu: str) -> dict:
+    """Model-sharded tables on torch.distributed (module docstring)."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(MS_AXES[0] * MS_AXES[1], "ms_steps", tmp)
+    steps_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = spawn_ranks(2, "ms_exact", tmp)[0]
+    exact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slabs = ms_kernel_slabs()
+    slabs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop = dp_train_loop(tmp, ranks=2, run="ms_loop", phase="model_sharded",
+                         extra=("mesh.model_axis=2",
+                                "mesh.embedding_strategy=all_to_all"))
+    loop_s = time.perf_counter() - t0
+    failures = [f for r in ranks for f in r["failures"]]
+    failures += exact["failures"] + slabs["failures"] + loop["failures"]
+    full = {case: {"rank": [r["full_width"][case] for r in ranks]}
+            for case in ranks[0]["full_width"]}
+    out = {
+        "phase": "model_sharded", "gpu": gpu, "mesh": list(MS_AXES),
+        "backend": ranks[0]["backend"], "backend_rule": ranks[0]["rule"],
+        "devices": [r["device"] for r in ranks],
+        "config": f"configs/{MULTICHIP_CONFIG}", "batch": BENCH_BATCH,
+        "rows_per_rank": BENCH_BATCH // MS_AXES[0], "steps": MS_STEPS,
+        "full_width": full, "checks": ranks[0]["checks"],
+        "exact_1x2": exact["cases"], "kernel_slabs": slabs["cases"],
+        "train_loop": loop,
+        "seconds": {"steps": steps_s, "exact": exact_s,
+                    "kernel_slabs": slabs_s, "train_loop": loop_s},
+        "tol": {"loss_rel": DP_LOSS_REL, "band": MS_BAND,
+                "exact": "bit for bit at (1, 2), f32, clip 0",
+                "one_step": "training/parity.py, one f32 step, share "
+                            "limit on",
+                "overflow": "training/parity.py, one f32 step",
+                "grads": {"max_rel": GRAD_MAX_REL, "norm_rel": GRAD_NORM_REL},
+                "kernels": TABLE_TOL},
+        "ok": not failures,
+    }
+    emit(out)
+    summary = {case: {
+        "step_ms_median": [r["step_ms_median"] for r in rec["rank"]],
+        "device_ms": [r["profile_step"]["device_ms"] for r in rec["rank"]],
+        "launches": rec["rank"][0]["launches"],
+        "collectives_rank0": rec["rank"][0]["collectives"],
+        "collective_ms": [r["collective_ms"] for r in rec["rank"]],
+        "collective_mb": [r["collective_bytes"] / 1e6 for r in rec["rank"]],
+        "vs_one_process": {
+            "loss_rel_err": rec["rank"][0]["one_process"]["loss_rel_err"],
+            **rec["rank"][0]["one_process"]["max_abs_err"]},
+        "control_permuted_rows": rec["rank"][0]["one_process"].get(
+            "control_permuted_rows")}
+        for case, rec in full.items()}
+    summary["kernel_slabs_ms"] = {k: [v["ms"], v["bound_ms"], v["plain_ms"]]
+                                  for k, v in slabs["cases"].items()}
+    checks = ranks[0]["checks"]
+    summary["one_f32_step_vs_one_process"] = {
+        case: {k: rec.get(k) for k in ("loss_rel_err", "max_abs_err",
+                                      "max_share_outside_tol", "refused")}
+        for part in ("sound", "faults") for case, rec in checks[part].items()}
+    summary["first_step_grads_vs_cpu"] = checks["grads"]
+    print(f"model_sharded ({gpu}; {MS_AXES[0] * MS_AXES[1]} ranks at "
+          f"{MS_AXES}, {out['backend']}: {out['backend_rule']}): "
+          f"{json.dumps(summary)}", flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4830,6 +5549,7 @@ def main() -> None:
         timed("export", phase_export, Path(tmp), gpu)
         timed("packed_store", phase_packed_store, Path(tmp), gpu)
         timed("data_parallel", phase_data_parallel, Path(tmp), gpu)
+        timed("model_sharded", phase_model_sharded, Path(tmp), gpu)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     kernels = []
     # (name, source, replaces, launches on its main path, its numbers at

@@ -28,12 +28,16 @@ the JAX CLI's ``maybe_init_multihost`` and ``build_runtime``): under
 processes is one rank on one device, the process group starts
 (``parallel/mesh.py``; with ``mesh.multihost: false`` too, since the port
 runs one process per device where JAX runs one per host), and the
-``mesh`` section resolves to a data-parallel mesh over the N ranks, each
-rank training on its rows of every global batch and rank 0 alone logging
-and writing files. A mesh the ranks cannot form is refused with the JAX
-package's message, a model axis above 1 with ROADMAP queue 1 item 10(b),
-``mesh.multihost`` without a coordinator unless ``allow_single_process``,
-and a batch the data axis does not divide, all before any data is built.
+``mesh`` section resolves to a (data, model) mesh over the N ranks
+(ROADMAP queue 1 items 10(a) and 10(b)): each data row of ranks trains on
+its rows of every global batch, each model column holds one slab of every
+embedding table (``mesh.model_axis`` above 1, under
+``mesh.embedding_strategy``), and rank 0 alone logs and writes files,
+with whole tables. A mesh the ranks cannot form is refused with the JAX
+package's message, ``mesh.multihost`` without a coordinator unless
+``allow_single_process``, and a batch the data axis does not divide, all
+before any data is built; a model axis that does not divide a table's
+rows is refused when the model is built.
 The serving commands (``predict``, ``recommend``, ``serve``, ``export``)
 run on one device: launched as more than one rank, each refuses by name
 (sharded batch scoring is ROADMAP queue 1 item 10(d)); ``export`` checks
@@ -102,9 +106,8 @@ def build_runtime(config: ExperimentConfig):
     """The JAX CLI's ``maybe_init_multihost`` and ``build_runtime``: start
     the process group where a coordinator is named (``mesh.multihost``, or
     a torchrun launch of more than one rank), resolve ``config.mesh`` over
-    the ranks, and return the data-parallel mesh, or None for one device
-    without a mesh. Raises where the JAX CLI would, and for a model axis
-    above 1 (ROADMAP queue 1 item 10(b))."""
+    the ranks, and return the (data, model) mesh, or None for one device
+    without a mesh. Raises where the JAX CLI would."""
     from deepfm_tpu_torch.parallel import (
         build_hybrid_mesh,
         build_mesh,

@@ -142,14 +142,20 @@ class MeshConfig:
     process a device, ``parallel/mesh.py``), by the JAX CLI's rules:
     ``data_axis`` and ``model_axis`` resolve against the world size (one
     rank with a model axis of 1 or -1 needs no mesh; an axis of -1 takes
-    the ranks left over; a model axis above 1 is refused until ROADMAP
-    queue 1 item 10(b)); ``num_slices`` groups the ranks as
-    ``build_hybrid_mesh`` does; ``multihost`` starts the process group
-    from torchrun's environment or refuses without a coordinator unless
-    ``allow_single_process``; ``embedding_strategy`` "auto" all-reduces
-    the dense table gradient of the two-pass, lazy and plain paths, and
-    any other strategy gives them the sparse gradient exchange
-    (``parallel/embedding_shard.py``)."""
+    the ranks left over); a model axis above 1 row-shards every embedding
+    table over it (ROADMAP queue 1 item 10(b); it must divide the tables'
+    rows, ``parallel/sharding.py``); ``num_slices`` groups the ranks as
+    ``build_hybrid_mesh`` does, the model axis inside a slice;
+    ``multihost`` starts the process group from torchrun's environment or
+    refuses without a coordinator unless ``allow_single_process``;
+    ``embedding_strategy`` ("psum", "all_to_all" or "auto"; read by
+    ``parallel/embedding_shard.py``): at a model axis of 1, "auto"
+    all-reduces the dense table gradient of the two-pass, lazy and plain
+    paths and any other strategy gives them the sparse gradient exchange;
+    above 1, "psum" and "all_to_all" are the sharded lookups (the latter
+    routed, forward and backward) under the exchange on every path, and
+    "auto" the masked slab lookup on logical tables, without the
+    sparse-fused path."""
 
     data_axis: int = -1
     model_axis: int = 1

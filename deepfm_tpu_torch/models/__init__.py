@@ -44,11 +44,17 @@ def resolve_table_layout(config: ExperimentConfig) -> bool:
     return layout == "packed"
 
 
-def tables_packed(config: ExperimentConfig) -> bool:
+def tables_packed(config: ExperimentConfig, mesh=None) -> bool:
     """The layout ``create_model`` builds: packed when the config asks for
     it, unless ``pallas.use_embedding_kernel`` installs the row-gather
     kernel, which forces logical tables (``create_model`` of the JAX
-    package)."""
+    package), or a model-sharded ``mesh`` takes ``embedding_strategy:
+    auto``, which the JAX package runs on logical tables (GSPMD cannot
+    split the packed gather: ``parallel.sharding.slabs_without_exchange``)."""
+    from deepfm_tpu_torch.parallel.sharding import slabs_without_exchange
+
+    if slabs_without_exchange(mesh, config.mesh.embedding_strategy):
+        return False
     return (resolve_table_layout(config)
             and not config.pallas.use_embedding_kernel)
 
@@ -66,14 +72,18 @@ def create_model(
     and lookup follow ``tables_packed`` and
     ``pallas.use_embedding_kernel``.
 
-    Under a data-parallel ``mesh`` (``parallel.Mesh``) the model goes to
-    the rank's device, ``mesh.device``, and the paths that look
-    the tables up inside the loss graph (two-pass, lazy, plain) get the
-    sparse gradient exchange around that lookup for
-    ``mesh.embedding_strategy`` (``parallel/embedding_shard.py``; "auto"
-    keeps the plain lookup, whose dense gradient the step all-reduces).
-    The sparse-fused path gathers the pairs itself and keeps the default
-    lookup, as in the JAX package, whatever the strategy."""
+    Under a ``mesh`` (``parallel.Mesh``) the model goes to the rank's
+    device, ``mesh.device``. At a model axis of 1 the paths that look the
+    tables up inside the loss graph (two-pass, lazy, plain) get the sparse
+    gradient exchange around that lookup for ``mesh.embedding_strategy``
+    (``parallel/embedding_shard.py``; "auto" keeps the plain lookup, whose
+    dense gradient the step all-reduces); the sparse-fused path gathers
+    the pairs itself and keeps the default lookup, as in the JAX package.
+    Above 1 the model is built whole from the seed, exactly as one process
+    builds it, every rank's whole parameters are checked to hold the same
+    bits, and each rank keeps its slab of every table
+    (``FeatureEmbedding.shard_tables``) and takes the strategy's lookup on
+    every path."""
     if name not in MODEL_REGISTRY:
         raise ValueError(
             f"Unknown model: {name}. Choose from {list(MODEL_REGISTRY)}"
@@ -82,13 +92,22 @@ def create_model(
     packed = schema if isinstance(schema, PackedSchema) else pack_schema(schema)
     gen = torch.Generator().manual_seed(config.seed if seed is None else seed)
     model = MODEL_REGISTRY[name](
-        packed, config, generator=gen, packed_tables=tables_packed(config),
+        packed, config, generator=gen,
+        packed_tables=tables_packed(config, mesh),
         gather_kernel=config.pallas.use_embedding_kernel,
-    ).to(dev)
+    )
+    from deepfm_tpu_torch.parallel.sharding import check_replicated, sharded
     from deepfm_tpu_torch.training.trainer import sparse_fused_eligible
 
-    if mesh is not None and not sparse_fused_eligible(config, packed):
-        from deepfm_tpu_torch.ops.kernels.gather import row_gather
+    model = model.to(dev)
+    if sharded(mesh):
+        # fingerprinted on the rank's device: a CPU hash of bench.py's
+        # 10.4M-row table takes seconds
+        check_replicated(mesh, dict(model.named_parameters()),
+                         "the whole parameters built from the seed")
+        model.embedding.shard_tables(mesh)
+    if mesh is not None and (sharded(mesh)
+                             or not sparse_fused_eligible(config, packed)):
         from deepfm_tpu_torch.parallel import (
             make_lookup_fn,
             make_packed_lookup_factory,
@@ -96,8 +115,8 @@ def create_model(
 
         strategy = config.mesh.embedding_strategy
         model.embedding.install_lookups(
-            make_lookup_fn(mesh, strategy, gather=(
-                row_gather if config.pallas.use_embedding_kernel else None)),
+            make_lookup_fn(mesh, strategy,
+                           config.pallas.use_embedding_kernel),
             make_packed_lookup_factory(mesh, strategy))
     return model
 

@@ -37,11 +37,13 @@ class BatchNorm(nn.BatchNorm1d):
     compute it another way. ``momentum`` keeps torch's meaning (the weight
     of the new batch, 0.1).
 
-    Under a data-parallel mesh (``mesh``, set by the ``Trainer``) the
-    statistics are the global batch's, as flax's are under GSPMD: each rank
-    sums x and x^2 over its rows, the sums and the row count go through one
-    differentiable all-reduce (``parallel/collectives.py::all_reduce_sum``,
-    whose backward sums the gradients over the ranks too), and every rank
+    Under a mesh (``mesh``, set by the ``Trainer``) the statistics are the
+    global batch's, as flax's are under GSPMD: each rank sums x and x^2
+    over its rows, the sums and the row count go through one
+    differentiable all-reduce over the data group
+    (``parallel/collectives.py::all_reduce_sum``, whose backward sums the
+    gradients over the group too; the model peers hold the same rows, so a
+    sum over the world would count them m times), and every rank
     normalises with, and averages into its running statistics, the same
     mean and variance.
     """
@@ -53,14 +55,14 @@ class BatchNorm(nn.BatchNorm1d):
         if self.training:
             n = x.shape[0]
             s1, s2 = x.sum(dim=0), (x * x).sum(dim=0)
-            if self.mesh is not None and self.mesh.world > 1:
+            if self.mesh is not None and self.mesh.data_group is not None:
                 from deepfm_tpu_torch.parallel.collectives import (
                     all_reduce_sum,
                 )
 
                 count = torch.full_like(s1, float(n))
                 s1, s2, n = all_reduce_sum(
-                    self.mesh, torch.stack([s1, s2, count]))
+                    self.mesh.data_group, torch.stack([s1, s2, count]))
             mean = s1 / n
             mean2 = s2 / n
             var = torch.clamp_min(mean2 - mean * mean, 0.0)

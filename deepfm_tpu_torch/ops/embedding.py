@@ -39,10 +39,14 @@ gathers, each with a kernel for its backward:
   * packed: plain indexing into a strided view, the gradient densified
     straight into the packed layout (``ops/kernels/packed_grad.py``).
 
-Under a data-parallel mesh, ``create_model`` installs the sparse
-gradient exchange (``parallel/embedding_shard.py``) around the table's
-lookup with ``install_lookups``: the same forward, and a backward that
-densifies every rank's all-gathered (id, cotangent) pairs.
+Under a mesh, ``create_model`` installs the mesh's lookup
+(``parallel/embedding_shard.py``) in place of the table's with
+``install_lookups``: at a model axis of 1 the same forward with the sparse
+gradient exchange as its backward (every rank's all-gathered (id,
+cotangent) pairs, densified); above 1 the psum or all-to-all lookup over
+the rank's slab of each table (``shard_tables``: each rank keeps rows
+[j * R / m, (j + 1) * R / m) of a table of R rows), under the exchange
+into the slab, or under "auto" the slab's own densify.
 
 A CPU table takes the kernels' plain versions. For a serving export
 with ``--quantize int8`` (``utils/export.py``), ``quantize_tables`` swaps
@@ -54,9 +58,9 @@ to ``create_model`` as ``lookup_fn`` and lets XLA drop the unused f32
 tables; ``torch.export`` keeps every registered parameter).
 
 The trainer's sparse-fused path gathers the rows itself
-(``gather_group_rows``) and hands them back through ``rows_override``, so
-autograd yields the per-occurrence cotangents and never the dense table
-gradient.
+(``gather_group_rows``, through the installed lookup's forward on a
+sharded table) and hands them back through ``rows_override``, so autograd
+yields the per-occurrence cotangents and never the dense table gradient.
 """
 
 from __future__ import annotations
@@ -150,8 +154,13 @@ class FeatureEmbedding(nn.Module):
         # int8 serving tables in place of table_w* (``quantize_tables``)
         self.quantized: QuantizedTables | None = None
         # table name -> the lookup installed in place of the layout's own
-        # (``install_lookups``: the data-parallel gradient exchange)
+        # (``install_lookups``: the mesh's lookup and gradient exchange)
         self.lookup_fns: dict = {}
+        # table name -> the whole table's (physical) rows; the model-axis
+        # slab each table holds, (model index, model axis), once
+        # ``shard_tables`` has cut them (None: whole tables)
+        self.table_rows: dict[str, int] = {}
+        self.shard: tuple[int, int] | None = None
 
         for gi, group in enumerate(packed.lookup_groups):
             d = group.width
@@ -165,6 +174,7 @@ class FeatureEmbedding(nn.Module):
                 phys = pad_rows(-(-group.total_rows // pack))
                 table = pack_table(table, d + 1, pack, phys)
             self.table_pack[f"table_w{d}"] = max(pack, 1)
+            self.table_rows[f"table_w{d}"] = table.shape[0]
             setattr(self, f"table_w{d}", nn.Parameter(table))
             self.register_buffer(
                 f"_offsets_{gi}",
@@ -233,6 +243,27 @@ class FeatureEmbedding(nn.Module):
         for d in widths:
             delattr(self, f"table_w{d}")
         self.quantized = QuantizedTables(qtabs)
+
+    def shard_tables(self, mesh) -> None:
+        """Keep the rank's model-axis slab of every table
+        (``parallel/sharding.py::slab_bounds``; a model axis that does not
+        divide a table's rows is refused)."""
+        from deepfm_tpu_torch.parallel.sharding import slab_bounds
+
+        for name in self.table_pack:
+            lo, hi = slab_bounds(mesh, self.table_rows[name])
+            whole = getattr(self, name).detach()
+            setattr(self, name, nn.Parameter(whole[lo:hi].clone()))
+        self.shard = (mesh.model_index, mesh.model)
+
+    def slab_of(self, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole table-shaped tensor (a table or its
+        moment); ``whole`` itself on whole tables."""
+        if self.shard is None:
+            return whole
+        j, m = self.shard
+        per = whole.shape[0] // m
+        return whole[j * per:(j + 1) * per]
 
     def install_lookups(self, lookup_fn, packed_lookup_factory) -> None:
         """Look up each logical table with ``lookup_fn(table, flat_ids)``
@@ -358,7 +389,9 @@ def gather_group_rows(
     ``rows_override`` reproduces the forward, and the loss gradient with
     respect to the rows is the (id, cotangent) stream the sparse-fused
     table update consumes. The ids are logical in both layouts, so the
-    sort and ``segment_sumsq`` do not depend on it. Port of
+    sort and ``segment_sumsq`` do not depend on it. A table with an
+    installed lookup (a model-sharded table's psum or all-to-all forward)
+    is gathered through it, outside autograd. Port of
     ``deepfm_tpu/ops/embedding.py::gather_group_rows``.
     """
     out = {}
@@ -367,7 +400,13 @@ def gather_group_rows(
         flat = embedding.local_ids(gi, ids).reshape(-1)
         table = getattr(embedding, name).detach()
         pack = embedding.table_pack[name]
-        rows = (packed_rows(table, flat, group.width + 1, pack) if pack > 1
-                else table[flat])
+        installed = embedding.lookup_fns.get(name)
+        if installed is not None:
+            with torch.no_grad():
+                rows = installed(table, flat)
+        elif pack > 1:
+            rows = packed_rows(table, flat, group.width + 1, pack)
+        else:
+            rows = table[flat]
         out[name] = (rows, flat)
     return out

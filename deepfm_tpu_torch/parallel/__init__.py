@@ -1,17 +1,25 @@
-"""Data-parallel training on ``torch.distributed`` (ROADMAP queue 1 item
-10(a)): the runtime and the mesh (``mesh.py``), the collectives
-(``collectives.py``), the placement rules (``sharding.py``) and the sparse
-gradient exchange (``embedding_shard.py``). Model-sharded tables wait for
-item 10(b), ring attention for 10(c)."""
+"""Data-parallel and model-sharded training on ``torch.distributed``
+(ROADMAP queue 1 items 10(a) and 10(b)): the runtime and the (data,
+model) mesh (``mesh.py``), the collectives over its groups
+(``collectives.py``), the placement rules (``sharding.py``), and the
+row-sharded lookups, the sparse gradient exchange and the routed pairs of
+the sparse-fused path (``embedding_shard.py``). Ring attention waits for
+item 10(c)."""
 
 from deepfm_tpu_torch.parallel.embedding_shard import (
+    make_a2a_lookup,
+    make_a2a_lookup_packed,
     make_lookup_fn,
     make_packed_lookup_factory,
+    make_psum_lookup,
+    make_psum_lookup_packed,
+    route_sorted_pairs,
     sparse_grad_exchange,
 )
 from deepfm_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_MODEL,
+    Group,
     Mesh,
     build_hybrid_mesh,
     build_mesh,
@@ -22,26 +30,40 @@ from deepfm_tpu_torch.parallel.mesh import (
 )
 from deepfm_tpu_torch.parallel.sharding import (
     batch_rows,
+    batch_shardings,
     check_batch,
     is_table_path,
     placement,
+    replicated,
+    slab_bounds,
+    state_shardings,
 )
 
 __all__ = [
     "AXIS_DATA",
     "AXIS_MODEL",
+    "Group",
     "Mesh",
     "batch_rows",
+    "batch_shardings",
     "build_hybrid_mesh",
     "build_mesh",
     "check_batch",
     "check_multihost",
     "initialize_distributed",
     "is_table_path",
+    "make_a2a_lookup",
+    "make_a2a_lookup_packed",
     "make_lookup_fn",
     "make_packed_lookup_factory",
+    "make_psum_lookup",
+    "make_psum_lookup_packed",
     "multiprocess_env_configured",
     "placement",
+    "replicated",
     "resolve_mesh",
+    "route_sorted_pairs",
+    "slab_bounds",
     "sparse_grad_exchange",
+    "state_shardings",
 ]

@@ -14,10 +14,17 @@ starts the process group from there. A ``Mesh`` is a small record of the
 (data, model) axes over the ranks and of this rank's place in them; the
 collectives that act on it are ``parallel/collectives.py``'s.
 
-Only the data axis is ported (ROADMAP queue 1 item 10(a)): every leaf is
-replicated on every rank and the batch is split over the ranks
-(``parallel/sharding.py``). A model axis above 1 (row-sharded tables) is
-refused with a message that names ROADMAP queue 1 item 10(b).
+The mesh is the JAX package's ``(data, model)`` grid over the ranks
+(ROADMAP queue 1 items 10(a) and 10(b)), model the inner axis
+(``mesh_utils.create_device_mesh((dp, m))``): rank r sits at data index
+``r // m`` and model index ``r % m``. The m ranks of one data row hold the
+same batch rows and run the same dense computation on them; the m ranks of
+one model column hold the same slab of every embedding table
+(``parallel/sharding.py``). Each rank's ``Mesh`` carries the ``Group`` of
+its data row (``model_group``: the ranks that share its rows and hold the
+other slabs), of its model column (``data_group``: the ranks that hold its
+slab, over which the batch is split) and of the world; a group of one rank
+is None, so that no collective runs on it (``parallel/collectives.py``).
 
 The backend rule: NCCL when every local rank has a card of its own; gloo
 when the local ranks share a card (NCCL refuses two ranks on one device)
@@ -55,6 +62,28 @@ TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 # how long the rendezvous and each collective may wait for the other
 # ranks before the rank raises
 TIMEOUT_S = 600
+# the running process group's timeout, which the mesh's groups take
+_TIMEOUT_S: list[float | None] = [None]
+
+
+@dataclass(frozen=True)
+class Group:
+    """Ranks that take part in one collective: ``ranks`` in the order the
+    collective concatenates them, this process's global ``rank`` at
+    position ``index`` of them, and the process group's ``handle`` (None:
+    the default group, which spans the world). ``backend`` and ``device``
+    are the mesh's."""
+
+    ranks: tuple[int, ...]
+    rank: int
+    index: int
+    handle: Any
+    backend: str
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
 
 
 @dataclass(frozen=True)
@@ -62,8 +91,11 @@ class Mesh:
     """The (data, model) mesh over the ranks and this rank's place in it:
     ``world`` ranks, this one ``rank`` (``local_rank`` on its host) on
     ``device``; ``backend`` is the process group's ("nccl" or "gloo"; None
-    for a mesh of one rank without a process group) and ``group`` the
-    group the collectives run on (None: the default group)."""
+    for a mesh of one rank without a process group). The groups
+    (``Group``, None where they hold one rank or the mesh only describes
+    a shape): ``world_group``, ``data_group`` (this rank's model column:
+    its slab's holders, the batch split over them) and ``model_group``
+    (its data row: its batch rows' holders, one slab each)."""
 
     data: int
     model: int
@@ -72,7 +104,9 @@ class Mesh:
     local_rank: int
     device: torch.device
     backend: str | None
-    group: Any = None
+    world_group: Group | None = None
+    data_group: Group | None = None
+    model_group: Group | None = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -82,6 +116,17 @@ class Mesh:
     @property
     def size(self) -> int:
         return self.data * self.model
+
+    @property
+    def data_index(self) -> int:
+        """This rank's row of the mesh: which share of the batch it takes."""
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's column of the mesh: which slab of the tables it
+        holds."""
+        return self.rank % self.model
 
 
 def mesh_shape(data_axis: int, model_axis: int, n: int) -> tuple[int, int]:
@@ -238,6 +283,7 @@ def initialize_distributed(probe: bool = False, *,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size,
                             timeout=timedelta(seconds=timeout_s))
+    _TIMEOUT_S[0] = timeout_s
     if rank == 0:
         logger.info("torch.distributed: %d ranks, backend %s (%s)",
                     world_size, backend, why)
@@ -251,28 +297,54 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def refuse_model_axis(data: int, model: int) -> None:
-    """Raise ValueError for a model axis above 1 (row-sharded tables)."""
-    if model > 1:
-        raise ValueError(
-            f"mesh {data}x{model}: a model axis above 1 row-shards the "
-            "embedding tables, which waits for ROADMAP queue 1 item 10(b); "
-            "the port's mesh is data-parallel (model_axis 1 or -1)")
+def mesh_groups(data: int, model: int, rank: int, backend: str,
+                device: torch.device,
+                timeout_s: float | None = None) -> dict[str, Group | None]:
+    """The world, data and model ``Group`` of ``rank`` on a (data, model)
+    mesh of the running process group. Every rank creates the process
+    group of every data row, then of every model column, in that order
+    (``dist.new_group`` must be called by every rank, for every group);
+    a group that spans the world takes the default group, and a group of
+    one rank is None."""
+    import torch.distributed as dist
+
+    world = data * model
+    rows = [tuple(range(i * model, (i + 1) * model)) for i in range(data)]
+    cols = [tuple(range(j, world, model)) for j in range(model)]
+    kw = {} if timeout_s is None else {"timeout": timedelta(seconds=timeout_s)}
+    handles = {}
+    for ranks in rows + cols:
+        if 1 < len(ranks) < world:
+            handles[ranks] = dist.new_group(list(ranks), **kw)
+
+    def group(ranks):
+        if len(ranks) == 1:
+            return None
+        return Group(ranks=ranks, rank=rank, index=ranks.index(rank),
+                     handle=handles.get(ranks), backend=backend,
+                     device=device)
+
+    return {"world_group": group(tuple(range(world))),
+            "data_group": group(cols[rank % model]),
+            "model_group": group(rows[rank // model])}
 
 
 def _mesh(data: int, model: int, n: int | None,
           device: str | torch.device) -> Mesh:
     import torch.distributed as dist
 
-    refuse_model_axis(data, model)
     up = dist.is_initialized()
     rank = dist.get_rank() if up else 0
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
-    return Mesh(data=data, model=model, rank=rank,
-                world=world_size() if n is None else n,
-                local_rank=local_rank,
-                device=rank_device(device, local_rank),
-                backend=dist.get_backend() if up else None)
+    world = world_size() if n is None else n
+    dev = rank_device(device, local_rank)
+    backend = dist.get_backend() if up else None
+    groups = {}
+    if up and world == world_size():
+        groups = mesh_groups(data, model, rank, backend, dev, _TIMEOUT_S[0])
+    return Mesh(data=data, model=model, rank=rank, world=world,
+                local_rank=local_rank, device=dev, backend=backend,
+                **groups)
 
 
 def build_mesh(data_axis: int = -1, model_axis: int = 1,
@@ -280,10 +352,11 @@ def build_mesh(data_axis: int = -1, model_axis: int = 1,
                device: str | torch.device = "cuda") -> Mesh:
     """The ("data", "model") mesh over ``n`` ranks (default: the world
     size): an axis of -1 takes the ranks left over, and the product must
-    be ``n`` (``mesh_shape``, the JAX function's words). A model axis
-    above 1 is refused (ROADMAP queue 1 item 10(b)). ``device`` is the
-    config's; the rank takes its own card of it (``rank_device``). A mesh
-    over another ``n`` than the world's describes a shape only: no
+    be ``n`` (``mesh_shape``, the JAX function's words). ``device`` is the
+    config's; the rank takes its own card of it (``rank_device``). Every
+    rank must build the mesh, since it creates the process groups of the
+    mesh's rows and columns (``mesh_groups``). A mesh over another ``n``
+    than the world's describes a shape only: it has no groups, and no
     collective may run on it."""
     data, model = mesh_shape(data_axis, model_axis,
                              world_size() if n is None else n)

@@ -1,18 +1,27 @@
 """Placement over the mesh: which leaves live where, which rows a rank takes.
 
-Port of ``deepfm_tpu/parallel/sharding.py`` at a model axis of 1. The
-JAX package's rule row-shards the embedding tables ("table_w*",
-"fo_table") over the model axis and replicates every other leaf; with a
-model axis of 1 (the only one the port builds, ROADMAP queue 1 item
-10(a)) that rule replicates every leaf, optimizer state included, on
-every rank. The batch is split over the data axis: rank r of a
-world of W holds rows [r * B / W, (r + 1) * B / W) of a global batch of
-B rows, the rows GSPMD gives device r (``batch_shardings``).
+Port of ``deepfm_tpu/parallel/sharding.py`` (ROADMAP queue 1 item 10(b)
+for the model axis). The embedding tables
+("table_w*", "fo_table") are row-sharded over the model axis, and so are
+their moments and, on the plain chain, their optimizer leaves: a table of
+R rows (physical rows for a packed table) is cut into m slabs of R / m
+rows, and the rank at model index j holds rows [j * R / m, (j + 1) * R /
+m), logical ids [j * R / m * pack, (j + 1) * R / m * pack)
+(``slab_bounds``). Every other leaf is replicated on every rank. A model
+axis that does not divide a table's rows is refused (GSPMD pads uneven
+shards; the port has no counterpart). The tables are padded to 128 rows,
+so every m that divides 128 divides them.
+
+The batch is split over the data axis: the ranks of data index i hold rows
+[i * B / dp, (i + 1) * B / dp) of a global batch of B rows, the rows GSPMD
+gives that mesh row (``batch_shardings``); its m model peers hold the same
+rows.
 
 Replicas are checked, not trusted: ``check_replicated`` all-gathers a
-fingerprint of every replicated tensor and raises where a rank's bits
-differ (the ``Trainer`` at construction; ``chip_smoke.py`` after every
-step).
+fingerprint of every tensor over a group and raises where a rank's bits
+differ (replicated leaves over the world, slabs and their moments over
+the data group: the ``Trainer`` at construction; ``chip_smoke.py`` after
+every step).
 """
 
 from __future__ import annotations
@@ -34,11 +43,63 @@ def is_table_path(name: str) -> bool:
 
 def placement(mesh: Mesh | None, name: str) -> str:
     """Where a leaf lives: "replicated" on every rank, or "rows over
-    model" for a table on a model axis above 1 (which ``build_mesh``
-    refuses until ROADMAP queue 1 item 10(b))."""
+    model" for a table (or a table's moment) on a model axis above 1."""
     if mesh is not None and mesh.model > 1 and is_table_path(name):
         return "rows over model"
     return "replicated"
+
+
+def sharded(mesh: Mesh | None) -> bool:
+    """Whether the mesh row-shards the tables (a model axis above 1)."""
+    return mesh is not None and mesh.model > 1
+
+
+def slabs_without_exchange(mesh: Mesh | None, strategy: str) -> bool:
+    """Whether the tables are slabs looked up without the sparse gradient
+    exchange: ``embedding_strategy`` "auto" at a model axis above 1, the
+    JAX package's GSPMD lookup. The tables stay logical, the sparse-fused
+    path is not taken, and the slab's dense gradient from the lookup's
+    backward is summed over the data group by the step's all-reduce."""
+    return sharded(mesh) and strategy == "auto"
+
+
+def routed(mesh: Mesh | None, strategy: str) -> bool:
+    """Whether the slabs' gradient pairs are routed to their owners
+    (``embedding_strategy`` "all_to_all" at a model axis above 1)."""
+    return sharded(mesh) and strategy == "all_to_all"
+
+
+def check_model_axis(model: int, rows: int, name: str = "a table") -> None:
+    """Refuse a model axis that does not divide a table's rows."""
+    if rows % model:
+        raise ValueError(
+            f"{name} has {rows} rows, which the mesh's model axis {model} "
+            "does not divide: each rank holds rows / model rows of every "
+            "table (a model axis that divides 128 divides every table)")
+
+
+def slab_bounds(mesh: Mesh, rows: int) -> tuple[int, int]:
+    """[lo, hi): the rows of a table of ``rows`` (physical) rows that the
+    rank's slab holds."""
+    check_model_axis(mesh.model, rows)
+    per = rows // mesh.model
+    return mesh.model_index * per, (mesh.model_index + 1) * per
+
+
+def state_shardings(mesh: Mesh | None, names) -> dict[str, str]:
+    """Each leaf's ``placement`` (the JAX function's NamedSharding tree)."""
+    return {n: placement(mesh, n) for n in names}
+
+
+def replicated(mesh: Mesh | None) -> str:
+    """The placement of a replicated leaf."""
+    return "replicated"
+
+
+def batch_shardings(mesh: Mesh | None, tree: dict) -> dict[str, slice]:
+    """The rank's rows (``batch_rows``) of each batch array of ``tree``
+    (name -> array of global batch rows)."""
+    return {k: batch_rows(mesh, len(v)) for k, v in tree.items()}
 
 
 def check_batch(mesh: Mesh | None, batch_size: int) -> None:
@@ -53,23 +114,25 @@ def check_batch(mesh: Mesh | None, batch_size: int) -> None:
 
 def batch_rows(mesh: Mesh | None, n: int) -> slice:
     """The rank's rows of a global batch of ``n`` rows (every row without
-    a mesh); ``n`` must divide by the data axis (``check_batch``)."""
+    a mesh): its data index's share, the same on its model peers; ``n``
+    must divide by the data axis (``check_batch``)."""
     if mesh is None:
         return slice(0, n)
     check_batch(mesh, n)
     per = n // mesh.data
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    i = mesh.data_index
+    return slice(i * per, (i + 1) * per)
 
 
-def split_bounds(world: int, n: int, block: int) -> list[tuple[int, int]]:
-    """Each rank's contiguous share (lo, hi) of ``n`` rows cut in blocks of
-    ``block`` rows (a split scored in batches): whole blocks, the ranks'
-    counts differing by at most one block, so each batch is the one a
+def split_bounds(parts: int, n: int, block: int) -> list[tuple[int, int]]:
+    """Each data index's contiguous share (lo, hi) of ``n`` rows cut in
+    blocks of ``block`` rows (a split scored in batches): whole blocks, the
+    shares differing by at most one block, so each batch is the one a
     single process would score."""
     blocks = -(-n // block)
-    return [(min(n, blocks * r // world * block),
-             min(n, blocks * (r + 1) // world * block))
-            for r in range(world)]
+    return [(min(n, blocks * r // parts * block),
+             min(n, blocks * (r + 1) // parts * block))
+            for r in range(parts)]
 
 
 def fingerprint(t: torch.Tensor) -> torch.Tensor:
@@ -90,22 +153,45 @@ def fingerprint(t: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def check_replicated(mesh: Mesh | None, tensors: dict[str, torch.Tensor],
+def check_replicated(group, tensors: dict[str, torch.Tensor],
                      what: str) -> None:
-    """Raise RuntimeError unless every rank holds the same bits in each of
+    """Raise RuntimeError unless every rank of ``group`` (a mesh's
+    ``Group``, or a ``Mesh`` for its world) holds the same bits in each of
     ``tensors`` (name -> tensor): one all-gather of their fingerprints.
-    Nothing without a mesh of more than one rank."""
+    Nothing on a group of one rank; every rank of the group must call it
+    with the same names."""
     from deepfm_tpu_torch.parallel import collectives
 
-    if mesh is None or mesh.world == 1:
+    g = collectives._group(group)
+    if g is None:
         return
     names = list(tensors)
-    mine = torch.stack([fingerprint(tensors[n]).to(mesh.device)
+    if not names:
+        return
+    mine = torch.stack([fingerprint(tensors[n]).to(g.device)
                         for n in names])
-    every = collectives.all_gather_rows(mesh, mine[None])
+    every = collectives.all_gather_rows(g, mine[None])
     differ = (every != every[0]).any(dim=0).nonzero().flatten().tolist()
     if differ:
         raise RuntimeError(
             f"the ranks' replicas differ in {what}: "
             f"{[names[i] for i in differ[:8]]} ({len(differ)} of "
             f"{len(names)} tensors)")
+
+
+def check_placement(mesh: Mesh | None, tensors: dict[str, torch.Tensor],
+                    what: str) -> None:
+    """``check_replicated`` by placement: the replicated tensors over the
+    world, the slabs (a name with a table part, ``is_table_path``) over
+    the data group. Every rank must call it."""
+    if mesh is None or mesh.world == 1:
+        return
+    slabs = {n for n, where in state_shardings(mesh, tensors).items()
+             if where != replicated(mesh)}
+    check_replicated(mesh.world_group,
+                     {n: t for n, t in tensors.items() if n not in slabs},
+                     what)
+    if slabs:
+        check_replicated(mesh.data_group,
+                         {n: tensors[n] for n in tensors if n in slabs},
+                         f"{what} (the table slabs, over the data group)")

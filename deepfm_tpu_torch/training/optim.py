@@ -21,6 +21,11 @@ last-ulp differences into lr-sized ones within two steps:
 The learning rate is state (``OptState.lr``, a 0-dim f32 tensor), the
 counterpart of ``inject_hyperparams``: it can change between steps
 without rebuilding anything.
+
+Under a model-sharded mesh each rank holds a slab of every table
+(``parallel/sharding.py``): the decay and the inner optimizer act on the
+slab element by element, and the clip norm's term of a table is the
+slabs' sums of squares summed over the model group (``table_sumsq``).
 """
 
 from __future__ import annotations
@@ -66,6 +71,21 @@ def sumsq(g: torch.Tensor) -> torch.Tensor:
     return torch.sum(g * g)
 
 
+def table_sumsq(model_group, sq: dict[str, torch.Tensor]
+                ) -> dict[str, torch.Tensor]:
+    """Each table slab's sum of squares in ``sq`` (name -> 0-dim f32)
+    summed over the model group into the whole table's, in one
+    all-reduce; ``sq`` as given without a model group."""
+    from deepfm_tpu_torch.parallel import collectives
+
+    if model_group is None or not sq:
+        return dict(sq)
+    names = list(sq)
+    total = collectives.all_reduce_(model_group,
+                                    torch.stack([sq[n] for n in names]))
+    return dict(zip(names, total.unbind()))
+
+
 def clip_fn(g: torch.Tensor, gnorm: torch.Tensor, clip: float,
             trigger: torch.Tensor) -> torch.Tensor:
     """optax's ``select(norm < clip, g, (g / norm) * clip)``."""
@@ -86,7 +106,8 @@ class Optimizer:
     ``apply`` alone is used and the decay and clip run in the step)."""
 
     def __init__(self, name: str, lr: float, l2_reg: float,
-                 clip_norm: float, masked: frozenset[str] = frozenset()):
+                 clip_norm: float, masked: frozenset[str] = frozenset(),
+                 slabs: frozenset[str] = frozenset(), model_group=None):
         if name not in OPTIMIZERS:
             raise ValueError(f"Unknown optimizer: {name}")
         self.name = name
@@ -94,6 +115,10 @@ class Optimizer:
         self.wd = 2.0 * l2_reg
         self.clip = clip_norm
         self.masked = masked
+        # the table slabs of a model-sharded mesh, whose clip-norm terms
+        # are summed over ``model_group``
+        self.slabs = slabs
+        self.model_group = model_group
 
     def init(self, params: dict[str, torch.Tensor]) -> OptState:
         dev = next(iter(params.values())).device
@@ -119,12 +144,20 @@ class Optimizer:
                 if name.startswith("embedding."):
                     grads[name] = g + self.wd * params[name]
         if self.clip > 0:
-            order = leaf_order(grads)
-            gnorm = global_norm([sumsq(grads[n]) for n in order])
+            gnorm = self.norm(grads)
             trigger = gnorm < self.clip
             grads = {n: clip_fn(g, gnorm, self.clip, trigger)
                      for n, g in grads.items()}
         self.apply(grads, params, state)
+
+    def norm(self, grads: dict[str, torch.Tensor]) -> torch.Tensor:
+        """optax's global norm of ``grads`` (the JAX tree's leaf order),
+        each table slab's term summed over the model group."""
+        order = leaf_order(grads)
+        sq = {n: sumsq(grads[n]) for n in order}
+        sq.update(table_sumsq(self.model_group, {
+            n: sq[n] for n in order if n in self.slabs}))
+        return global_norm([sq[n] for n in order])
 
     def apply(self, grads: dict[str, torch.Tensor],
               params: dict[str, torch.Tensor], state: OptState) -> None:
@@ -159,15 +192,20 @@ class Optimizer:
 
 
 def build_optimizer(config: ExperimentConfig, table_names,
-                    fused: bool) -> Optimizer:
+                    fused: bool, model_group=None) -> Optimizer:
     """The chain for ``config``; on the fused table paths (``fused``) and
     under ``lazy_adam`` the tables are masked out of an Adam, their update
     being the kernels' or the row-sparse one (``training/sparse_opt.py``),
-    and the step applies the masked Adam alone (``Optimizer.apply``)."""
+    and the step applies the masked Adam alone (``Optimizer.apply``).
+    ``model_group``: the tables are slabs, their clip-norm terms summed
+    over it."""
     tc = config.training
     lazy = tc.optimizer == "lazy_adam"
     return Optimizer(
         "adam" if lazy else tc.optimizer, tc.lr,
         config.feature.embedding_l2_reg, tc.gradient_clip_norm,
         masked=frozenset(table_names) if fused or lazy else frozenset(),
+        slabs=frozenset(table_names) if model_group is not None
+        else frozenset(),
+        model_group=model_group,
     )

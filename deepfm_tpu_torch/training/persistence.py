@@ -26,16 +26,21 @@ for its Orbax checkpoints:
   deepfm/training/trainer.py:171-195), with the JAX package's top-level
   and ``training_info`` keys (throughput and engagement telemetry).
 
-Under a data-parallel mesh every rank holds the same state, so rank 0
-alone writes (the ``Trainer`` calls ``save_best`` on rank 0 only;
-``save_resume`` and ``save_results_file`` are called on every rank and
-write on rank 0), and a barrier after each write keeps a rank from reading
-a file before it is there; every rank reads. A checkpoint holds no trace
-of the world size, so one written at N ranks restores at 1 and the
-reverse. The resume state records each rank's dropout generator (the one
-state that is per rank; the shuffle's and the adapter's are the same on
-every rank), and a resume into another world size is refused only where
-that state would matter: when the model has dropout.
+Under a mesh rank 0 alone writes (the ``Trainer`` calls ``save_best`` on
+rank 0 only; ``save_resume`` and ``save_results_file`` are called on every
+rank and write on rank 0), and a barrier after each write keeps a rank
+from reading a file before it is there; every rank reads. At a model axis
+above 1 each rank holds a slab of every table, of its moments and of its
+plain-chain optimizer leaves: every rank takes part in gathering them
+over its data row's model group (``whole_state_dict``, ``save_resume``),
+rank 0 writes whole tables, and every reader keeps its slab of them
+(``FeatureEmbedding.slab_of``). So a checkpoint holds no trace of the
+mesh: one written on N ranks at any (data, model) shape restores on one
+process, and the reverse. The resume state records the dropout
+generator of each data index (the one state that is per rank: model
+peers share theirs; the shuffle's and the adapter's are the same on every
+rank), and a resume into another mesh is refused only where that state
+would matter: when the model has dropout and the data axis differs.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import torch
 from deepfm_tpu_torch.models.base import CTRModel
 from deepfm_tpu_torch.ops.dnn import Dropout
 from deepfm_tpu_torch.parallel import collectives
+from deepfm_tpu_torch.parallel.sharding import is_table_path
 from deepfm_tpu_torch.training.optim import OptState
 from deepfm_tpu_torch.training.schedulers import set_lr
 from deepfm_tpu_torch.training.sparse_opt import TableSlotState
@@ -64,13 +70,47 @@ RESUME = "last_state.pt"
 RESUME_META = "last_state_meta.json"
 
 
+def _model_group(model: CTRModel, mesh):
+    """The group over which ``model``'s tables are slabs, or None."""
+    if model.embedding.shard is None or mesh is None:
+        return None
+    return mesh.model_group
+
+
+def whole(group, t: torch.Tensor) -> torch.Tensor:
+    """The whole table of which every rank of the model ``group`` holds a
+    slab ``t``, on the host (a gather; every rank of the group calls it);
+    ``t`` itself on the host without a group. bf16 moments travel as f32,
+    which holds them exactly."""
+    if group is None:
+        return t.detach().cpu()
+    return collectives.all_gather_rows(
+        group, t.detach().float()).to(t.dtype).cpu()
+
+
+def whole_state_dict(trainer) -> dict[str, torch.Tensor]:
+    """The model's ``state_dict`` on the host with whole tables: at a model
+    axis above 1 every rank must call it (the slabs are gathered over each
+    data row's model group)."""
+    group = _model_group(trainer.model, trainer.mesh)
+    return {k: (whole(group, v) if is_table_path(k) else v.detach().cpu())
+            for k, v in trainer.model.state_dict().items()}
+
+
 def save_best(
     model: CTRModel, output_dir: str | Path, epoch: int = 0,
-    best_metric: float = 0.0,
+    best_metric: float = 0.0, state: dict | None = None,
 ) -> Path:
+    """Write the best checkpoint of ``model``: its ``state_dict``, or
+    ``state`` (a ``whole_state_dict``, whose tables are whole where the
+    model holds slabs)."""
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if state is None:
+        if model.embedding.shard is not None:
+            raise ValueError("a model of table slabs is saved from its "
+                             "whole_state_dict")
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     _save(state, out / CHECKPOINT)
     save_results({
         "epoch": epoch,
@@ -82,8 +122,9 @@ def save_best(
 
 def load_best(model: CTRModel, output_dir: str | Path) -> dict:
     """Load the best checkpoint into ``model`` (strict), its tables
-    converted to the model's layout, and return its metadata. Tensors land
-    on the device of the model's parameters."""
+    converted to the model's layout (and cut to the model's slabs), and
+    return its metadata. Tensors land on the device of the model's
+    parameters."""
     out = Path(output_dir)
     path = out / CHECKPOINT
     if not path.exists():
@@ -94,8 +135,27 @@ def load_best(model: CTRModel, output_dir: str | Path) -> dict:
     if tree_layout(state, model.packed) != model.table_layout:
         state = convert_table_tree(state, model.packed,
                                    to_packed=model.table_layout == "packed")
-    model.load_state_dict(state)
+    model.load_state_dict(slab_state(model, state))
     return meta
+
+
+def slab_state(model: CTRModel, state: dict) -> dict:
+    """``state`` (a ``state_dict`` with whole tables) with each table cut
+    to the model's slab of it."""
+    return {k: (model.embedding.slab_of(v) if is_table_path(k) else v)
+            for k, v in state.items()}
+
+
+def table_psq(trainer) -> dict[str, torch.Tensor]:
+    """sum(p^2) of every whole table: the slabs' summed over the model
+    group at a model axis above 1 (every rank calls it)."""
+    from deepfm_tpu_torch.training.optim import table_sumsq
+
+    params = trainer.params
+    with torch.no_grad():
+        sq = {n: torch.sum(params[n].detach() ** 2)
+              for n in trainer.table_names}
+    return table_sumsq(_model_group(trainer.model, trainer.mesh), sq)
 
 
 def recompute_table_psq(trainer) -> None:
@@ -104,11 +164,7 @@ def recompute_table_psq(trainer) -> None:
     current as a by-product of each step)."""
     if not trainer.sparse_fused:
         return
-    params = trainer.params
-    with torch.no_grad():
-        trainer.state.table_psq = {
-            n: torch.sum(params[n].detach() ** 2) for n in trainer.table_names
-        }
+    trainer.state.table_psq = table_psq(trainer)
 
 
 def _save(obj, path: Path) -> None:
@@ -137,21 +193,38 @@ def save_resume(
         return
     mesh = trainer.mesh
     st = trainer.state
-    # every rank's dropout generator state, rank 0's first
+    # the dropout generator state of every data index, in order (model
+    # peers share theirs: each data row's first rank's)
     dropout_rngs = collectives.all_gather_rows(
         mesh, trainer.dropout_generator.get_state()[None]).cpu()
+    if mesh is not None:
+        dropout_rngs = dropout_rngs[::mesh.model]
+    group = _model_group(trainer.model, mesh)
+    if group is None and not trainer.is_writer:  # nothing to gather
+        collectives.barrier(mesh)
+        return
+
+    def gathered(name, t):
+        return whole(group, t) if is_table_path(name) else _cpu(t)
+
+    model_state = whole_state_dict(trainer)
+    opt_state = {f.name: getattr(st.opt_state, f.name)
+                 for f in dataclasses.fields(OptState)}
+    opt_state = {k: ({n: gathered(n, t) for n, t in v.items()}
+                     if isinstance(v, dict) else _cpu(v))
+                 for k, v in opt_state.items()}
+    table_opt = None if st.table_opt is None else {
+        n: {"mu": whole(group, s.mu), "nu": whole(group, s.nu)}
+        for n, s in st.table_opt.items()}
     if not trainer.is_writer:
         collectives.barrier(mesh)
         return
     ckpt = {
-        "model": _cpu(trainer.model.state_dict()),
-        "opt_state": {f.name: _cpu(getattr(st.opt_state, f.name))
-                      for f in dataclasses.fields(OptState)},
+        "model": model_state,
+        "opt_state": opt_state,
         "step": _cpu(st.step),
         "optimizer": trainer.config.training.optimizer,
-        "table_opt": None if st.table_opt is None else {
-            n: {"mu": _cpu(s.mu), "nu": _cpu(s.nu)}
-            for n, s in st.table_opt.items()},
+        "table_opt": table_opt,
         "dropout_rngs": dropout_rngs,
         "shuffle_rng": trainer.np_rng.bit_generator.state,
         "adapter_rng": trainer._adapter_rng_state,
@@ -229,16 +302,18 @@ def try_resume(trainer) -> dict | None:
             f"{saved_opt} but this run uses {opt} (the optimizer states "
             f"differ). Match training.optimizer, or start fresh."
         )
-    # one dropout generator state a rank ("dropout_rng" before the mesh)
+    # one dropout generator state a data index ("dropout_rng" before the
+    # mesh)
     rngs = ckpt.get("dropout_rngs", [ckpt.get("dropout_rng")])
-    world = 1 if trainer.mesh is None else trainer.mesh.world
-    if len(rngs) != world and uses_dropout(trainer.model):
+    rows = 1 if trainer.mesh is None else trainer.mesh.data
+    if len(rngs) != rows and uses_dropout(trainer.model):
         raise ValueError(
             f"Cannot resume: checkpoint was written by {len(rngs)} ranks "
-            f"and this run has {world}. The dropout generator's state is "
-            f"per rank (dropout_rngs), so the masks would not continue the "
-            f"run; the shuffle's and the adapter's states are the same on "
-            f"every rank. Resume with {len(rngs)} ranks, or start fresh.")
+            f"and this run has {rows}. The dropout generator's state is "
+            f"per rank of the data axis (dropout_rngs), so the masks would "
+            f"not continue the run; the shuffle's and the adapter's states "
+            f"are the same on every rank. Resume with a data axis of "
+            f"{len(rngs)}, or start fresh.")
     dev = trainer.device
 
     def to_dev(x):
@@ -246,9 +321,13 @@ def try_resume(trainer) -> dict | None:
             return {k: to_dev(v) for k, v in x.items()}
         return x.to(dev)
 
-    trainer.model.load_state_dict(ckpt["model"])
+    slab = trainer.model.embedding.slab_of
+    trainer.model.load_state_dict(slab_state(trainer.model, ckpt["model"]))
     st = trainer.state
-    st.opt_state = OptState(**to_dev(ckpt["opt_state"]))
+    st.opt_state = OptState(**to_dev({
+        k: ({n: slab(t) if is_table_path(n) else t for n, t in v.items()}
+            if isinstance(v, dict) else v)
+        for k, v in ckpt["opt_state"].items()}))
     st.step = ckpt["step"].to(dev)
     if ckpt["table_opt"] is not None:
         # fused moments may have been saved under another
@@ -256,11 +335,12 @@ def try_resume(trainer) -> dict | None:
         mdt = (getattr(torch, trainer.config.training.moments_dtype)
                if trainer.fused_tables else torch.float32)
         st.table_opt = {
-            n: TableSlotState(mu=s["mu"].to(dev, mdt), nu=s["nu"].to(dev, mdt))
+            n: TableSlotState(mu=slab(s["mu"]).to(dev, mdt),
+                              nu=slab(s["nu"]).to(dev, mdt))
             for n, s in ckpt["table_opt"].items()}
-    rank = 0 if trainer.mesh is None else trainer.mesh.rank
-    if rank < len(rngs):  # else unused: the model has no dropout
-        trainer.dropout_generator.set_state(rngs[rank].clone())
+    index = 0 if trainer.mesh is None else trainer.mesh.data_index
+    if index < len(rngs):  # else unused: the model has no dropout
+        trainer.dropout_generator.set_state(rngs[index].clone())
     trainer.np_rng.bit_generator.state = ckpt["shuffle_rng"]
     if ckpt["adapter_rng"] is not None and trainer.adapter is not None:
         trainer.adapter.set_rng_state(ckpt["adapter_rng"])

@@ -16,6 +16,10 @@ Port of ``deepfm_tpu/training/sparse_opt.py``: ``TableSlotState`` /
     decay, SparseAdam's semantics) instead of a loss term over the whole
     table.
 
+On a model-sharded mesh the update runs on the rank's slab of each table
+(``parallel/sharding.py``), on the batch's rows that the slab holds,
+shifted to slab-local rows (``slab_rows``); the rest are dropped.
+
 The update is plain torch ops (gather, elementwise, ``index_copy_``), as it
 is XLA code outside any Pallas kernel in the JAX package. Its f32 ops are
 rounded one by one in the JAX source's order; XLA on the CPU contracts
@@ -133,3 +137,13 @@ def table_ids_for_batch(embedding, ids: torch.Tensor) -> dict[str, torch.Tensor]
         flat = embedding.local_ids(gi, ids).reshape(-1)
         out[name] = flat // embedding.table_pack[name]
     return out
+
+
+def slab_rows(row_ids: torch.Tensor, lo: int, rows: int) -> torch.Tensor:
+    """Row ids of a whole table as the rows of the slab that starts at row
+    ``lo`` and holds ``rows`` rows: ``row - lo`` where the slab holds the
+    row, else ``rows`` (out of bounds, which ``lazy_adam_table_update``
+    drops with the duplicates)."""
+    local = row_ids - lo
+    return torch.where((local >= 0) & (local < rows), local,
+                       torch.full_like(local, rows))

@@ -1,10 +1,9 @@
 """The train step's four paths.
 
 Port of ``deepfm_tpu/training/steps.py``, on one device and under a
-data-parallel mesh (``Trainer.mesh``; the sharded and routed branches of
-the sparse-fused path, and every model-sharded table update, wait for
-ROADMAP queue 1 item 10(b)). PyTorch's autograd does the model's
-backward. Paths (``Trainer.path``):
+(data, model) mesh (``Trainer.mesh``; ROADMAP queue 1 items 10(a) and
+10(b)). PyTorch's autograd does the
+model's backward. Paths (``Trainer.path``):
 
   * ``plain``: the optimizer chain over every leaf, tables included;
   * ``two_pass``: the table gradient is densified by the kernel
@@ -34,8 +33,11 @@ update takes the table's ``pack``. A packed table's sums of squares (the
 clip norm's, the carried ``table_psq``) run over the whole packed table,
 whose dead lanes are 0. Both fused paths share ``chain_second_half``.
 
-Under a mesh of W ranks each rank holds B / W rows of the global batch
-of B and reproduces what GSPMD does with them in the JAX package:
+Under a (dp, m) mesh each rank holds B / dp rows of the global batch of
+B (its data index's; its m model peers hold the same rows and run the same
+dense computation on them) and reproduces what GSPMD does with them in
+the JAX package. Every sum over rows runs over the data group, never the
+world:
 
   * the loss divides by max(sum of the global batch's weights, 1), and
     the loss returned is the global one;
@@ -44,23 +46,38 @@ of B and reproduces what GSPMD does with them in the JAX package:
     leaf, and a table looked up without the exchange, i.e. under
     ``mesh.embedding_strategy: auto``), the loss and, on the sparse-fused
     path, each table's <ct, rows> go through one flat all-reduce a step
-    (``parallel/collectives.py::all_reduce_flat``), before the global
-    norm;
-  * sparse-fused (the JAX ``_replicate`` branch): each table's (id,
-    cotangent) pairs are all-gathered, ids as int32, rank 0's first, so
-    every rank sorts the one-process stream of the global batch (the sort
-    is stable) and applies the same full-batch update, and ``table_psq``
-    stays the same on every rank;
+    over the data group (``parallel/collectives.py::all_reduce_flat``),
+    before the global norm;
+  * sparse-fused, replicated branch (the JAX ``_replicate`` branch; the
+    psum strategy, and every strategy at a model axis of 1): each table's
+    (id, cotangent) pairs are all-gathered over the data group, ids as
+    int32, its first rank's first, so every rank sorts the one-process
+    stream of the global batch (the sort is stable) and takes its
+    ``segment_sumsq``; each slab runs ``sparse_table_adam`` on the global
+    sorted ids shifted by -j * (the slab's logical rows), so out-of-slab
+    ids fall in no tile of the kernel;
+  * sparse-fused, routed branch (all_to_all at a model axis above 1):
+    ``route_sorted_pairs`` hands each slab's kernel only its own pairs,
+    with their ``segment_sumsq`` summed over the model group; where a
+    bucket overflowed (agreed over the world) the exact replicated branch
+    runs instead;
   * two-pass, lazy and plain: the table gradient comes from the lookup's
-    sparse gradient exchange (``parallel/embedding_shard.py``), the same
-    on every rank; ``lazy_adam`` updates the rows of the global batch
-    (its ids all-gathered), and the loss's L2 term of the non-table
-    embedding leaves is added on rank 0 alone, so that the ranks' losses
-    sum to the global one.
+    sparse gradient exchange (``parallel/embedding_shard.py``), the slab's
+    and the same on every rank of its data group; ``lazy_adam`` updates
+    the slab's rows of the global batch (its ids all-gathered over the
+    data group, shifted to slab-local), and the loss's L2 term of the
+    non-table embedding leaves is added on data index 0 alone, so that
+    the data group's losses sum to the global one.
 
-So every rank takes the same update and the replicas keep the same bits;
-against one process at the same global batch only the order of some
-sums differs.
+At a model axis above 1 each table's terms of the global clip norm (the
+sums of squares, and the fused paths' carried sum(p^2), ``table_psq``)
+are the slabs' summed over the model group, in one all-reduce a step.
+
+So every rank of a model column takes the same update and the slab
+replicas keep the same bits, and every rank the same update of the
+replicated leaves; against one process at the same global batch only the
+order of some sums differs (none at a data axis of 1: there only the clip
+norm's table terms are summed in another order).
 
 With ``profile.debug_nans`` (the JAX package turns on ``jax_debug_nans``)
 each path reads one flag back to the host before it updates anything:
@@ -85,15 +102,17 @@ from deepfm_tpu_torch.ops.kernels.sparse_adam import (
     sort_pairs,
     sparse_table_adam,
 )
-from deepfm_tpu_torch.parallel import collectives
+from deepfm_tpu_torch.parallel import collectives, embedding_shard, sharding
 from deepfm_tpu_torch.training.optim import (
     clip_fn,
     global_norm,
     leaf_order,
     sumsq,
+    table_sumsq,
 )
 from deepfm_tpu_torch.training.sparse_opt import (
     lazy_adam_table_update,
+    slab_rows,
     table_ids_for_batch,
 )
 from deepfm_tpu_torch.training.trainer import _is_table_name
@@ -113,6 +132,13 @@ def weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(per_row * weights) / denom
 
 
+def slab_ids(sids: torch.Tensor, j: int, rows: int) -> torch.Tensor:
+    """Global sorted logical ids as the ids of slab ``j`` of ``rows``
+    logical rows: shifted by -j * rows (``sparse_table_adam`` takes the
+    ids outside [0, rows) as no row's)."""
+    return sids - j * rows
+
+
 def build_train_step(trainer):
     """The step closure for the trainer's resolved path,
     ``step(trainer, ids, dense, labels, weights)``. It holds the model and
@@ -130,10 +156,23 @@ def build_train_step(trainer):
     order = leaf_order(params)
     debug_nans = config.profile.debug_nans
     mesh = trainer.mesh
-    dp = mesh is not None and mesh.world > 1
-    # tables whose gradient every rank already holds whole (the lookup's
-    # sparse gradient exchange)
-    exchanged = {f"embedding.{k}" for k in model.embedding.lookup_fns}
+    data_group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
+    # the data group has more than one rank: sums over rows are reduced
+    dp = data_group is not None
+    # the tables are model-axis slabs: j is this rank's
+    sharded = model_group is not None
+    j = 0 if mesh is None else mesh.model_index
+    strategy = config.mesh.embedding_strategy
+    routed = sharding.routed(mesh, strategy)
+    # tables whose gradient every rank of the data group already holds
+    # whole (the lookup's sparse gradient exchange)
+    exchanged = (set() if sharding.slabs_without_exchange(mesh, strategy)
+                 else {f"embedding.{k}" for k in model.embedding.lookup_fns})
+    # table name -> logical rows of the rank's slab (of the whole table
+    # without a model axis)
+    slab_logical = {n: params[n].shape[0] * trainer._table_pack[n]
+                    for n in trainer.table_names}
 
     def check_finite(trainer, loss, gnorm):
         """``profile.debug_nans``: one host read of whether the loss and
@@ -155,21 +194,21 @@ def build_train_step(trainer):
     def forward_loss(ids, dense, labels, weights, rows_override=None):
         model.train()
         logits = model(ids, dense, rows_override)[:, 0]
-        weight_sum = (collectives.all_reduce_(mesh, torch.sum(weights))
+        weight_sum = (collectives.all_reduce_(data_group, torch.sum(weights))
                       if dp else None)
         return weighted_bce(logits, labels, weights, weight_sum)
 
     def reduce_partials(loss, grads, extra=()):
         """Under a mesh, the step's one all-reduce: the gradients of
         ``grads`` that each rank formed from its own rows, the loss and
-        ``extra`` (scalars), summed over the ranks in one flat buffer.
-        Returns (loss, grads, extra) as given without a mesh."""
+        ``extra`` (scalars), summed over the data group in one flat
+        buffer. Returns (loss, grads, extra) as given without one."""
         if not dp:
             return loss, grads, list(extra)
         names = [n for n in grads
                  if not _is_table_name(n) or n not in exchanged]
         parts = collectives.all_reduce_flat(
-            mesh, [grads[n] for n in names] + [loss.detach().reshape(1)]
+            data_group, [grads[n] for n in names] + [loss.detach().reshape(1)]
             + [e.reshape(1) for e in extra])
         k = len(names)
         return (parts[k].reshape(()), {**grads, **dict(zip(names, parts))},
@@ -219,8 +258,7 @@ def build_train_step(trainer):
         loss, grads = loss_and_grads(trainer, ids, dense, labels, weights)
         with torch.no_grad():
             if debug_nans:
-                check_finite(trainer, loss, global_norm(
-                    [sumsq(grads[n]) for n in order]))
+                check_finite(trainer, loss, tx.norm(grads))
             tx.update(grads, params, trainer.state.opt_state)
         return loss
 
@@ -228,8 +266,9 @@ def build_train_step(trainer):
         state = trainer.state
         loss, grads = loss_and_grads(trainer, ids, dense, labels, weights)
         with torch.no_grad():
-            table_sq = {n: sumsq(grads[n] + wd * params[n])
-                        for n in trainer.table_names}
+            table_sq = table_sumsq(model_group, {
+                n: sumsq(grads[n] + wd * params[n])
+                for n in trainer.table_names})
             gnorm = chain_second_half(trainer, loss, grads, table_sq,
                                       state.opt_state)
             lr = state.opt_state.lr
@@ -238,6 +277,12 @@ def build_train_step(trainer):
                 fused_table_adam(params[n].data, topt.mu, topt.nu, grads[n],
                                  lr, wd, gnorm, clip, state.step)
         return loss
+
+    def replicated_pairs(fids, ct):
+        """The data group's (id, cotangent) stream of a table, sorted."""
+        return sort_pairs(
+            collectives.all_gather_rows(data_group, fids.to(torch.int32)),
+            collectives.all_gather_rows(data_group, ct))
 
     def sparse_fused_step(trainer, ids, dense, labels, weights):
         state = trainer.state
@@ -253,41 +298,48 @@ def build_train_step(trainer):
             loss, grads, dots = reduce_partials(loss, grads, [
                 torch.sum(ct * rows)
                 for (rows, _), ct in zip(gathered.values(), cts)])
+            # name -> (sorted slab-local or global ids, cotangents, whether
+            # the ids are global: the kernel takes them shifted)
             pairs, table_sq = {}, {}
             for (key, (_, fids)), ct, dotgp in zip(gathered.items(), cts,
                                                     dots):
                 name = f"embedding.{key}"
-                fids = collectives.all_gather_rows(mesh,
-                                                   fids.to(torch.int32))
-                ct = collectives.all_gather_rows(mesh, ct)
-                sids, sorted_ct = sort_pairs(fids, ct)
-                pairs[name] = (sids, sorted_ct)
-                table_sq[name] = (segment_sumsq(sids, sorted_ct)
-                                  + (2.0 * wd) * dotgp
+                got = (embedding_shard.route_sorted_pairs(
+                    mesh, slab_logical[name])(fids, ct) if routed else None)
+                if got is None or got[3]:  # replicated, or overflowed
+                    sids, sorted_ct = replicated_pairs(fids, ct)
+                    pairs[name] = (sids, sorted_ct, sharded)
+                    ssq = segment_sumsq(sids, sorted_ct)
+                else:
+                    pairs[name] = (got[0], got[1], False)
+                    ssq = got[2]
+                table_sq[name] = (ssq + (2.0 * wd) * dotgp
                                   + (wd * wd) * state.table_psq[name])
             gnorm = chain_second_half(trainer, loss, grads, table_sq,
                                       state.opt_state)
             lr = state.opt_state.lr
-            for name, (sids, sorted_ct) in pairs.items():
+            psq = {}
+            for name, (sids, sorted_ct, shift) in pairs.items():
+                if shift:
+                    sids = slab_ids(sids, j, slab_logical[name])
                 topt = state.table_opt[name]
-                *_, psq = sparse_table_adam(
+                *_, psq[name] = sparse_table_adam(
                     params[name].data, topt.mu, topt.nu, sids, sorted_ct,
                     lr, wd, gnorm, clip, state.step,
                     pack=trainer._table_pack[name],
                 )
-                state.table_psq[name] = psq
+            state.table_psq.update(table_sumsq(model_group, psq))
         return loss
 
     def lazy_step(trainer, ids, dense, labels, weights):
         state = trainer.state
         loss = forward_loss(ids, dense, labels, weights)
-        if l2 > 0 and (not dp or mesh.rank == 0):
+        if l2 > 0 and (not dp or mesh.data_index == 0):
             loss = loss + embedding_l2_loss(params, l2, exclude_tables=True)
         grads, _ = grads_of(loss, order)
         with torch.no_grad():
             loss, grads, _ = reduce_partials(loss, grads)
-            gnorm = (global_norm([sumsq(grads[n]) for n in order])
-                     if clip > 0 or debug_nans else None)
+            gnorm = tx.norm(grads) if clip > 0 or debug_nans else None
             check_finite(trainer, loss, gnorm)
             if clip > 0:
                 scale = torch.clamp(clip / torch.clamp_min(gnorm, 1e-12),
@@ -296,12 +348,15 @@ def build_train_step(trainer):
                 scale = torch.ones((), device=loss.device)
             tx.apply({n: grads[n] * scale for n in order
                       if not _is_table_name(n)}, params, state.opt_state)
-            batch_ids = (collectives.all_gather_rows(mesh,
+            batch_ids = (collectives.all_gather_rows(data_group,
                                                      ids.to(torch.int32))
                          if dp else ids)
             for key, row_ids in table_ids_for_batch(model.embedding,
                                                     batch_ids).items():
                 name = f"embedding.{key}"
+                if sharded:
+                    slab = params[name].shape[0]
+                    row_ids = slab_rows(row_ids, j * slab, slab)
                 lazy_adam_table_update(
                     params[name].data, grads[name], state.table_opt[name],
                     row_ids, lr=state.opt_state.lr, step=state.step, l2=l2,

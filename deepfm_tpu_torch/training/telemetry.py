@@ -3,8 +3,9 @@
 Port of ``deepfm_tpu/training/telemetry.py::trainer_engagement``: a
 JSON-ready dict recorded in results.json's ``training_info``, with the same
 keys. ``backward`` is the label ``_backward_path`` gives for the same gates
-and mesh (a data-parallel mesh's sparse-fused path is
-"sparse_fused_replicated"). ``kernels`` does not come from
+and mesh (a sparse-fused path is "sparse_fused_replicated" at a model
+axis of 1, and above it "sparse_fused_routed" under the all_to_all
+strategy, else "sparse_fused_sharded"). ``kernels`` does not come from
 the gates: it lists the port's CUDA kernels whose launch counters
 (``ops/kernels/__init__.py::launch_counts``) rose since ``since``, so it
 records what ran; under a mesh, what ran on every rank (the counters are
@@ -19,15 +20,22 @@ import torch
 
 from deepfm_tpu_torch.ops.kernels import launch_counts
 from deepfm_tpu_torch.parallel import collectives
+from deepfm_tpu_torch.parallel.sharding import routed
 
 __all__ = ["trainer_engagement"]
 
 
 def _backward_path(trainer) -> str:
     """The JAX package's label for the trainer's resolved path."""
+    mesh = trainer.mesh
     if trainer.sparse_fused:
-        return ("sparse_fused" if trainer.mesh is None
-                else "sparse_fused_replicated")
+        if mesh is None:
+            return "sparse_fused"
+        if mesh.model == 1:
+            return "sparse_fused_replicated"
+        if routed(mesh, trainer.config.mesh.embedding_strategy):
+            return "sparse_fused_routed"
+        return "sparse_fused_sharded"
     if trainer.lazy_tables:
         return "lazy_adam"
     if trainer.fused_tables:

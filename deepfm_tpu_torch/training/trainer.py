@@ -20,19 +20,27 @@ the final test evaluation on the last epoch's state and results.json
 norm is not finite (``training/steps.py``; one host read a step, none
 when unset).
 
-Under a data-parallel ``mesh`` (``parallel.Mesh``, one rank a device;
-ROADMAP queue 1 item 10(a)) the trainer is one rank's: its state lives on
-``mesh.device``; at construction an all-gathered fingerprint of the
-parameters shows that every rank built the same model from the seed
-(nothing is broadcast to cover a difference); every rank draws the same
-shuffles and resamples (they all build the dataset from the seed) and
-stages only its rows of each global batch (``parallel/sharding.py``);
-``predict`` / ``evaluate`` score the rank's contiguous share of the split
-in whole batches and all-gather the scores, so every rank computes the
-same metrics; rank 0 alone writes the checkpoints and results.json
-(``training/persistence.py``). ``throughput`` reports the global
-examples/s, ``num_devices`` and ``examples_per_sec_per_device``. Model
-sharding waits for item 10(b).
+Under a ``mesh`` (``parallel.Mesh``, one rank a device; ROADMAP queue 1
+items 10(a) and 10(b)) the trainer is one rank's: its state lives on
+``mesh.device``; at a model axis above 1 it holds its slab of every
+table, of the tables' moments and of their plain-chain optimizer leaves
+(``models.create_model`` cuts the tables from the whole model built from
+the seed), and ``table_psq`` is the whole tables' (the slabs' sums over
+the model group). At construction an all-gathered fingerprint shows that
+the replicated parameters are the same bits on every rank, and each slab
+on every rank of its data group (nothing is broadcast to cover a
+difference). Every rank draws the same shuffles and resamples (they all
+build the dataset from the seed) and stages only its data index's rows of
+each global batch (``parallel/sharding.py``); dropout draws from a
+generator seeded from the seed and the data index, so model peers draw
+the same masks. ``predict`` / ``evaluate`` score the data index's
+contiguous share of the split in whole batches (model peers score the
+same share: the lookup's collectives need them) and all-gather the scores
+over the data group, so every rank computes the same metrics; rank 0
+alone writes the checkpoints and results.json, with whole tables
+gathered over its model group (``training/persistence.py``).
+``throughput`` reports the global examples/s, ``num_devices`` and
+``examples_per_sec_per_device``.
 
 The gates are resolved from the config alone, on every device: the CPU
 runs each kernel's plain version, so the tests take the same paths as the
@@ -51,7 +59,7 @@ packed tables. The TPU's width gate (128 // (d+1) > 1) and its f32-exact
 id limit do not apply and are dropped.
 
 Dropout draws from ``Trainer.dropout_generator`` (seeded from the seed
-and the rank, ``dropout_seed``; carried by the resume checkpoint with the
+and the data index, ``dropout_seed``; carried by the resume checkpoint with the
 shuffle's and the adapter's RNG states, so a resumed run repeats an
 unbroken one); its masks are PyTorch's, not the JAX package's.
 """
@@ -76,7 +84,9 @@ from deepfm_tpu_torch.parallel import collectives
 from deepfm_tpu_torch.parallel.sharding import (
     batch_rows,
     check_batch,
-    check_replicated,
+    check_placement,
+    sharded,
+    slabs_without_exchange,
     split_bounds,
 )
 from deepfm_tpu_torch.training.metrics import (
@@ -110,12 +120,15 @@ class TrainState:
     table_psq: dict[str, torch.Tensor] | None = None
 
 
-def dropout_seed(seed: int, rank: int) -> int:
-    """The dropout generator's seed on ``rank``: ``seed`` on rank 0 (a
-    mesh-less run's), one drawn from (seed, rank) on the others."""
-    if rank == 0:
+def dropout_seed(seed: int, data_index: int) -> int:
+    """The dropout generator's seed at ``data_index``: ``seed`` at 0 (a
+    mesh-less run's), one drawn from (seed, data index) at the others.
+    The model peers of a data row share it, so they draw the same masks
+    on the same rows."""
+    if data_index == 0:
         return seed
-    return int(np.random.SeedSequence([seed, rank]).generate_state(1)[0])
+    return int(np.random.SeedSequence([seed, data_index]).generate_state(
+        1)[0])
 
 
 def _is_table_name(name: str) -> bool:
@@ -130,11 +143,16 @@ def _use_fused_table_adam(config: ExperimentConfig) -> bool:
 
 
 def sparse_fused_eligible(config: ExperimentConfig,
-                          packed_schema: PackedSchema) -> bool:
+                          packed_schema: PackedSchema, mesh=None) -> bool:
     """True when the step takes the fused sparse backward-optimizer path
     (``ops/kernels/sparse_adam.py``): it gathers the rows itself, so it
     wants the default lookup, not the row-gather kernel. Never under
-    ``lazy_adam``, which is not fused table Adam."""
+    ``lazy_adam``, which is not fused table Adam. At a model axis above 1
+    it gathers through the strategy's lookup, so it needs a strategy other
+    than "auto" (the JAX package's factory;
+    ``parallel.sharding.slabs_without_exchange``)."""
+    if slabs_without_exchange(mesh, config.mesh.embedding_strategy):
+        return False
     return (
         _use_fused_table_adam(config)
         and config.training.fused_backward
@@ -181,20 +199,21 @@ class Trainer:
         self.np_rng = np.random.default_rng(seed)
         self.dropout_generator = torch.Generator(device=self.device)
         self.dropout_generator.manual_seed(
-            dropout_seed(seed, 0 if mesh is None else mesh.rank))
+            dropout_seed(seed, 0 if mesh is None else mesh.data_index))
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
             if isinstance(m, BatchNorm):
                 m.mesh = mesh
-        check_replicated(mesh, dict(self.model.named_parameters()),
-                         "the parameters built from the seed")
+        check_placement(mesh, dict(self.model.named_parameters()),
+                        "the parameters built from the seed")
         self.predictor = Predictor(self.model, packed_schema, config,
                                    device=self.device)
         self.lazy_tables = config.training.optimizer == "lazy_adam"
         self.fused_tables = _use_fused_table_adam(config)
-        self.sparse_fused = (sparse_fused_eligible(config, packed_schema)
-                             and not model.embedding.gather_kernel)
+        self.sparse_fused = (
+            sparse_fused_eligible(config, packed_schema, mesh)
+            and not model.embedding.gather_kernel)
         self.path = ("sparse_fused" if self.sparse_fused
                      else "two_pass" if self.fused_tables
                      else "lazy" if self.lazy_tables else "plain")
@@ -204,8 +223,9 @@ class Trainer:
         self._table_pack = {f"embedding.{k}": v
                             for k, v in model.embedding.table_pack.items()}
         self._table_layout = model.table_layout
-        self.tx = build_optimizer(config, self.table_names,
-                                  fused=self.fused_tables)
+        self.tx = build_optimizer(
+            config, self.table_names, fused=self.fused_tables,
+            model_group=mesh.model_group if sharded(mesh) else None)
         self.state = self._init_state()
         # warmup: epoch 1 starts below the base LR
         set_lr(self.state.opt_state, self.scheduler.lr)
@@ -259,8 +279,10 @@ class Trainer:
 
     def check_replicas(self, what: str = "the train state") -> None:
         """Raise unless every rank's ``replica_state`` has the same bits
-        (an all-gathered fingerprint); nothing without a mesh."""
-        check_replicated(self.mesh, self.replica_state(), what)
+        (an all-gathered fingerprint): the replicated tensors over the
+        world, the table slabs, their moments and ``table_psq`` over the
+        data group; nothing without a mesh."""
+        check_placement(self.mesh, self.replica_state(), what)
 
     def _init_state(self) -> TrainState:
         params = self.params
@@ -276,8 +298,9 @@ class Trainer:
             state.table_opt = {n: init_table_state(params[n].detach(), mdt)
                                for n in self.table_names}
         if self.sparse_fused:
-            state.table_psq = {n: torch.sum(params[n].detach() ** 2)
-                               for n in self.table_names}
+            from deepfm_tpu_torch.training.persistence import table_psq
+
+            state.table_psq = table_psq(self)
         return state
 
     def load_best(self, output_dir=None) -> dict:
@@ -356,7 +379,8 @@ class Trainer:
 
     def _stage(self, arrays) -> tuple[torch.Tensor, ...]:
         """A chunk's host arrays (batches, rows, ...) on the device, only
-        the rank's rows of each batch: ids as int64, the rest f32."""
+        the rank's data index's rows of each batch: ids as int64, the rest
+        f32."""
         dtypes = (torch.int64, torch.float32, torch.float32, torch.float32)
         rows = batch_rows(self.mesh, arrays[0].shape[1])
         t0 = time.perf_counter()
@@ -517,9 +541,15 @@ class Trainer:
                     best_epoch = epoch
                     patience_counter = 0
                     best_metrics = val_metrics
+                    # every rank gathers the slabs; without them only the
+                    # writer copies its state
+                    whole = (persistence.whole_state_dict(self)
+                             if self.is_writer or sharded(self.mesh)
+                             else None)
                     if self.is_writer:
                         persistence.save_best(self.model, self.output_dir,
-                                              epoch, best_metric)
+                                              epoch, best_metric,
+                                              state=whole)
                     collectives.barrier(self.mesh)
                     self.logger.info(
                         f"  -> New best {tc.metric}={current:.4f}, saved "
@@ -566,24 +596,27 @@ class Trainer:
     def predict(self, data: PackedArrays) -> np.ndarray:
         """Sigmoid probabilities for every row of ``data``, in order
         (``Predictor.predict``: chunks of ``stage_budget_mb``, one host
-        fetch a chunk). Under a mesh each rank scores its contiguous share
-        in whole batches (``split_bounds``: each batch the one a single
-        process scores) and the shares are all-gathered, padded to one
-        length and trimmed, so every rank returns every score, each the
-        bits one process gives it."""
+        fetch a chunk). Under a mesh each data index scores its contiguous
+        share in whole batches (``split_bounds``: each batch the one a
+        single process scores; the model peers of a data row score the
+        same share, whose lookups they serve together) and the shares are
+        all-gathered over the data group, padded to one length and
+        trimmed, so every rank returns every score, each the bits one
+        process gives it."""
         if self.mesh is None or self.mesh.world == 1:
             return self.predictor.predict(data)
-        bounds = split_bounds(self.mesh.world, len(data),
+        bounds = split_bounds(self.mesh.data, len(data),
                               self.config.training.batch_size)
-        lo, hi = bounds[self.mesh.rank]
+        lo, hi = bounds[self.mesh.data_index]
         longest = max(h - l for l, h in bounds)
         part = PackedArrays(data.ids[lo:hi], data.dense[lo:hi],
                             data.labels[lo:hi], data.weights[lo:hi])
         scores = torch.zeros(longest, dtype=torch.float32,
                              device=self.device)
         scores[:hi - lo] = torch.from_numpy(self.predictor.predict(part))
-        every = collectives.all_gather_rows(self.mesh, scores).cpu().numpy()
-        every = every.reshape(self.mesh.world, longest)
+        every = collectives.all_gather_rows(self.mesh.data_group,
+                                            scores).cpu().numpy()
+        every = every.reshape(self.mesh.data, longest)
         return np.concatenate([every[r, :h - l]
                                for r, (l, h) in enumerate(bounds)])
 

@@ -35,6 +35,7 @@ whole batch (rtol 1e-6 / atol 1e-7: only the order of two partial sums
 differs).
 """
 
+import dataclasses
 import sys
 
 import jax
@@ -325,11 +326,17 @@ def test_batchnorm_takes_the_global_statistics(runs):
 
 
 def test_model_axis_above_1_is_refused():
-    with pytest.raises(ValueError, match=r"mesh 1x2: .*ROADMAP queue 1 "
-                                         r"item 10\(b\)"):
-        build_mesh(1, 2, n=2, device="cpu")
-    with pytest.raises(ValueError, match=r"mesh 1x2: .*item 10\(b\)"):
-        build_mesh(-1, 2, n=2, device="cpu")
+    """No longer refused (ROADMAP item 10(b)): a model axis above 1 builds
+    the (data, model) mesh, rank r at data index r // m and model index
+    r % m (the JAX mesh's model-inner device order)."""
+    for data_axis in (1, -1):
+        mesh = build_mesh(data_axis, 2, n=2, device="cpu")
+        assert (mesh.data, mesh.model, mesh.size) == (1, 2, 2)
+        assert (mesh.data_index, mesh.model_index) == (0, 0)
+    for rank, want in enumerate([(0, 0), (0, 1), (1, 0), (1, 1)]):
+        mesh = dataclasses.replace(build_mesh(2, 2, n=4, device="cpu"),
+                                   rank=rank)
+        assert (mesh.data_index, mesh.model_index) == want
 
 
 def test_a_batch_the_ranks_do_not_divide_is_refused_before_data(

@@ -4,9 +4,8 @@ against the JAX package's, on the CPU.
 * ``build_mesh`` / ``build_hybrid_mesh`` over n ranks give the (data,
   model) axes of the JAX functions over n of this process's 8 virtual CPU
   devices (tests/conftest.py), and raise the JAX functions' ValueError
-  word for word where they raise; a model axis above 1, which the JAX
-  package builds, is refused with a message naming ROADMAP queue 1 item
-  10(b).
+  word for word where they raise; a model axis above 1 places the tables
+  "rows over model".
 * ``initialize_distributed``'s guard: without a coordinator it returns
   False and leaves the runtime alone (as the JAX function does, probe or
   not); a coordinator named only by the JAX package's variables is
@@ -70,22 +69,18 @@ def test_meshes_match_jax(d, m, s, n):
         mesh = (build_hybrid_mesh(s, d, m, n=n, device="cpu") if s > 1
                 else build_mesh(d, m, n=n, device="cpu"))
     except ValueError as e:
-        got = str(e)
-        if isinstance(want, tuple):  # JAX builds it: a model axis above 1
-            assert want[1] > 1
-            assert got == (f"mesh {want[0]}x{want[1]}: a model axis above 1 "
-                           "row-shards the embedding tables, which waits "
-                           "for ROADMAP queue 1 item 10(b); the port's mesh "
-                           "is data-parallel (model_axis 1 or -1)")
-        else:
-            assert got == want
+        assert str(e) == want
         return
     assert (mesh.data, mesh.model) == want
-    assert mesh.shape == {AXIS_DATA: want[0], AXIS_MODEL: 1}
+    assert mesh.shape == {AXIS_DATA: want[0], AXIS_MODEL: want[1]}
     assert mesh.size == mesh.world == n
+    assert (mesh.data_index, mesh.model_index) == (0, 0)
     assert mesh.device == torch.device("cpu")
-    assert all(placement(mesh, leaf) == "replicated"
-               for leaf in ("embedding.table_w16", "dnn.dense_0.weight"))
+    # a mesh of another size than the world's describes a shape: no groups
+    assert mesh.data_group is mesh.model_group is mesh.world_group is None
+    assert placement(mesh, "dnn.dense_0.weight") == "replicated"
+    assert placement(mesh, "embedding.table_w16") == (
+        "rows over model" if want[1] > 1 else "replicated")
 
 
 # (environment, what initialize_distributed does: None = returns False)

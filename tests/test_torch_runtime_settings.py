@@ -7,7 +7,8 @@ package on the CPU.
   shape where they do not, over a table of axes, slices and device counts
   (this process has 8 CPU devices, tests/conftest.py); on one rank the
   ``train`` command refuses ``configs/deepfm_criteo_multichip.yaml``
-  before it builds any data; ``check_multihost`` with and without a
+  before it builds any data, and on two it forms the 1x2 mesh and goes on
+  to build the data; ``check_multihost`` with and without a
   coordinator and ``allow_single_process``, from explicit environments:
   torchrun's starts the process group (``init_process_group`` replaced
   by a recorder), a coordinator named only by the JAX package's variables
@@ -116,13 +117,14 @@ def test_train_refuses_the_multichip_config_before_building_data(
                                "output_dir": str(tmp_path)})
         with pytest.raises(AssertionError, match="data built"):
             cli.train_command(ok)
-    # over two ranks the same config forms a 1x2 mesh, whose model axis is
-    # refused (ROADMAP item 10(b)), still before any data is built
+    # over two ranks the same config forms a 1x2 mesh (the model axis
+    # row-shards the tables, ROADMAP item 10(b)) and reaches the data
     monkeypatch.setattr(tmesh, "world_size", lambda: 2)
+    mesh = cli.build_runtime(config)
+    assert (mesh.data, mesh.model, mesh.world) == (1, 2, 2)
+    assert (mesh.data_index, mesh.model_index) == (0, 0)
     for command in (cli.train_command, cli.evaluate_command):
-        with pytest.raises(ValueError, match=(
-                r"^mesh 1x2: a model axis above 1 row-shards the embedding "
-                r"tables, which waits for ROADMAP queue 1 item 10\(b\)")):
+        with pytest.raises(AssertionError, match="data built"):
             command(config)
 
 

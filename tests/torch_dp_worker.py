@@ -1,12 +1,14 @@
-"""Rank processes of the port's data-parallel CPU tests.
+"""Rank processes of the port's data-parallel and model-sharded CPU tests.
 
-``spawn(world, target, args, tmp, timeout)`` starts ``world`` processes
-with ``torch.multiprocessing``'s spawn context, each one rank of a gloo
-process group that meets through a file under ``tmp`` (no TCP port, so
-parallel test workers cannot collide), runs ``target(mesh, *args)`` and
-returns each rank's result. Past ``timeout`` seconds every rank is
-killed and the call raises. This module imports no JAX: the JAX oracle
-runs in the test process, and the ranks run the port alone.
+``spawn(world, target, args, tmp, timeout, axes)`` starts ``world``
+processes with ``torch.multiprocessing``'s spawn context, each one rank of
+a gloo process group that meets through a file under ``tmp`` (no TCP
+port, so parallel test workers cannot collide), builds the (data, model)
+mesh ``axes`` (default: every rank on the data axis), runs
+``target(mesh, *args)`` and returns each rank's result. Past ``timeout``
+seconds every rank is killed and the call raises. This module imports no
+JAX: the JAX oracle runs in the test process, and the ranks run the port
+alone.
 """
 
 from __future__ import annotations
@@ -19,14 +21,14 @@ import torch
 
 
 def spawn(world: int, target, args: tuple, tmp: Path,
-          timeout: float = 240.0) -> list:
+          timeout: float = 240.0, axes: tuple[int, int] = (-1, 1)) -> list:
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     outs = [tmp / f"rank{r}.pt" for r in range(world)]
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, str(tmp / "store"), target, args,
-                               str(outs[r])))
+                               str(outs[r]), axes))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -50,7 +52,7 @@ def spawn(world: int, target, args: tuple, tmp: Path,
     return [torch.load(o, weights_only=False) for o in outs]
 
 
-def _rank_main(rank, world, store, target, args, out):
+def _rank_main(rank, world, store, target, args, out, axes):
     import torch.distributed as dist
 
     from deepfm_tpu_torch.parallel import build_mesh, initialize_distributed
@@ -60,7 +62,7 @@ def _rank_main(rank, world, store, target, args, out):
         initialize_distributed(env={}, device="cpu",
                                init_method=f"file://{store}", rank=rank,
                                world_size=world, timeout_s=120)
-        result = target(build_mesh(device="cpu"), *args)
+        result = target(build_mesh(*axes, device="cpu"), *args)
         torch.save(result, out)
     except BaseException:
         Path(f"{out}.err").write_text(f"rank {rank}:\n"
@@ -95,24 +97,30 @@ def _trainer(mesh, case):
     from deepfm_tpu_torch.models import create_model
     from deepfm_tpu_torch.training.trainer import Trainer
 
+    from deepfm_tpu_torch.training.persistence import slab_state
+
     config = config_from_dict(case["raw"])
     model = create_model(config.model_name, case["packed"], config,
                          device="cpu", mesh=mesh)
     if case.get("init") is not None:
-        model.load_state_dict(case["init"]["model"])
+        model.load_state_dict(slab_state(model, case["init"]["model"]))
     trainer = Trainer(model, case["packed"], config, mesh=mesh)
     if case.get("init") is not None and trainer.state.table_psq is not None:
         trainer.state.table_psq = dict(case["init"]["table_psq"])
     return trainer
 
 
-def _planted(fault: str | None):
+def _planted(fault: str | None, mesh=None):
     """Replace one collective of the step for the run of a planted fault:
     "skip_reduce" (rank 1 takes part in the flat all-reduce but keeps its
     own gradients, so neither rank waits forever), "skip_gather" (every
     rank keeps its own (id, cotangent) pairs; the replica check still
-    gathers), "local_bn" (BatchNorm's statistics stay per rank). Returns
-    a function that puts the collective back."""
+    gathers), "local_bn" (BatchNorm's statistics stay per rank),
+    "world_reduce" (the flat all-reduce of the dense gradients runs over
+    the world, not the data group), "no_shift" (each slab takes the
+    global sorted ids unshifted); "peer_rows" is ``run_steps``' (model
+    peers given different rows). Returns a function that puts the
+    collective back."""
     import deepfm_tpu_torch.training.steps as steps
     from deepfm_tpu_torch.parallel import collectives
 
@@ -125,6 +133,15 @@ def _planted(fault: str | None):
 
         collectives.all_reduce_flat = own_on_rank_1
         return lambda: setattr(collectives, "all_reduce_flat", real)
+    if fault == "world_reduce":
+        real = collectives.all_reduce_flat
+        collectives.all_reduce_flat = lambda g, tensors: real(
+            mesh.world_group, tensors)
+        return lambda: setattr(collectives, "all_reduce_flat", real)
+    if fault == "no_shift":
+        real = steps.slab_ids
+        steps.slab_ids = lambda sids, j, rows: sids
+        return lambda: setattr(steps, "slab_ids", real)
     if fault == "local_bn":
         real = collectives.all_reduce_sum
         collectives.all_reduce_sum = lambda m, t: t
@@ -140,8 +157,21 @@ def _planted(fault: str | None):
 
         steps.collectives = OwnPairs()
         return lambda: setattr(steps, "collectives", real_module)
-    assert fault is None, fault
+    assert fault in (None, "peer_rows"), fault
     return lambda: None
+
+
+def _rows(mesh, n: int, fault: str | None) -> slice:
+    """The rank's rows of a global batch of ``n`` rows; under the planted
+    fault "peer_rows" the rows of data index rank % data, which hands the
+    model peers of a data row different rows."""
+    from deepfm_tpu_torch.parallel import batch_rows
+
+    if fault != "peer_rows":
+        return batch_rows(mesh, n)
+    per = n // mesh.data
+    i = mesh.rank % mesh.data
+    return slice(i * per, (i + 1) * per)
 
 
 def run_steps(mesh, cases: list[dict]) -> list[dict]:
@@ -149,16 +179,14 @@ def run_steps(mesh, cases: list[dict]) -> list[dict]:
     numpy batches), each rank stepping on its rows, the replicas checked
     after every step. Returns per case the losses, whether every replica
     check passed (and the first refusal), and the final state."""
-    from deepfm_tpu_torch.parallel import batch_rows
-
     out = []
     for case in cases:
         trainer = _trainer(mesh, case)
-        restore = _planted(case.get("fault"))
+        restore = _planted(case.get("fault"), mesh)
         losses, refusal = [], None
         try:
             for ids, dense, labels, weights in case["batches"]:
-                rows = batch_rows(mesh, len(labels))
+                rows = _rows(mesh, len(labels), case.get("fault"))
                 losses.append(float(trainer._train_step(
                     ids[rows], dense[rows], labels[rows], weights[rows])))
                 try:
@@ -194,9 +222,10 @@ def batchnorm_global(mesh, x: np.ndarray, weight: np.ndarray) -> dict:
             "scale_grad": grads[0], "bias_grad": grads[1]}
 
 
-def loop_config(root: Path, run: str, epochs: int):
+def loop_config(root: Path, run: str, epochs: int, extra=()):
     """configs/xdeepfm_movielens_cin_tuned.yaml cut to small widths on the
-    small MovieLens set under ``root``, ``run``'s output under ``root``."""
+    small MovieLens set under ``root``, ``run``'s output under ``root``;
+    ``extra`` overrides appended."""
     from deepfm_tpu_torch.config import load_config
 
     return load_config("configs/xdeepfm_movielens_cin_tuned.yaml", [
@@ -205,7 +234,7 @@ def loop_config(root: Path, run: str, epochs: int):
         "feature.fm_embed_dim=8", "cin.layer_sizes=[8,8]",
         "dnn.hidden_units=[16,8]", f"training.num_epochs={epochs}",
         "training.batch_size=64", "training.resume=true", "device=cpu",
-        f"output_dir={root / run}"])
+        f"output_dir={root / run}", *extra])
 
 
 def dp_loop(mesh, root: str) -> dict:
@@ -232,4 +261,42 @@ def dp_loop(mesh, root: str) -> dict:
         out["cross_world_resume"] = None
     except ValueError as e:
         out["cross_world_resume"] = str(e)
+    return out
+
+
+# the model-sharded loop's mesh: one data row of two slabs, routed
+SHARD_LOOP = ("mesh.model_axis=2", "mesh.embedding_strategy=all_to_all")
+
+
+def shard_loop(mesh, root: str) -> dict:
+    """The trainer loop at a (1, 2) mesh through the CLI's commands:
+    ``train`` for 2 epochs ("sharded"), ``evaluate`` of its checkpoint and
+    of a one-process run's ("single"), a run of 1 epoch resumed to 2
+    ("resumed"), and the one-process run resumed to 3 epochs at this mesh
+    ("single_on_mesh", a copy of "single": the data axis matches, so its
+    dropout generator carries on)."""
+    import shutil
+
+    from deepfm_tpu_torch.cli import evaluate_command, train_command
+
+    root = Path(root)
+    trainer = train_command(loop_config(root, "sharded", 2, SHARD_LOOP))
+    out = {"rank": mesh.rank, "history": trainer.history,
+           "mesh": None if trainer.mesh is None else trainer.mesh.shape,
+           "slab_rows": {n: p.shape[0] for n, p in trainer.params.items()
+                         if n in trainer.table_names},
+           "evaluate_sharded": evaluate_command(
+               loop_config(root, "sharded", 2, SHARD_LOOP)),
+           "evaluate_single": evaluate_command(
+               loop_config(root, "single", 2, SHARD_LOOP))}
+    train_command(loop_config(root, "resumed", 1, SHARD_LOOP))
+    out["resumed_history"] = train_command(
+        loop_config(root, "resumed", 2, SHARD_LOOP)).history
+    if mesh.rank == 0:
+        shutil.copytree(root / "single", root / "single_on_mesh")
+    from deepfm_tpu_torch.parallel import collectives
+
+    collectives.barrier(mesh)
+    out["single_on_mesh_history"] = train_command(
+        loop_config(root, "single_on_mesh", 3, SHARD_LOOP)).history
     return out
