@@ -275,6 +275,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
              mesh.model_axis=2 (one checkpoint of whole tables, a
              one-process `evaluate` reproducing it, a resumed run the
              unbroken history);
+  sharded_scoring  the serving commands on SS_WORLD gloo ranks of the one
+             card over the checkpoints of the two `torchrun` trains above
+             (SS_MESHES: model_sharded's at (1, 2) with the all_to_all
+             lookups, data_parallel's at (2, 1)): one process's card
+             `predict` of the 100,000 rows of u.data is the reference;
+             `predict` on the ranks (spawned with torchrun's environment,
+             cin_stack_fwd's launches counted from 0 on every rank, which
+             must launch it) must write, on rank 0 alone, the reference's
+             file, with scores within SERVE_TOL (max |Δ| and whether they
+             are its bits printed); `python -m torch.distributed.run
+             --nproc-per-node SS_WORLD -m deepfm_tpu_torch predict` at
+             (1, 2) must write the same file; `recommend` at (1, 2) the
+             reference's top RECOMMEND_K on rank 0 alone; `serve` under
+             torchrun at (1, 2): /health's whole-model count, /score of 1
+             and SS_SCORE_ROWS rows and an unknown pair (null) and
+             /recommend within SERVE_TOL of one process's ScoringService,
+             SS_WARM_REQUESTS warm requests timed, then SIGINT to every
+             rank, after which torchrun (and so every rank) must exit 0
+             within SS_STOP_S; then ring attention over the field axis on
+             RING_AXES gloo ranks at RING_SHAPE, f32 (RING_TOL, the JAX
+             test's) and bf16 (RING_BF16_MAX_REL), forward and the q / k /
+             v gradients of sum(out²) against unsharded attention on the
+             card, two planted faults (RING_FAULTS) refused by the same
+             check, and the ms of a call and of a hop with the bytes a
+             rank sends a call;
   kernels    one line listing every ported kernel with its launch count
              on the path that runs it (serve for the f32 CIN-stack
              forward, the xDeepFM train step for the bf16 CIN-stack
@@ -662,8 +687,33 @@ MS_GATHER_CASE = ("routed_row_gather", "logical", "all_to_all", False)
 MS_GATHER_LAUNCHES = ("row_gather", "densify_rows_grad", "fused_table_adam")
 # the cases held bit for bit to one process at (1, 2), f32, clip 0
 MS_EXACT_CASES = ("psum_sparse_fused", "routed_two_pass")
+# the sharded_scoring phase: the serving commands on SS_WORLD gloo ranks
+# of the one card. Mesh -> (the run of dp_train_loop whose checkpoint it
+# scores, its overrides)
+SS_WORLD = 2
+SS_MESHES = {"a2a_1x2": ("ms_loop", ("mesh.model_axis=2",
+                                     "mesh.embedding_strategy=all_to_all")),
+             "dp_2x1": ("dp_loop", ())}
+SS_SCORE_ROWS = 100  # the rows of the multi-row /score request
+SS_WARM_REQUESTS = 3
+SS_SERVE_START_S = 300  # seconds the ranks may take to answer /health
+SS_STOP_S = 30  # seconds every serve rank has to exit after SIGINT
+# ring attention over the field axis on RING_AXES gloo ranks: B, F (F / 4
+# fields a rank), H, Dh; f32 held to unsharded attention with the JAX
+# test's tolerances (rtol, atol), bf16 by max |Δ| over max |reference|
+RING_AXES = (1, 4)
+RING_SHAPE = (2048, 256, 4, 16)
+RING_TOL = {"out": (2e-5, 2e-6), "grads": (2e-4, 2e-5)}
+RING_BF16_MAX_REL = 3e-2
+RING_REPS = 5
+# planted faults the f32 check must refuse: the last hop skipped (the last
+# step sees the previous block again), and the hop sent the other way
+# around the ring under the true hop's backward (every query still meets
+# every block once, so the forward is right; each block's gradient goes to
+# the wrong rank)
+RING_FAULTS = ("skip_last_hop", "wrong_way")
 # the (data, model) mesh of each spawned part (default: data only)
-PART_AXES = {"ms_steps": MS_AXES, "ms_exact": (1, 2)}
+PART_AXES = {"ms_steps": MS_AXES, "ms_exact": (1, 2), "ss_ring": RING_AXES}
 
 
 def emit(obj: dict) -> None:
@@ -3188,7 +3238,7 @@ def phase_serve(tmp: Path, config_file: str, saved_layout: str) -> dict:
     # --- the main path: every kernel count starts at 0 here -------------
     reset_counts()
     t0 = time.perf_counter()
-    adapter, packed, _, _, model, predictor = _restore_predictor(
+    adapter, packed, _, _, model, predictor, _ = _restore_predictor(
         config, require=("serve", "score_id_pairs", "known_pair",
                          "now_timestamp", "recommend_candidates"),
     )
@@ -3260,7 +3310,7 @@ def phase_serve(tmp: Path, config_file: str, saved_layout: str) -> dict:
         # the packed checkpoint under the same config with packed tables
         packed_config = dataclasses.replace(config, pallas=dataclasses.replace(
             config.pallas, table_layout="packed"))
-        *_, pmodel, ppredictor = _restore_predictor(packed_config)
+        *_, pmodel, ppredictor, _ = _restore_predictor(packed_config)
         pgot = ppredictor.predict(ds.pack(packed))
         layouts = {
             "served_table_shapes": {
@@ -4150,7 +4200,7 @@ def phase_export(tmp: Path, gpu: str) -> dict:
     # --- the main path: every kernel count starts at 0 here -------------
     reset_counts()
     t0 = time.perf_counter()
-    _, _, val_d, _, _, predictor = _restore_predictor(config)
+    _, _, val_d, _, _, predictor, _ = _restore_predictor(config)
     want = predictor.predict(val_d)
     torch.cuda.synchronize()
     predictor_s = time.perf_counter() - t0
@@ -4261,11 +4311,12 @@ def free_port() -> int:
 
 
 def dp_rank_main(rank: int, world: int, port: int, part: str,
-                 out: str) -> None:
+                 out: str, args: tuple = ()) -> None:
     """One rank of a DP_PARTS run: torchrun's environment for it, the
     process group started from there (``initialize_distributed``; a world
     of one names no coordinator and is started explicitly), the part run
-    on the mesh, its JSON result written to ``out``."""
+    on the mesh (with ``args`` after it), its JSON result written to
+    ``out``."""
     import traceback
 
     os.environ.update({"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
@@ -4285,7 +4336,7 @@ def dp_rank_main(rank: int, world: int, port: int, part: str,
         else:
             initialize_distributed(env=os.environ, device=DEVICE)
         mesh = build_mesh(*PART_AXES.get(part, (-1, 1)), device=DEVICE)
-        result = DP_PARTS[part](mesh)
+        result = DP_PARTS[part](mesh, *args)
         result.update(rank=rank, backend=mesh.backend,
                       device=str(mesh.device),
                       rule=backend_rule(mesh.device.type, world, 1)[1])
@@ -4298,16 +4349,17 @@ def dp_rank_main(rank: int, world: int, port: int, part: str,
             dist.destroy_process_group()
 
 
-def spawn_ranks(world: int, part: str, tmp: Path) -> list:
-    """``world`` rank processes (spawned, one card) running ``part``; their
-    results in rank order. Every rank is killed past DP_RANK_TIMEOUT."""
+def spawn_ranks(world: int, part: str, tmp: Path, args: tuple = ()) -> list:
+    """``world`` rank processes (spawned, one card) running ``part`` (with
+    ``args``); their results in rank order. Every rank is killed past
+    DP_RANK_TIMEOUT."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     port = free_port()
     outs = [tmp / f"{part}_rank{r}.json" for r in range(world)]
     procs = [ctx.Process(target=dp_rank_main,
-                         args=(r, world, port, part, str(outs[r])))
+                         args=(r, world, port, part, str(outs[r]), args))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -5266,8 +5318,224 @@ def ms_kernel_slabs() -> dict:
     return {"cases": out, "failures": failures}
 
 
+def ss_config(tmp: Path, run: str, extra=()):
+    """train_loop's MovieLens xDeepFM config on the checkpoint of
+    dp_train_loop's ``run`` (EXPORT_NEG_EVAL eval negatives, as it was
+    trained), with ``extra`` overrides."""
+    from deepfm_tpu_torch.config import load_config
+
+    return load_config(REPO / "configs" / TRAIN_LOOP_CONFIG, [
+        f"data.data_dir={movielens_data(tmp)}",
+        f"data.num_neg_eval={EXPORT_NEG_EVAL}", f"device={DEVICE}",
+        f"output_dir={tmp / run / 'whole'}", *extra])
+
+
+@contextlib.contextmanager
+def recorded_scores(cls):
+    """Meanwhile, (scores, seconds) of every ``cls.predict`` call, in
+    order."""
+    real = cls.predict
+    seen = []
+
+    def predict(self, data):
+        t0 = time.perf_counter()
+        scores = real(self, data)
+        seen.append((scores, time.perf_counter() - t0))
+        return scores
+
+    cls.predict = predict
+    try:
+        yield seen
+    finally:
+        cls.predict = real
+
+
+def ss_commands(mesh, tmp: str) -> dict:
+    """One of SS_WORLD ranks: ``predict`` over the synthetic u.data at each
+    mesh of SS_MESHES into a file of the rank's own (rank 0 alone may
+    write), its scores saved beside it, the command's and the scoring's
+    seconds and cin_stack_fwd's launches counted from 0; then
+    ``recommend`` at (1, 2), its stdout kept."""
+    import io
+
+    import numpy as np
+
+    from deepfm_tpu_torch.cli import predict_command, recommend_command
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    tmp = Path(tmp)
+    data = movielens_data(tmp)
+    out = {"predict": {}}
+    for name, (run, extra) in SS_MESHES.items():
+        path = tmp / f"ss_{name}_rank{mesh.rank}.tsv"
+        reset_counts()
+        t0 = time.perf_counter()
+        with recorded_scores(Trainer) as seen:
+            predict_command(ss_config(tmp, run, extra), str(data / "u.data"),
+                            str(path))
+        (scores, predict_s), = seen
+        np.save(tmp / f"ss_{name}_rank{mesh.rank}.npy", scores)
+        out["predict"][name] = {
+            "command_s": time.perf_counter() - t0, "predict_s": predict_s,
+            "rows": len(scores), "wrote": path.exists(),
+            "launches": read_counts()["cin_stack_fwd"]}
+    run, extra = SS_MESHES["a2a_1x2"]
+    text = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(text):
+        recommend_command(ss_config(tmp, run, extra), RECOMMEND_USER,
+                          RECOMMEND_K, include_seen=False)
+    out["recommend"] = {"stdout": text.getvalue(),
+                        "launches": read_counts()["cin_stack_fwd"]}
+    return out
+
+
+def plain_attention(q, k, v):
+    """Unsharded softmax attention over fields, (B, F, H, Dh), in q's
+    dtype."""
+    import torch
+
+    s = torch.einsum("bqhd,bkhd->bqhk", q, k) / math.sqrt(q.shape[-1])
+    return torch.einsum("bqhk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+@contextlib.contextmanager
+def ring_fault(name: str | None, m: int):
+    """Meanwhile, ``collectives.ring_shift`` replaced by a RING_FAULTS
+    fault (none for None)."""
+    import torch
+
+    from deepfm_tpu_torch.parallel import collectives
+
+    real = collectives.ring_shift
+    if name == "skip_last_hop":
+        hops = [0]
+
+        def shift(group, t):
+            hops[0] += 1
+            return t if hops[0] % (m - 1) == 0 else real(group, t)
+    elif name == "wrong_way":
+        class WrongWay(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, t, group):
+                ctx.group = group
+                return collectives._shift(group, t, -1)
+
+            @staticmethod
+            def backward(ctx, grad):
+                return collectives._shift(ctx.group, grad, -1), None
+
+        def shift(group, t):
+            return WrongWay.apply(t, collectives._group(group))
+    else:
+        assert name is None, name
+        shift = real
+    collectives.ring_shift = shift
+    try:
+        yield
+    finally:
+        collectives.ring_shift = real
+
+
+def ring_check(mesh, dtype: str, fault: str | None = None) -> dict:
+    """The rank's ring_field_attention of RING_SHAPE's seeded q, k, v (the
+    same on every rank) in ``dtype``, forward and the gradients of
+    sum(out²), against unsharded attention on the card (f32, on the same
+    inputs): each max |Δ| and whether the check passes (RING_TOL in f32,
+    RING_BF16_MAX_REL in bf16)."""
+    import torch
+
+    from deepfm_tpu_torch.parallel import field_block, ring_field_attention
+
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    whole = [torch.randn(RING_SHAPE, generator=gen, device=mesh.device)
+             .to(getattr(torch, dtype)) for _ in range(3)]
+    ref_in = [w.float().clone().requires_grad_() for w in whole]
+    ref = plain_attention(*ref_in)
+    (ref ** 2).sum().backward()
+    want = {"out": field_block(mesh, ref.detach())}
+    want.update({f"d{n}": field_block(mesh, t.grad)
+                 for n, t in zip("qkv", ref_in)})
+    del ref, ref_in
+    blocks = [field_block(mesh, w).clone().requires_grad_() for w in whole]
+    with ring_fault(fault, mesh.model):
+        out = ring_field_attention(*blocks, mesh)
+        (out.float() ** 2).sum().backward()
+    got = {"out": out.detach()}
+    got.update({f"d{n}": b.grad for n, b in zip("qkv", blocks)})
+    rec = {}
+    for key, w in want.items():
+        g = got[key].float()
+        err = float((g - w).abs().max())
+        if dtype == "float32":
+            rtol, atol = RING_TOL["out" if key == "out" else "grads"]
+            ok = bool(torch.allclose(g, w, rtol=rtol, atol=atol))
+        else:
+            ok = err <= RING_BF16_MAX_REL * float(w.abs().max())
+        rec[key] = {"max_abs_err": err, "max_abs_ref": float(w.abs().max()),
+                    "ok": ok}
+    rec["ok"] = all(r["ok"] for r in rec.values())
+    return rec
+
+
+def ss_ring(mesh) -> dict:
+    """One of RING_AXES's ranks: ring attention in f32 and bf16 against
+    unsharded attention (ring_check), the planted faults (RING_FAULTS),
+    and the host-clock ms of an f32 call (forward; forward and backward)
+    and of one hop of the stacked K/V block, with the bytes a rank sends."""
+    import torch
+
+    from deepfm_tpu_torch.parallel import (
+        collectives,
+        field_block,
+        ring_field_attention,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"checks": {dtype: ring_check(mesh, dtype)
+                      for dtype in ("float32", "bfloat16")},
+           "faults": {f: ring_check(mesh, "float32", f)
+                      for f in RING_FAULTS}}
+    free_device()
+    gen = torch.Generator(device=mesh.device).manual_seed(1)
+    q, k, v = (field_block(mesh, torch.randn(RING_SHAPE, generator=gen,
+                                             device=mesh.device))
+               .contiguous().requires_grad_() for _ in range(3))
+    kv = torch.stack([k.detach(), v.detach()])
+
+    def clocked(fn):
+        times = []
+        for _ in range(RING_REPS + 1):
+            collectives.barrier(mesh.model_group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times[1:])
+
+    def forward():
+        with torch.no_grad():
+            ring_field_attention(q, k, v, mesh)
+
+    def forward_backward():
+        (ring_field_attention(q, k, v, mesh) ** 2).sum().backward()
+
+    hops = mesh.model - 1
+    out.update({
+        "call_ms": clocked(forward),
+        "call_fwd_bwd_ms": clocked(forward_backward),
+        "hop_ms": clocked(lambda: collectives.ring_shift(
+            mesh.model_group, kv)),
+        "hops_a_call": hops,
+        "bytes_a_call": hops * kv.numel() * kv.element_size(),
+        "block": list(q.shape)})
+    return out
+
+
 DP_PARTS = {"steps": dp_steps, "world1": dp_world1, "ms_steps": ms_steps,
-            "ms_exact": ms_exact}
+            "ms_exact": ms_exact, "ss_commands": ss_commands,
+            "ss_ring": ss_ring}
 
 
 def dp_train_loop(tmp: Path, ranks: int = DP_WORLD, extra=(),
@@ -5506,6 +5774,302 @@ def phase_model_sharded(tmp: Path, gpu: str) -> dict:
     return out
 
 
+def torchrun_cmd(world: int, args: list) -> list:
+    """``python -m torch.distributed.run --nproc-per-node world -m
+    deepfm_tpu_torch ARGS`` on a free port of localhost."""
+    return [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+            str(world), "--master-addr", "localhost", "--master-port",
+            str(free_port()), "-m", "deepfm_tpu_torch", *args]
+
+
+def children(pid: int) -> list:
+    """The pids of ``pid``'s child processes (read from /proc)."""
+    kids = []
+    for entry in Path("/proc").iterdir():
+        if entry.name.isdigit():
+            try:
+                stat = (entry / "stat").read_text()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                kids.append(int(entry.name))
+    return kids
+
+
+def ss_serve(tmp: Path) -> dict:
+    """``serve`` under torchrun on SS_WORLD ranks at (1, 2) over the
+    ms_loop checkpoint, against one process's ScoringService on the card:
+    /health, /score of 1 row, of SS_SCORE_ROWS rows and an unknown pair,
+    /recommend, SS_WARM_REQUESTS warm requests timed; then SIGINT to every
+    rank, as torchrun sends it, and every rank must exit 0 (torchrun's own
+    exit code is 0 only then) within SS_STOP_S."""
+    import numpy as np
+
+    from deepfm_tpu_torch.cli import _restore_predictor
+    from deepfm_tpu_torch.serving import ScoringService
+
+    run, extra = SS_MESHES["a2a_1x2"]
+    data = movielens_data(tmp)
+    raw = np.loadtxt(data / "u.data", dtype=np.int64)
+    pick = np.random.default_rng(0).choice(len(raw), SS_SCORE_ROWS,
+                                           replace=False)
+    many = [[int(u), int(m)] for u, m in raw[pick, :2]] + [
+        [10**9, int(raw[0, 1])]]
+    one = many[:1]
+    config = ss_config(tmp, run)
+    adapter, packed, _, _, _, predictor, _ = _restore_predictor(config)
+    service = ScoringService(adapter, packed, predictor, config.model_name)
+    want = {"n_params": predictor.n_params,
+            "one": service.score({"rows": one})["scores"],
+            "many": service.score({"rows": many})["scores"],
+            "recommend": service.recommend(RECOMMEND_USER, RECOMMEND_K)}
+    del adapter, packed, predictor, service
+    free_device()
+
+    port = free_port()
+    cmd = torchrun_cmd(SS_WORLD, [
+        "serve", "--config", str(REPO / "configs" / TRAIN_LOOP_CONFIG),
+        "--override",
+        f"data.data_dir={data}", f"data.num_neg_eval={EXPORT_NEG_EVAL}",
+        f"device={DEVICE}", f"output_dir={tmp / run / 'whole'}", *extra,
+        "--port", str(port)])
+    log = tmp / "ss_serve.log"
+    base = f"http://127.0.0.1:{port}"
+    got, failures = {}, []
+    t0 = time.perf_counter()
+    with open(log, "w") as sink:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=sink,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"sharded_scoring: serve exited {proc.returncode} "
+                     f"before it answered: {log.read_text()[-3000:]}")
+            if time.perf_counter() - t0 > SS_SERVE_START_S:
+                fail(f"sharded_scoring: serve did not answer in "
+                     f"{SS_SERVE_START_S} s: {log.read_text()[-3000:]}")
+            try:
+                _, got["health"], _ = _http("GET", f"{base}/health")
+                break
+            except OSError:
+                time.sleep(0.5)
+        start_s = time.perf_counter() - t0
+        _, body, _ = _http("POST", f"{base}/score", {"rows": one})
+        got["one"] = body["scores"]
+        _, body, _ = _http("POST", f"{base}/score", {"rows": many})
+        got["many"] = body["scores"]
+        _, got["recommend"], _ = _http(
+            "GET", f"{base}/recommend?user={RECOMMEND_USER}&k={RECOMMEND_K}")
+        warm_ms = [_http("POST", f"{base}/score", {"rows": many})[2]
+                   for _ in range(SS_WARM_REQUESTS)]
+        ranks = children(proc.pid)
+        t1 = time.perf_counter()
+        for pid in ranks:
+            os.kill(pid, signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=SS_STOP_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        stop_s = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    text = log.read_text()
+    if rc != 0 or len(ranks) != SS_WORLD:
+        failures.append(f"serve: SIGINT to ranks {ranks}: torchrun exited "
+                        f"{rc} after {stop_s:.1f} s: {text[-3000:]}")
+    stopped = text.count("stopped by rank 0 after")
+    if stopped != SS_WORLD - 1:
+        failures.append(f"serve: {stopped} followers logged their stop")
+    if got["health"].get("n_params") != want["n_params"]:
+        failures.append(f"serve: /health {got['health']}, one process "
+                        f"counts {want['n_params']} parameters")
+
+    def score_err(a, b):
+        if [x is None for x in a] != [x is None for x in b]:
+            return math.inf
+        return max((abs(x - y) for x, y in zip(a, b) if x is not None),
+                   default=0.0)
+
+    errs = {k: score_err(got[k], want[k]) for k in ("one", "many")}
+    rec_got = [(it["item"], it["score"]) for it in got["recommend"]["items"]]
+    rec_want = [(it["item"], it["score"]) for it in want["recommend"]["items"]]
+    errs["recommend"] = (
+        max(abs(a[1] - b[1]) for a, b in zip(rec_got, rec_want))
+        if [i for i, _ in rec_got] == [i for i, _ in rec_want] else math.inf)
+    if got["many"][-1] is not None or max(errs.values()) > SERVE_TOL:
+        failures.append(f"serve: max |Δ| from one process {errs} (tol "
+                        f"{SERVE_TOL}); unknown pair {got['many'][-1]}")
+    return {"start_s": start_s, "stop_s": stop_s, "exit_code": rc,
+            "ranks": len(ranks), "followers_stopped": stopped,
+            "n_params": got["health"].get("n_params"),
+            "n_params_one_process": want["n_params"],
+            "max_abs_err": errs,
+            "bit_for_bit": {k: got[k] == want[k] for k in ("one", "many")},
+            "warm_score_ms": warm_ms, "warm_rows": len(many),
+            "failures": failures}
+
+
+def phase_sharded_scoring(tmp: Path, gpu: str) -> dict:
+    """Sharded batch scoring and ring attention (module docstring)."""
+    import io
+
+    import numpy as np
+
+    from deepfm_tpu_torch.cli import predict_command, recommend_command
+    from deepfm_tpu_torch.training.predict import Predictor
+
+    data = movielens_data(tmp)
+    failures, seconds = [], {}
+    # --- one process on the card: the reference -------------------------
+    t0 = time.perf_counter()
+    one = {}
+    for name, (run, _) in SS_MESHES.items():
+        with recorded_scores(Predictor) as seen:
+            t1 = time.perf_counter()
+            predict_command(ss_config(tmp, run), str(data / "u.data"),
+                            str(tmp / f"ss_{name}_one.tsv"))
+        (scores, predict_s), = seen
+        one[name] = {"scores": scores, "command_s": time.perf_counter() - t1,
+                     "predict_s": predict_s}
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        recommend_command(ss_config(tmp, SS_MESHES["a2a_1x2"][0]),
+                          RECOMMEND_USER, RECOMMEND_K, include_seen=False)
+    one_top = read_top_k(text.getvalue())
+    free_device()
+    seconds["one_process"] = time.perf_counter() - t0
+
+    # --- the main path: the commands on every rank, launches from 0 -----
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(SS_WORLD, "ss_commands", tmp, (str(tmp),))
+    seconds["ranks"] = time.perf_counter() - t0
+    predict = {}
+    for name in SS_MESHES:
+        want = one[name]["scores"]
+        got = [np.load(tmp / f"ss_{name}_rank{r}.npy")
+               for r in range(SS_WORLD)]
+        rows_same = (tmp / f"ss_{name}_rank0.tsv").read_text() == (
+            tmp / f"ss_{name}_one.tsv").read_text()
+        errs = [float(np.abs(g - want).max()) if g.shape == want.shape
+                else math.inf for g in got]
+        rec = {"rows": len(want), "max_abs_err": max(errs),
+               "bit_for_bit": all(np.array_equal(g, want) for g in got),
+               "same_rows_and_file": rows_same,
+               "written": [r["predict"][name]["wrote"] for r in ranks],
+               "launches": [r["predict"][name]["launches"] for r in ranks],
+               "command_s": [r["predict"][name]["command_s"] for r in ranks],
+               "predict_s": [r["predict"][name]["predict_s"] for r in ranks],
+               "one_process_command_s": one[name]["command_s"],
+               "one_process_predict_s": one[name]["predict_s"]}
+        predict[name] = rec
+        if not rows_same or rec["max_abs_err"] > SERVE_TOL:
+            failures.append(f"predict {name}: same rows and file "
+                            f"{rows_same}, max |Δ| {rec['max_abs_err']}")
+        if rec["written"] != [True] + [False] * (SS_WORLD - 1):
+            failures.append(f"predict {name}: files written {rec['written']}")
+        if min(rec["launches"]) < 1:
+            failures.append(f"predict {name}: cin_stack_fwd launches "
+                            f"{rec['launches']}")
+    # --- the entry point: torchrun predict at (1, 2) --------------------
+    run, extra = SS_MESHES["a2a_1x2"]
+    out_tsv = tmp / "ss_torchrun.tsv"
+    cmd = torchrun_cmd(SS_WORLD, [
+        "predict", "--config", str(REPO / "configs" / TRAIN_LOOP_CONFIG),
+        "--override", f"data.data_dir={data}",
+        f"data.num_neg_eval={EXPORT_NEG_EVAL}", f"device={DEVICE}",
+        f"output_dir={tmp / run / 'whole'}", *extra,
+        "--input", str(data / "u.data"), "--output", str(out_tsv)])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=DP_RANK_TIMEOUT)
+    seconds["torchrun_predict"] = time.perf_counter() - t0
+    if proc.returncode != 0 or not out_tsv.exists() or out_tsv.read_text() \
+            != (tmp / "ss_a2a_1x2_one.tsv").read_text():
+        failures.append(f"torchrun predict exited {proc.returncode}, its "
+                        f"file not the one process's: "
+                        f"{(proc.stdout + proc.stderr)[-3000:]}")
+    # --- recommend at (1, 2) --------------------------------------------
+    top = read_top_k(ranks[0]["recommend"]["stdout"])
+    top_err = max((abs(a[1] - b[1]) for a, b in zip(top, one_top)),
+                  default=math.inf)
+    recommend = {"top_k": top, "one_process": one_top,
+                 "max_abs_err": top_err,
+                 "same_items": [i for i, _ in top] == [i for i, _ in one_top],
+                 "rank_1_printed": ranks[1]["recommend"]["stdout"] != "",
+                 "launches": [r["recommend"]["launches"] for r in ranks]}
+    if not recommend["same_items"] or top_err > SERVE_TOL or recommend[
+            "rank_1_printed"] or len(top) != RECOMMEND_K:
+        failures.append(f"recommend at (1, 2): {recommend}")
+    # --- serve on the ranks, stopped by SIGINT ---------------------------
+    t0 = time.perf_counter()
+    serve = ss_serve(tmp)
+    seconds["serve"] = time.perf_counter() - t0
+    failures += serve["failures"]
+    # --- ring attention ---------------------------------------------------
+    t0 = time.perf_counter()
+    ring = spawn_ranks(RING_AXES[0] * RING_AXES[1], "ss_ring", tmp)
+    seconds["ring"] = time.perf_counter() - t0
+    for r, rec in enumerate(ring):
+        for dtype, check in rec["checks"].items():
+            if not check["ok"]:
+                failures.append(f"ring attention rank {r} {dtype}: {check}")
+        for fault, check in rec["faults"].items():
+            if check["ok"]:
+                failures.append(f"ring attention rank {r}: the planted "
+                                f"fault {fault} passed: {check}")
+    # every rank must refuse each fault: the check of the refusing key
+    # may differ by rank, not the verdict
+    ring_summary = {
+        "shape": list(RING_SHAPE), "axes": list(RING_AXES),
+        "block": ring[0]["block"],
+        "max_abs_err": {dtype: {k: max(r["checks"][dtype][k]["max_abs_err"]
+                                       for r in ring)
+                                for k in ("out", "dq", "dk", "dv")}
+                        for dtype in ("float32", "bfloat16")},
+        "max_abs_ref_bf16": {k: max(r["checks"]["bfloat16"][k]["max_abs_ref"]
+                                    for r in ring)
+                             for k in ("out", "dq", "dk", "dv")},
+        "faults_max_abs_err": {f: {k: max(r["faults"][f][k]["max_abs_err"]
+                                          for r in ring)
+                                   for k in ("out", "dq", "dk", "dv")}
+                               for f in RING_FAULTS},
+        "faults_refused": {f: all(not r["faults"][f]["ok"] for r in ring)
+                           for f in RING_FAULTS},
+        "call_ms": [r["call_ms"] for r in ring],
+        "call_fwd_bwd_ms": [r["call_fwd_bwd_ms"] for r in ring],
+        "hop_ms": [r["hop_ms"] for r in ring],
+        "hops_a_call": ring[0]["hops_a_call"],
+        "bytes_a_call": ring[0]["bytes_a_call"],
+        "tol": {"float32": RING_TOL, "bfloat16_max_rel": RING_BF16_MAX_REL}}
+    out = {
+        "phase": "sharded_scoring", "gpu": gpu, "ranks": SS_WORLD,
+        "backend": ranks[0]["backend"], "backend_rule": ranks[0]["rule"],
+        "config": f"configs/{TRAIN_LOOP_CONFIG}", "predict": predict,
+        "recommend": recommend, "serve": serve, "ring_attention":
+        ring_summary, "seconds": seconds, "tol": SERVE_TOL,
+        "ok": not failures}
+    emit(out)
+    print(f"sharded_scoring ({gpu}; {SS_WORLD} ranks, {out['backend']}: "
+          f"{out['backend_rule']}): "
+          + json.dumps({
+              "predict": {n: {k: p[k] for k in (
+                  "max_abs_err", "bit_for_bit", "launches", "command_s",
+                  "one_process_command_s")} for n, p in predict.items()},
+              "serve": {k: serve[k] for k in (
+                  "max_abs_err", "bit_for_bit", "warm_score_ms", "stop_s",
+                  "exit_code")},
+              "ring": {k: ring_summary[k] for k in (
+                  "max_abs_err", "faults_refused", "call_ms", "hop_ms",
+                  "bytes_a_call")},
+              "seconds": seconds}), flush=True)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -5550,6 +6114,7 @@ def main() -> None:
         timed("packed_store", phase_packed_store, Path(tmp), gpu)
         timed("data_parallel", phase_data_parallel, Path(tmp), gpu)
         timed("model_sharded", phase_model_sharded, Path(tmp), gpu)
+        timed("sharded_scoring", phase_sharded_scoring, Path(tmp), gpu)
     emit({"phase_seconds": seconds, "total_seconds": sum(seconds.values())})
     kernels = []
     # (name, source, replaces, launches on its main path, its numbers at

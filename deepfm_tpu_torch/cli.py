@@ -22,8 +22,9 @@ a symbolic batch unless ``--batch-size`` pins it, optionally int8 tables)
 for one platform, ``cpu`` or ``cuda``, and verifies it against the
 in-process scores.
 
-``train`` and ``evaluate`` first build the runtime (``build_runtime``,
-the JAX CLI's ``maybe_init_multihost`` and ``build_runtime``): under
+``train``, ``evaluate``, ``predict``, ``recommend`` and ``serve`` first
+build the runtime (``build_runtime``, the JAX CLI's
+``maybe_init_multihost`` and ``build_runtime``): under
 ``python -m torch.distributed.run --nproc-per-node N`` each of the N
 processes is one rank on one device, the process group starts
 (``parallel/mesh.py``; with ``mesh.multihost: false`` too, since the port
@@ -38,12 +39,24 @@ package's message, ``mesh.multihost`` without a coordinator unless
 ``allow_single_process``, and a batch the data axis does not divide, all
 before any data is built; a model axis that does not divide a table's
 rows is refused when the model is built.
-The serving commands (``predict``, ``recommend``, ``serve``, ``export``)
-run on one device: launched as more than one rank, each refuses by name
-(sharded batch scoring is ROADMAP queue 1 item 10(d)); ``export`` checks
-its serving config, whose mesh is 1x1. ``profile.debug_nans`` makes
-``train`` raise ``FloatingPointError`` at the first step whose loss or
-gradients are not finite (``training/steps.py``).
+On N ranks the serving commands score through ``Trainer.predict`` on the
+mesh (the JAX CLI's ``_restore_trainer``): each data index scores its
+share of the rows in whole batches, the model peers of a data row serve
+its lookups from their slabs, and every rank gets every score, the bits
+one process gives it. Rank 0 alone writes ``predict``'s file and prints
+``recommend``'s table; ``serve`` runs its HTTP server on rank 0, which
+broadcasts every dispatch to the other ranks (``serving.py``'s
+``RankScorer``) and, when it stops (SIGINT, as ``torch.distributed.run``
+sends every rank), sends them the stop that ends them; the other ranks
+ignore SIGINT and end on that stop, and while the server idles rank 0's
+heartbeat keeps their wait inside the group's timeout. A dispatch that
+fails on rank 0 after its broadcast ends the run. ``export`` writes one
+artifact: rank 0 exports and verifies on the serving config's 1x1 mesh
+(the JAX command's ``use_mesh=False``) while the other ranks wait at a
+world barrier.
+``profile.debug_nans`` makes ``train`` raise ``FloatingPointError`` at
+the first step whose loss or gradients are not finite
+(``training/steps.py``).
 
     python -m deepfm_tpu_torch train --config configs/xdeepfm_movielens_cin_tuned.yaml \\
         --override data.data_dir=DIR output_dir=RUN
@@ -52,7 +65,12 @@ gradients are not finite (``training/steps.py``).
     python -m deepfm_tpu_torch evaluate --config ... --override ... (the same)
     python -m deepfm_tpu_torch predict --config ... --override ... \\
         --input DIR/u.data --output scores.tsv
+    python -m torch.distributed.run --nproc-per-node 2 -m deepfm_tpu_torch \\
+        predict --config ... --override ... mesh.model_axis=2 --input ... \\
+        --output ... (the same scores, the tables in two slabs)
     python -m deepfm_tpu_torch recommend --config ... --override ... --user 20 --k 5
+    python -m torch.distributed.run --nproc-per-node 2 -m deepfm_tpu_torch \\
+        serve --config ... --override ... --port 8080 (Ctrl-C stops every rank)
     python -m deepfm_tpu_torch compare --dir RUN
     python -m deepfm_tpu_torch export --config ... --override ... \
         --output model.pt2 [--platforms cpu|cuda] [--quantize int8] [--batch-size N]
@@ -102,24 +120,34 @@ def _build_data(config: ExperimentConfig):
     )
 
 
-def build_runtime(config: ExperimentConfig):
-    """The JAX CLI's ``maybe_init_multihost`` and ``build_runtime``: start
-    the process group where a coordinator is named (``mesh.multihost``, or
-    a torchrun launch of more than one rank), resolve ``config.mesh`` over
-    the ranks, and return the (data, model) mesh, or None for one device
-    without a mesh. Raises where the JAX CLI would."""
+def start_runtime(config: ExperimentConfig) -> int:
+    """The JAX CLI's ``maybe_init_multihost``: start the process group
+    where a coordinator is named (``mesh.multihost``, or a torchrun launch
+    of more than one rank; raises where the JAX CLI would); returns the
+    number of ranks."""
     from deepfm_tpu_torch.parallel import (
-        build_hybrid_mesh,
-        build_mesh,
         check_multihost,
         initialize_distributed,
-        resolve_mesh,
     )
     from deepfm_tpu_torch.parallel.mesh import world_size
 
     if not check_multihost(config, os.environ):
         initialize_distributed(env=os.environ, device=config.device)
-    n = world_size()
+    return world_size()
+
+
+def build_runtime(config: ExperimentConfig):
+    """The JAX CLI's ``maybe_init_multihost`` and ``build_runtime``: start
+    the process group (``start_runtime``), resolve ``config.mesh`` over
+    the ranks, and return the (data, model) mesh, or None for one device
+    without a mesh. Raises where the JAX CLI would."""
+    from deepfm_tpu_torch.parallel import (
+        build_hybrid_mesh,
+        build_mesh,
+        resolve_mesh,
+    )
+
+    n = start_runtime(config)
     try:
         shape = resolve_mesh(config, n_devices=n)
     except ValueError as e:
@@ -134,31 +162,6 @@ def build_runtime(config: ExperimentConfig):
         return build_hybrid_mesh(m.num_slices, m.data_axis, m.model_axis,
                                  device=config.device)
     return build_mesh(m.data_axis, m.model_axis, device=config.device)
-
-
-def _check_serving_runtime(config: ExperimentConfig, command: str) -> None:
-    """The runtime checks of a serving command, which runs on one device:
-    more than one rank is refused by name, then ``mesh.multihost`` and the
-    mesh are checked as the JAX CLI checks them, for one device."""
-    from deepfm_tpu_torch.parallel import (
-        check_multihost,
-        multiprocess_env_configured,
-        resolve_mesh,
-    )
-
-    if multiprocess_env_configured(os.environ):
-        raise RuntimeError(
-            f"{command} runs on one device, and this process is one rank of "
-            "several (the environment names a coordinator): sharded batch "
-            "scoring waits for ROADMAP queue 1 item 10(d); run it as one "
-            "process")
-    check_multihost(config, os.environ)
-    try:
-        resolve_mesh(config, n_devices=1)
-    except ValueError as e:
-        raise ValueError(
-            f"{e} ({command} runs on one device; ROADMAP queue 1 item "
-            "10(d))") from None
 
 
 def _run_logger(mesh, log_file: str | None = None):
@@ -320,21 +323,27 @@ def compare_command(args) -> None:
 def _restore_predictor(
     config: ExperimentConfig,
     require: tuple[str, ...] | None = None,
-    command: str | None = None,
+    use_mesh: bool = True,
 ):
-    """Shared serving prologue: check the runtime
-    (``_check_serving_runtime``, for ``command``: ``require``'s first
-    item by default), build the fitted
-    data pipeline, the model on ``config.device``, load the best
-    checkpoint, and wrap it in a ``Predictor``. Returns (adapter, packed,
-    val_d, test_d, model, predictor). ``require=(command,
-    *adapter_methods)`` fails fast, before the model build, when the
-    dataset's adapter lacks a serving method."""
+    """Shared serving prologue (the JAX CLI's ``_restore_trainer``): build
+    the runtime (``build_runtime``, unless ``use_mesh`` is False: one
+    device), the fitted data pipeline and the model, and load the best
+    checkpoint. Without a mesh the model runs on ``config.device`` behind
+    a ``Predictor``; under one, it is built on the mesh (the rank's slab of
+    every table at a model axis above 1) behind a ``Trainer``, whose
+    ``predict`` scores the rank's share and all-gathers every score.
+    Returns (adapter, packed, val_d, test_d, model, predictor, mesh): the
+    ``Predictor`` and None, or the ``Trainer`` and its mesh.
+    ``require=(command, *adapter_methods)`` fails fast, before the model
+    build, when the dataset's adapter lacks a serving method."""
     from deepfm_tpu_torch.models import create_model
     from deepfm_tpu_torch.training.persistence import load_best
     from deepfm_tpu_torch.training.predict import Predictor
+    from deepfm_tpu_torch.training.trainer import Trainer
 
-    _check_serving_runtime(config, command or (require or ("serving",))[0])
+    mesh = build_runtime(config) if use_mesh else None
+    if mesh is not None:
+        _run_logger(mesh)
     adapter, schema, packed, train_d, val_d, test_d = _build_data(config)
     if require is not None:
         missing = [m for m in require[1:] if not hasattr(adapter, m)]
@@ -344,10 +353,15 @@ def _restore_predictor(
                 f"{'/'.join(missing)} path (movielens-format only)"
             )
     model = create_model(config.model_name, packed, config,
-                         device=config.device)
-    load_best(model, config.output_dir)
-    predictor = Predictor(model, packed, config, device=config.device)
-    return adapter, packed, val_d, test_d, model, predictor
+                         device=config.device, mesh=mesh)
+    if mesh is None:
+        load_best(model, config.output_dir)
+        predictor = Predictor(model, packed, config, device=config.device)
+    else:
+        predictor = Trainer(model, packed, config, val_data=val_d,
+                            test_data=test_d, mesh=mesh)
+        predictor.load_best()
+    return adapter, packed, val_d, test_d, model, predictor, mesh
 
 
 def predict_command(
@@ -362,7 +376,7 @@ def predict_command(
     import numpy as np
 
     seed_everything(config.seed)
-    adapter, packed, _, _, _, predictor = _restore_predictor(
+    adapter, packed, _, _, _, predictor, mesh = _restore_predictor(
         config, require=("predict", "score_interactions")
     )
     score_ds, kept, total = adapter.score_interactions(input_path)
@@ -376,6 +390,8 @@ def predict_command(
     t0 = time.perf_counter()
     scores = predictor.predict(score_d)
     dt = time.perf_counter() - t0
+    if mesh is not None and mesh.rank != 0:
+        return
 
     raw = np.loadtxt(input_path, dtype=np.int64).reshape(-1, 4)[kept]
     with open(output_path, "w") as f:
@@ -420,7 +436,30 @@ def export_command(
     loaded back and scored on up to 256 val rows (pinned batches padded
     with id-0 rows) against the in-process CPU predict, within 1e-4, or
     0.05 quantized; a quantized symbolic-batch artifact also logs its val
-    AUC against the f32 model's. Returns what it measured."""
+    AUC against the f32 model's. Returns what it measured. On N ranks rank
+    0 alone exports, one artifact, while the others wait at a world
+    barrier and return {}."""
+    seed_everything(config.seed)
+    platform = _export_platform(config, platforms)
+    if quantize is not None and quantize != "int8":
+        raise SystemExit(f"--quantize supports 'int8', got {quantize!r}")
+    if start_runtime(config) == 1:
+        return _export(config, output_path, platform, batch_size, quantize)
+    from deepfm_tpu_torch.parallel import build_mesh, collectives
+
+    world = build_mesh(device=config.device)
+    try:
+        if world.rank != 0:
+            _run_logger(world)
+            return {}
+        return _export(config, output_path, platform, batch_size, quantize)
+    finally:
+        collectives.barrier(world)
+
+
+def _export(config: ExperimentConfig, output_path: str, platform: str,
+            batch_size: int | None, quantize: str | None) -> dict:
+    """``export_command`` on one device."""
     import time
 
     import numpy as np
@@ -435,16 +474,11 @@ def export_command(
         serving_config,
     )
 
-    seed_everything(config.seed)
-    platform = _export_platform(config, platforms)
-    if quantize is not None and quantize != "int8":
-        raise SystemExit(f"--quantize supports 'int8', got {quantize!r}")
-
     scfg = serving_config(config)
     # the artifact is one program on one device; cross-layout restore
     # loads a packed checkpoint into the serving model's logical tables
-    _, packed, val_d, _, model, predictor = _restore_predictor(
-        scfg, command="export")
+    _, packed, val_d, _, model, predictor, _ = _restore_predictor(
+        scfg, use_mesh=False)
     export_model = model
     if quantize is not None:
         export_model = quantized_scoring_model(config, packed, model)
@@ -510,7 +544,7 @@ def recommend_command(
     seed_everything(config.seed)
     if k < 1:
         raise SystemExit(f"recommend: --k must be >= 1, got {k}")
-    adapter, packed, _, _, _, predictor = _restore_predictor(
+    adapter, packed, _, _, _, predictor, mesh = _restore_predictor(
         config, require=("recommend", "recommend_candidates")
     )
     try:
@@ -523,6 +557,8 @@ def recommend_command(
         raise SystemExit(f"recommend: user {user} has no unseen items")
 
     scores = predictor.predict(ds.pack(packed))
+    if mesh is not None and mesh.rank != 0:
+        return
     top = np.argsort(-scores)[:k]
     print(f"Top-{min(k, len(top))} items for user {user}:")
     print(f"{'rank':>4}  {'item':>6}  score")
@@ -539,40 +575,70 @@ def serve_command(
     max_rows: int | None = None,
 ) -> None:
     """Local JSON-over-HTTP scoring server over the best checkpoint:
-    GET /health, POST /score, GET /recommend (see serving.py)."""
+    GET /health, POST /score, GET /recommend (see serving.py). On N ranks
+    rank 0 serves and broadcasts every dispatch (``RankScorer``); the
+    other ranks follow until rank 0 stops, on SIGINT, which they ignore.
+    A dispatch that fails on rank 0 after its broadcast stops the server
+    and raises ``RankFailure``: the run ends, and torchrun ends the other
+    ranks."""
+    import signal
+    import threading
+
     from deepfm_tpu_torch.serving import (
         DEFAULT_MAX_ROWS,
+        RankScorer,
         ScoringService,
         make_http_server,
     )
 
-    adapter, packed, _, _, model, predictor = _restore_predictor(
+    adapter, packed, _, _, model, predictor, mesh = _restore_predictor(
         config,
         require=(
             "serve", "score_id_pairs", "known_pair", "now_timestamp",
             "recommend_candidates",
         ),
     )
+    if mesh is not None:
+        predictor = RankScorer(predictor)
+        if mesh.rank != 0:
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+            runs = predictor.follow()
+            logger.warning("rank %d: stopped by rank 0 after %d dispatches",
+                           mesh.rank, runs)
+            return
     service = ScoringService(
         adapter, packed, predictor, config.model_name,
         max_rows=max_rows if max_rows is not None else DEFAULT_MAX_ROWS,
         batch_window_ms=batch_window_ms,
     )
-    logger.info("Warming up (kernel build and first launch)...")
-    service.warmup()
-    server = make_http_server(service, host, port)
-    bound = server.server_address
-    logger.info(
-        "Serving %s on http://%s:%d  (GET /health, POST /score, "
-        "GET /recommend?user=U&k=K)",
-        config.model_name, bound[0], bound[1],
-    )
+    server = None
     try:
+        logger.info("Warming up (kernel build and first launch)...")
+        service.warmup()
+        server = make_http_server(service, host, port)
+        if mesh is not None:
+            predictor.on_failure = threading.Thread(
+                target=server.shutdown, daemon=True).start
+        bound = server.server_address
+        logger.info(
+            "Serving %s on http://%s:%d  (GET /health, POST /score, "
+            "GET /recommend?user=U&k=K)%s",
+            config.model_name, bound[0], bound[1],
+            "" if mesh is None else
+            f" on {mesh.world} ranks ({mesh.data}x{mesh.model} mesh)",
+        )
         server.serve_forever()
     except KeyboardInterrupt:
         logger.info("Shutting down")
     finally:
-        server.server_close()
+        if mesh is not None:
+            # a second SIGINT must not cut the followers' stop short
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+        if server is not None:
+            server.server_close()
+        service.close()
+    if mesh is not None:
+        predictor.raise_if_failed()
 
 
 def pack_data_command(config: ExperimentConfig, out_dir: str) -> None:

@@ -1,10 +1,12 @@
-"""Data-parallel and model-sharded training on ``torch.distributed``
-(ROADMAP queue 1 items 10(a) and 10(b)): the runtime and the (data,
-model) mesh (``mesh.py``), the collectives over its groups
-(``collectives.py``), the placement rules (``sharding.py``), and the
+"""Data-parallel and model-sharded training and scoring on
+``torch.distributed`` (ROADMAP queue 1 item 10, done): the runtime and the
+(data, model) mesh (``mesh.py``), the collectives over its groups
+(``collectives.py``), the placement rules (``sharding.py``), the
 row-sharded lookups, the sparse gradient exchange and the routed pairs of
-the sparse-fused path (``embedding_shard.py``). Ring attention waits for
-item 10(c)."""
+the sparse-fused path (``embedding_shard.py``), and ring attention over
+the field axis (``ring_attention.py``). Sharded batch scoring is
+``Trainer.predict`` under a mesh, driven by the CLI's ``predict``,
+``recommend`` and ``serve`` (``serving.py``'s ``RankScorer``)."""
 
 from deepfm_tpu_torch.parallel.embedding_shard import (
     make_a2a_lookup,
@@ -28,6 +30,10 @@ from deepfm_tpu_torch.parallel.mesh import (
     multiprocess_env_configured,
     resolve_mesh,
 )
+from deepfm_tpu_torch.parallel.ring_attention import (
+    field_block,
+    ring_field_attention,
+)
 from deepfm_tpu_torch.parallel.sharding import (
     batch_rows,
     batch_shardings,
@@ -50,6 +56,7 @@ __all__ = [
     "build_mesh",
     "check_batch",
     "check_multihost",
+    "field_block",
     "initialize_distributed",
     "is_table_path",
     "make_a2a_lookup",
@@ -62,6 +69,7 @@ __all__ = [
     "placement",
     "replicated",
     "resolve_mesh",
+    "ring_field_attention",
     "route_sorted_pairs",
     "slab_bounds",
     "sparse_grad_exchange",

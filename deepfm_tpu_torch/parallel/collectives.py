@@ -27,6 +27,15 @@ take no collective at all.
   the group has ranks and hands chunk k to rank k: rank k receives the
   chunks addressed to it, the group's ranks' in order (the all-to-all
   lookup's id buckets and rows);
+* ``broadcast_`` hands rank ``src``'s tensor to every rank of the group,
+  in place (a sharded ``serve``'s requests, from rank 0 to the followers,
+  ``serving.py``);
+* ``ring_shift`` passes each rank's tensor to the next rank of the group
+  (position i to i + 1, the last to the first), the hop that autograd
+  differentiates: its backward passes the cotangent the other way (ring
+  attention's K/V blocks, ``parallel/ring_attention.py``); it is one
+  ``all_to_all_single`` whose split sizes send the whole tensor to the
+  next rank and nothing to the others;
 * ``barrier``.
 
 Every rank receives the same bits: an all-reduce's sum is formed once and
@@ -35,11 +44,12 @@ handed to every rank of the group by NCCL and by gloo alike.
 Where a tensor meets its backend: NCCL takes CUDA tensors only, so a
 CPU tensor (a generator's state) is copied to the rank's card and back
 (``_staged``). gloo takes CPU tensors and, in the PyTorch of the card's
-host (2.11), CUDA tensors in all_reduce, all_gather, all_to_all_single and
-barrier (``chip_smoke.py``'s data_parallel and model_sharded phases run
-them so on one H100), copying them through the host itself, so nothing is
-staged by hand for it. A collective that fails raises; nothing retries
-it.
+host (2.11), CUDA tensors in all_reduce, all_gather, all_to_all_single
+(with split sizes too: ``ring_shift``) and barrier (``chip_smoke.py``'s
+data_parallel, model_sharded and sharded_scoring phases run them so on
+one H100), copying them through the host itself, so nothing is staged by
+hand for it; ``broadcast_`` is given host tensors by its one caller. A
+collective that fails raises; nothing retries it.
 """
 
 from __future__ import annotations
@@ -178,6 +188,62 @@ def all_to_all_rows(group, t: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=g.handle)
     return out.to(t.device)
+
+
+def broadcast_(group, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """Overwrite ``t`` on every rank of the group with the ``src``-th rank's
+    (its position in the group); returns ``t``. Every rank passes a tensor
+    of the same shape and dtype."""
+    import torch.distributed as dist
+
+    g = _group(group)
+    if g is None:
+        return t
+    buf = _staged(g, t.contiguous())
+    dist.broadcast(buf, src=g.ranks[src], group=g.handle)
+    if buf.data_ptr() != t.data_ptr():
+        t.copy_(buf)
+    return t
+
+
+def _shift(g: Group, t: torch.Tensor, step: int) -> torch.Tensor:
+    """``t`` of the rank ``step`` places before this one in the group: this
+    rank's ``t`` goes to the rank ``step`` places after it."""
+    import torch.distributed as dist
+
+    buf = _staged(g, t.contiguous())
+    send = [0] * g.size
+    recv = [0] * g.size
+    send[(g.index + step) % g.size] = buf.shape[0]
+    recv[(g.index - step) % g.size] = buf.shape[0]
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, output_split_sizes=recv,
+                           input_split_sizes=send, group=g.handle)
+    return out.to(t.device)
+
+
+class _RingShift(torch.autograd.Function):
+    """The hop one place along the group; its gradient is the hop back."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _shift(group, t, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(ctx.group, grad, -1), None
+
+
+def ring_shift(group, t: torch.Tensor) -> torch.Tensor:
+    """The ``t`` of the rank before this one in the group (position i
+    receives from i - 1 and sends its own to i + 1, modulo the size); the
+    backward sends the cotangent back, from i + 1 to i. Every rank passes
+    a tensor of the same shape."""
+    g = _group(group)
+    if g is None:
+        return t
+    return _RingShift.apply(t, g)
 
 
 def barrier(group) -> None:

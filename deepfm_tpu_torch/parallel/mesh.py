@@ -290,6 +290,13 @@ def initialize_distributed(probe: bool = False, *,
     return True
 
 
+def group_timeout_s() -> float:
+    """How long a collective of the running process group waits for the
+    other ranks before it raises: ``TIMEOUT_S``, or what the group was
+    started with."""
+    return _TIMEOUT_S[0] or TIMEOUT_S
+
+
 def world_size() -> int:
     """The number of ranks (1 without a process group)."""
     import torch.distributed as dist

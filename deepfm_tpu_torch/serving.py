@@ -16,6 +16,21 @@ serializes behind one lock. An optional micro-batching window
 device dispatch. Request bodies above ``max_body_bytes`` are rejected 413
 before allocation; /score requests above ``max_rows`` rows are rejected
 400.
+
+On N ranks (``serve`` under ``python -m torch.distributed.run``) rank 0
+holds the HTTP server and the service, whose predictor is a
+``RankScorer`` around the ``Trainer``: every device dispatch (the warmup,
+each /score dispatch, coalesced or not, and each /recommend) first
+broadcasts its rows from rank 0 over the world, and then every rank runs
+the same ``Trainer.predict`` (each data index scores its share; the model
+peers of a data row serve its lookups together), both inside the
+service's device lock, so that two HTTP threads never interleave their
+collectives. The other ranks wait in ``RankScorer.follow`` for the next
+dispatch, kept from the group's timeout while the server idles by rank
+0's no-op heartbeat; ``ScoringService.close`` (after any dispatch in
+flight) sends the stop that ends their wait. A dispatch that fails on
+rank 0 after its broadcast ends the run (``RankScorer.failed``): ranks
+out of step must not go on answering.
 """
 
 from __future__ import annotations
@@ -92,6 +107,164 @@ class MicroBatcher:
         return slot["res"]
 
 
+# what rank 0 broadcasts ahead of each dispatch (``RankScorer``)
+OP_STOP, OP_PREDICT, OP_NOOP = 0, 1, 2
+
+
+class RankFailure(RuntimeError):
+    """A dispatch failed on rank 0 after its broadcast: the other ranks may
+    wait in its collectives, so no rank may dispatch again."""
+
+
+class RankScorer:
+    """The predictor of a ``ScoringService`` on N ranks: ``predict`` on
+    rank 0 broadcasts the rows over the world (an op code and the row
+    count, then the ids and dense values in one int32 buffer, the dense
+    floats' bits as they are) and runs ``Trainer.predict``, whose scores
+    every rank gets; ``follow`` on every other rank receives each
+    broadcast and runs the same ``Trainer.predict``, until ``stop``.
+
+    The followers wait for the next dispatch inside a broadcast, which
+    raises after the group's timeout (``mesh.group_timeout_s``). So rank
+    0 broadcasts a no-op whenever it has sent nothing for ``heartbeat_s``,
+    a quarter of that timeout, from a thread of its own, and an idle
+    server keeps its ranks. Anything that fails on rank 0 between a
+    broadcast and the end of its dispatch (an error, a SIGINT) leaves the
+    ranks out of step: the scorer is then ``failed``, dispatches and
+    stops nothing more, calls ``on_failure`` and raises ``RankFailure``
+    from ``raise_if_failed``."""
+
+    def __init__(self, trainer):
+        from deepfm_tpu_torch.parallel.mesh import group_timeout_s
+
+        self.trainer = trainer
+        self.mesh = trainer.mesh
+        self.heartbeat_s = group_timeout_s() / 4
+        # called once, on rank 0, when a dispatch fails (serve stops)
+        self.on_failure = None
+        self.failed: BaseException | None = None
+        self._stopped = False
+        # one broadcast and its dispatch at a time, the heartbeat's too
+        self._lock = threading.Lock()
+        self._last = time.monotonic()
+        self._done = threading.Event()
+        if self.mesh.rank == 0:
+            threading.Thread(target=self._beat, daemon=True).start()
+
+    @property
+    def n_params(self) -> int:
+        """The whole model's parameter count, as ``Predictor.n_params``
+        counts one process's: a table cut into slabs over a model axis of
+        m (``FeatureEmbedding.shard_tables``) counts m slabs, its whole
+        rows, as the JAX package counts a global array."""
+        from deepfm_tpu_torch.parallel.sharding import is_table_path
+
+        model = self.trainer.model
+        shard = getattr(getattr(model, "embedding", None), "shard", None)
+        m = 1 if shard is None else shard[1]
+        return sum(p.numel() * (m if is_table_path(n) else 1)
+                   for n, p in model.named_parameters())
+
+    def _send(self, op: int, arrays=None) -> None:
+        import torch
+
+        from deepfm_tpu_torch.parallel import collectives
+
+        n, slots, dense = (0, 0, 0) if arrays is None else (
+            len(arrays), arrays.ids.shape[1], arrays.dense.shape[1])
+        self._last = time.monotonic()
+        collectives.broadcast_(self.mesh, torch.tensor([op, n, slots, dense],
+                                                       dtype=torch.int64))
+        if arrays is not None:
+            rows = np.concatenate([
+                np.ascontiguousarray(arrays.ids, np.int32),
+                np.ascontiguousarray(arrays.dense, np.float32).view(np.int32),
+            ], axis=1)
+            collectives.broadcast_(self.mesh, torch.from_numpy(rows))
+
+    def _receive(self):
+        """Rank 0's next op and, for a dispatch, its rows."""
+        import torch
+
+        from deepfm_tpu_torch.data.packing import PackedArrays
+        from deepfm_tpu_torch.parallel import collectives
+
+        head = collectives.broadcast_(self.mesh,
+                                      torch.zeros(4, dtype=torch.int64))
+        op, n, slots, dense = (int(x) for x in head)
+        if op != OP_PREDICT:
+            return op, None
+        rows = collectives.broadcast_(
+            self.mesh, torch.empty((n, slots + dense), dtype=torch.int32)
+        ).numpy()
+        return op, PackedArrays(
+            rows[:, :slots], rows[:, slots:].view(np.float32),
+            np.zeros(n, np.float32), np.ones(n, np.float32))
+
+    def _fail(self, e: BaseException) -> None:
+        self.failed = e
+        self._done.set()
+        if self.on_failure is not None:
+            self.on_failure()
+
+    def raise_if_failed(self) -> None:
+        if self.failed is not None:
+            raise RankFailure(
+                "a dispatch failed on rank 0 after its broadcast, so the "
+                "other ranks are out of step: the run ends") from self.failed
+
+    def _run(self, op: int, arrays=None):
+        """Broadcast ``op`` and run its dispatch (rank 0, under the lock)."""
+        self.raise_if_failed()
+        if self._stopped:
+            raise RuntimeError("the ranks were stopped: no more dispatches")
+        try:
+            self._send(op, arrays)
+            return None if arrays is None else self.trainer.predict(arrays)
+        except BaseException as e:
+            self._fail(e)
+            raise
+
+    def predict(self, arrays) -> np.ndarray:
+        """Every rank's scores of ``arrays`` (rank 0; under the service's
+        device lock)."""
+        with self._lock:
+            return self._run(OP_PREDICT, arrays)
+
+    def _beat(self) -> None:
+        while not self._done.wait(self.heartbeat_s / 4):
+            with self._lock:
+                if (self.failed is None and not self._stopped and
+                        time.monotonic() - self._last >= self.heartbeat_s):
+                    try:
+                        self._run(OP_NOOP)
+                    except BaseException:
+                        return
+
+    def stop(self) -> None:
+        """End the other ranks' ``follow`` (rank 0, once); after a failure,
+        send nothing."""
+        with self._lock:
+            try:
+                if not self._stopped and self.failed is None:
+                    self._run(OP_STOP)
+            finally:
+                self._stopped = True
+                self._done.set()
+
+    def follow(self) -> int:
+        """Run each of rank 0's dispatches until its stop (every rank but
+        0); returns the number of dispatches run."""
+        runs = 0
+        while True:
+            op, arrays = self._receive()
+            if op == OP_STOP:
+                return runs
+            if arrays is not None:
+                self.trainer.predict(arrays)
+                runs += 1
+
+
 class ScoringService:
     """Request-level serving logic, transport-agnostic (the HTTP layer
     below and the tests call these methods directly)."""
@@ -127,7 +300,17 @@ class ScoringService:
         ds, _ = self.adapter.score_id_pairs(
             np.asarray([uid]), np.asarray([mid])
         )
-        self.predictor.predict(ds.pack(self.packed))
+        with self._device_lock:
+            self.predictor.predict(ds.pack(self.packed))
+
+    def close(self) -> None:
+        """Stop the other ranks of a sharded predictor (``RankScorer.stop``),
+        once the dispatch in flight, if any, is done; nothing for a
+        predictor of one process."""
+        stop = getattr(self.predictor, "stop", None)
+        if stop is not None:
+            with self._device_lock:
+                stop()
 
     def health(self) -> dict:
         return {

@@ -395,7 +395,7 @@ def test_attention_deepfm_served_from_its_config(tmp_path):
     model = create_model("attention_deepfm", packed0, tconfig, device="cpu")
     model.load_state_dict(params_from_jax(params, stats, packed0, tconfig))
     save_best(model, tconfig.output_dir, epoch=1, best_metric=0.5)
-    adapter, packed, _, _, _, predictor = _restore_predictor(tconfig)
+    adapter, packed, _, _, _, predictor, _ = _restore_predictor(tconfig)
     service = ScoringService(adapter, packed, predictor, "attention_deepfm")
     service.warmup()
     raw_rows = np.loadtxt(tmp_path / "port" / "u.data", dtype=np.int64)[:20]

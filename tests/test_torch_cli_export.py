@@ -120,7 +120,7 @@ def test_export_quantized(run):
 
 def test_export_quantized_scores_as_the_dequantized_tables(run):
     _, config, out = run
-    _, _, val_d, _, model, _ = _restore_predictor(serving_config(config))
+    _, _, val_d, _, model, *_ = _restore_predictor(serving_config(config))
     state = model.state_dict()
     for dcol, (q, scale) in quantize_embedding_tables(model).items():
         state[f"embedding.table_w{dcol - 1}"] = torch.from_numpy(
@@ -161,7 +161,7 @@ LOADER = textwrap.dedent("""
 
 def test_artifacts_load_without_the_package(run, tmp_path):
     _, config, out = run
-    _, _, val_d, _, _, predictor = _restore_predictor(
+    _, _, val_d, _, _, predictor, _ = _restore_predictor(
         serving_config(config))
     np.save(tmp_path / "ids.npy", val_d.ids)
     np.save(tmp_path / "dense.npy", val_d.dense)

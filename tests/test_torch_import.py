@@ -42,6 +42,7 @@ REQUIRED = {
     "deepfm_tpu_torch.data.store",
     "deepfm_tpu_torch.cli",
     "deepfm_tpu_torch.parallel.mesh",
+    "deepfm_tpu_torch.parallel.ring_attention",
     "deepfm_tpu_torch.utils.export",
 }
 

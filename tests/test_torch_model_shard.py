@@ -334,14 +334,13 @@ def test_a_model_axis_that_does_not_divide_the_rows_is_refused():
 
 def test_the_parallel_package_exports_the_jax_names():
     """``deepfm_tpu_torch.parallel`` exports every name of the JAX
-    package's but ``ring_field_attention`` (ROADMAP item 10(c)); its
-    lookup makers at a model axis of 1 are the gather, and the placement
-    helpers follow ``placement``."""
+    package's, ``ring_field_attention`` among them; its lookup makers at a
+    model axis of 1 are the gather, and the placement helpers follow
+    ``placement``."""
     import deepfm_tpu.parallel as jax_parallel
     import deepfm_tpu_torch.parallel as port
 
-    assert set(jax_parallel.__all__) - {"ring_field_attention"} <= set(
-        port.__all__)
+    assert set(jax_parallel.__all__) <= set(port.__all__)
     logical, packed_logical, packed = _tables()
     ids = torch.from_numpy(_ids(V, 0)[0])
     one = _mesh_of((1, 1), 0)

@@ -215,12 +215,36 @@ def test_check_multihost(env, allow, monkeypatch):
 
 
 def test_serving_commands_check_multihost(monkeypatch):
+    # as the JAX CLI, which checks multihost before every command: the
+    # serving prologue refuses mesh.multihost without a coordinator and a
+    # coordinator torch cannot start from; launched as several ranks, the
+    # serving commands refuse a mesh the ranks cannot form, by the JAX
+    # package's words, before any data is built
     monkeypatch.setattr(cli, "_build_data", lambda config: 1 / 0)
-    monkeypatch.delenv("WORLD_SIZE", raising=False)
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "h:1")
+    for name in (*tmesh.COORDINATOR_ENV, "WORLD_SIZE", "SLURM_JOB_NUM_NODES",
+                 "TPU_WORKER_HOSTNAMES"):
+        monkeypatch.delenv(name, raising=False)
     config = config_from_dict({"device": "cpu", "mesh": {"multihost": True}})
-    with pytest.raises(RuntimeError, match="item 10"):
+    with pytest.raises(RuntimeError, match=(
+            r"^mesh\.multihost=true but no coordinator could be found")):
         cli._restore_predictor(config)
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "h:1")
+    with pytest.raises(RuntimeError, match="names a coordinator, but not "
+                       "torchrun's MASTER_ADDR/MASTER_PORT/RANK/WORLD_SIZE"):
+        cli._restore_predictor(config)
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
+    monkeypatch.setattr(tmesh, "world_size", lambda: 3)
+    two = config_from_dict({"device": "cpu", "mesh": {"model_axis": 2}})
+    want = _jax_runtime(-1, 2, 1, 3)
+    assert want == "mesh 1x2 != 3 available devices"
+    for command in (cli._restore_predictor,
+                    lambda c: cli.predict_command(c, "in", "out"),
+                    lambda c: cli.recommend_command(c, 1, 5, False),
+                    lambda c: cli.serve_command(c, "127.0.0.1", 0)):
+        with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 10") \
+                as info:
+            command(two)
+        assert str(info.value).startswith(want)
 
 
 def test_export_checks_the_runtime_on_its_serving_mesh(monkeypatch,

@@ -105,7 +105,7 @@ def served(data_dirs, fitted):
     )
     save_best(model, tconfig.output_dir, epoch=1, best_metric=0.5)
 
-    adapter, packed, _, _, _, predictor = _restore_predictor(tconfig)
+    adapter, packed, _, _, _, predictor, _ = _restore_predictor(tconfig)
     service = ScoringService(adapter, packed, predictor, "xdeepfm")
     service.warmup()
     server = make_http_server(service, "127.0.0.1", 0)

@@ -148,3 +148,42 @@ def np_stream(n: int, rows: int, dcol: int, seed: int, skew: int | None):
     rng = np.random.default_rng(seed)
     ids = rng.integers(0 if skew is None else skew, rows, n).astype(np.int64)
     return ids, rng.normal(size=(n, dcol)).astype(np.float32)
+
+
+def ring_attention(mesh, cases: list[dict]) -> list[dict]:
+    """Each case's ``ring_field_attention`` at its (data, model) ``axes``
+    (the spawned mesh, or one built for the case by every rank): the rank
+    takes its data index's rows of the whole (B, F, H, Dh) ``q`` / ``k`` /
+    ``v`` (each data row runs its own ring) and its field block, in the
+    case's ``dtype``; returns its output block and, with ``grads``, the
+    gradients of its block of q, k and v by sum(out²) (summed over the
+    ranks, the whole loss: the hops carry the gradient between them)."""
+    from deepfm_tpu_torch.parallel import (
+        batch_rows,
+        build_mesh,
+        field_block,
+        ring_field_attention,
+    )
+
+    meshes = {(mesh.data, mesh.model): mesh}
+    out = []
+    for case in cases:
+        axes = tuple(case["axes"])
+        if axes not in meshes:
+            meshes[axes] = build_mesh(*axes, device="cpu")
+        m = meshes[axes]
+        dtype = getattr(torch, case["dtype"])
+        blocks = []
+        for name in ("q", "k", "v"):
+            whole = torch.from_numpy(case[name])
+            x = field_block(m, whole[batch_rows(m, whole.shape[0])])
+            blocks.append(x.to(dtype).clone().requires_grad_(case["grads"]))
+        got = ring_field_attention(*blocks, m)
+        rec = {"axes": axes, "data_index": m.data_index,
+               "model_index": m.model_index, "out": got.detach().float()}
+        if case["grads"]:
+            (got.float() ** 2).sum().backward()
+            rec.update({f"d{n}": b.grad.float()
+                        for n, b in zip("qkv", blocks)})
+        out.append(rec)
+    return out
