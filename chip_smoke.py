@@ -4693,9 +4693,12 @@ def dp_checks(mesh) -> dict:
     def dp_grads(fault):
         trainer = Trainer(create_model("deepfm", small, cfg, mesh=mesh),
                           small, cfg, mesh=mesh)
+        step = trainer._step_fn
         with dp_fault(fault):
-            loss, grads = trainer._step_fn.loss_and_grads(
-                trainer, *dp_local(arrays, mesh, mesh.device))
+            loss, grads = step.forward_backward(
+                *dp_local(arrays, mesh, mesh.device))
+            with torch.no_grad():
+                loss, grads, _ = step.reduce_partials(loss, grads)
         return loss.item(), {n: g.detach().cpu() for n, g in grads.items()}
 
     grads = {"sound": dp_grads(None),
@@ -5162,8 +5165,11 @@ def ms_checks(mesh) -> dict:
 
     def two_pass_grads(case):
         trainer, cfg = ms_trainer(mesh, small, case, compute_dtype="float32")
-        loss, grads = trainer._step_fn.loss_and_grads(
-            trainer, *dp_local(arrays, mesh, mesh.device))
+        step = trainer._step_fn
+        loss, grads = step.forward_backward(
+            *dp_local(arrays, mesh, mesh.device))
+        with torch.no_grad():
+            loss, grads, _ = step.reduce_partials(loss, grads)
         whole = {n: (collectives.all_gather_rows(mesh.model_group, g)
                      if is_table_path(n) else g).detach().cpu()
                  for n, g in grads.items()}

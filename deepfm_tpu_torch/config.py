@@ -26,7 +26,19 @@ Sections the port does not read yet (``benchmark``, most of
     without ``allow_single_process``, is refused;
   * ``profile.debug_nans`` — the train step raises ``FloatingPointError``
     at the first non-finite loss or gradient (``training/steps.py``), and
-    ``profile.trace_dir`` — a ``torch.profiler`` trace of ``train``.
+    ``profile.trace_dir`` — a ``torch.profiler`` trace of ``train``
+    (``trace.json``), which carries the port's own ranges
+    (``utils/tracing.py``, on while the profiler runs):
+    ``deepfm.train.plan`` (the epoch's shuffle and each chunk's gather),
+    ``deepfm.train.stage`` (a chunk copied to the device),
+    ``deepfm.train.wait`` (the host blocked on the losses),
+    ``deepfm.step.forward`` / ``.backward`` / ``.update`` (a train step's
+    lookup, model and loss; its ``autograd.grad``; its norm, clip and
+    updates) and, in each epoch's val evaluation (not the final test
+    evaluation, after the trace stops), ``deepfm.score.stage``,
+    ``deepfm.score.forward`` (a batch) and ``deepfm.score.fetch`` (a
+    chunk's scores to the host); each epoch's spans are also logged in one
+    ``spans:`` line and kept in ``Trainer.timings["spans"]``.
 """
 
 from __future__ import annotations

@@ -8,7 +8,10 @@ batches as ``training.stage_budget_mb`` holds (``budget_batches``, the JAX
 ``torch.inference_mode`` in batches of ``training.batch_size``, and each
 chunk's scores come back in one host fetch. The JAX package pads the last
 batch to a static shape for its compiled scan; eager PyTorch needs no
-padding, so the last batch is just shorter.
+padding, so the last batch is just shorter. Its spans (``utils/tracing.py``)
+are ``score.stage`` (a staging copy, twice a chunk; counter
+``score.stage_bytes``), ``score.forward`` (a batch's ``model.predict``) and
+``score.fetch`` (a chunk's scores to the host).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from torch import nn
 from deepfm_tpu_torch.config import ExperimentConfig
 from deepfm_tpu_torch.data.packing import PackedArrays, PackedSchema
 from deepfm_tpu_torch.device import resolve_device
+from deepfm_tpu_torch.utils import tracing
 
 
 class Predictor:
@@ -56,9 +60,11 @@ class Predictor:
         """A chunk on the device. A chunk of a read-only memory-mapped
         split (``data/store.py``) is read into a host copy first; an
         in-memory one is not copied on the host."""
-        return torch.from_numpy(np.require(a, requirements=("C", "W"))).to(
-            self.device, non_blocking=True
-        )
+        with tracing.span("score.stage"):
+            host = np.require(a, requirements=("C", "W"))
+            out = torch.from_numpy(host).to(self.device, non_blocking=True)
+        tracing.count("score.stage_bytes", host.nbytes)
+        return out
 
     def predict(self, data: PackedArrays) -> np.ndarray:
         n = len(data)
@@ -72,10 +78,12 @@ class Predictor:
             for lo in range(0, n, chunk):
                 ids = self._stage(data.ids[lo : lo + chunk])
                 dense = self._stage(data.dense[lo : lo + chunk])
-                parts = [
-                    self.model.predict(ids[i : i + bs], dense[i : i + bs])[:, 0]
-                    for i in range(0, ids.shape[0], bs)
-                ]
+                parts = []
+                for i in range(0, ids.shape[0], bs):
+                    with tracing.span("score.forward"):
+                        parts.append(self.model.predict(
+                            ids[i : i + bs], dense[i : i + bs])[:, 0])
                 part = torch.cat(parts) if len(parts) > 1 else parts[0]
-                scores.append(part.cpu().numpy())
+                with tracing.span("score.fetch"):
+                    scores.append(part.cpu().numpy())
         return scores[0] if len(scores) == 1 else np.concatenate(scores)

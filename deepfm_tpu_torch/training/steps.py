@@ -87,6 +87,11 @@ norm of the gradients the step has). The first step where either is not
 raises ``FloatingPointError``. Unset, the step reads nothing back.
 Dropout draws from the trainer's generator (``Trainer.dropout_generator``),
 so with dropout > 0 the masks differ from the JAX package's.
+
+Every path runs in three spans of ``utils/tracing.py``: ``step.forward``
+(the sparse-fused path's row gather, the loss, the lazy path's L2 term),
+``step.backward`` (the ``torch.autograd.grad`` call) and ``step.update``
+(everything after it: the all-reduce, norm, clip and the updates).
 """
 
 from __future__ import annotations
@@ -116,6 +121,7 @@ from deepfm_tpu_torch.training.sparse_opt import (
     table_ids_for_batch,
 )
 from deepfm_tpu_torch.training.trainer import _is_table_name
+from deepfm_tpu_torch.utils import tracing
 
 
 def weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
@@ -154,6 +160,7 @@ def build_train_step(trainer):
     clip = config.training.gradient_clip_norm
     params = dict(model.named_parameters())
     order = leaf_order(params)
+    dense_names = [n for n in order if not _is_table_name(n)]
     debug_nans = config.profile.debug_nans
     mesh = trainer.mesh
     data_group = None if mesh is None else mesh.data_group
@@ -244,19 +251,20 @@ def build_train_step(trainer):
         tx.apply(dense, params, opt_state)
         return gnorm
 
-    def loss_and_grads(trainer, ids, dense, labels, weights):
-        """The loss and every leaf's gradient, the table's densified by
-        its lookup's backward, summed over the ranks under a mesh (the
-        plain and two-pass paths)."""
-        loss = forward_loss(ids, dense, labels, weights)
-        grads, _ = grads_of(loss, order)
-        with torch.no_grad():
-            loss, grads, _ = reduce_partials(loss, grads)
+    def forward_backward(ids, dense, labels, weights):
+        """The rank's loss and every leaf's gradient, the table's
+        densified by its lookup's backward (the plain and two-pass
+        paths)."""
+        with tracing.span("step.forward"):
+            loss = forward_loss(ids, dense, labels, weights)
+        with tracing.span("step.backward"):
+            grads, _ = grads_of(loss, order)
         return loss, grads
 
     def plain_step(trainer, ids, dense, labels, weights):
-        loss, grads = loss_and_grads(trainer, ids, dense, labels, weights)
-        with torch.no_grad():
+        loss, grads = forward_backward(ids, dense, labels, weights)
+        with tracing.span("step.update"), torch.no_grad():
+            loss, grads, _ = reduce_partials(loss, grads)
             if debug_nans:
                 check_finite(trainer, loss, tx.norm(grads))
             tx.update(grads, params, trainer.state.opt_state)
@@ -264,8 +272,9 @@ def build_train_step(trainer):
 
     def two_pass_step(trainer, ids, dense, labels, weights):
         state = trainer.state
-        loss, grads = loss_and_grads(trainer, ids, dense, labels, weights)
-        with torch.no_grad():
+        loss, grads = forward_backward(ids, dense, labels, weights)
+        with tracing.span("step.update"), torch.no_grad():
+            loss, grads, _ = reduce_partials(loss, grads)
             table_sq = table_sumsq(model_group, {
                 n: sumsq(grads[n] + wd * params[n])
                 for n in trainer.table_names})
@@ -286,13 +295,14 @@ def build_train_step(trainer):
 
     def sparse_fused_step(trainer, ids, dense, labels, weights):
         state = trainer.state
-        gathered = gather_group_rows(model.embedding, ids)
-        rows_in = {k: rows.requires_grad_()
-                   for k, (rows, _) in gathered.items()}
-        loss = forward_loss(ids, dense, labels, weights, rows_in)
-        dense_names = [n for n in order if not _is_table_name(n)]
-        grads, cts = grads_of(loss, dense_names, rows_in.values())
-        with torch.no_grad():
+        with tracing.span("step.forward"):
+            gathered = gather_group_rows(model.embedding, ids)
+            rows_in = {k: rows.requires_grad_()
+                       for k, (rows, _) in gathered.items()}
+            loss = forward_loss(ids, dense, labels, weights, rows_in)
+        with tracing.span("step.backward"):
+            grads, cts = grads_of(loss, dense_names, rows_in.values())
+        with tracing.span("step.update"), torch.no_grad():
             # <ct, rows> on each rank's own pairs, summed with the
             # gradients; the pairs are all-gathered, not the rows
             loss, grads, dots = reduce_partials(loss, grads, [
@@ -333,11 +343,14 @@ def build_train_step(trainer):
 
     def lazy_step(trainer, ids, dense, labels, weights):
         state = trainer.state
-        loss = forward_loss(ids, dense, labels, weights)
-        if l2 > 0 and (not dp or mesh.data_index == 0):
-            loss = loss + embedding_l2_loss(params, l2, exclude_tables=True)
-        grads, _ = grads_of(loss, order)
-        with torch.no_grad():
+        with tracing.span("step.forward"):
+            loss = forward_loss(ids, dense, labels, weights)
+            if l2 > 0 and (not dp or mesh.data_index == 0):
+                loss = loss + embedding_l2_loss(params, l2,
+                                                exclude_tables=True)
+        with tracing.span("step.backward"):
+            grads, _ = grads_of(loss, order)
+        with tracing.span("step.update"), torch.no_grad():
             loss, grads, _ = reduce_partials(loss, grads)
             gnorm = tx.norm(grads) if clip > 0 or debug_nans else None
             check_finite(trainer, loss, gnorm)
@@ -375,5 +388,8 @@ def build_train_step(trainer):
         trainer.state.step = trainer.state.step + 1
         return loss.detach()
 
-    train_step.loss_and_grads = loss_and_grads
+    # the plain and two-pass paths' loss and gradients, before and after
+    # the all-reduce (chip_smoke.py's gradient checks)
+    train_step.forward_backward = forward_backward
+    train_step.reduce_partials = reduce_partials
     return train_step

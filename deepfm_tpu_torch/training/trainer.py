@@ -13,7 +13,9 @@ device with one host read a chunk), ``predict`` / ``evaluate`` (on
 resampling prefetched on a worker thread, the learning-rate scheduler
 stepped once an epoch on the val metric (the first epoch runs at
 ``scheduler.lr``), early stopping, best checkpoints, resume, throughput and
-history, an optional ``torch.profiler`` trace (``profile.trace_dir``), and
+history, an optional ``torch.profiler`` trace (``profile.trace_dir``, with
+the port's ``deepfm.*`` spans of ``utils/tracing.py``, each epoch's also
+logged and kept in ``timings["spans"]``), and
 the final test evaluation on the last epoch's state and results.json
 (``training/persistence.py``). With ``profile.debug_nans`` a step raises
 ``FloatingPointError`` before its update when its loss or global gradient
@@ -102,6 +104,7 @@ from deepfm_tpu_torch.training.sparse_opt import (
     TableSlotState,
     init_table_state,
 )
+from deepfm_tpu_torch.utils import tracing
 from deepfm_tpu_torch.utils.logging import get_logger
 
 @dataclass
@@ -239,11 +242,12 @@ class Trainer:
         self.history: list[dict] = []
         # where each epoch's seconds went (host clock): staging, the val
         # evaluation and its scoring (the rest is the metrics' numpy); and
-        # the final test evaluation's
-        self.timings: dict[str, list[float]] = {
+        # the final test evaluation's. While tracing is on, "spans" has
+        # each epoch's spans and counters (``tracing.since``)
+        self.timings: dict[str, list] = {
             "epoch_seconds": [], "stage_seconds": [], "val_seconds": [],
             "val_predict_seconds": [], "test_seconds": [],
-            "test_predict_seconds": []}
+            "test_predict_seconds": [], "spans": []}
         self._predict_seconds = 0.0
         self._stage_seconds = 0.0
         self._launches_at_start: dict[str, int] | None = None
@@ -383,14 +387,17 @@ class Trainer:
         f32."""
         dtypes = (torch.int64, torch.float32, torch.float32, torch.float32)
         rows = batch_rows(self.mesh, arrays[0].shape[1])
+        out, nbytes = [], 0
         t0 = time.perf_counter()
-        out = tuple(
-            torch.from_numpy(np.ascontiguousarray(a[:, rows])).to(
-                self.device, non_blocking=True).to(dt)
-            for a, dt in zip(arrays, dtypes)
-        )
+        with tracing.span("train.stage"):
+            for a, dt in zip(arrays, dtypes):
+                host = np.ascontiguousarray(a[:, rows])
+                nbytes += host.nbytes
+                out.append(torch.from_numpy(host).to(
+                    self.device, non_blocking=True).to(dt))
         self._stage_seconds += time.perf_counter() - t0
-        return out
+        tracing.count("train.stage_bytes", nbytes)
+        return tuple(out)
 
     # ------------------------------------------------------------------
     # training loop
@@ -407,7 +414,8 @@ class Trainer:
         # chunk i + 1 is staged while chunk i's steps run; before staging
         # chunk i + 2 the host reads chunk i's loss, so at most two staged
         # chunks are on the device, whatever the epoch's size
-        nxt = next(plan, None)
+        with tracing.span("train.plan"):
+            nxt = next(plan, None)
         staged_next = self._stage(nxt[1]) if nxt is not None else None
         nb, losses, prev_loss = 0, [], None
         while nxt is not None:
@@ -418,15 +426,18 @@ class Trainer:
                 loss = self._train_step(*(a[i] for a in staged))
                 chunk_loss = loss if chunk_loss is None else chunk_loss + loss
             staged = None  # released once its steps have run
-            nxt = next(plan, None)
+            with tracing.span("train.plan"):
+                nxt = next(plan, None)
             if nxt is not None:
                 if prev_loss is not None:
-                    float(prev_loss)
+                    with tracing.span("train.wait"):
+                        float(prev_loss)
                 staged_next = self._stage(nxt[1])
             losses.append(chunk_loss)
             prev_loss = chunk_loss
             nb += cb
-        total_loss = sum(float(x) for x in losses)
+        with tracing.span("train.wait"):
+            total_loss = sum(float(x) for x in losses)
         n_examples = (nb * tc.batch_size if drop
                       else min(n, nb * tc.batch_size))
         return total_loss / max(nb, 1), n_examples
@@ -452,6 +463,9 @@ class Trainer:
         epoch = self.epoch
 
         profiler = None
+        # the port's spans (utils/tracing.py) open their deepfm.* ranges
+        # in the trace while the profiler runs
+        tracing_was_on = tracing.enabled()
         if self.config.profile.trace_dir:
             from torch.profiler import ProfilerActivity, profile
 
@@ -460,6 +474,7 @@ class Trainer:
                 activities.append(ProfilerActivity.CUDA)
             profiler = profile(activities=activities)
             profiler.start()
+            tracing.enable()
 
         # The per-epoch resample runs on the host; the next epoch's is
         # prefetched on a worker thread while this epoch trains. One
@@ -489,6 +504,7 @@ class Trainer:
                         self.adapter.resample_train)
 
                 self._stage_seconds = 0.0
+                traced = tracing.snapshot() if tracing.enabled() else None
                 t0 = time.perf_counter()
                 train_loss, n_examples = self._train_epoch()
                 dt = time.perf_counter() - t0
@@ -525,6 +541,10 @@ class Trainer:
                     f"(staging {self._stage_seconds:.2f})  "
                     f"val_s={val_seconds:.2f}"
                 )
+                if traced is not None:
+                    spent = tracing.since(traced)
+                    self.timings["spans"].append(spent)
+                    self.logger.info(f"  spans: {tracing.describe(spent)}")
                 self.history.append({
                     "epoch": epoch,
                     "train_loss": float(train_loss),
@@ -571,6 +591,8 @@ class Trainer:
                 # must find where the synchronous sequence leaves it
                 resample_pool.shutdown(wait=True, cancel_futures=True)
             if profiler is not None:
+                if not tracing_was_on:
+                    tracing.disable()
                 profiler.stop()
                 trace = Path(self.config.profile.trace_dir)
                 trace.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,5 @@
 """Host-side utilities of the port: table-layout conversion, results.json,
-run logging and seeding."""
+run logging, seeding and tracing (``tracing.py``)."""
 
 from deepfm_tpu_torch.utils.io import save_results
 from deepfm_tpu_torch.utils.logging import get_logger
