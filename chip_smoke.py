@@ -30,14 +30,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
   cin_stack_bwd  the CIN-stack backward kernels (f32 on the FP32 pipes,
              bf16 on the tensor cores) against their plain version on the
              card at bench.py's xDeepFM shape in f32 and bf16, at the
-             ragged shape in f32 and bf16 and at the MovieLens configs'
-             CIN in f32 (CIN_BWD_TOL), launched twice to show the same
+             ragged shape in f32 and bf16, at the MovieLens configs'
+             CIN in f32 and at the xDeepFM paper's Criteo CIN (B=4096,
+             F=39, D=10, 3 x 200 maps) in bf16, the streamed layout of its
+             plan (CIN_BWD_TOL), launched twice to show the same
              bits and that each went through its own kernel, timed beside
              its bound, its plain version and autograd through the plain
              forward (below_library, TFLOP/s, the plan), with its device
              time split by kernel (launch_breakdown: the tile kernel, dW,
-             the split sums, db); in bf16 the check must refuse the plain
-             backward without its dcomp rounding;
+             the split sums, db); in bf16 with the compiled tile kernel's
+             registers, local memory, static shared memory and blocks an
+             SM, and where the plan is streamed, the layers route's time
+             on the same inputs (layers_ms, the route the bf16 backward
+             took before the streamed layout); in bf16 the check must
+             refuse the plain backward without its dcomp rounding, and
+             the kernel is held besides to the plain version under the
+             kernel's own ReLU masks (read from its dcomp workspace) at
+             CIN_BWD_TOL, whose masks may part from the plain version's
+             only within rounding of 0 (MASK_FLIP_TOL), with the mean
+             relative error of each against the f32 backward under those
+             masks; at the paper's CIN that is the gate, the comparison
+             under the plain version's own masks is reported
+             (CIN_BWD_OWN_MASKS_UNGATED);
   cin_compress  the per-layer CIN kernel against its plain version on the
              card in f32 at the three layer shapes of the xDeepFM paper's
              CIN (B=4096, F=27, D=10, 200 maps, H = 27, 200, 200) and a
@@ -144,13 +158,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              [400, 400], batch 4096, Adam) on bench.py's workload at
              width 10, through create_model and Trainer on the default
              sparse-fused path: timed and profiled as train_models, the
-             launches of its 14 steps (the stack forward, three
-             cin_compress per step for the backward's layers route, no
-             stack backward), the trainer's device memory freed on deletion
-             without the cycle collector, and at 20k ids, batch GRAD_BATCH,
-             f32, the first-step gradients on the card against the CPU,
-             with a planted fault that must be refused (layer 1's dW taken
-             from the wrong hidden state);
+             launches of its 14 steps (the bf16 stack forward and stack
+             backward once a step, no cin_compress), the trainer's device
+             memory freed on deletion without the cycle collector; at 20k
+             ids in f32, the launches of F32_TRAIN_STEPS steps (the f32
+             stack forward, three cin_compress a step for the backward's
+             layers route), and at batch GRAD_BATCH the first-step
+             gradients on the card against the CPU, their CIN backward by
+             the layers route, with a planted fault that must be refused
+             (layer 1's dW taken from the wrong hidden state);
   train_baselines  the ablation baselines lr, fm and dnn (DNN [512,256,128]
              with BatchNorm) at bench.py's full width and config on the
              sparse-fused path, each timed and profiled as train_models,
@@ -304,8 +320,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              on the path that runs it (serve for the f32 CIN-stack
              forward, the xDeepFM train step for the bf16 CIN-stack
              forward and backward, xDeepFM's f32 first-step gradients for
-             the f32 CIN-stack backward, the paper's xDeepFM train step
-             for cin_compress, the
+             the f32 CIN-stack backward, the paper's xDeepFM f32
+             train steps for cin_compress, the
              AttentionDeepFM train step for the attention kernels, the
              sparse-fused DeepFM step for segment_sumsq and
              sparse_table_adam, the two-pass step for densify_rows_grad and
@@ -420,6 +436,10 @@ CIN_BWD_SHAPES = [
     # the MovieLens configs' CIN (configs/xdeepfm_movielens*.yaml) at their
     # batch, in f32, the default compute dtype: one backward a train step
     ("movielens_f32", 4096, 16, 16, (128, 128, 64), True, "float32"),
+    # the xDeepFM paper's CIN on Criteo's 39 fields at its batch (the
+    # benchmark's xdeepfm-paper configuration), in bf16: the streamed
+    # layout, where the f32 count sends the f32 backward to the layers route
+    ("paper_bf16", PAPER_BATCH, 39, PAPER_WIDTH, PAPER_CIN, False, "bfloat16"),
 ]
 # (name, B, F, d, attention_dim, heads, dtype) of the attention block with
 # residual + LayerNorm (bench.py's AttentionDeepFM: 4 heads of 16, d=16)
@@ -472,6 +492,20 @@ CIN_BWD_TOL = {
 # check must refuse the route with layer 1's dW taken from the wrong hidden
 # state (dw_from_wrong_hidden).
 ROUTE_BWD_TOL = {"mean_rel": 1e-3, "norm_rel": 1e-2}
+# The bf16 CIN backward's ReLU masks, the kernel's remat against the plain
+# version's f32 comps. A comp's two remats differ by the order of their f32
+# sums and by roundings of the hidden state to bf16 that land a step apart
+# (at most 2^-7 of an element), so a mask may part only where the plain
+# comp lies within 2^-7 of its scale, the sum of the absolute products that
+# form it; 2^-6 leaves room for a flip in the layer before. A wrong remat
+# parts masks at comps of every size, about half of them.
+MASK_FLIP_TOL = {"over_scale": 2.0 ** -6, "share": 1e-3}
+# bf16 shapes whose kernel is held to the plain version under the kernel's
+# own masks alone (with MASK_FLIP_TOL on the masks): at the paper's CIN
+# (K = H*F = 7,800 products a comp) the two remats' masks part on more
+# comps than at bench.py's shape, and the comparison under the plain
+# version's own masks has no limit read at this shape yet
+CIN_BWD_OWN_MASKS_UNGATED = {"paper_bf16"}
 ATTN_TOL = {
     "float32": {"rtol": 1e-4, "atol_rel": 1e-5, "outside_share": 0.0,
                 "mean_rel": 1e-5, "differ_share": None},
@@ -560,6 +594,9 @@ LONG_RUN_SEGSQ_MS = 0.5
 # of PACK, with ids drawn in [-5, rows + 5), so some fall outside it
 RAGGED_ROWS, RAGGED_PAIRS = 1_000_003, 99_999
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# steps of the xDeepFM paper's configuration in f32, whose launches are
+# counted (after one untimed step)
+F32_TRAIN_STEPS = 3
 TRAIN_MODELS = ("xdeepfm", "attention_deepfm")
 # kernels that must show in each of PROFILED_STEPS profiled steps of a model
 PROFILE_WATCH = {"attention_deepfm": ("attn_fwd_kernel", "attn_bwd_kernel")}
@@ -1055,6 +1092,75 @@ def cin_bwd_bound(bsz, f, d, layer_sizes, split_half, bf16):
     return 1e3 * t_bytes, "bytes", flops
 
 
+def kernel_masks(x0, ws, bs, g, layers, split) -> list:
+    """Each layer's ReLU mask (B, M, D) as the bf16 tile kernel's remat
+    took it, read from the dW step's workspace: a map handed on to the next
+    layer by its hidden state there (> 0); any other (the last layer's, and
+    with split-half the pooled ones) by its dcomp (not 0), whose cotangent
+    is g's alone, drawn from a normal law. (A handed-on map's dcomp is 0
+    also where all of the next layer's masks are off, so it does not show
+    the mask.)"""
+    import torch
+
+    from deepfm_tpu_torch.ops.cin import cin_layer_sizes
+    from deepfm_tpu_torch.ops.kernels import cin_stack
+
+    work = {}
+    cin_stack._cin_stack_bwd_mma_cuda(x0, ws, bs, g, layers, split,
+                                      workspace=work)
+    bsz, _, d = x0.shape
+    direct, nxt = cin_layer_sizes(layers, split)
+
+    def rows(t, sizes):
+        return torch.split(t[:sum(sizes), :bsz * d].reshape(-1, bsz, d),
+                           list(sizes))
+
+    dcomp = rows(work["dcomp"], layers)
+    hid = rows(work["hid"], nxt[:-1]) if len(layers) > 1 else ()
+    masks = []
+    for i in range(len(layers)):
+        mask = dcomp[i] != 0
+        if i < len(layers) - 1:
+            mask = torch.cat([mask[:direct[i]], hid[i] > 0]) if split \
+                else hid[i] > 0
+        masks.append(mask.permute(1, 0, 2))
+    return masks
+
+
+def mask_flips(x0, ws, bs, layers, split, masks) -> dict:
+    """Per layer, where ``masks`` part from the plain bf16 remat's comp >
+    0: their share of the layer's comps and the largest |comp| there over
+    its scale (sum of |w| * |op(hid) x0| over the products that form it),
+    and whether both pass MASK_FLIP_TOL."""
+    import torch
+
+    from deepfm_tpu_torch.ops.cin import cin_compress, cin_layer_sizes
+
+    def op(t):
+        return t.to(torch.bfloat16).float()
+
+    direct_sizes, _ = cin_layer_sizes(layers, split)
+    x = x0.float()
+    hidden, out = x, []
+    for i, m in enumerate(layers):
+        w = op(ws[i].float())
+        pre = cin_compress(op(hidden), x, w, bs[i].float(), op)
+        scale = cin_compress(op(hidden).abs(), x.abs(), w.abs(),
+                             torch.zeros_like(bs[i]), op)
+        flip = masks[i] != (pre > 0)
+        over = (pre.abs() / scale.clamp_min(1e-30))[flip]
+        out.append({"share": flip.float().mean().item(),
+                    "count": int(flip.sum()),
+                    "max_over_scale": over.max().item() if over.numel() else 0.0})
+        comp = torch.relu(pre)
+        hidden = comp[:, direct_sizes[i]:] if split and i < len(layers) - 1 \
+            else comp
+        del pre, scale, flip
+    ok = all(o["share"] <= MASK_FLIP_TOL["share"]
+             and o["max_over_scale"] <= MASK_FLIP_TOL["over_scale"] for o in out)
+    return {"layers": out, "ok": ok, "tol": MASK_FLIP_TOL}
+
+
 def cin_grads_named(res) -> dict:
     dx0, dws, dbs = res
     return {"dx0": dx0, **{f"dW{i}": t for i, t in enumerate(dws)},
@@ -1066,7 +1172,9 @@ def phase_cin_stack_bwd() -> dict:
 
     from deepfm_tpu_torch.ops.cin import cin_layer_sizes
     from deepfm_tpu_torch.ops.kernels.cin_stack import (
+        bwd_mma_attributes,
         cin_stack_backward,
+        cin_stack_backward_layers,
         cin_stack_backward_plain,
         cin_stack_bwd_mma,
         cin_stack_plain,
@@ -1113,12 +1221,14 @@ def phase_cin_stack_bwd() -> dict:
         want = cin_grads_named(plain())
         same_bits = all(torch.equal(got[o], again[o]) for o in got)
         cmp = grad_compare(got, want, tol, "dx0")
-        if not (cmp["ok"] and same_bits):
+        gated = not (bf16 and name in CIN_BWD_OWN_MASKS_UNGATED)
+        failed_before = len(failures)
+        if not same_bits or (gated and not cmp["ok"]):
             failures.append(f"{name}: kernel outside tolerance {tol} or not "
                             f"repeatable ({same_bits}): {cmp}")
         if launched != (2, 0):
             failures.append(f"{name}: the launches went elsewhere: {launched}")
-        controls = {}
+        controls, masked = {}, {}
         if bf16:
             ctl = grad_compare(cin_grads_named(plain(dcomp_round=False)),
                                want, tol, "dx0")
@@ -1126,6 +1236,36 @@ def phase_cin_stack_bwd() -> dict:
             if ctl["ok"]:
                 failures.append(f"{name}: the bf16 check passes a kernel "
                                 f"without the dcomp rounding: {ctl}")
+            # the plain version under the kernel's own ReLU masks: the two
+            # then differ by their arithmetic alone; the masks themselves
+            # may part from the plain version's only within rounding of 0
+            masks = kernel_masks(x0, ws, bs, g, layers, split)
+            flips = mask_flips(x0, ws, bs, layers, split, masks)
+            want_m = cin_grads_named(plain(masks=masks))
+            cmp_m = grad_compare(got, want_m, tol, "dx0")
+            ctl_m = grad_compare(
+                cin_grads_named(plain(masks=masks, dcomp_round=False)),
+                want_m, tol, "dx0")
+            # which is the nearer to the backward without a rounding point
+            # (f32) under the kernel's masks: the kernel or the plain version
+            exact = cin_grads_named(cin_stack_backward_plain(
+                x0.float(), ws, bs, g, layers, split, masks=masks))
+            nearer = {who: {o: v["mean_rel_err"] for o, v in grad_compare(
+                res, exact, tol, "dx0")["outputs"].items()}
+                for who, res in (("kernel", got), ("plain", want),
+                                 ("plain_under_kernel_masks", want_m))}
+            masked = {"vs_plain_under_kernel_masks": cmp_m,
+                      "mask_flips": flips, "no_dcomp_round": ctl_m,
+                      "mean_rel_vs_f32_under_kernel_masks": nearer}
+            if not (cmp_m["ok"] and flips["ok"]):
+                failures.append(f"{name}: under the kernel's masks, kernel "
+                                f"outside tolerance {tol} ({cmp_m}) or masks "
+                                f"parting beyond rounding ({flips})")
+            if ctl_m["ok"]:
+                failures.append(f"{name}: under the kernel's masks, the check "
+                                f"passes a plain version without the dcomp "
+                                f"rounding: {ctl_m}")
+            del masks, want_m, exact
         del got, again, want
         big = bsz >= 16384
         ms = time_ms(kernel, reps=5 if big else 20)
@@ -1133,14 +1273,25 @@ def phase_cin_stack_bwd() -> dict:
         library_ms = time_ms(library, reps=3 if big else 10, warmup=1)
         bound_ms, bound_by, flops = cin_bwd_bound(bsz, f, d, layers, split, bf16)
         plan = (mma_backward_plan(bsz, f, d, layers, split) if bf16
-                else fp32_backward_plan(bsz, f, d, layers, split, sms)
-                )._asdict()
+                else fp32_backward_plan(bsz, f, d, layers, split, sms))
+        extra = {}
+        if bf16:
+            extra["compiled"] = bwd_mma_attributes(x0, plan)
+            if plan.streamed:
+                extra["layers_ms"] = time_ms(
+                    lambda: cin_stack_backward_layers(x0, ws, bs, g, layers,
+                                                      split), reps=10)
+                extra["layers_route"] = ("cin_stack_backward_layers: "
+                                         "cin_compress, f32 cuBLAS products")
+        plan = plan._asdict()
         rec = {
             "phase": "cin_stack_bwd", "shape": name, "B": bsz, "F": f, "D": d,
             "layers": list(layers), "split_half": split, "dtype": dtype,
             "kernel": "cin_stack_bwd_mma" if bf16 else "cin_stack_bwd",
             "plan": plan, "launched": launched,
-            **cmp, "same_bits": same_bits, "tol": tol, "controls": controls,
+            **cmp, "own_masks_ok": cmp["ok"], "own_masks_gated": gated,
+            "ok": len(failures) == failed_before, "same_bits": same_bits,
+            "tol": tol, "controls": controls, "under_kernel_masks": masked,
             "max_abs_err": max(o["max_abs_err"] for o in cmp["outputs"].values()),
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "autograd through cin_stack_plain (forward + backward)",
@@ -1148,7 +1299,7 @@ def phase_cin_stack_bwd() -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
             "tflops": flops / (ms * 1e-3) / 1e12,
             "breakdown": launch_breakdown(kernel),
-            "launches": counter.launches,
+            "launches": counter.launches, **extra,
         }
         emit(rec)
         results[name] = rec
@@ -3039,10 +3190,11 @@ def dw_from_wrong_hidden():
 def phase_train_xdeepfm_paper() -> dict:
     """The xDeepFM paper's Criteo configuration (paper_config) on bench.py's
     workload at width 10, on the default sparse-fused path with logical
-    tables. Its steps are the main path of cin_compress: the stack forward
-    fits one block, the stack backward does not, so the backward takes the
-    layers route. Then its first-step gradients on the card against the
-    CPU, with a planted fault that must be refused."""
+    tables. Its bf16 steps run the stack forward and the stack backward on
+    the tensor cores (the streamed layout of the backward's plan). Its f32
+    steps, at 20k ids, run the backward by the layers route, the main path
+    of cin_compress. Then its f32 first-step gradients on the card against
+    the CPU, with a planted fault that must be refused."""
     import torch
 
     from deepfm_tpu_torch.models import create_model
@@ -3060,11 +3212,12 @@ def phase_train_xdeepfm_paper() -> dict:
     model = create_model("xdeepfm", packed, config, device=DEVICE)
     trainer = Trainer(model, packed, config)
     setup_s = time.perf_counter() - t0
-    routes = {("backward" if bwd else "forward"): stack_route(
-        PAPER_BATCH, packed.num_fields, PAPER_WIDTH, PAPER_CIN, False, bwd)
-        for bwd in (False, True)}
-    if trainer.path != "sparse_fused" or routes != {"forward": "stack",
-                                                    "backward": "layers"}:
+    routes = {(("backward" if bwd else "forward") + f"_{mode}"): stack_route(
+        PAPER_BATCH, packed.num_fields, PAPER_WIDTH, PAPER_CIN, False, bwd,
+        bf16=mode == "bf16") for bwd in (False, True) for mode in ("bf16", "f32")}
+    if trainer.path != "sparse_fused" or routes != {
+            "forward_bf16": "stack", "forward_f32": "stack",
+            "backward_bf16": "stack", "backward_f32": "layers"}:
         fail(f"paper config: path {trainer.path}, CIN routes {routes}")
     n_params = sum(p.numel() for p in model.parameters())
     table_bytes = sum(p.numel() * p.element_size()
@@ -3083,8 +3236,8 @@ def phase_train_xdeepfm_paper() -> dict:
     losses.append(trainer._train_step(*batch).item())
     steps = WARMUP_STEPS + TIMED_STEPS + 1
     expected = {"cin_stack_fwd_mma": steps, "cin_stack_fwd": 0,
-                "cin_compress": steps * len(PAPER_CIN), "cin_stack_bwd": 0,
-                "cin_stack_bwd_mma": 0}
+                "cin_compress": 0, "cin_stack_bwd": 0,
+                "cin_stack_bwd_mma": steps}
     for kernel, n in expected.items():
         if counts[kernel] != n:
             failures.append(f"{kernel} launched {counts[kernel]} times in "
@@ -3110,12 +3263,41 @@ def phase_train_xdeepfm_paper() -> dict:
                         f"bytes of tables")
     free_device()
 
+    # the f32 configuration's train path at 20k ids: its backward takes the
+    # layers route, the main path of cin_compress (three a step)
     small, small_arrays = bench_workload(SMALL_VOCAB, PAPER_WIDTH)
+    cfg32 = paper_config(DEVICE, compute_dtype="float32")
+    model32 = create_model("xdeepfm", small, cfg32, device=DEVICE)
+    trainer32 = Trainer(model32, small, cfg32)
+    batch32 = batch_on(head_rows(small_arrays, PAPER_BATCH), dev)
+    trainer32._train_step(*batch32).item()
+    reset_counts()
+    f32_losses = [trainer32._train_step(*batch32).item()
+                  for _ in range(F32_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    f32_counts = read_counts()
+    del trainer32, model32, batch32
+    free_device()
+    expected_f32 = {"cin_stack_fwd": F32_TRAIN_STEPS, "cin_stack_fwd_mma": 0,
+                    "cin_compress": F32_TRAIN_STEPS * len(PAPER_CIN),
+                    "cin_stack_bwd": 0, "cin_stack_bwd_mma": 0}
+    for kernel, n in expected_f32.items():
+        if f32_counts[kernel] != n:
+            failures.append(f"f32: {kernel} launched {f32_counts[kernel]} "
+                            f"times in {F32_TRAIN_STEPS} steps, expected {n}")
+    if not all(map(math.isfinite, f32_losses)):
+        failures.append(f"an f32 loss is not finite: {f32_losses}")
+
     small_arrays = head_rows(small_arrays, GRAD_BATCH)
+    reset_counts()
     grads = phase_grads_card_vs_cpu(
         small, small_arrays, cfg=paper_config("cpu", compute_dtype="float32"),
         planted=("layer 1's dW from layer 2's input hidden state",
                  dw_from_wrong_hidden))
+    grad_counts = read_counts()
+    if grad_counts["cin_compress"] < 1 or grad_counts["cin_stack_bwd_mma"]:
+        failures.append(f"the f32 first-step gradients did not take the "
+                        f"layers route: {grad_counts}")
     if not grads["ok"]:
         failures.append(f"first-step gradients: the card differs from the "
                         f"CPU, or the planted fault passed: {grads}")
@@ -3135,6 +3317,10 @@ def phase_train_xdeepfm_paper() -> dict:
         "examples_per_s": PAPER_BATCH / (step_ms / 1e3),
         "peak_memory_gb": peak_gb, "profile_step": profile,
         "launches": counts, "launches_expected": expected,
+        "f32_train": {"vocab": SMALL_VOCAB, "steps": F32_TRAIN_STEPS,
+                      "losses": f32_losses, "launches": f32_counts,
+                      "launches_expected": expected_f32},
+        "launches_first_step_grads_f32": grad_counts,
         "freed_without_gc_gb": freed / 1e9, "table_gb": table_bytes / 1e9,
         "first_step_grads_card_vs_cpu_20k_f32": {"batch": GRAD_BATCH, **grads},
         "tol": {"grad_max_rel": GRAD_MAX_REL, "grad_norm_rel": GRAD_NORM_REL,
@@ -6139,7 +6325,8 @@ def main() -> None:
          models["xdeepfm"]["launches"]["cin_stack_bwd_mma"],
          cin_bwd["bench_bf16"]),
         ("cin_compress", "cin_compress.cu", "cin_kernel.py:97",
-         paper["launches"]["cin_compress"], cin_layer["paper_layer1"]),
+         paper["f32_train"]["launches"]["cin_compress"],
+         cin_layer["paper_layer1"]),
         ("attention_block_fwd", "attention_block.cu",
          "attention_fmajor_kernel.py:435",
          models["attention_deepfm"]["launches"]["attention_block_fwd"],

@@ -35,7 +35,8 @@
 //       the same order), so the comps, and with them the ReLU masks, are
 //       bit for bit those of cin_stack_fwd_mma. Only the sign bits of each
 //       layer's maps (assembled from warp ballots) and the hidden rows, in
-//       f32, are kept.
+//       f32, are kept: in shared memory (the resident layout) or in a
+//       device-memory region of the tile (the streamed one, below).
 //     * dcomp: a warp per map, a lane per column; the tile's db share
 //       summed in f32 over the lane's columns in order, then by a fixed
 //       butterfly of shuffles; dcomp is kept in bf16 (its only use as an
@@ -52,7 +53,8 @@
 //       tiles of a step. A never leaves registers. The tiles go f-chunk
 //       first, so a lane keeps its x0 values and its dx0 sums over h of one
 //       f-chunk in registers: dx0[f, n] += sum_h A * hid[h, n], added to
-//       shared memory once an f-chunk. dhid[h, n], the sum of A * x0 over
+//       its group's dx0 (even or odd h) once an f-chunk; the two are added
+//       at the end. dhid[h, n], the sum of A * x0 over
 //       the tile's 16 rows, is a lane's two rows and then a transposing
 //       butterfly over the 8 row lanes (4 shuffles for 4 columns), added
 //       over the f-chunks in order. A warp owns its columns, so neither
@@ -71,13 +73,37 @@
 //     db_reduce_kernel adds the tiles' db partials of each map in a fixed
 //     tree. The partition depends only on the shapes.
 //
+// Two layouts of the tile kernel's shared memory, chosen by the plan from
+// the shape:
+//  * Resident: every hidden state, dhid and the two dx0 sums in f32 in
+//    shared memory. The plan wherever it fits with one remat pass of every
+//    map, and of every shape whose f32 count (cin_stack.py::stack_smem)
+//    fits one block, whose plans and bits it keeps.
+//  * Streamed, elsewhere, where it fits: each layer's f32 hidden rows,
+//    dhid and the two dx0 sums live in the tile's region of a device-memory
+//    workspace (ws.tiles), and shared memory keeps only the remat's current input
+//    rows, in bf16 (the values the operand rounds to, so the comps stay
+//    the forward's), then its weight stages; A's W^T stages reuse both.
+//    The plan asks one remat pass of as many maps as the warps take. At
+//    the xDeepFM paper's Criteo CIN (F=39, D=10, 3 x 200 maps) the tile
+//    then holds 128 columns (12 samples): remat passes of 128 maps and A
+//    stages of 8 tiles by all 13 map steps, where the resident layout fit
+//    64 columns, 16 maps a pass (one of the remat's four groups of warps
+//    worked) and A stages of 4 tiles by 1 step (half of A's warps found no
+//    columns). The workspace is 350 KB a tile (120 MB at B=4096), written
+//    and read by its own block, mostly from L2. Each block streams every
+//    layer's weights from L2 twice (the remat and A), so the wider tile,
+//    with half the blocks, is the faster: 7.9 against 9.5 ms for the tile
+//    kernel at B=4096 (an H100 80GB HBM3 at 700 W).
+//
 // Ragged batch tiles (zero x0 columns, dcomp 0 there), odd F (zero weight
 // columns, skipped rows), D not a multiple of 8 (columns are (b, d) pairs;
 // the workspace rows are padded to a multiple of 8 and read with zero
 // fill) and M not a multiple of 16 (zero weight rows, dcomp rows 0) are
 // masked. The plan (TB, NTP, WN, whether g is staged, RP, T, KM, shared
-// memory, splits, dW shared memory) is computed by deepfm_tpu_torch/ops/kernels/cin_stack.py::
-// mma_backward_plan; the launch recomputes it here and refuses a mismatch.
+// memory, splits, dW shared memory, in the layout the caller names) is
+// computed by deepfm_tpu_torch/ops/kernels/cin_stack.py::mma_backward_plan;
+// the launch recomputes it here and refuses a mismatch.
 
 #include "cin_stack_mma.cuh"
 
@@ -115,8 +141,8 @@ struct Layers {
 };
 
 struct Plan {
-  int F, D, FC, TB, NTP, WN, WM, NB, RP, KC, T, KM, DS, gstage;
-  int n_layers, msum, hsum, hmax, mp16max, out_dim, splits;
+  int F, D, FC, TB, NTP, WN, WM, NB, RP, KC, T, KM, DS, gstage, stream;
+  int n_layers, msum, hsum, hin, hmax, mp16max, out_dim, splits;
   int o_hid, o_mask, o_dcs, o_dhid, o_dx0, o_xf, o_g, o_region, total, dw_smem;
 };
 
@@ -135,32 +161,50 @@ Plan layout(const Plan& s, int WN, int TB, int gstage, int RP, int T, int KM) {
   p.NTP = round_up(TB * p.D, p.NB);
   p.RP = RP; p.KC = p.NB / 16; p.T = T; p.KM = KM; p.DS = p.NTP + 8;
   const int F = p.F, NTP = p.NTP;
-  p.o_hid = round_up(2 * F * NTP, 16);
-  p.o_mask = p.o_hid + 4 * p.hsum * NTP;
-  p.o_dcs = p.o_mask + round_up(p.msum * NTP / 8, 16);
-  p.o_dhid = p.o_dcs + round_up(2 * p.mp16max * p.DS, 16);
-  p.o_dx0 = p.o_dhid + 4 * p.hmax * NTP;
-  p.o_xf = p.o_dx0 + 2 * 4 * F * p.DS;
-  p.o_g = p.o_xf + 4 * F * p.DS;
-  p.o_region = p.o_g + (gstage ? round_up(4 * TB * p.out_dim, 16) : 0);
   const int remat = 4 * RP * p.NB;                 // two W stages of KC steps
   const int adj = 2 * KM * 16 * (32 * T + 16);     // two W^T stages
-  p.total = p.o_region + (remat > adj ? remat : adj);
+  const int gbytes = gstage ? round_up(4 * TB * p.out_dim, 16) : 0;
+  p.o_mask = round_up(2 * F * NTP, 16);
+  if (!p.stream) {
+    p.o_hid = p.o_mask;
+    p.o_mask += 4 * p.hsum * NTP;
+  }
+  p.o_dcs = p.o_mask + round_up(p.msum * NTP / 8, 16);
+  p.o_dhid = p.o_dcs + round_up(2 * p.mp16max * p.DS, 16);
+  p.o_dx0 = p.o_dhid + (p.stream ? 0 : 4 * p.hmax * NTP);
+  p.o_xf = p.o_dx0 + (p.stream ? 0 : 2 * 4 * F * p.DS);
+  p.o_g = p.o_xf + 4 * F * p.DS;
+  if (p.stream) {
+    // the remat's input rows, then its W stages; A's W^T stages over both
+    p.o_hid = p.o_g + gbytes;
+    p.o_region = p.o_hid + round_up(2 * p.hin * NTP, 16);
+    const int need = p.o_region + remat;
+    p.total = p.o_hid + adj > need ? p.o_hid + adj : need;
+  } else {
+    p.o_region = p.o_g + gbytes;
+    p.total = p.o_region + (remat > adj ? remat : adj);
+  }
   return p;
 }
 
-// The same search as mma_backward_plan: the widest column pass, then the
-// tile's cotangent staged in shared memory, then the most maps a remat
-// pass, then the most A tiles and map steps a chunk, whose shared memory
-// fits one block. False if nothing fits.
-bool make_plan(int batch, int F, int D, const Layers& L, int n_layers, Plan* out) {
+// The same search as mma_backward_plan, in the layout `stream` names.
+// Resident: the widest column pass, then the tile's cotangent staged in
+// shared memory, then the most maps a remat pass, then the most A tiles and
+// map steps a chunk, whose shared memory fits one block. Streamed: the
+// widest column pass that holds one remat pass of every map (of as many as
+// its warps take), then the cotangent staged, then the most A tiles and map
+// steps. False if nothing fits.
+bool make_plan(int batch, int F, int D, const Layers& L, int n_layers, int stream,
+               Plan* out) {
   Plan s = {};
   s.F = F; s.D = D; s.FC = round_up(F, 16) / 16; s.n_layers = n_layers;
   s.hmax = F;
+  s.stream = stream;
   int mmax = 0, dw = 0;
   for (int l = 0; l < n_layers; ++l) {
     s.msum += L.m[l];
     if (l > 0) s.hsum += L.next[l - 1];
+    if (l > 0 && L.next[l - 1] > s.hin) s.hin = L.next[l - 1];
     if (l + 1 < n_layers && L.next[l] > s.hmax) s.hmax = L.next[l];
     if (L.m[l] > mmax) mmax = L.m[l];
     s.out_dim += L.direct[l];
@@ -181,8 +225,9 @@ bool make_plan(int batch, int F, int D, const Layers& L, int n_layers, Plan* out
     const int NB = 32 * WN;
     const int TB = D > NB ? 1 : (batch < NB / D ? batch : NB / D);
     const int most = (kWarps / WN) * 16 * kMT;
+    const int full = s.mp16max < most ? s.mp16max : most;
     for (int gstage = 1; gstage >= 0; --gstage) {
-      for (int RP = s.mp16max < most ? s.mp16max : most; RP >= 16; RP -= 16) {
+      for (int RP = full; RP >= (stream ? full : 16); RP -= 16) {
         for (int T = small_odd ? kATiles / 2 : kATiles; T >= 1; T /= 2) {
           for (int KM = msteps; KM >= 1; --KM) {
             const Plan p = layout(s, WN, TB, gstage, RP, T, KM);
@@ -220,12 +265,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Workspace of the dW step, bf16 rows of Kp = round_up(B*D, 8) columns:
 // xT (F rows) x0 transposed, hid (sum_{i>0} H_i rows) each layer's input
-// hidden state rounded, dcomp (sum M_i rows) each layer's dcomp rounded.
+// hidden state rounded, dcomp (sum M_i rows) each layer's dcomp rounded;
+// and, in the streamed layout, a region of tile_floats f32 a tile: its
+// hidden rows (hsum x NTP), its two dx0 sums (2 x F x DS), then dhid
+// (hmax x NTP).
 struct Workspace {
   bf16* xT;
   bf16* hid;
   bf16* dcomp;
   float* db_part;  // (tiles, msum)
+  float* tiles;    // streamed layout: a region of tile_floats a tile
+  long long tile_floats;
   long long Kp;
 };
 
@@ -280,20 +330,31 @@ __device__ __forceinline__ void remat_epilogue(
 //   xf     F rows of DS columns: x0 (f32), for the group sums
 //   gs     TB x out_dim: the tile's cotangent g (f32), where it fits
 //   region             the remat's W stages, then the A product's W^T stages
+// Streamed, hids, dx0s and dhid are the tile's region of ws.tiles, and
+// after gs come hcur, hin rows: the input hidden state of the layer the
+// remat is at (bf16), then the remat's W stages; A's W^T stages start at
+// hcur.
 __global__ void __launch_bounds__(kThreads, 1)
 cin_bwd_mma_tile_kernel(const bf16* __restrict__ x0, const float* __restrict__ gout,
                         const Layers L, const int batch, const Plan p,
                         float* __restrict__ dx0, const Workspace ws) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* const xs = reinterpret_cast<bf16*>(smem);
-  float* const hids = reinterpret_cast<float*>(smem + p.o_hid);
+  float* const tile_ws = p.stream ? ws.tiles + blockIdx.x * ws.tile_floats : nullptr;
+  // where each layer's f32 hidden rows and the dx0 sums live
+  float* const hids = p.stream ? tile_ws : reinterpret_cast<float*>(smem + p.o_hid);
+  bf16* const hcur = reinterpret_cast<bf16*>(smem + p.o_hid);
   uint32_t* const masks = reinterpret_cast<uint32_t*>(smem + p.o_mask);
   bf16* const dcs = reinterpret_cast<bf16*>(smem + p.o_dcs);
-  float* const dhid = reinterpret_cast<float*>(smem + p.o_dhid);
-  float* const dx0s = reinterpret_cast<float*>(smem + p.o_dx0);
+  float* const dhid = p.stream
+                         ? tile_ws + (size_t)p.hsum * p.NTP + (size_t)2 * p.F * p.DS
+                         : reinterpret_cast<float*>(smem + p.o_dhid);
+  float* const dx0s = p.stream ? tile_ws + (size_t)p.hsum * p.NTP
+                               : reinterpret_cast<float*>(smem + p.o_dx0);
   float* const xf = reinterpret_cast<float*>(smem + p.o_xf);
   float* const gs = reinterpret_cast<float*>(smem + p.o_g);
   bf16* const stages = reinterpret_cast<bf16*>(smem + p.o_region);
+  bf16* const astages = p.stream ? hcur : stages;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -350,10 +411,12 @@ cin_bwd_mma_tile_kernel(const bf16* __restrict__ x0, const float* __restrict__ g
         const int my0 = wm * mtw;
         const int my_mt = max(0, min(mtw, mt - my0));
         float acc[kMT][kNT][4];
-        if (l == 0) {
-          layer_product<kWarps, kMT>(acc, xs, xs, ly, L.w[0], m0, rows, cp0,
-                                     stages, geo, 16 * FC, rstage, tp, my0,
-                                     my_mt);
+        if (l == 0 || p.stream) {
+          // x0, or the streamed layer's input rows in bf16 (the values the
+          // f32 rows round to)
+          layer_product<kWarps, kMT>(acc, xs, l == 0 ? xs : hcur, ly, L.w[l], m0,
+                                     rows, cp0, stages, geo, 16 * FC, rstage, tp,
+                                     my0, my_mt);
         } else {
           const float* hid = hids + (size_t)L.hoff[l] * NTP;
           layer_product<kWarps, kMT>(acc, xs, hid, ly, L.w[l], m0, rows, cp0,
@@ -363,6 +426,13 @@ cin_bwd_mma_tile_kernel(const bf16* __restrict__ x0, const float* __restrict__ g
         remat_epilogue(acc, L.bias[l], M, m0, my0, my_mt, cp0, wn, mk, words,
                        hnext, M - L.next[l], NTP);
       }
+    }
+    if (p.stream && l < last) {
+      // the next layer's input: its f32 rows, written by every pass, in
+      // bf16 into shared memory
+      __syncthreads();
+      for (int i = tid; i < L.next[l] * NTP; i += kThreads)
+        hcur[i] = __float2bfloat16_rn(hnext[i]);
     }
   }
   __syncthreads();
@@ -429,21 +499,26 @@ cin_bwd_mma_tile_kernel(const bf16* __restrict__ x0, const float* __restrict__ g
     const int st_elems = KM * 16 * (2 * T + 1) * 8;
     const bf16* const W = L.w[l];
     const size_t wrow = (size_t)H * FC * 16;
+    // a thread copies granule gq (of the 2T a stage row) of every r_step-th
+    // row (T is a power of two, so 2T divides the block)
+    const int gq = tid & (2 * T - 1);
+    const int r_step = kThreads / (2 * T);
     auto issue = [&](int c) {
       const int mc = c % nmc;
       const int r0 = (c / nmc) % ngroups * T;
-      const int per = 2 * min(T, R - r0);  // granules a row
       const int k0 = mc * KM * 16;
       const int nrow = min(KM * 16, mp16 - k0);
-      bf16* const st = stages + (c & 1) * st_elems;
-      for (int i = tid; i < nrow * per; i += kThreads) {
-        const int r = i / per;
-        const int q = i - r * per;
-        const int rt = r0 + (q >> 1);  // row tile: f-chunk rt / H, h rt % H
+      bf16* const st = astages + (c & 1) * st_elems;
+      const int rt = r0 + (gq >> 1);  // row tile: f-chunk rt / H, h rt % H
+      if (rt < R) {
         const int fc = rt / H;
-        cp_async16(st + astage_off(r, q, T),
-                   W + (size_t)(k0 + r) * wrow + (size_t)(rt - fc * H) * FC * 16 +
-                       fc * 16 + (q & 1) * 8);
+        int r = tid / (2 * T);
+        const bf16* src = W + (size_t)(k0 + r) * wrow + (size_t)(rt - fc * H) * FC * 16 +
+                          fc * 16 + (gq & 1) * 8;
+        for (; r < nrow; r += r_step) {
+          cp_async16(st + astage_off(r, gq, T), src);
+          src += (size_t)r_step * wrow;
+        }
       }
       cp_async_commit();
     };
@@ -451,6 +526,8 @@ cin_bwd_mma_tile_kernel(const bf16* __restrict__ x0, const float* __restrict__ g
     const int wc = warp & 3;   // column group
     const int wr = warp >> 2;  // hidden rows h % 2 == wr
     float* const dx0w = dx0s + (size_t)wr * F * DS;
+    int mine[kAMine];
+    int nmine = 0;
     float acc[kAMine][4][4];
     float2 xa[4], xb[4];  // x0 of rows fa, fb at the lane's columns, per n8 tile
     float2 da[4], db[4];  // their dx0 sums over this warp's h
@@ -487,15 +564,15 @@ cin_bwd_mma_tile_kernel(const bf16* __restrict__ x0, const float* __restrict__ g
       const int ksteps = min(KM, MK - k0);
       const int cb = c / (nmc * ngroups) * kAPass + wc * kACols;
       if (cb >= NTP) continue;
-      // this warp's tiles of the stage: those whose h has its parity
-      int mine[kAMine];
-      int nmine = 0;
-#pragma unroll
-      for (int i = 0; i < kATiles; ++i) {
-        const int rt = r0 + i;
-        if (i < tiles && nmine < kAMine && ((rt - rt / H * H) & 1) == wr) mine[nmine++] = i;
-      }
       if (mc == 0) {
+        // this warp's tiles of the group: those whose h has its parity
+        nmine = 0;
+        int h = r0 - r0 / H * H;
+#pragma unroll
+        for (int i = 0; i < kATiles; ++i) {
+          if (i < tiles && nmine < kAMine && (h & 1) == wr) mine[nmine++] = i;
+          if (++h == H) h = 0;
+        }
 #pragma unroll
         for (int i = 0; i < kAMine; ++i)
 #pragma unroll
@@ -503,7 +580,7 @@ cin_bwd_mma_tile_kernel(const bf16* __restrict__ x0, const float* __restrict__ g
 #pragma unroll
             for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
       }
-      const bf16* const st = stages + (c & 1) * st_elems;
+      const bf16* const st = astages + (c & 1) * st_elems;
       const int lq = lane >> 3, l8 = lane & 7;
       for (int s = 0; s < ksteps; ++s) {
         // B: dcomp[maps of the step, the warp's 32 columns], four n8 tiles
@@ -820,12 +897,16 @@ cudaError_t launch(const bf16* x0, const float* g, const Layers& L, int batch,
 //   x0 (B, F, D) bf16; g (B, sum(direct)) f32; weights_i re-laid out as the
 //   forward's (mma_weight: (round_up(M_i, 16), H_i * round_up(F, 16))
 //   bf16), biases_i (M_i,) f32; m, direct, next ints.
-//   (TB, NTP, WN, gstage, RP, T, KM, smem, splits, dw_smem) is the caller's plan;
+//   (TB, NTP, WN, gstage, RP, T, KM, smem, splits, dw_smem) is the
+//   caller's plan in the layout `streamed` names (0 resident, 1 streamed);
 //   it must equal the plan recomputed here.
 //   Outputs: dx0 (B, F, D) f32, dws_i (M_i, H_i*F) f32, db (sum M_i,) f32.
 //   Workspace: xT (F, Kp), hid (max(1, sum_{i>0} H_i), Kp) and dcomp (sum
 //   M_i, Kp) bf16 with Kp = round_up(B*D, 8); db_part (tiles, sum M_i) and
-//   dw_part (splits * sum_i M_i*H_i*F) f32. Nothing needs zeroing.
+//   dw_part (splits * sum_i M_i*H_i*F) f32; streamed, tile_ws (tiles *
+//   ((sum_{i>0} H_i + hmax) * NTP + 2 * F * (NTP + 8))) f32, hmax the
+//   most hidden rows of a layer (unread otherwise).
+//   Nothing needs zeroing.
 // Returns a cudaError_t: 0 on a successful launch. The kernels run on
 // `stream` and nothing here synchronises.
 extern "C" int cin_stack_bwd_mma(
@@ -833,8 +914,9 @@ extern "C" int cin_stack_bwd_mma(
     const void* const* biases, const int* m, const int* direct,
     const int* next, int n_layers, int batch, int F, int D, int TB, int NTP,
     int WN, int gstage, int RP, int T, int KM, int smem, int splits,
-    int dw_smem, float* dx0, void* xT, void* hid, void* dcomp, float* db_part,
-    float* dw_part, float* const* dws, float* db, void* stream) {
+    int dw_smem, int streamed, float* dx0, void* xT, void* hid,
+    void* dcomp, float* db_part, float* dw_part, float* tile_ws, float* const* dws,
+    float* db, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || batch < 1 || F < 1 || D < 1)
     return (int)cudaErrorInvalidValue;
   Layers L = {};
@@ -854,16 +936,39 @@ extern "C" int cin_stack_bwd_mma(
     off += m[l];
   }
   Plan p;
-  if (!make_plan(batch, F, D, L, n_layers, &p) || p.TB != TB || p.NTP != NTP ||
-      p.WN != WN || p.gstage != gstage || p.RP != RP || p.T != T || p.KM != KM ||
-      p.total != smem ||
-      p.splits != splits || p.dw_smem != dw_smem)
+  if ((streamed != 0 && streamed != 1) ||
+      !make_plan(batch, F, D, L, n_layers, streamed, &p) || p.TB != TB ||
+      p.NTP != NTP || p.WN != WN || p.gstage != gstage || p.RP != RP || p.T != T ||
+      p.KM != KM || p.total != smem || p.splits != splits || p.dw_smem != dw_smem)
     return (int)cudaErrorInvalidValue;
   const Workspace ws = {static_cast<bf16*>(xT), static_cast<bf16*>(hid),
-                        static_cast<bf16*>(dcomp), db_part,
+                        static_cast<bf16*>(dcomp), db_part, tile_ws,
+                        (long long)(p.hsum + p.hmax) * p.NTP + 2LL * F * p.DS,
                         (long long)round_up(batch * D, 8)};
   return (int)launch(static_cast<const bf16*>(x0), g, L, batch, p, dx0, ws,
                      dw_part, dws, db, static_cast<cudaStream_t>(stream));
+}
+
+// The tile kernel as compiled: out[0..3] = registers a thread, local
+// memory a thread (bytes: spills and stack), static shared memory (bytes),
+// and the blocks an SM holds at `smem` bytes of dynamic shared memory.
+// Returns a cudaError_t.
+extern "C" int cin_stack_bwd_mma_attributes(int smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, cin_bwd_mma_tile_kernel);
+  if (err != cudaSuccess) return (int)err;
+  static int tile_smem[kMaxDevices] = {};
+  err = ensure_smem(cin_bwd_mma_tile_kernel, smem, tile_smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cin_bwd_mma_tile_kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = blocks;
+  return (int)cudaSuccess;
 }
 
 // Message for an error code returned by cin_stack_bwd_mma.

@@ -47,16 +47,19 @@ sends to the stack forward.
 Routes. A block holds a tile's feature maps in shared memory, so a stack
 with wide layers does not fit one block. ``stack_route``, one shape
 predicate computed from the same arithmetic as the kernels' plans
-(``stack_smem``), sends such a stack, in each direction on its own, down
-the "layers" route instead, the port of the JAX package's fallbacks
-(``make_cin_stack_pallas``'s ``forward`` / ``bwd`` gates behind
-``stack_tile``): the forward runs each layer through the per-layer kernel
-``cin_compress_layer`` (``ops/kernels/cin.py``), and the backward is
-``backward_xla``'s algorithm (``cin_stack_backward_layers``). At the
-xDeepFM paper's Criteo CIN (F=27, D=10, 3 x 200 maps, no split) the
-forward fits (109,312 bytes by ``stack_smem``'s count; the bf16 kernel's
-plan takes 225,408) and the backward does not (250,496). The
-plans themselves still raise when called on a shape that does not fit.
+(``stack_smem``; in the bf16 operand mode the backward goes by the bf16
+kernel's own plan, ``mma_backward_plan``), sends such a stack, in each
+direction on its own, down the "layers" route instead, the port of the
+JAX package's fallbacks (``make_cin_stack_pallas``'s ``forward`` / ``bwd``
+gates behind ``stack_tile``): the forward runs each layer through the
+per-layer kernel ``cin_compress_layer`` (``ops/kernels/cin.py``), and the
+backward is ``backward_xla``'s algorithm (``cin_stack_backward_layers``,
+in f32). At the xDeepFM paper's Criteo CIN (D=10, 3 x 200 maps, no split)
+the forward fits (F=27: 109,312 bytes by ``stack_smem``'s count; the bf16
+kernel's plan takes 225,408); the f32 backward does not (250,496 at F=27,
+268,928 at F=39), but the bf16 backward's streamed layout does (204,512
+and 214,112 bytes at a tile of 128 columns). The plans themselves
+still raise when called on a shape that does not fit.
 The JAX package runs its jnp oracle where its forward finds no tile; the
 port runs the kernel (there is no plain path on the card), so in bf16 the
 two differ by the kernel's f32 accumulation. On the CPU the same
@@ -178,18 +181,36 @@ def stack_smem(
     return tile_b, ntp, 4 * (rows * ntp + sum(layer_sizes[:-1]) * ntp // 32)
 
 
+def _counts_fit(batch, f, d, layer_sizes, split_half, backward) -> bool:
+    """Whether ``stack_smem``'s count fits one block in the forward and,
+    with ``backward``, in the backward too."""
+    dirs = (False, True) if backward else (False,)
+    return all(stack_smem(batch, f, d, layer_sizes, split_half, bwd)[2]
+               <= SMEM_PER_BLOCK for bwd in dirs)
+
+
 def stack_route(
     batch: int, f: int, d: int, layer_sizes: Sequence[int],
-    split_half: bool, backward: bool,
+    split_half: bool, backward: bool, bf16: bool = False,
 ) -> str:
     """The route of one direction: "stack" when its stack kernel fits one
     block's shared memory (the backward launches with the forward's tile,
     so it needs both to fit), else "layers". The one gate of both
-    directions, as ``stack_tile`` is the JAX package's."""
-    dirs = (False, True) if backward else (False,)
-    fits = all(stack_smem(batch, f, d, layer_sizes, split_half, bwd)[2]
-               <= SMEM_PER_BLOCK for bwd in dirs)
-    return "stack" if fits else "layers"
+    directions, as ``stack_tile`` is the JAX package's. ``bf16`` is the
+    operand mode (``bf16_operands`` with a bfloat16 x0): its backward is
+    "stack" where the forward's count fits and the bf16 kernel's own plan
+    (``mma_backward_plan``) does; the f32 mode, and the forward in either,
+    go by ``stack_smem``'s counts."""
+    if not backward or not bf16:
+        fits = _counts_fit(batch, f, d, layer_sizes, split_half, backward)
+        return "stack" if fits else "layers"
+    if not _counts_fit(batch, f, d, layer_sizes, split_half, False):
+        return "layers"
+    try:
+        mma_backward_plan(batch, f, d, layer_sizes, split_half)
+    except ValueError:
+        return "layers"
+    return "stack"
 
 
 def plan_tile(
@@ -651,10 +672,13 @@ cin_stack_forward.launches = 0
 # ``pl.pallas_call`` of the backward) with two kernels: in f32
 # ``csrc/cin_stack_bwd.cu`` (the FP32 pipes), and in the bf16 operand mode
 # ``csrc/cin_stack_bwd_mma.cu`` (the tensor cores, ``cin_stack_bwd_mma``;
-# its tile is ``mma_backward_plan``'s; it reads the forward's re-laid
-# weight, ``mma_weight``). The designs are in the head notes of the .cu
-# files. Bounded by operations: three products of a forward's size (remat,
-# A and dW) and the group sums, ~500 GFLOP at bench.py's xDeepFM shape.
+# its layout and tile are ``mma_backward_plan``'s: the f32 hidden rows in
+# shared memory, or in a device-memory region a tile where the resident
+# layout would starve the remat; it reads the forward's re-laid weight,
+# ``mma_weight``). The
+# designs are in the head notes of the .cu files. Bounded by operations:
+# three products of a forward's size (remat, A and dW) and the group sums,
+# ~500 GFLOP at bench.py's xDeepFM shape.
 
 BWD_SOURCE = "cin_stack_bwd.cu"
 BWD_MMA_SOURCE = "cin_stack_bwd_mma.cu"
@@ -673,8 +697,9 @@ _BWD_SIGNATURES = {
     + [_I] * 11 + [_IP] + [_P] * 5 + [_PP, _P, _P],
 }
 _BWD_MMA_SIGNATURES = {
-    "cin_stack_bwd_mma": [_P, _P, _PP, _PP, _IP, _IP, _IP] + [_I] * 14
-    + [_P] * 6 + [_PP, _P, _P],
+    "cin_stack_bwd_mma": [_P, _P, _PP, _PP, _IP, _IP, _IP] + [_I] * 15
+    + [_P] * 7 + [_PP, _P, _P],
+    "cin_stack_bwd_mma_attributes": [_I, _P],
 }
 # The bf16 backward's tile kernel (csrc/cin_stack_bwd_mma.cu): 8 warps; the
 # remat runs the forward's layer product with up to 4 m16 tiles a warp;
@@ -690,19 +715,19 @@ DW_MAPS, DW_COLUMNS, DW_K = 128, 128, 64
 
 
 def _dcomp(col: torch.Tensor, dhid_next: torch.Tensor | None,
-           comp: torch.Tensor, split_here: bool) -> torch.Tensor:
+           mask: torch.Tensor, split_here: bool) -> torch.Tensor:
     """The cotangent of one layer's comp (B, M, D): its pooled columns'
     cotangent ``col`` (B, direct) broadcast over d, then the next layer's
     dhid, after the direct maps with split-half or added to them without,
-    masked by the ReLU."""
-    ddirect = col[:, :, None].expand(-1, -1, comp.shape[2])
+    masked by the ReLU's ``mask`` (comp > 0)."""
+    ddirect = col[:, :, None].expand(-1, -1, mask.shape[2])
     if split_here:
         dcomp = torch.cat([ddirect, dhid_next], dim=1)
     elif dhid_next is not None:
         dcomp = ddirect + dhid_next
     else:
         dcomp = ddirect
-    return dcomp * (comp > 0)
+    return dcomp * mask
 
 
 def cin_stack_backward_plain(
@@ -714,6 +739,7 @@ def cin_stack_backward_plain(
     split_half: bool,
     bf16_operands: bool = False,
     dcomp_round: bool = True,
+    masks: Sequence[torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, list[torch.Tensor], list[torch.Tensor]]:
     """Plain version of the kernel: (dx0, dWs, dbs) of the stack for the
     output cotangent g (B, sum(direct)), the adjoints written out as the
@@ -722,7 +748,11 @@ def cin_stack_backward_plain(
     each dW and db in its parameter's.
 
     ``dcomp_round=False`` leaves out the bf16 cast of dcomp before its two
-    products: a control that chip_smoke.py's bf16 check must refuse."""
+    products: a control that chip_smoke.py's bf16 check must refuse.
+    ``masks``, each layer's ReLU mask (B, M_i, D) bool, stand in for this
+    remat's comp > 0: the masks of another remat of the same forward
+    (chip_smoke.py reads the tensor-core kernel's), so that the two
+    backwards differ by their arithmetic alone."""
     bf16 = bf16_operands and x0.dtype == torch.bfloat16
 
     def op(t: torch.Tensor) -> torch.Tensor:
@@ -738,9 +768,11 @@ def cin_stack_backward_plain(
     hidden = x
     for i in range(n):
         hids.append(hidden)
-        comp = torch.relu(cin_compress(
+        pre = cin_compress(
             op(hidden), x, op(weights[i].float()), biases[i].float(), op
-        ))
+        )
+        comp = (torch.relu(pre) if masks is None
+                else torch.where(masks[i], pre, pre.new_zeros(())))
         comps.append(comp)
         hidden = (comp[:, direct_sizes[i]:] if split_half and i < n - 1
                   else comp)
@@ -751,7 +783,8 @@ def cin_stack_backward_plain(
     dbs: list = [None] * n
     dhid_next = None
     for i in reversed(range(n)):
-        dcomp = _dcomp(cols[i], dhid_next, comps[i], split_half and i < n - 1)
+        mask = comps[i] > 0 if masks is None else masks[i]
+        dcomp = _dcomp(cols[i], dhid_next, mask, split_half and i < n - 1)
         dbs[i] = dcomp.sum(dim=(0, 2))
         dc = op(dcomp) if dcomp_round else dcomp
         hid = hids[i]
@@ -897,9 +930,10 @@ class BackwardPlan(NamedTuple):
     ``g_staged``; the remat (the forward's layer product) takes
     ``columns`` columns and ``rows`` maps a pass, ``chunk`` k16 steps a
     weight stage; A = W^T dcomp stages ``a_tiles`` row tiles x ``a_steps``
-    map steps of 16; ``smem`` bytes of shared memory for the tile kernel;
-    dW is summed in ``splits`` chunks of K by a kernel of ``dw_smem`` bytes
-    of shared memory."""
+    map steps of 16; ``smem`` bytes of shared memory for the tile kernel,
+    whose f32 hidden rows, dhid and dx0 sums are in shared memory or, if
+    ``streamed``, in a device-memory region a tile; dW is summed in ``splits`` chunks of K by a kernel of
+    ``dw_smem`` bytes of shared memory."""
 
     tile_b: int
     ntp: int
@@ -912,6 +946,7 @@ class BackwardPlan(NamedTuple):
     smem: int
     splits: int
     dw_smem: int
+    streamed: bool
 
 
 def _dw_smem(h: int, f: int) -> int:
@@ -923,36 +958,85 @@ def _dw_smem(h: int, f: int) -> int:
 
 
 def _mma_bwd_smem(f, d, tile_b, columns, g_bytes, rows, a_tiles, a_steps,
-                  msum, hsum, hmax, mp16max) -> tuple[int, int]:
+                  msum, hsum, hin, hmax, mp16max,
+                  streamed) -> tuple[int, int]:
     """(ntp, bytes) of one tile-kernel layout (csrc/cin_stack_bwd_mma.cu):
-    x0 in bf16, every hidden state in f32, a sign bit per comp, one layer's
-    dcomp in bf16, dhid, two dx0 (one per group of A's warps) and x0 in f32
-    (dcomp's, dx0's and the f32 x0's rows ntp + 8 long), ``g_bytes`` of
-    the tile's cotangent, and one region for the remat's weight stages or
-    A's transposed ones."""
+    x0 in bf16, a sign bit per comp, one layer's dcomp in bf16 and x0 in
+    f32 (dcomp's and the f32 x0's rows ntp + 8 long), ``g_bytes`` of the
+    tile's cotangent; resident, every hidden state, dhid and two dx0 (one
+    per group of A's warps, rows ntp + 8 long) in f32 and one region for
+    the remat's weight stages or A's transposed ones; streamed (those f32
+    rows in device memory), the input rows of the layer the remat is at in
+    bf16 (hin rows) and the remat's weight stages after them, or A's
+    stages over both."""
     ntp = _round_up(tile_b * d, columns)
-    stages = max(4 * rows * columns, 2 * a_steps * 16 * (32 * a_tiles + 16))
-    nbytes = (_round_up(2 * f * ntp, 16) + 4 * hsum * ntp
-              + _round_up(msum * ntp // 8, 16)
+    remat = 4 * rows * columns
+    adj = 2 * a_steps * 16 * (32 * a_tiles + 16)
+    nbytes = (_round_up(2 * f * ntp, 16) + _round_up(msum * ntp // 8, 16)
               + _round_up(2 * mp16max * (ntp + 8), 16)
-              + 4 * hmax * ntp + 3 * 4 * f * (ntp + 8) + g_bytes + stages)
+              + 4 * f * (ntp + 8) + g_bytes)
+    if streamed:
+        nbytes += max(_round_up(2 * hin * ntp, 16) + remat, adj)
+    else:
+        nbytes += (4 * hsum * ntp + 4 * hmax * ntp + 2 * 4 * f * (ntp + 8)
+                   + max(remat, adj))
     return ntp, nbytes
 
 
 def mma_backward_plan(
     batch: int, f: int, d: int, layer_sizes: Sequence[int], split_half: bool
 ) -> BackwardPlan:
-    """The bf16 backward's plan: the widest column pass (128, 64 or 32
-    columns), then the tile's cotangent staged in shared memory, then the
-    most maps a remat pass, then the most A tiles and map steps a stage,
-    whose tile kernel fits one block's shared memory.
-    It fits every shape whose ``stack_smem`` backward count fits (its f32
-    state per column is smaller). Raises ValueError when nothing fits. The
-    C launch recomputes it and refuses a mismatch."""
-    layer_sizes = tuple(layer_sizes)
+    """The bf16 backward's plan, in one of two layouts of the tile kernel.
+    Resident: every f32 state of the tile in shared memory; the widest
+    column pass (128, 64 or 32 columns), then the tile's cotangent staged
+    in shared memory, then the most maps a remat pass, then the most A
+    tiles and map steps a stage, whose tile kernel fits one block's shared
+    memory. Streamed: each layer's f32 hidden rows, dhid and A's dx0 sums
+    in a device-memory region a tile, shared memory holding the remat's
+    current input rows in bf16, so wide stacks fit; the widest column pass
+    with one remat pass of every map (as many as its warps take), then the
+    cotangent staged, then the most A tiles and map steps.
+    The resident plan is taken where it fits with a full remat pass, and
+    on every shape whose ``stack_smem`` backward count fits (the shapes the
+    stack route took before the streamed layout, whose plans and bits it
+    keeps); elsewhere the streamed plan where it fits (the paper's Criteo
+    CIN, whose resident plan runs 16-map passes), else the resident one.
+    Raises ValueError when nothing fits. The C launch recomputes it (in the
+    layout given) and refuses a mismatch."""
+    layer_sizes = tuple(int(m) for m in layer_sizes)
+    plan = _mma_backward_plan(batch, f, d, layer_sizes, bool(split_half))
+    if plan is None:
+        raise ValueError(
+            f"bf16 CIN stack backward with F={f}, D={d}, layers "
+            f"{layer_sizes} needs more shared memory per block than "
+            f"the limit of {SMEM_PER_BLOCK} bytes"
+        )
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _mma_backward_plan(batch: int, f: int, d: int, layer_sizes: tuple,
+                       split_half: bool) -> BackwardPlan | None:
+    plan = _mma_layout_plan(batch, f, d, layer_sizes, split_half, False)
+    full = min(_round_up(max(layer_sizes), 16),
+               MMA_BWD_WARPS // (plan.columns // MMA_WARP_COLUMNS) * 16
+               * MMA_BWD_TILES) if plan else 0
+    kept = stack_smem(batch, f, d, layer_sizes, split_half,
+                      True)[2] <= SMEM_PER_BLOCK
+    if plan is None or not (kept or plan.rows == full):
+        plan = _mma_layout_plan(batch, f, d, layer_sizes, split_half,
+                                True) or plan
+    return plan
+
+
+def _mma_layout_plan(batch: int, f: int, d: int, layer_sizes: tuple,
+                     split_half: bool, streamed: bool) -> BackwardPlan | None:
+    """``mma_backward_plan``'s search in one layout; None where nothing
+    fits."""
     direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
     hs = [f, *next_sizes[:-1]]
     msum, hsum, hmax = sum(layer_sizes), sum(hs[1:]), max(hs)
+    hin = max(hs[1:], default=0)
     mp16max = _round_up(max(layer_sizes), 16)
     splits = max(1, min(MAX_SPLITS, -(-batch * d // SPLIT_COLUMNS)))
     dw_smem = max(_dw_smem(h, f) for h in hs)
@@ -961,25 +1045,23 @@ def mma_backward_plan(
         columns = MMA_WARP_COLUMNS * wn
         tile_b = 1 if d > columns else min(batch, columns // d)
         most = MMA_BWD_WARPS // wn * 16 * MMA_BWD_TILES
+        full = min(mp16max, most)
         for g_staged in (True, False):
             g_bytes = _round_up(4 * tile_b * sum(direct_sizes), 16) * g_staged
-            for rows in range(min(mp16max, most), 0, -16):
+            for rows in range(full, full - 1 if streamed else 0, -16):
                 for a_tiles in (t for t in MMA_BWD_A_TILES
                                 if t <= a_tiles_top):
                     for a_steps in range(mp16max // 16, 0, -1):
                         ntp, smem = _mma_bwd_smem(
                             f, d, tile_b, columns, g_bytes, rows, a_tiles,
-                            a_steps, msum, hsum, hmax, mp16max)
+                            a_steps, msum, hsum, hin, hmax, mp16max,
+                            streamed)
                         if smem <= SMEM_PER_BLOCK:
                             return BackwardPlan(
                                 tile_b, ntp, columns, g_staged, rows,
                                 columns // 16, a_tiles, a_steps, smem,
-                                splits, dw_smem)
-    raise ValueError(
-        f"bf16 CIN stack backward with F={f}, D={d}, layers {layer_sizes} "
-        f"needs more shared memory per block than the limit of "
-        f"{SMEM_PER_BLOCK} bytes"
-    )
+                                splits, dw_smem, streamed)
+    return None
 
 
 def _chunked(w: torch.Tensor, h: int, f: int, hc: int = HIDDEN_CHUNK):
@@ -1078,7 +1160,13 @@ def _cin_stack_bwd_cuda(x0, weights, biases, g, layer_sizes, split_half):
             [v.to(b.dtype) for v, b in zip(dbs, biases)])
 
 
-def _cin_stack_bwd_mma_cuda(x0, weights, biases, g, layer_sizes, split_half):
+def _cin_stack_bwd_mma_cuda(x0, weights, biases, g, layer_sizes, split_half,
+                            workspace: dict | None = None):
+    """The launch of ``cin_stack_bwd_mma`` on the card. ``workspace``, if
+    given, receives the dW step's bf16 rows, each round_up(B*D, 8) columns
+    (b*D + d): ``dcomp`` (each layer's maps, after its ReLU mask) and
+    ``hid`` (the hidden state of each layer past the first), for a check
+    to read."""
     layer_sizes = tuple(int(m) for m in layer_sizes)
     direct_sizes, next_sizes = cin_layer_sizes(layer_sizes, split_half)
     _check_cotangent(x0, weights, biases, g, layer_sizes, next_sizes,
@@ -1108,6 +1196,13 @@ def _cin_stack_bwd_mma_cuda(x0, weights, biases, g, layer_sizes, split_half):
     db_part = torch.empty(-(-bsz // plan.tile_b), sum(layer_sizes), **f32)
     dw_part = torch.empty(
         plan.splits * sum(m * h * f for m, h in zip(layer_sizes, hs)), **f32)
+    # streamed: a region a tile of its f32 hidden rows (sum_{i>0} H_i rows of
+    # ntp columns), its two dx0 sums (2 x F rows of ntp + 8) and dhid (max
+    # H_i rows of ntp)
+    tile_floats = ((sum(hs[1:]) + max(hs)) * plan.ntp
+                   + 2 * f * (plan.ntp + 8))
+    tile_ws = torch.empty(
+        -(-bsz // plan.tile_b) * tile_floats if plan.streamed else 1, **f32)
 
     def ptrs(ts):
         return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
@@ -1124,17 +1219,34 @@ def _cin_stack_bwd_mma_cuda(x0, weights, biases, g, layer_sizes, split_half):
             plan.columns // MMA_WARP_COLUMNS, int(plan.g_staged), plan.rows,
             plan.a_tiles,
             plan.a_steps, plan.smem, plan.splits, plan.dw_smem,
+            int(plan.streamed),
             dx0.data_ptr(), xt.data_ptr(), hid.data_ptr(), dcomp.data_ptr(),
-            db_part.data_ptr(), dw_part.data_ptr(), ptrs(dws), db.data_ptr(),
-            build.stream_of(x),
+            db_part.data_ptr(), dw_part.data_ptr(), tile_ws.data_ptr(),
+            ptrs(dws), db.data_ptr(), build.stream_of(x),
         )
     build.check(lib, BWD_MMA_SOURCE, "cin_stack_bwd_mma", err)
     cin_stack_bwd_mma.launches += 1
+    if workspace is not None:
+        workspace.update(dcomp=dcomp, hid=hid)
     # the workspace stays referenced until here; the stream orders its reuse
     dbs = torch.split(db, list(layer_sizes))
     return (dx0.to(x0.dtype),
             [dw.to(w.dtype) for dw, w in zip(dws, weights)],
             [v.to(b.dtype) for v, b in zip(dbs, biases)])
+
+
+def bwd_mma_attributes(t: torch.Tensor, plan: BackwardPlan) -> dict:
+    """The compiled bf16 tile kernel on ``t``'s card: registers and local
+    memory (bytes) a thread, static shared memory (bytes), and the blocks
+    an SM holds at the plan's shared memory."""
+    lib = build.bind(BWD_MMA_SOURCE, _BWD_MMA_SIGNATURES)
+    out = (ctypes.c_int * 4)()
+    with build.launch_device(t.device):
+        err = lib.cin_stack_bwd_mma_attributes(plan.smem,
+                                               ctypes.addressof(out))
+    build.check(lib, BWD_MMA_SOURCE, "cin_stack_bwd_mma_attributes", err)
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "blocks_per_sm"), out))
 
 
 def cin_stack_bwd_mma(
@@ -1196,7 +1308,8 @@ def cin_stack_backward_layers(
     dbs: list = [None] * n
     dhid_next = None
     for i in reversed(range(n)):
-        dcomp = _dcomp(cols[i], dhid_next, comps[i], split_half and i < n - 1)
+        dcomp = _dcomp(cols[i], dhid_next, comps[i] > 0,
+                       split_half and i < n - 1)
         dhid_next, dx, dws[i], dbs[i] = cin_compress_backward(
             dcomp, hids[i], x, weights[i])
         dx0 = dx0 + dx
@@ -1219,15 +1332,16 @@ def cin_stack_backward(
     tensor takes the plain version; a CUDA tensor launches the kernel (or
     raises): the bf16 operand mode with a bfloat16 x0 the tensor-core one
     (``cin_stack_bwd_mma``), else the f32 one; a stack whose backward does
-    not fit the stack kernel takes the "layers" route (``stack_route``,
-    ``cin_stack_backward_layers``)."""
+    not fit the stack kernel of its operand mode takes the "layers" route
+    (``stack_route``, ``cin_stack_backward_layers``)."""
     if x0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x0.device}")
     bsz, f, d = x0.shape
-    if stack_route(bsz, f, d, layer_sizes, split_half, True) == "layers":
+    bf16 = bf16_operands and x0.dtype == torch.bfloat16
+    if stack_route(bsz, f, d, layer_sizes, split_half, True, bf16) == "layers":
         return cin_stack_backward_layers(x0, weights, biases, g, layer_sizes,
                                          split_half)
-    if bf16_operands and x0.dtype == torch.bfloat16:
+    if bf16:
         return cin_stack_bwd_mma(x0, weights, biases, g, layer_sizes,
                                  split_half)
     if x0.device.type == "cpu":

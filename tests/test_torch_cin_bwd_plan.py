@@ -2,10 +2,12 @@
 the re-laid weight and its order of work, on the CPU.
 
 ``mma_backward_plan`` (ops/kernels/cin_stack.py) sets the tile kernel's
-tile, passes, stages and shared memory, the dW kernel's shared memory and
-the split of K; the C launch (csrc/cin_stack_bwd_mma.cu) recomputes it. It
-must take every shape that ``stack_route`` sends down the "stack" route in
-the backward. ``_ldmatrix_x4_trans`` below repeats what one
+layout (resident or streamed), tile, passes, stages and shared memory, the
+dW kernel's shared memory and the split of K; the C launch
+(csrc/cin_stack_bwd_mma.cu) recomputes it. It must take every shape that
+``stack_route`` sends down the "stack" route in the backward, in either
+operand mode, and keep the resident plan of every shape that the f32 count
+(``stack_smem``) sends there. ``_ldmatrix_x4_trans`` below repeats what one
 ``ldmatrix.x4.trans`` gives each lane, from the kernel's addresses, and
 shows that the A product reads W^T from the forward's re-laid weight
 (``mma_weight``) and dcomp as its B operand. ``_kernel_order_backward``
@@ -27,6 +29,7 @@ from hypothesis import strategies as st
 from deepfm_tpu_torch.ops.cin import cin_layer_sizes
 from deepfm_tpu_torch.ops.kernels.cin_stack import (
     SMEM_PER_BLOCK,
+    _mma_layout_plan,
     cin_stack_backward,
     cin_stack_backward_plain,
     cin_stack_bwd_mma,
@@ -54,9 +57,23 @@ def _r16(n):
     return -(-n // 16) * 16
 
 
+def _full_rows(plan, layers):
+    """One remat pass of every map, as many as the plan's warps take."""
+    return min(_r16(max(layers)), 8 // (plan.columns // 32) * 16 * 4)
+
+
 def _check_plan(plan, batch, f, d, layers, split):
     direct, nxt = cin_layer_sizes(layers, split)
     hs = [f, *nxt[:-1]]
+    # the resident layout on every shape the f32 count fits and wherever
+    # it fits with one remat pass of every map; else the streamed one
+    # where it fits
+    resident = _mma_layout_plan(batch, f, d, layers, split, False)
+    streamed = _mma_layout_plan(batch, f, d, layers, split, True)
+    keep = (stack_smem(batch, f, d, layers, split, True)[2] <= SMEM_PER_BLOCK
+            or resident is not None and resident.rows == _full_rows(
+                resident, layers))
+    assert plan == (resident if keep or streamed is None else streamed)
     assert plan.columns in (32, 64, 128)
     assert plan.chunk * 16 == plan.columns
     assert plan.ntp % plan.columns == 0 and plan.ntp % 32 == 0
@@ -65,10 +82,13 @@ def _check_plan(plan, batch, f, d, layers, split):
     assert plan.tile_b == 1 or plan.tile_b * d <= plan.columns
     # the blocks cover the batch
     assert -(-batch // plan.tile_b) * plan.tile_b >= batch
-    # remat passes: whole m16 tiles, at most 4 a warp
+    # remat passes: whole m16 tiles, at most 4 a warp; streamed, one pass
+    # of every map (as many as the warps take)
     mp16 = _r16(max(layers))
     assert plan.rows % 16 == 0 and 16 <= plan.rows <= mp16
     assert plan.rows <= 8 // (plan.columns // 32) * 16 * 4
+    if plan.streamed:
+        assert plan.rows == _full_rows(plan, layers)
     # A stages: whole map steps of 16
     assert plan.a_tiles in (1, 2, 4, 8)
     # A's warps split a stage's row tiles (f-chunk first) by the parity of
@@ -81,12 +101,17 @@ def _check_plan(plan, batch, f, d, layers, split):
                            range(r0, min(r0 + plan.a_tiles, r))) <= 5
     assert 1 <= plan.a_steps <= mp16 // 16
     ntp = plan.ntp
-    want = (_r16(2 * f * ntp) + 4 * sum(hs[1:]) * ntp
-            + _r16(sum(layers) * ntp // 8) + _r16(2 * mp16 * (ntp + 8))
-            + 4 * max(hs) * ntp + 3 * 4 * f * (ntp + 8)
+    remat = 4 * plan.rows * plan.columns
+    adj = 2 * plan.a_steps * 16 * (32 * plan.a_tiles + 16)
+    # streamed: the f32 hidden rows, dhid and the dx0 sums in device memory;
+    # the remat's bf16 input rows before its stages, A's stages over both
+    want = (_r16(2 * f * ntp) + _r16(sum(layers) * ntp // 8)
+            + _r16(2 * mp16 * (ntp + 8)) + 4 * f * (ntp + 8)
             + _r16(4 * plan.tile_b * sum(direct)) * plan.g_staged
-            + max(4 * plan.rows * plan.columns,
-                  2 * plan.a_steps * 16 * (32 * plan.a_tiles + 16)))
+            + (max(_r16(2 * max(hs[1:], default=0) * ntp) + remat, adj)
+               if plan.streamed else
+               4 * sum(hs[1:]) * ntp + 4 * max(hs) * ntp
+               + 2 * 4 * f * (ntp + 8) + max(remat, adj)))
     assert plan.smem == want <= SMEM_PER_BLOCK
     # every region starts on 16 bytes (cp.async and ldmatrix need it)
     assert want % 16 == 0
@@ -99,6 +124,7 @@ def _check_plan(plan, batch, f, d, layers, split):
 @pytest.mark.parametrize("name,batch,f,d,layers,split", MAIN_SHAPES)
 def test_backward_plan_at_the_main_shapes(name, batch, f, d, layers, split):
     assert stack_route(batch, f, d, layers, split, True) == "stack"
+    assert stack_route(batch, f, d, layers, split, True, bf16=True) == "stack"
     plan = mma_backward_plan(batch, f, d, layers, split)
     _check_plan(plan, batch, f, d, layers, split)
     # 128 columns a block: each weight byte read from L2 feeds twice the
@@ -111,6 +137,43 @@ def test_backward_plan_at_the_main_shapes(name, batch, f, d, layers, split):
     if name == "bench":
         # one remat pass of all 128 maps, A's stage all 8 map steps
         assert plan.smem == 231_200
+    # the plan the stack route had before the streamed layout, field for
+    # field, in the resident layout
+    assert tuple(plan) == {
+        "bench": (8, 128, 128, True, 128, 8, 8, 8, 231_200, 64, 46_368,
+                  False),
+        "ragged": (8, 128, 128, True, 16, 8, 8, 1, 47_472, 4, 43_776, False),
+        "three_d10": (12, 128, 128, True, 64, 8, 8, 4, 213_792, 10, 46_368,
+                      False)}[name]
+
+
+# the xDeepFM paper's Criteo CIN (Lian et al.: 3 x 200 maps, no split, D=10)
+# on Criteo's 39 fields and on 27; a batch of 12 has the batch of 4096's
+# tile
+PAPER_SHAPES = [(batch, f, 10, (200, 200, 200), False)
+                for f in (39, 27) for batch in (4096, 12)]
+
+
+@pytest.mark.parametrize("batch,f,d,layers,split", PAPER_SHAPES)
+def test_paper_cin_backward_fits_the_streamed_layout(batch, f, d, layers,
+                                                     split):
+    """Off the f32 count, the bf16 plan keeps each layer's f32 hidden rows,
+    dhid and A's dx0 sums in device memory, so a tile holds 128 columns (12
+    samples): remat passes of 128 maps, the most its warps take (the
+    resident layout fit 64 columns and 16 maps a pass at F=39), in weight
+    stages of 8 k16 steps, and A's stage 8 tiles by all 13 map steps (4 by
+    1 before), so that all of A's warps find columns."""
+    assert stack_smem(batch, f, d, layers, split, True)[2] > SMEM_PER_BLOCK
+    assert stack_route(batch, f, d, layers, split, True) == "layers"
+    assert stack_route(batch, f, d, layers, split, True, bf16=True) == "stack"
+    plan = mma_backward_plan(batch, f, d, layers, split)
+    _check_plan(plan, batch, f, d, layers, split)
+    assert plan.streamed
+    assert plan.rows >= 64 and plan.rows == 128
+    assert (plan.tile_b, plan.ntp, plan.columns, plan.chunk) == (12, 128,
+                                                                 128, 8)
+    assert (plan.a_tiles, plan.a_steps, plan.g_staged) == (8, 13, False)
+    assert plan.splits == (10 if batch == 4096 else 1)
 
 
 # shapes on either side of the backward route's edge, and odd ones
@@ -135,13 +198,25 @@ EDGE_SHAPES = [
 
 @pytest.mark.parametrize("batch,f,d,layers,split", EDGE_SHAPES)
 def test_backward_plan_takes_every_stack_shape(batch, f, d, layers, split):
-    """Wherever the backward takes the stack route, the plan fits."""
+    """Wherever the backward takes the stack route, the plan fits; in the
+    bf16 mode the route is "stack" exactly where the forward's count and
+    the bf16 plan fit."""
     if stack_route(batch, f, d, layers, split, True) == "stack":
         _check_plan(mma_backward_plan(batch, f, d, layers, split),
                     batch, f, d, layers, split)
+        assert stack_route(batch, f, d, layers, split, True, True) == "stack"
     else:
         assert stack_smem(batch, f, d, layers, split, True)[2] > SMEM_PER_BLOCK \
             or stack_smem(batch, f, d, layers, split, False)[2] > SMEM_PER_BLOCK
+    try:
+        plan = mma_backward_plan(batch, f, d, layers, split)
+    except ValueError:
+        plan = None
+    fwd = stack_smem(batch, f, d, layers, split, False)[2] <= SMEM_PER_BLOCK
+    assert (stack_route(batch, f, d, layers, split, True, True) == "stack") \
+        is (fwd and plan is not None)
+    if plan is not None:
+        _check_plan(plan, batch, f, d, layers, split)
 
 
 @settings(max_examples=150, deadline=None)
@@ -151,7 +226,8 @@ def test_backward_plan_takes_every_stack_shape(batch, f, d, layers, split):
        batch=st.integers(1, 5000))
 def test_backward_plan_takes_random_stack_shapes(layers, split, f, d, batch):
     layers = tuple(layers)
-    if stack_route(batch, f, d, layers, split, True) != "stack":
+    if stack_route(batch, f, d, layers, split, True, bf16=True) != "stack":
+        assert stack_route(batch, f, d, layers, split, True) == "layers"
         return
     _check_plan(mma_backward_plan(batch, f, d, layers, split),
                 batch, f, d, layers, split)
@@ -169,8 +245,13 @@ def test_backward_plan_reads_g_from_device_memory_where_it_must():
 def test_backward_plan_refuses_what_does_not_fit():
     with pytest.raises(ValueError, match="shared memory"):
         mma_backward_plan(64, 2000, 16, (1000, 1000), False)
-    # the paper's CIN: its backward takes the layers route
+    assert stack_route(64, 2000, 16, (1000, 1000), False, True,
+                       bf16=True) == "layers"
+    # the paper's CIN: its f32 backward takes the layers route, its bf16
+    # backward the stack (the streamed layout)
     assert stack_route(4096, 27, 10, (200,) * 3, False, True) == "layers"
+    assert stack_route(4096, 27, 10, (200,) * 3, False, True,
+                       bf16=True) == "stack"
 
 
 def _ldmatrix_x4_trans(mem, addr):
@@ -352,6 +433,10 @@ def _within_bwd_tol(got, want, low):
     (10, 27, 16, (40, 24), True),
     (7, 27, 10, (16, 12, 8), False),
     (3, 5, 40, (20,), False),
+    # the paper's Criteo CIN: the streamed layout
+    (6, 39, 10, (200, 200, 200), False),
+    # the streamed layout at a tile of 64 columns
+    (4, 40, 8, (256, 256), False),
 ])
 def test_kernel_order_of_work_matches_plain(batch, f, d, layers, split):
     rng = np.random.default_rng(batch * 7 + f)
@@ -373,6 +458,49 @@ def test_kernel_order_of_work_matches_plain(batch, f, d, layers, split):
     _within_bwd_tol(got[0], want[0], low=True)
     for a, w in zip(got[1] + got[2], want[1] + want[2]):
         _within_bwd_tol(a, w, low=False)
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_plain_backward_under_given_masks(split):
+    """``masks`` stand in for the plain remat's comp > 0 (chip_smoke.py
+    passes the tensor-core kernel's): its own masks give its own bits, and
+    the last layer masked out gives that layer's dW and db as 0 and no
+    gradient below it, while the masks before it still hold."""
+    from deepfm_tpu_torch.ops.cin import cin_compress
+
+    layers = (8, 6)
+    rng = np.random.default_rng(11)
+    x0 = torch.from_numpy(rng.normal(size=(5, 4, 8)).astype(np.float32))
+    x0 = x0.to(torch.bfloat16)
+    direct, nxt = cin_layer_sizes(layers, split)
+    ws = [torch.randn(8, 16), torch.randn(6, nxt[0] * 4)]
+    bs = [torch.randn(8), torch.randn(6)]
+    g = torch.randn(5, sum(direct))
+
+    def op(t):
+        return t.to(torch.bfloat16).float()
+
+    own, hidden = [], x0.float()
+    for i in range(len(layers)):
+        pre = cin_compress(op(hidden), x0.float(), op(ws[i]), bs[i], op)
+        own.append(pre > 0)
+        hidden = torch.relu(pre)[:, direct[i]:] if split and i == 0 \
+            else torch.relu(pre)
+    want = cin_stack_backward_plain(x0, ws, bs, g, layers, split, True)
+    got = cin_stack_backward_plain(x0, ws, bs, g, layers, split, True,
+                                   masks=own)
+    for a, b in zip([got[0], *got[1], *got[2]],
+                    [want[0], *want[1], *want[2]]):
+        assert torch.equal(a, b)
+    cut = cin_stack_backward_plain(x0, ws, bs, g, layers, split, True,
+                                   masks=[own[0], torch.zeros_like(own[1])])
+    assert not cut[1][1].any() and not cut[2][1].any()
+    # layer 0 takes only its own columns' cotangent: its db is the sum of
+    # g's first direct columns over d under its mask
+    gd = g[:, :direct[0], None].expand(-1, -1, 8)
+    if split:
+        gd = torch.cat([gd, torch.zeros(5, 8 - direct[0], 8)], dim=1)
+    torch.testing.assert_close(cut[2][0], (gd * own[0]).sum(dim=(0, 2)))
 
 
 def test_cin_stack_bwd_mma_on_the_cpu_is_the_plain_version():

@@ -129,9 +129,14 @@ def test_forward_plan_takes_random_stack_shapes(seed):
 def test_forward_plan_refuses_what_does_not_fit_and_routes_stay():
     with pytest.raises(ValueError, match="shared memory"):
         forward_plan(64, 2000, 16, (1000, 1000), False)
-    # the paper's CIN: the forward on the stack, the backward by layers
+    # the paper's CIN: the forward on the stack; the backward by layers in
+    # f32, on the stack in the bf16 operand mode
     assert stack_route(4096, 27, 10, (200,) * 3, False, False) == "stack"
     assert stack_route(4096, 27, 10, (200,) * 3, False, True) == "layers"
+    assert stack_route(4096, 27, 10, (200,) * 3, False, False,
+                       bf16=True) == "stack"
+    assert stack_route(4096, 27, 10, (200,) * 3, False, True,
+                       bf16=True) == "stack"
 
 
 @pytest.mark.parametrize("m,h,f", [(200, 27, 27), (128, 64, 27), (7, 13, 13),

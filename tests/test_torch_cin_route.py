@@ -3,7 +3,10 @@ stack too large for one block's shared memory.
 
 ``stack_route`` is one shape predicate shared with the stack kernels'
 plans: it says "stack" exactly where ``plan_tile`` (forward) and
-``plan_backward`` (backward) do not raise. Where it says "layers", the port
+``plan_backward`` (backward) do not raise. In the bf16 operand mode the
+backward goes by the forward's count and the bf16 kernel's own plan
+(``mma_backward_plan``), which fits stacks (the xDeepFM paper's CIN among them) whose f32 count
+does not; the f32 mode's route is unchanged. Where it says "layers", the port
 runs each layer through ``cin_compress_layer`` (forward) and the JAX
 package's ``backward_xla`` algorithm (backward); on the CPU each layer runs
 the plain version. That route is held against the JAX ``CIN`` with
@@ -26,6 +29,7 @@ from deepfm_tpu_torch.ops.kernels.cin_stack import (
     cin_stack_backward_plain,
     cin_stack_forward,
     cin_stack_plain,
+    mma_backward_plan,
     plan_backward,
     plan_tile,
     stack_route,
@@ -67,14 +71,34 @@ def test_route_is_stack_exactly_where_the_plans_fit(batch, f, d, layers, split):
     assert (fwd == "stack") is _fits(plan_tile, batch, f, d, layers)
     assert (bwd == "stack") is _fits(plan_backward, batch, f, d, layers, split)
     assert {fwd, bwd} <= {"stack", "layers"}
+    # the bf16 operand mode: the same forward; the backward by the
+    # forward's tile and its own plan, "stack" wherever the f32 backward is
+    assert stack_route(batch, f, d, layers, split, False, bf16=True) == fwd
+    bwd16 = stack_route(batch, f, d, layers, split, True, bf16=True)
+    assert (bwd16 == "stack") is (
+        _fits(plan_tile, batch, f, d, layers)
+        and _fits(mma_backward_plan, batch, f, d, layers, split))
+    assert bwd == "layers" or bwd16 == "stack"
 
 
 def test_paper_cin_forward_fits_and_backward_takes_the_layers_route():
+    """In f32; in the bf16 operand mode the backward takes the stack, its
+    plan's streamed layout."""
     f, d, layers, split = PAPER
     assert plan_tile(4096, f, d, layers)[2] == 109_312
     assert cin_stack.stack_smem(4096, f, d, layers, split, True)[2] == 250_496
     assert stack_route(4096, f, d, layers, split, False) == "stack"
     assert stack_route(4096, f, d, layers, split, True) == "layers"
+    assert stack_route(4096, f, d, layers, split, False, bf16=True) == "stack"
+    assert stack_route(4096, f, d, layers, split, True, bf16=True) == "stack"
+    plan = mma_backward_plan(4096, f, d, layers, split)
+    assert (plan.tile_b, plan.ntp, plan.smem, plan.splits) == (12, 128,
+                                                               204_512, 10)
+    assert plan.streamed
+    # Criteo's 39 fields (the benchmark's xdeepfm-paper configuration)
+    assert cin_stack.stack_smem(4096, 39, d, layers, split, True)[2] == 268_928
+    assert stack_route(4096, 39, d, layers, split, True) == "layers"
+    assert stack_route(4096, 39, d, layers, split, True, bf16=True) == "stack"
 
 
 @pytest.fixture
@@ -192,6 +216,33 @@ def test_paper_cin_trains_through_the_layers_route(layer_calls):
                                              layers, split)
     for got, want in zip(leaves, [dx0, *dws, *dbs]):
         torch.testing.assert_close(got.grad, want, **TOL)
+
+
+@pytest.mark.parametrize("f", [27, 39])
+def test_paper_cin_trains_bf16_through_the_stack_backward(f, layer_calls):
+    """CinStackFn at the paper's geometry in the bf16 operand mode (a batch
+    of 4 has the batch of 4096's tile): the stack route both ways, no
+    per-layer call, and the gradients are the plain bf16 stack backward's
+    bit for bit on the CPU, where the f32 mode takes the layers route."""
+    d, layers, split = PAPER[1:]
+    x0, params, g = _inputs(3, 4, f, d, layers, split)
+    n = len(layers)
+    assert stack_route(4, f, d, layers, split, True) == "layers"
+    assert stack_route(4, f, d, layers, split, True, bf16=True) == "stack"
+    x = torch.from_numpy(x0).bfloat16()
+    ws = [torch.from_numpy(params[f"conv_{i}_kernel"]) for i in range(n)]
+    bs = [torch.from_numpy(params[f"conv_{i}_bias"]) for i in range(n)]
+    leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+    out = cin_stack_forward(leaves[0], leaves[1:1 + n], leaves[1 + n:],
+                            layers, split, bf16_operands=True)
+    assert "CinStackFn" in out.grad_fn.name()
+    gb = torch.from_numpy(g).bfloat16()
+    out.backward(gb)
+    assert not layer_calls
+    want = cin_stack_backward_plain(x, ws, bs, gb, layers, split,
+                                    bf16_operands=True)
+    for got, w in zip(leaves, [want[0], *want[1], *want[2]]):
+        assert torch.equal(got.grad, w)
 
 
 def test_layers_forward_hands_on_the_hidden_state_in_x0_dtype(layer_calls):

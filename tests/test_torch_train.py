@@ -336,6 +336,11 @@ def test_two_steps_match_jax_on_the_cin_layers_route(path, tmp_path,
     layers = tuple(WIDE_CIN["cin"]["layer_sizes"])
     assert cin_stack.stack_route(B, f, d, layers, False, False) == "stack"
     assert cin_stack.stack_route(B, f, d, layers, False, True) == "layers"
+    # the route of this f32 train step; the bf16 operand mode's backward
+    # would take the stack
+    assert trainer.config.training.compute_dtype == "float32"
+    assert cin_stack.stack_route(B, f, d, layers, False, True,
+                                 bf16=True) == "stack"
     calls = []
     real = cin_stack.cin_compress_layer
     monkeypatch.setattr(cin_stack, "cin_compress_layer",
