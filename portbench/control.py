@@ -39,14 +39,16 @@ MODES = {"train": ("control", "half_batch"), "score": ("control", "altered")}
 
 def inputs(registry, cell: dict, seed: int, device):
     config = registry.config(cell["config"])
+    kind = registry.model(config["model"])
     mix = registry.traffic(cell["traffic"])
     gen = registry.generator(mix["generator"])
     pool = gen.make_pool(config, mix, seed, device)
-    return config, mix, pool, weights.make_weights(config, seed, device)
+    return (kind, config, mix, pool,
+            weights.make_weights(kind, config, seed, device))
 
 
 def train_numbers(registry, cell, seed, mode, device) -> dict:
-    config, mix, pool, w0 = inputs(registry, cell, seed, device)
+    kind, config, mix, pool, w0 = inputs(registry, cell, seed, device)
     order = epoch_order(seed, len(pool["labels"]))
     b = mix["batch"]
     batches = []
@@ -56,25 +58,26 @@ def train_numbers(registry, cell, seed, mode, device) -> dict:
                         torch.from_numpy(pool["dense"][rows]).to(device),
                         torch.from_numpy(pool["labels"][rows]).to(device)))
     wide = [k for k, v in w0.items() if v.numel() >= check.WIDE_LEAF]
-    ref = ctr.train_steps(config, w0, batches, keep=wide)
+    ref = ctr.train_steps(kind, config, w0, batches, keep=wide)
     if mode == "control":
-        got = ctr.train_steps(config, w0, batches, q=ctr.fp8, keep=wide)
+        got = ctr.train_steps(kind, config, w0, batches, q=ctr.fp8,
+                              keep=wide)
     else:
-        got = ctr.train_steps(
-            config, w0, [tuple(t[:b // 2] for t in bt) for bt in batches],
-            keep=wide)
+        halves = [tuple(t[:b // 2] for t in bt) for bt in batches]
+        got = ctr.train_steps(kind, config, w0, halves, keep=wide)
     numbers, where = check.train_numbers(got, ref)
     return {**numbers, "where": where}
 
 
 def score_numbers(registry, cell, seed, mode, device) -> dict:
-    config, mix, pool, w0 = inputs(registry, cell, seed, device)
+    kind, config, mix, pool, w0 = inputs(registry, cell, seed, device)
     n, b = len(pool["labels"]), mix["batch"]
     rows = checked_rows(seed, n, b, mix["checked_rows_per_batch"])
 
     def scores(idx, q=ctr.identity):
         return ctr.probabilities(
-            config, w0, torch.from_numpy(pool["ids"][idx]).to(device).long(),
+            kind, config, w0,
+            torch.from_numpy(pool["ids"][idx]).to(device).long(),
             torch.from_numpy(pool["dense"][idx]).to(device), q).cpu().numpy()
 
     ref = scores(rows)

@@ -40,13 +40,13 @@ def checked_rows(seed: int, n: int, batch: int, per_batch: int) -> np.ndarray:
 
 
 def run(ctx) -> dict:
-    config, mix, dev = ctx.config, ctx.mix, ctx.device
+    kind, config, mix, dev = ctx.kind, ctx.config, ctx.mix, ctx.device
     pool = ctx.registry.generator(mix["generator"]).make_pool(
         config, mix, ctx.seed, dev)
     n, batch = len(pool["labels"]), mix["batch"]
     ctx.mark("pool")
-    w = weights.make_weights(config, ctx.seed, dev)
-    cfg, packed, model = port.build_model(config, mix, w, dev,
+    w = weights.make_weights(kind, config, ctx.seed, dev)
+    cfg, packed, model = port.build_model(kind, config, mix, w, dev,
                                           seeds.derive(ctx.seed, "port"))
     del w
     ctx.mark("model")
@@ -99,9 +99,9 @@ def run(ctx) -> dict:
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
 
-    w0 = weights.make_weights(config, ctx.seed, dev)
+    w0 = weights.make_weights(kind, config, ctx.seed, dev)
     ref = ctr.probabilities(
-        config, w0, torch.from_numpy(pool["ids"][rows]).to(dev).long(),
+        kind, config, w0, torch.from_numpy(pool["ids"][rows]).to(dev).long(),
         torch.from_numpy(pool["dense"][rows]).to(dev)).cpu().numpy()
     numbers = check.score_numbers(kept, ref)
 
@@ -121,6 +121,6 @@ def run(ctx) -> dict:
             "span_counts": dict(spans.count),
             "trace": summary,
             "traced_steps": -(-n // batch),
-            "ops": counts.step_ops(config, batch, train=False),
+            "ops": counts.step_ops(kind, config, batch, train=False),
         },
     }

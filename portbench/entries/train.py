@@ -48,10 +48,11 @@ class FirstSteps:
     ``check.WIDE_LEAF`` elements, a host copy; after step 3, before step 4
     runs, every leaf's change from the initial weights."""
 
-    def __init__(self, trainer, config: dict, seed: int, device) -> None:
-        self.trainer, self.config = trainer, config
+    def __init__(self, trainer, kind, config: dict, seed: int,
+                 device) -> None:
+        self.trainer, self.kind, self.config = trainer, kind, config
         self.seed, self.device = seed, device
-        self.leaves = port.leaf_names(config)
+        self.leaves = port.leaf_names(kind, config)
         self.step = trainer._train_step
         self.losses, self.grad, self.change = [], None, None
         self.first: dict[str, torch.Tensor] = {}
@@ -80,7 +81,8 @@ class FirstSteps:
         return torch.stack(out) / (1.0 - self.config["adam_b1"])
 
     def _changes(self) -> torch.Tensor:
-        w0 = weights.make_weights(self.config, self.seed, self.device)
+        w0 = weights.make_weights(self.kind, self.config, self.seed,
+                                  self.device)
         params = dict(self.trainer.model.named_parameters())
         out = torch.stack([
             torch.linalg.vector_norm(params[theirs].detach() - w0[ours])
@@ -115,12 +117,12 @@ def _sync(device) -> None:
 
 
 def run(ctx) -> dict:
-    config, mix, dev = ctx.config, ctx.mix, ctx.device
+    kind, config, mix, dev = ctx.kind, ctx.config, ctx.mix, ctx.device
     pool = ctx.registry.generator(mix["generator"]).make_pool(
         config, mix, ctx.seed, dev)
     ctx.mark("pool")
-    w = weights.make_weights(config, ctx.seed, dev)
-    cfg, packed, model = port.build_model(config, mix, w, dev,
+    w = weights.make_weights(kind, config, ctx.seed, dev)
+    cfg, packed, model = port.build_model(kind, config, mix, w, dev,
                                           seeds.derive(ctx.seed, "port"))
     del w
     ctx.mark("model")
@@ -132,7 +134,7 @@ def run(ctx) -> dict:
     if steps_per_epoch < CHECKED_STEPS:
         raise ValueError(f"an epoch of {steps_per_epoch} steps: the check "
                          f"reads the first {CHECKED_STEPS}")
-    probe = FirstSteps(trainer, config, ctx.seed, dev)
+    probe = FirstSteps(trainer, kind, config, ctx.seed, dev)
     for _ in range(mix["warmup_epochs"]):
         trainer._train_epoch()
     prog = probe.close()
@@ -184,7 +186,7 @@ def run(ctx) -> dict:
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
 
-    w0 = weights.make_weights(config, ctx.seed, dev)
+    w0 = weights.make_weights(kind, config, ctx.seed, dev)
     order = epoch_order(ctx.seed, len(pool["labels"]))
     batches = []
     for k in range(CHECKED_STEPS):
@@ -192,7 +194,8 @@ def run(ctx) -> dict:
         batches.append((torch.from_numpy(pool["ids"][rows]).to(dev).long(),
                         torch.from_numpy(pool["dense"][rows]).to(dev),
                         torch.from_numpy(pool["labels"][rows]).to(dev)))
-    ref = ctr.train_steps(config, w0, batches, keep=list(prog["first_moments"]))
+    ref = ctr.train_steps(kind, config, w0, batches,
+                          keep=list(prog["first_moments"]))
     prog["first_grads"] = {
         k: v.to(dev).float() / (1.0 - config["adam_b1"])
         for k, v in prog.pop("first_moments").items()}
@@ -219,7 +222,7 @@ def run(ctx) -> dict:
             "span_counts": dict(spans.count),
             "trace": summary,
             "traced_steps": steps_per_epoch,
-            "ops": counts.step_ops(config, batch, train=True),
+            "ops": counts.step_ops(kind, config, batch, train=True),
         },
     }
 

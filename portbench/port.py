@@ -4,6 +4,13 @@ The only module of the benchmark that imports the port. It turns a
 configuration file and a traffic mix into the port's ``ExperimentConfig``,
 schema, model and ``Trainer``, and loads the benchmark's weights
 (``weights.py``) into the model by name.
+
+What differs between model kinds comes from the kind's file,
+``models/<kind>.py`` (``Registry.model`` of the configuration's
+``"model"``), passed in as ``kind``: the sections it adds to the port's
+configuration (``port_config``), the port's names of its own leaves
+(``port_names``), and its DNN (``dnn_width``, None without one) and
+output heads (``heads``), whose names this module gives.
 """
 
 from __future__ import annotations
@@ -20,15 +27,14 @@ from deepfm_tpu_torch.training.trainer import Trainer
 from portbench import fields as bench_fields
 
 
-def experiment_config(config: dict, mix: dict, device: str, seed: int):
+def experiment_config(kind, config: dict, mix: dict, device: str,
+                      seed: int):
     return config_from_dict({
         "model_name": config["model"],
         "seed": seed,
         "device": device,
         "feature": {"fm_embed_dim": config["embed_dim"],
                     "embedding_l2_reg": config["embedding_l2_reg"]},
-        "cin": {"layer_sizes": list(config.get("cin_layer_sizes", [128])),
-                "split_half": config.get("cin_split_half", False)},
         "dnn": {"hidden_units": list(config["dnn_hidden_units"]),
                 "activation": config["dnn_activation"],
                 "dropout": config["dropout"],
@@ -41,6 +47,7 @@ def experiment_config(config: dict, mix: dict, device: str, seed: int):
                      "stage_budget_mb": config["stage_budget_mb"],
                      "scheduler": "none"},
         "pallas": {"table_layout": config["table_layout"]},
+        **kind.port_config(config),
     })
 
 
@@ -66,24 +73,20 @@ def packed_arrays(pool: dict) -> PackedArrays:
                         weights=np.ones(n, np.float32))
 
 
-def port_names(config: dict) -> dict[str, str]:
+def port_names(kind, config: dict) -> dict[str, str]:
     """Benchmark weight name -> the port's state_dict key."""
     d = config["embed_dim"]
     out = {"table": f"embedding.table_w{d}",
            "dense_fo_w": "embedding.dense_fo_w",
            "dense_fo_b": "embedding.dense_fo_b",
            "dense_w": f"embedding.dense_w{d}",
-           "dense_b": f"embedding.dense_b{d}"}
-    if config["model"] == "xdeepfm":
-        for i in range(len(config["cin_layer_sizes"])):
-            out[f"cin.w{i}"] = f"cin.conv_{i}_kernel"
-            out[f"cin.b{i}"] = f"cin.conv_{i}_bias"
-        out["cin_head.w"], out["cin_head.b"] = ("cin_linear.weight",
-                                                "cin_linear.bias")
-        head = "dnn_linear"
-    else:
-        head = "output_linear"
-    out["dnn_head.w"], out["dnn_head.b"] = f"{head}.weight", f"{head}.bias"
+           "dense_b": f"embedding.dense_b{d}",
+           **kind.port_names(config)}
+    for name, _, linear in kind.heads(config):
+        out[f"{name}.w"], out[f"{name}.b"] = (f"{linear}.weight",
+                                              f"{linear}.bias")
+    if kind.dnn_width(config) is None:
+        return out
     for i in range(len(config["dnn_hidden_units"])):
         out[f"dnn.w{i}"] = f"dnn.dense_{i}.weight"
         out[f"dnn.b{i}"] = f"dnn.dense_{i}.bias"
@@ -95,15 +98,15 @@ def port_names(config: dict) -> dict[str, str]:
     return out
 
 
-def build_model(config: dict, mix: dict, weights: dict, device: str,
+def build_model(kind, config: dict, mix: dict, weights: dict, device: str,
                 seed: int):
     """The port's model for the configuration, on ``device``, holding
     ``weights``."""
-    cfg = experiment_config(config, mix, device, seed)
+    cfg = experiment_config(kind, config, mix, device, seed)
     packed = pack_schema(schema(config))
     model = create_model(cfg.model_name, packed, cfg, device=device,
                          seed=seed)
-    names = port_names(config)
+    names = port_names(kind, config)
     state = model.state_dict()
     missing = [k for k in state if k not in names.values()
                and not k.endswith("num_batches_tracked")]
@@ -125,8 +128,8 @@ def predictor(cfg, packed, model, device) -> Predictor:
     return Predictor(model, packed, cfg, device=device)
 
 
-def leaf_names(config: dict) -> dict[str, str]:
+def leaf_names(kind, config: dict) -> dict[str, str]:
     """Benchmark name -> port name of every trained leaf (not the
     BatchNorm statistics)."""
-    return {k: v for k, v in port_names(config).items()
+    return {k: v for k, v in port_names(kind, config).items()
             if not k.startswith(("bn.mean", "bn.var"))}

@@ -1,9 +1,12 @@
-"""Plain PyTorch DeepFM and xDeepFM: forward, loss, autograd backward,
-clipping and Adam over every leaf, the embedding table included.
+"""Plain PyTorch CTR models: forward, loss, autograd backward, clipping
+and Adam over every leaf, the embedding table included.
 
 Written from the papers and the configuration files, in float32 with
 TF32 off, on whatever device the inputs are on. It takes the benchmark's
-weights (``weights.py`` names) and inputs and nothing else.
+weights (``weights.py`` names) and inputs and nothing else. What every
+model kind shares is here; each kind's logit is its file's ``logit``
+(``models/<kind>.py``, passed in as ``kind``), built on ``embed``,
+``dnn`` and ``_linear``.
 
 The model, for F = dense + sparse fields of width D:
 
@@ -15,12 +18,8 @@ The model, for F = dense + sparse fields of width D:
 * a dense field j with value x gives the embedding x * w_j + b_j and the
   first-order term x * fo_w_j + fo_b_j;
 * x0 is the (B, F, D) stack of the dense fields' embeddings, then the
-  categorical ones'; the DNN reads it flattened;
-* DeepFM: logit = first order + 0.5 * sum_d[(sum_f x0)^2 - sum_f x0^2]
-  + head(DNN(x0));
-* xDeepFM: logit = first order + head(CIN(x0)) + head(DNN(x0)); CIN
-  layer k: z = W_k (h_{k-1} outer x0) + b_k over the (H, F) pairs, h_k =
-  ReLU(z), pooled by a sum over d; no split;
+  categorical ones';
+* logit = the kind's ``logit`` of the first order and x0;
 * DNN layer: Linear, BatchNorm (batch statistics with the biased variance
   in training, running statistics in evaluation, eps 1e-5), ReLU;
 * loss: binary cross-entropy of the logit, the mean over the batch.
@@ -112,20 +111,6 @@ def embed(config, w, ids, dense, q=identity):
     return q(first), torch.cat([dense_emb, rows[:, :, :d]], dim=1)
 
 
-def cin(config, w, x0, q=identity):
-    """(B, sum of the layer sizes): every layer's maps, summed over d."""
-    b, f, d = x0.shape
-    hidden, pooled = x0, []
-    for i in range(len(config["cin_layer_sizes"])):
-        outer = (q(hidden)[:, :, None, :] * q(x0)[:, None, :, :]).reshape(
-            b, -1, d)
-        z = torch.matmul(q(w[f"cin.w{i}"]), q(outer)) \
-            + w[f"cin.b{i}"][None, :, None]
-        hidden = torch.relu(q(z))
-        pooled.append(hidden.sum(2))
-    return q(torch.cat(pooled, dim=1))
-
-
 def dnn(config, w, flat, training: bool, q=identity):
     x = flat
     for i in range(len(config["dnn_hidden_units"])):
@@ -142,21 +127,10 @@ def dnn(config, w, flat, training: bool, q=identity):
     return x
 
 
-def logits(config, w, ids, dense, training: bool, q=identity):
+def logits(kind, config, w, ids, dense, training: bool, q=identity):
     """(B,) float32 logits."""
     first, x0 = embed(config, w, ids, dense, q)
-    flat = x0.reshape(x0.shape[0], -1)
-    deep = _linear(dnn(config, w, flat, training, q), w["dnn_head.w"],
-                   w["dnn_head.b"], q)[:, 0]
-    if config["model"] == "xdeepfm":
-        second = _linear(cin(config, w, x0, q), w["cin_head.w"],
-                         w["cin_head.b"], q)[:, 0]
-    elif config["model"] == "deepfm":
-        s = x0.sum(1)
-        second = q(0.5 * (s * s - (x0 * x0).sum(1)).sum(1))
-    else:
-        raise ValueError(f"no reference for model {config['model']!r}")
-    return q(first + second + deep).float()
+    return q(kind.logit(config, w, first, x0, training, q)).float()
 
 
 def bce(logit, labels):
@@ -164,17 +138,18 @@ def bce(logit, labels):
             - (1.0 - labels) * F.logsigmoid(-logit)).mean()
 
 
-def probabilities(config, w, ids, dense, q=identity, block: int = 4096):
+def probabilities(kind, config, w, ids, dense, q=identity,
+                  block: int = 4096):
     """Evaluation-mode sigmoid scores of every row, ``block`` rows at a
     time."""
     with full_f32(), torch.no_grad():
         return torch.cat([
-            torch.sigmoid(logits(config, w, ids[i:i + block],
+            torch.sigmoid(logits(kind, config, w, ids[i:i + block],
                                  dense[i:i + block], False, q))
             for i in range(0, ids.shape[0], block)])
 
 
-def train_steps(config, w0, batches, q=identity, keep=()) -> dict:
+def train_steps(kind, config, w0, batches, q=identity, keep=()) -> dict:
     """Train from the weights ``w0`` over ``batches`` ((ids, dense,
     labels) each). Returns each step's loss; the first step's gradient
     norm of every leaf as the optimizer takes it (decayed and clipped),
@@ -192,7 +167,8 @@ def train_steps(config, w0, batches, q=identity, keep=()) -> dict:
     with full_f32():
         for t, (ids, dense, labels) in enumerate(batches, start=1):
             live = {k: p.requires_grad_() for k, p in params.items()}
-            loss = bce(logits(config, {**live, **{k: w0[k] for k in stats}},
+            loss = bce(logits(kind, config,
+                              {**live, **{k: w0[k] for k in stats}},
                               ids, dense, True, q), labels)
             grads = dict(zip(leaves, torch.autograd.grad(
                 loss, [live[k] for k in leaves])))

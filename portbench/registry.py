@@ -1,11 +1,37 @@
-"""Find configurations, cells, traffic mixes, entries, metric readers and
-kernel maps by name.
+"""Find configurations, model kinds, cells, traffic mixes, entries, metric
+readers and kernel maps by name.
 
 A ``Registry`` searches its roots in order; each root is laid out as this
-folder is (``configs/``, ``workloads/``, ``traffic/``, ``entries/``,
-``metrics/``, ``opmap/``). A later change adds a configuration, a cell, a
-mix, a generator, a metric or a map by adding a file under one of them and
-an entry in ``BENCHMARK.json``; no file that exists is edited.
+folder is (``configs/``, ``models/``, ``workloads/``, ``traffic/``,
+``entries/``, ``metrics/``, ``opmap/``). A later change adds a
+configuration, a model kind, a cell, a mix, a generator, a metric or a map
+by adding a file under one of them and an entry in ``BENCHMARK.json``; no
+file that exists is edited.
+
+A model kind is ``models/<kind>.py``, found by a configuration's
+``"model"`` (the port's model name). Beside the leaves every kind shares
+(the embedding table and the dense fields' weights; the DNN and the
+output heads, where the kind has them), it says what is its own, with
+the functions of ``MODEL_FUNCTIONS``, each of the configuration:
+
+* ``port_config(config)``: the sections it adds to the port's
+  configuration (``port.experiment_config``);
+* ``port_names(config)``: benchmark name -> the port's ``state_dict`` key
+  of each of its own leaves (``port.port_names``);
+* ``specs(config)``: (name, shape, low, high) of its own leaves, in draw
+  order (``weights.specs``);
+* ``logit(config, w, first, x0, training, q)``: the reference's logit
+  from the first-order term and the (B, F, D) field embeddings, in plain
+  float32, every rounding through ``q`` (``reference/ctr.py``);
+* ``forward_ops(config, b, es)``, ``backward_ops(config, b, es)``: its own
+  operations of a step of ``b`` rows at ``es`` bytes an element, by name
+  (``counts.step_ops``);
+* ``dnn_width(config)``: the DNN's input width, or None without a DNN;
+* ``heads(config)``: (name, input width, the port's ``Linear``) of each
+  output head, in draw order.
+
+It imports ``torch`` and ``portbench``'s shared modules, and nothing of
+the port.
 """
 
 from __future__ import annotations
@@ -19,6 +45,8 @@ from types import ModuleType
 
 HERE = Path(__file__).resolve().parent
 BENCHMARK_FILE = HERE.parent / "BENCHMARK.json"
+MODEL_FUNCTIONS = ("port_config", "port_names", "specs", "logit",
+                   "forward_ops", "backward_ops", "dnn_width", "heads")
 
 
 class RegistryError(LookupError):
@@ -85,6 +113,15 @@ class Registry:
 
     def metric(self, name: str) -> ModuleType:
         return self._module("metrics", name)
+
+    def model(self, name: str) -> ModuleType:
+        """The model kind ``name`` (a configuration's ``"model"``)."""
+        mod = self._module("models", name)
+        missing = [f for f in MODEL_FUNCTIONS if not callable(
+            getattr(mod, f, None))]
+        if missing:
+            raise RegistryError(f"models/{name}.py lacks {missing}")
+        return mod
 
     def opmap(self, name: str) -> dict:
         return self._json("opmap", name)

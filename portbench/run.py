@@ -61,8 +61,9 @@ def run_cell(registry, workload: str, seed: int, seconds: float,
 
     marks = [("start", started), ("imports", time.time())]
     cell = registry.cell(workload)
-    ctx = SimpleNamespace(registry=registry, cell=cell,
-                          config=registry.config(cell["config"]),
+    config = registry.config(cell["config"])
+    ctx = SimpleNamespace(registry=registry, cell=cell, config=config,
+                          kind=registry.model(config["model"]),
                           mix=registry.traffic(cell["traffic"]),
                           seed=seed, seconds=seconds, trace=trace,
                           device=device,

@@ -60,3 +60,24 @@ def test_reference_is_independent_of_the_port():
             assert name not in text, (path, name)
         assert imported_tops(path) <= {"__future__", "contextlib", "math",
                                        "torch"}, path
+    # the model kinds' files hold the rest of the reference
+    for path in (HERE / "models").glob("*.py"):
+        text = path.read_text()
+        for name in ("deepfm_tpu", "jax", "flax", "portbench.port",
+                     "portbench.entries"):
+            assert name not in text, (path, name)
+        assert imported_tops(path) <= {"__future__", "math", "torch",
+                                       "portbench"}, path
+    code = (
+        "import sys\n"
+        f"sys.path[:0] = [{str(ROOT)!r}]\n"
+        "from portbench.registry import Registry\n"
+        "reg = Registry()\n"
+        "for name in reg.names('models', '.py'):\n"
+        "    reg.model(name)\n"
+        "print('TOPS', sorted({m.split('.')[0] for m in sys.modules}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "'deepfm_tpu_torch'" not in out.stdout
+    assert "'jax'" not in out.stdout

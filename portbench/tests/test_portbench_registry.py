@@ -1,15 +1,16 @@
 """Everything the benchmark names is found by name, and a new
-configuration, cell, mix, generator, metric and kernel map are found from
-files of their own alone."""
+configuration, model kind, cell, mix, generator, metric and kernel map are
+found from files of their own alone."""
 
 from __future__ import annotations
 
 import json
 import shutil
 
+import pytest
 from portbench_helpers import DATA, run_tiny, tiny_benchmark
 
-from portbench.registry import Registry
+from portbench.registry import MODEL_FUNCTIONS, Registry, RegistryError
 
 
 def test_every_name_in_benchmark_json_loads():
@@ -18,6 +19,7 @@ def test_every_name_in_benchmark_json_loads():
     configs = {c["name"]: c for c in bench["configs"]}
     for c in bench["configs"]:
         cfg = reg.config(c["name"])
+        assert reg.model(cfg["model"])
         assert c["file"] == f"portbench/configs/{c['name']}.json"
         assert sorted(c["reduced"]) == sorted(cfg["reduced"])
         assert all(k in cfg for k in cfg["reduced"])
@@ -32,6 +34,9 @@ def test_every_name_in_benchmark_json_loads():
         assert hasattr(reg.entry(cell["entry"]), "run")
         assert reg.end_to_end(w["name"]) and reg.per_layer(w["name"])
         assert set(cell["limits"])
+    for name in reg.names("configs", ".json"):
+        kind = reg.model(reg.config(name)["model"])
+        assert all(callable(getattr(kind, f)) for f in MODEL_FUNCTIONS)
     for name in reg.names("workloads", ".json"):
         cell = reg.cell(name)
         assert reg.config(cell["config"])["name"] == cell["config"]
@@ -87,4 +92,115 @@ def test_throwaway_files_are_found_without_edits(tmp_path):
     out = run_tiny(reg, "throwaway.train", seconds=0.5)
     assert set(out["metrics"]) == {"train_examples_per_s", "setup_s"}
     assert out["correct"] is True
+    shutil.rmtree(tmp_path)
+
+
+# The port's factorization machine (first order + FM, no DNN, no head), a
+# kind the harness has no file for.
+FM_KIND = """
+from portbench.counts import Op
+from portbench.reference import ctr
+
+
+def port_config(config):
+    return {}
+
+
+def port_names(config):
+    return {}
+
+
+def specs(config):
+    return []
+
+
+def dnn_width(config):
+    return None
+
+
+def heads(config):
+    return []
+
+
+def logit(config, w, first, x0, training, q=ctr.identity):
+    s = x0.sum(1)
+    return first + q(0.5 * (s * s - (x0 * x0).sum(1)).sum(1))
+
+
+def _n(config, b):
+    return b * (config["dense_fields"] + config["sparse_fields"]) \\
+        * config["embed_dim"]
+
+
+def forward_ops(config, b, es):
+    return {"fm.forward": Op(3 * _n(config, b), _n(config, b) * es + b * es)}
+
+
+def backward_ops(config, b, es):
+    return {"fm.backward": Op(3 * _n(config, b), 2 * _n(config, b) * es)}
+"""
+
+
+def _copy(src, dst, **changes):
+    data = json.loads(src.read_text())
+    data.update(changes)
+    dst.write_text(json.dumps(data))
+
+
+def test_a_model_kind_joins_by_files_alone(tmp_path):
+    for kind in ("configs", "models", "workloads", "metrics", "opmap"):
+        (tmp_path / kind).mkdir()
+    (tmp_path / "models" / "fm.py").write_text(FM_KIND)
+    _copy(DATA / "configs" / "tiny-deepfm.json",
+          tmp_path / "configs" / "tiny-fm.json", name="tiny-fm", model="fm")
+    cells = {"tiny-fm.train": ("tiny-deepfm.train", "train_examples_per_s"),
+             "tiny-fm.score": ("tiny-xdeepfm.score", "score_rows_per_s")}
+    for cell, (like, _) in cells.items():
+        _copy(DATA / "workloads" / f"{like}.json",
+              tmp_path / "workloads" / f"{cell}.json", config="tiny-fm")
+    (tmp_path / "metrics" / "fm_flops.py").write_text(
+        "def read(r):\n"
+        "    return sum(op.flops for n, op in r['ops'].items()\n"
+        "               if n.startswith('fm.'))\n")
+    (tmp_path / "metrics" / "roofline.fm.py").write_text(
+        "from portbench.readings import roofline\n"
+        "def read(r):\n    return roofline(r, 'fm')\n")
+    (tmp_path / "opmap" / "fm.json").write_text(json.dumps(
+        {"operations": ["fm.forward", "fm.backward"], "kernels": ["fm"]}))
+
+    reg = tiny_benchmark([tmp_path])
+    bench = reg.benchmark
+    for cell, (_, rate) in cells.items():
+        next(m for m in bench["end_to_end"]
+             if m["name"] == rate)["workloads"].append(cell)
+    for name in ("fm_flops", "roofline.fm"):
+        bench["per_layer"].append(
+            {"name": name, "unit": "%", "better": "higher",
+             "source": "device_trace", "layer": "kernels: FM",
+             "moves": "train_examples_per_s", "workloads": list(cells)})
+    assert "fm" in reg.opmaps()
+    fm_flops = 3 * 64 * 7 * 4  # B x F x D of the tiny mixes, 3 a term
+    for cell, want in (("tiny-fm.train", 2 * fm_flops),
+                       ("tiny-fm.score", fm_flops)):
+        out = run_tiny(reg, cell, trace=True, seconds=0.5)
+        assert out["correct"] is True, out["checks"]
+        assert out["metrics"]["fm_flops"]["value"] == want
+        # no device trace on the CPU, so no roofline share
+        assert "roofline.fm" not in out["metrics"]
+        out = run_tiny(reg, cell, seconds=0.5)
+        assert out["correct"] is True, out["checks"]
+        assert "setup_s" in out["metrics"]
+    shutil.rmtree(tmp_path)
+
+
+def test_a_config_of_an_unknown_kind_fails_at_set_up(tmp_path):
+    (tmp_path / "configs").mkdir()
+    (tmp_path / "workloads").mkdir()
+    _copy(DATA / "configs" / "tiny-deepfm.json",
+          tmp_path / "configs" / "tiny-lr.json", name="tiny-lr", model="lr")
+    _copy(DATA / "workloads" / "tiny-deepfm.train.json",
+          tmp_path / "workloads" / "tiny-lr.train.json", config="tiny-lr",
+          traffic="no-such-mix")
+    with pytest.raises(RegistryError, match="models/lr.py"):
+        run_tiny(tiny_benchmark([tmp_path]), "tiny-lr.train")
     shutil.rmtree(tmp_path)

@@ -1,12 +1,12 @@
 """The cell's weights, made on the device from the seed in one draw.
 
-Both sides get these: the port through ``port.load_weights`` (its
+Both sides get these: the port through ``port.build_model`` (its
 ``load_state_dict``), the reference as they are. Names are the
-reference's (``reference/ctr.py``). Scales are chosen so that every part
-of the logit is of order 1 and each CIN layer keeps the rms of its input
-maps (about 0.29): a layer's weights are U(+-g / sqrt(H F)) with g = 8.4,
-the fixed point of Var(z) = g^2 / 3 * E[h^2] * E[x^2] under a ReLU. Each
-field's row 0 (the port's padding row) and the table's padding rows are 0.
+reference's (``reference/ctr.py`` and the model kind's file,
+``models/<kind>.py``). Scales are chosen so that every part of the logit
+is of order 1: the DNN's layers keep their inputs' scale and each head
+reads U(+-1 / sqrt(width)); a kind scales its own leaves. Each field's
+row 0 (the port's padding row) and the table's padding rows are 0.
 """
 
 from __future__ import annotations
@@ -18,30 +18,24 @@ import torch
 from portbench import fields, seeds
 
 EMB_BOUND, FO_BOUND, BIAS_BOUND = 0.5, 0.1, 0.1
-CIN_GAIN = 8.4
 X0_MEAN_SQUARE = 0.085  # E[x^2] of the field embeddings (U(+-0.5))
 RELU_BN_MEAN_SQUARE = 0.5  # E[x^2] after BatchNorm and ReLU
 
 
-def specs(config: dict) -> list[tuple[str, tuple, float, float]]:
+def specs(kind, config: dict) -> list[tuple[str, tuple, float, float]]:
     """(name, shape, low, high) of every leaf and BatchNorm statistic, in
-    draw order; the table's columns are scaled afterwards."""
+    draw order: the embedding leaves, the kind's own, the DNN's and the
+    heads'; the table's columns are scaled afterwards."""
     nd, d = config["dense_fields"], config["embed_dim"]
-    f = nd + config["sparse_fields"]
     out = [("table", (fields.table_rows(config), d + 1), -1.0, 1.0),
            ("dense_fo_w", (nd,), -FO_BOUND, FO_BOUND),
            ("dense_fo_b", (nd,), -FO_BOUND, FO_BOUND),
            ("dense_w", (nd, d), -EMB_BOUND, EMB_BOUND),
            ("dense_b", (nd, d), -BIAS_BOUND, BIAS_BOUND)]
-    if config["model"] == "xdeepfm":
-        h = f
-        for i, m in enumerate(config["cin_layer_sizes"]):
-            b = CIN_GAIN / math.sqrt(h * f)
-            out += [(f"cin.w{i}", (m, h * f), -b, b),
-                    (f"cin.b{i}", (m,), -BIAS_BOUND, BIAS_BOUND)]
-            h = m
-    width, ms = f * d, X0_MEAN_SQUARE
-    for i, units in enumerate(config["dnn_hidden_units"]):
+    out += kind.specs(config)
+    width, ms = kind.dnn_width(config), X0_MEAN_SQUARE
+    for i, units in enumerate(config["dnn_hidden_units"]
+                              if width is not None else ()):
         b = math.sqrt(3.0 / (width * ms))
         out += [(f"dnn.w{i}", (units, width), -b, b),
                 (f"dnn.b{i}", (units,), -BIAS_BOUND, BIAS_BOUND)]
@@ -51,19 +45,17 @@ def specs(config: dict) -> list[tuple[str, tuple, float, float]]:
                     (f"bn.mean{i}", (units,), -BIAS_BOUND, BIAS_BOUND),
                     (f"bn.var{i}", (units,), 0.8, 1.2)]
         width, ms = units, RELU_BN_MEAN_SQUARE
-    heads = [("dnn_head", width)]
-    if config["model"] == "xdeepfm":
-        heads.insert(0, ("cin_head", sum(config["cin_layer_sizes"])))
-    for name, width in heads:
-        b = 1.0 / math.sqrt(width)
-        out += [(f"{name}.w", (1, width), -b, b), (f"{name}.b", (1,), -b, b)]
+    for name, n, _ in kind.heads(config):
+        b = 1.0 / math.sqrt(n)
+        out += [(f"{name}.w", (1, n), -b, b), (f"{name}.b", (1,), -b, b)]
     return out
 
 
-def make_weights(config: dict, seed: int, device) -> dict[str, torch.Tensor]:
+def make_weights(kind, config: dict, seed: int,
+                 device) -> dict[str, torch.Tensor]:
     """Every weight of the configuration, f32 on ``device``: one draw of
     U(0, 1) from the seed's "weights" stream, cut into the leaves."""
-    sp = specs(config)
+    sp = specs(kind, config)
     sizes = [math.prod(shape) for _, shape, _, _ in sp]
     g = seeds.generator(seed, "weights", device)
     flat = torch.rand(sum(sizes), generator=g, device=device)
