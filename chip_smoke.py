@@ -82,7 +82,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              forward without its context rounding; with the forward's plan
              (forward_plan), the compiled forward's registers, local memory
              and blocks an SM (which must be the plan's) and its call split
-             into device and host time;
+             into device and host time; then AutoInt's interacting layer
+             at the paper's two layer shapes (INTERACT_SHAPES, B=16384,
+             bf16 and f32) the same way (INTERACT_TOL; both plans;
+             scaled_dot_product_attention at scale 1 around the same four
+             projections as the library; in bf16 the check must refuse the
+             plain backward without its [dq|dk|dv|dres] rounding);
   densify_rows_grad, segment_sumsq, sparse_table_adam, fused_table_adam
              the four table-update kernels at bench.py's shape (a 10.4M x 17
              table, 425,984 (id, cotangent) pairs drawn as bench.py draws
@@ -167,6 +172,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              gradients on the card against the CPU, their CIN backward by
              the layers route, with a planted fault that must be refused
              (layer 1's dW taken from the wrong hidden state);
+  train_autoint  AutoInt at its Criteo widths (autoint_config: d=16, 3
+             interacting layers of 2 heads of 32, no DNN) on bench.py's
+             workload with 13 dense fields (F=39) at batch 16384, through
+             create_model and Trainer on the default sparse-fused path in
+             bf16: the launches of its 13 steps, counted from 0, exactly
+             one interacting_fwd and one interacting_bwd a layer a step,
+             no attention-block kernel, the table update's kernels run;
   train_baselines  the ablation baselines lr, fm and dnn (DNN [512,256,128]
              with BatchNorm) at bench.py's full width and config on the
              sparse-fused path, each timed and profiled as train_models,
@@ -323,6 +335,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the f32 CIN-stack backward, the paper's xDeepFM f32
              train steps for cin_compress, the
              AttentionDeepFM train step for the attention kernels, the
+             AutoInt train step for the interacting layer's kernels (their
+             numbers at layers 2-3's shape and at layer 1's), the
              sparse-fused DeepFM step for segment_sumsq and
              sparse_table_adam, the two-pass step for densify_rows_grad and
              fused_table_adam, the packed two-pass step for the packed
@@ -364,6 +378,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # workload at field width PAPER_WIDTH
 PAPER_BATCH, PAPER_WIDTH = 4096, 10
 PAPER_CIN = (200, 200, 200)
+# AutoInt's Criteo widths (autoint_config; Song et al., CIKM 2019,
+# arXiv:1810.11921, section 5.1.3): width 16, 3 interacting layers of 2
+# heads of 32, over Criteo's 13 dense and 26 sparse fields, at the batch of
+# portbench's autoint-paper.train-b16k cell
+AUTOINT_WIDTH, AUTOINT_HEADS, AUTOINT_DIM, AUTOINT_LAYERS = 16, 2, 64, 3
+AUTOINT_DENSE = 13
 
 # (name, B, F, D, layer_sizes, split_half, dtype)
 CIN_SHAPES = [
@@ -510,6 +530,29 @@ ATTN_TOL = {
     "float32": {"rtol": 1e-4, "atol_rel": 1e-5, "outside_share": 0.0,
                 "mean_rel": 1e-5, "differ_share": None},
     "bfloat16": {"rtol": 2.0 ** -7, "atol_rel": 1e-3, "outside_share": 0.0,
+                 "mean_rel": 5e-4, "differ_share": 1e-2},
+}
+# (name, B, F, d_in, attention_dim, heads, dtype) of AutoInt's interacting
+# layer at the paper's Criteo widths (2 heads of 32 over F=39): layer 1
+# reads the embedding width 16, layers 2-3 the attention width 64
+INTERACT_SHAPES = [
+    ("autoint_l1_bf16", 16384, 39, 16, 64, 2, "bfloat16"),
+    ("autoint_l1_f32", 16384, 39, 16, 64, 2, "float32"),
+    ("autoint_l23_bf16", 16384, 39, 64, 64, 2, "bfloat16"),
+    ("autoint_l23_f32", 16384, 39, 64, 64, 2, "float32"),
+]
+# The interacting layer against its plain version: ATTN_TOL's rules, but a
+# ReLU mask may part where ctx + res lies within rounding of 0 (kernel and
+# plain version sum in other orders), which moves that element's dres by
+# its whole cotangent (an f32 dx element by 6.7 % of dx's scale at B=16384,
+# d=16), so a share of elements may lie outside; and the weight gradients
+# sum 639K rows of cotangents that cancel, so their mean relative error
+# reads up to 2.4e-4 in either dtype (an H100). Leaving out the bf16
+# rounding of [dq|dk|dv|dres] must still be refused.
+INTERACT_TOL = {
+    "float32": {"rtol": 1e-4, "atol_rel": 1e-5, "outside_share": 1e-3,
+                "mean_rel": 5e-4, "differ_share": None},
+    "bfloat16": {"rtol": 2.0 ** -7, "atol_rel": 1e-3, "outside_share": 1e-4,
                  "mean_rel": 5e-4, "differ_share": 1e-2},
 }
 
@@ -1577,6 +1620,170 @@ def attn_bound(bsz, f, d, a, heads, bf16, backward):
     return 1e3 * t_bytes, "bytes", flops, mixed
 
 
+def interacting_library(x, p, heads):
+    """Yardstick only, never called by the port: AutoInt's interacting
+    layer with torch's scaled_dot_product_attention (scale 1) around the
+    same four projections, in x's dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    bsz, f, _ = x.shape
+    a = p["wq"].shape[1]
+    w4 = torch.cat([p[n] for n in ("wq", "wk", "wv", "wres")], 1).to(x.dtype)
+    q, k, v, res = (x @ w4).split(a, dim=2)
+    q, k, v = (t.reshape(bsz, f, heads, a // heads).transpose(1, 2)
+               for t in (q, k, v))
+    ctx = F.scaled_dot_product_attention(q, k, v, scale=1.0)
+    return torch.relu(ctx.transpose(1, 2).reshape(bsz, f, a) + res)
+
+
+def interacting_bound(bsz, f, d, a, heads, bf16, backward):
+    """(bound_ms, bound_by, flops, mixed_bound_ms) as attn_bound gives the
+    block's: the four projections and the core's two products (scores and
+    context); the backward recomputes them and takes two products per
+    forward product. Bytes: x (and g) read, out (or dx and the weight
+    gradients) written."""
+    es = 2 if bf16 else 4
+    rows = bsz * f
+    proj = 2 * rows * d * 4 * a
+    core = 2 * 2 * bsz * heads * f * f * (a // heads)
+    params = 4 * d * a * es
+    if backward:
+        proj, core = 3 * proj, 3 * core
+        nbytes = rows * (2 * d + a) * es + params + 4 * d * a * 4
+    else:
+        nbytes = rows * (d + a) * es + params
+    flops = proj + core
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    mixed = 1e3 * max(proj / peak + core / PEAK_FP32_FLOPS, t_bytes)
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations", flops, mixed
+    return 1e3 * t_bytes, "bytes", flops, mixed
+
+
+def attention_interacting(failures: list) -> dict:
+    """The interacting layer's part of the attention phase: one record a
+    shape of INTERACT_SHAPES; failures are appended to ``failures``."""
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.attention import (
+        INTERACT_NAMES,
+        forward_attributes,
+        interacting_backward,
+        interacting_backward_plain,
+        interacting_backward_plan,
+        interacting_forward,
+        interacting_forward_plan,
+        interacting_plain,
+    )
+
+    dev = torch.device("cuda", 0)
+    results = {}
+    for k, (name, bsz, f, d, a, heads, dtype) in enumerate(INTERACT_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(4000 + k)
+        dt = getattr(torch, dtype)
+        bf16 = dt == torch.bfloat16
+        tol = INTERACT_TOL[dtype]
+        # scores and ReLU outputs of order 1 (portbench/models/autoint.py's
+        # scales): inputs of mean square ~0.1, weights U(+-(3 / (sqrt(32) d
+        # 0.1))^0.5)
+        bound = (3.0 / (32 ** 0.5 * d * 0.1)) ** 0.5
+        p = {n: (torch.rand(d, a, generator=gen, device=dev) * 2 - 1) * bound
+             for n in INTERACT_NAMES}
+        x = (torch.rand(bsz, f, d, generator=gen, device=dev) * 0.55).to(dt)
+        g = (torch.randn(bsz, f, a, generator=gen, device=dev) * 1e-3).to(dt)
+
+        def fwd():
+            return interacting_forward(x, p, heads)
+
+        def bwd():
+            return interacting_backward(x, p, g, heads)
+
+        def bwd_plain(**kw):
+            dx, dp = interacting_backward_plain(x, p, g, heads, **kw)
+            return {"dx": dx, **dp}
+
+        def lib_fwd():
+            return interacting_library(x, p, heads)
+
+        def lib_bwd():
+            leaves = [x.detach().requires_grad_(),
+                      *[p[n].detach().requires_grad_() for n in INTERACT_NAMES]]
+            out = interacting_library(leaves[0], dict(zip(INTERACT_NAMES,
+                                                          leaves[1:])), heads)
+            return torch.autograd.grad(out, leaves, g)
+
+        out, out2 = fwd(), fwd()
+        fcmp = grad_compare({"out": out},
+                            {"out": interacting_plain(x, p, heads)}, tol, "out")
+        (dx, dp), (dx2, dp2) = bwd(), bwd()
+        got, again = {"dx": dx, **dp}, {"dx": dx2, **dp2}
+        bcmp = grad_compare(got, bwd_plain(), tol, "dx")
+        same_bits = torch.equal(out, out2) and all(
+            torch.equal(got[o], again[o]) for o in got)
+        if not (fcmp["ok"] and bcmp["ok"] and same_bits):
+            failures.append(f"{name}: a kernel is outside tolerance {tol} or "
+                            f"not repeatable ({same_bits}): {fcmp} {bcmp}")
+        controls = {}
+        if bf16:
+            ctl = grad_compare(bwd_plain(dall_round=False), bwd_plain(), tol,
+                               "dx")
+            controls["no_dall_round"] = ctl
+            if ctl["ok"]:
+                failures.append(f"{name}: the bf16 check passes a backward "
+                                f"without the [dq|dk|dv|dres] rounding: {ctl}")
+        fp = interacting_forward_plan(f, d, a, heads)
+        bp = interacting_backward_plan(f, d, a, heads)
+        fattr = forward_attributes(x, fp, "interacting_fwd_attributes")
+        if fattr["blocks_per_sm"] != fp.blocks_per_sm:
+            failures.append(f"{name}: the compiled forward holds "
+                            f"{fattr['blocks_per_sm']} blocks an SM, the plan "
+                            f"{fp.blocks_per_sm}: {fattr}")
+        del out, out2, dx, dp, dx2, dp2, got, again
+        rec = {"phase": "attention", "shape": name, "layer": "interacting",
+               "B": bsz, "F": f, "d": d, "attention_dim": a, "heads": heads,
+               "dtype": dtype, "same_bits": same_bits, "tol": tol,
+               "relu_share_on": (interacting_plain(x, p, heads).float() > 0)
+               .float().mean().item(),
+               "backward_plan": {"samples": bp.samples,
+                                 "core_warps": bp.core_warps, "rows": bp.rows,
+                                 "smem_bytes": bp.smem, "grid": bp.grid(bsz)},
+               "forward_plan": {
+                   "samples": fp.samples, "core_warps": fp.core_warps,
+                   "rows": fp.rows, "smem_bytes": fp.smem,
+                   "blocks_per_sm": fp.blocks_per_sm,
+                   "grid": fp.grid(bsz, torch.cuda.get_device_properties(
+                       dev).multi_processor_count)},
+               "forward_compiled": fattr, "controls": controls,
+               "library": "scaled_dot_product_attention (scale 1) around the "
+                          "same four projections and the ReLU (autograd for "
+                          "the backward)"}
+        for kind, cmp, kern, plain, lib in (
+                ("forward", fcmp, fwd, lambda: interacting_plain(x, p, heads),
+                 lib_fwd),
+                ("backward", bcmp, bwd, bwd_plain, lib_bwd)):
+            bound_ms, bound_by, flops, mixed_ms = interacting_bound(
+                bsz, f, d, a, heads, bf16, kind == "backward")
+            ms = time_ms(kern, reps=20)
+            library_ms = time_ms(lib, reps=20)
+            rec[kind] = {
+                **cmp,
+                "max_abs_err": max(o["max_abs_err"]
+                                   for o in cmp["outputs"].values()),
+                "ms": ms, "plain_ms": time_ms(plain, reps=5, warmup=1),
+                "library_ms": library_ms, "below_library": ms < library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "mixed_bound_ms": mixed_ms,
+                "gflop": flops / 1e9, "tflops": flops / (ms * 1e-3) / 1e12,
+            }
+        emit(rec)
+        results[name] = rec
+        del x, g, p
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_attention() -> dict:
     import torch
 
@@ -1705,6 +1912,7 @@ def phase_attention() -> dict:
         results[name] = rec
         del x, g, p
         torch.cuda.empty_cache()
+    results.update(attention_interacting(failures))
     if failures:
         fail("; ".join(failures))
     return results
@@ -2342,11 +2550,12 @@ def phase_packed_kernels() -> dict:
     return out
 
 
-def bench_workload(vocab: int, width: int = 16, seed: int = 0):
+def bench_workload(vocab: int, width: int = 16, seed: int = 0,
+                   dense_fields: int = 1):
     """bench.py's _workload at ``vocab`` ids per field, in the port's own
     data classes: 26 sparse fields of width ``width`` (bench.py's 16) and
-    one dense field, one batch of 16384 rows from numpy seed ``seed``
-    (bench.py's 0)."""
+    ``dense_fields`` dense fields (bench.py's 1; Criteo's 13), one batch of
+    16384 rows from numpy seed ``seed`` (bench.py's 0)."""
     import numpy as np
 
     from deepfm_tpu_torch.data.packing import pack_features, pack_schema
@@ -2360,12 +2569,15 @@ def bench_workload(vocab: int, width: int = 16, seed: int = 0):
     for i in range(BENCH_FIELDS):
         fields[f"cat_{i}"] = FieldSchema(
             f"cat_{i}", FeatureType.SPARSE, vocab, width, "user" if i % 2 else "item")
-    fields["dense_0"] = FieldSchema("dense_0", FeatureType.DENSE, 0, width, "context")
+    for j in range(dense_fields):
+        fields[f"dense_{j}"] = FieldSchema(f"dense_{j}", FeatureType.DENSE, 0,
+                                           width, "context")
     packed = pack_schema(DatasetSchema(fields=fields))
     rng = np.random.default_rng(seed)
     feats = {f"cat_{i}": rng.integers(1, vocab, BENCH_BATCH)
              for i in range(BENCH_FIELDS)}
-    feats["dense_0"] = rng.normal(size=BENCH_BATCH).astype(np.float32)
+    for j in range(dense_fields):
+        feats[f"dense_{j}"] = rng.normal(size=BENCH_BATCH).astype(np.float32)
     labels = rng.integers(0, 2, BENCH_BATCH).astype(np.float32)
     return packed, pack_features(packed, feats, labels)
 
@@ -2417,6 +2629,25 @@ def paper_config(device: str, compute_dtype: str = "bfloat16", **training):
         "dnn": {"hidden_units": [400, 400], "dropout": 0.0},
         "training": {"batch_size": PAPER_BATCH, "compute_dtype": compute_dtype,
                      "lr": LR, **training},
+    })
+
+
+def autoint_config(device: str, compute_dtype: str = "bfloat16"):
+    """AutoInt's Criteo configuration for the port (AUTOINT_*): no DNN, no
+    dropout, Adam at lr 0.001, batch BENCH_BATCH, bf16 table moments, the
+    default sparse-fused path on logical tables."""
+    from deepfm_tpu_torch.config import config_from_dict
+
+    return config_from_dict({
+        "model_name": "autoint",
+        "device": device,
+        "feature": {"fm_embed_dim": AUTOINT_WIDTH},
+        "attention": {"num_heads": AUTOINT_HEADS,
+                      "attention_dim": AUTOINT_DIM,
+                      "num_layers": AUTOINT_LAYERS},
+        "dnn": {"hidden_units": [], "dropout": 0.0},
+        "training": {"batch_size": BENCH_BATCH, "compute_dtype": compute_dtype,
+                     "moments_dtype": "bfloat16", "lr": LR},
     })
 
 
@@ -3331,6 +3562,101 @@ def phase_train_xdeepfm_paper() -> dict:
     if failures:
         fail("; ".join(failures))
     return out
+
+
+def phase_train_autoint() -> dict:
+    """AutoInt at its Criteo widths (autoint_config) on bench.py's workload
+    with Criteo's 13 dense fields (F = 39), through create_model and
+    Trainer on the default sparse-fused path in bf16: the launches of its
+    WARMUP_STEPS + TIMED_STEPS steps, counted from 0, must be exactly one
+    interacting_fwd and one interacting_bwd a layer a step (the backward's
+    reduce kernel is part of its wrapper's call), and the table update's
+    kernels must run."""
+    import torch
+
+    from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.training.trainer import Trainer
+
+    dev = torch.device(DEVICE)
+    failures = []
+    t0 = time.perf_counter()
+    packed, arrays = bench_workload(BENCH_VOCAB, AUTOINT_WIDTH,
+                                    dense_fields=AUTOINT_DENSE)
+    batch = batch_on(arrays, dev)
+    config = autoint_config(DEVICE)
+    model = create_model("autoint", packed, config, device=DEVICE)
+    trainer = Trainer(model, packed, config)
+    setup_s = time.perf_counter() - t0
+    if trainer.path != "sparse_fused" or packed.num_fields != (
+            BENCH_FIELDS + AUTOINT_DENSE):
+        fail(f"autoint: path {trainer.path}, {packed.num_fields} fields")
+
+    # --- the main path: counts start at 0 here ------------------------------
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer._train_step(*batch).item() for _ in range(WARMUP_STEPS)]
+    times = timed_steps(trainer, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # --- end of the main path ------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = WARMUP_STEPS + TIMED_STEPS
+    expected = {"interacting_fwd": steps * AUTOINT_LAYERS,
+                "interacting_bwd": steps * AUTOINT_LAYERS,
+                "attention_block_fwd": 0, "attention_block_bwd": 0}
+    for kernel, n in expected.items():
+        if counts[kernel] != n:
+            failures.append(f"{kernel} launched {counts[kernel]} times in "
+                            f"{steps} steps, expected {n}")
+    for kernel in ("segment_sumsq", "sparse_table_adam"):
+        if counts[kernel] < 1:
+            failures.append(f"{kernel} was not launched")
+    if not all(map(math.isfinite, losses)):
+        failures.append(f"a loss is not finite: {losses}")
+    del trainer, model, batch
+    free_device()
+    step_ms = 1e3 * statistics.median(times)
+    out = {
+        "phase": "train_autoint", "model": "autoint", "path": "sparse_fused",
+        "table_layout": "logical",
+        "source": "Song et al., CIKM 2019 (arXiv:1810.11921), 5.1.3",
+        "batch": BENCH_BATCH, "fields": packed.num_fields,
+        "vocab": BENCH_VOCAB, "width": AUTOINT_WIDTH, "heads": AUTOINT_HEADS,
+        "attention_dim": AUTOINT_DIM, "layers": AUTOINT_LAYERS,
+        "compute_dtype": "bfloat16", "setup_s": setup_s, "losses": losses,
+        "step_ms_median": step_ms, "step_ms_min": 1e3 * min(times),
+        "step_ms_max": 1e3 * max(times),
+        "examples_per_s": BENCH_BATCH / (step_ms / 1e3),
+        "peak_memory_gb": peak_gb, "launches": counts,
+        "launches_expected": expected, "ok": not failures,
+    }
+    emit(out)
+    if failures:
+        fail("; ".join(failures))
+    return out
+
+
+def interacting_kernel_rows(attn: dict, autoint: dict) -> list:
+    """The kernels line's rows of the interacting layer's two kernels: their
+    launches on AutoInt's train step (train_autoint), their numbers at
+    layers 2-3's shape (autoint_l23_bf16) and, under ``layer_1``, at layer
+    1's (autoint_l1_bf16). They port no TPU kernel (the JAX package has no
+    AutoInt)."""
+    rows = []
+    for name, source, kind in (
+            ("interacting_fwd", "attention_block.cu", "forward"),
+            ("interacting_bwd", "attention_bwd.cu", "backward")):
+        rec = attn["autoint_l23_bf16"][kind]
+        rec1 = attn["autoint_l1_bf16"][kind]
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"deepfm_tpu_torch/csrc/{source}",
+                     "replaces": None,
+                     "launches": autoint["launches"][name],
+                     **{k: rec[k] for k in keys},
+                     "layer_1": {k: rec1[k] for k in keys}})
+    return rows
 
 
 def _http(method: str, url: str, payload=None):
@@ -6293,6 +6619,7 @@ def main() -> None:
     train_packed = timed("train_packed", phase_train_packed)
     models = timed("train_models", phase_train_models)
     paper = timed("train_xdeepfm_paper", phase_train_xdeepfm_paper)
+    autoint = timed("train_autoint", phase_train_autoint)
     timed("train_baselines", phase_train_baselines, gpu)
     timed("train_lazy", phase_train_lazy, gpu)
     serve = {}
@@ -6371,6 +6698,7 @@ def main() -> None:
             "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         })
+    kernels += interacting_kernel_rows(attn, autoint)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {
         "platform": "gpu",

@@ -2,9 +2,10 @@
 
 A package of its own beside the JAX package, which stays the reference.
 It imports torch, numpy and pyyaml, never JAX and nothing of
-``deepfm_tpu``. It trains DeepFM, xDeepFM, AttentionDeepFM and the LR /
-FM / DNN baselines (``training/trainer.py``: the step, with Adam or
-lazy_adam, the epoch loop, evaluation, resume and results.json), from
+``deepfm_tpu``. It trains DeepFM, xDeepFM, AttentionDeepFM, the LR /
+FM / DNN baselines and a model of its own, AutoInt (``models/autoint.py``;
+``training/trainer.py``: the step, with Adam or lazy_adam, the epoch loop,
+evaluation, resume and results.json), from
 MovieLens, synthetic or on-disk packed data, and scores and serves them,
 through the ``train``, ``evaluate``, ``compare``, ``predict``,
 ``recommend``, ``serve``, ``pack-data``, ``synth-data`` and

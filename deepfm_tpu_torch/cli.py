@@ -706,7 +706,7 @@ def main(argv: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(
         prog="deepfm_tpu_torch",
         description="CTR prediction on PyTorch/CUDA: DeepFM, xDeepFM, "
-        "AttentionDeepFM and the LR / FM / DNN baselines",
+        "AttentionDeepFM, AutoInt and the LR / FM / DNN baselines",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 

@@ -65,6 +65,39 @@
 // The plan (S, the number of core warps, the shared-memory layout) is
 // computed by deepfm_tpu_torch/ops/kernels/attention.py::backward_plan;
 // the launch recomputes it here and refuses a mismatch.
+//
+// AutoInt's interacting layer (csrc/attention_block.cu has its forward) is
+// this file's second kernel, interact_bwd_kernel. Per sample, with x (F, d)
+// in the compute type, w4 = [wq|wk|wv|wres] (d, 4a) and the output's
+// cotangent g (F, a) in the compute type, it recomputes the forward and
+// then
+//
+//   dres = g * (ctx + res > 0)   (the ReLU's mask; dctx = dres too)
+//   ds = w * (dw - sum_j dw * w) * scale with dw = dctx . v^T, dq = ds . k,
+//   dk = ds^T . q, dv = w^T . dctx;  dall4 = [dq|dk|dv|dres]     (F, 4a)
+//   dW4 = x^T op(dall4), dx = op(dall4) . w4^T
+//
+// op casts to the compute type; q/k/v/res, scores, softmax, ctx and dall4
+// are f32 and every product accumulates in f32.
+// Design, where it departs from the block's:
+//  * Shared memory holds w4 and a tile's x, [q|k|v|res] (then dall4 over
+//    it), ctx (dctx, then dx over it) and the core warps' scratch, but no
+//    gradient accumulator: at d = a = 64 the block's layout (weights, dW
+//    accumulators and a 64-wide tile together) asks 243,968 B, over the
+//    limit. Each block's dW4 partial (d rounded up to 16 rows, 4a padded
+//    columns, f32) lives in device memory instead, where the block's first
+//    tile writes it and each later tile reads and adds to it: every element
+//    is owned by one lane of one warp (product's fixed order of tiles), so
+//    the sums run in tile order with no barrier and no atomics. The 64 KB
+//    partial of a block at d = 64 stays in L2 (132 blocks: 8.6 MB).
+//  * dW4 and dx are the same two products over op(dall4) that the block
+//    takes over op([dq|dk|dv]), 4a wide; the block's LayerNorm, bias and
+//    output projection stages have no counterpart.
+//  * interact_reduce_kernel adds the partials in block order into the real
+//    (d, 4a) layout; the grid is the block's fixed 132. Two launches give
+//    the same bits.
+// Its plan (interacting_backward_plan) takes the most core warps, then the
+// most samples, that fit one block, as the block's does.
 
 #include "attention_tile.cuh"
 
@@ -102,12 +135,13 @@ Plan make_plan(int B, int F, int d, int a, int H, int S, int NC, float scale,
 
 // The most core warps, then the most samples a tile, that fit one block's
 // shared memory; false where even one sample and one warp do not.
-bool choose_plan(int B, int F, int d, int a, int H, float scale, int residual,
-                 Plan* out) {
+// `make(S, NC)` lays out a tile of S samples with NC core warps.
+template <class Make>
+bool choose_plan_by(int H, const Make& make, Plan* out) {
   for (int nc = kWarps; nc >= 1; --nc) {
     for (int s = kMaxSamples; s >= 1; --s) {
       if (nc > s * H) continue;
-      const Plan p = make_plan(B, F, d, a, H, s, nc, scale, residual);
+      const Plan p = make(s, nc);
       if (4LL * p.total <= kSmemMax) {
         *out = p;
         return true;
@@ -115,6 +149,13 @@ bool choose_plan(int B, int F, int d, int a, int H, float scale, int residual,
     }
   }
   return false;
+}
+
+bool choose_plan(int B, int F, int d, int a, int H, float scale, int residual,
+                 Plan* out) {
+  return choose_plan_by(
+      H, [&](int s, int nc) { return make_plan(B, F, d, a, H, s, nc, scale, residual); },
+      out);
 }
 
 // Gradient partial layout per block (real, unpadded): dwqkv (d, 3a) | dbqkv
@@ -355,6 +396,141 @@ cudaError_t bwd(const void* x, const float* g, const void* wqkv,
   return cudaGetLastError();
 }
 
+// ---- AutoInt's interacting layer
+
+// w4 (d rounded up to 16, 4a padded), x's rows, [q|k|v|res] and then dall4
+// over it, ctx (dctx, then dx: as wide as the wider of a and d), and each
+// core warp's two F x FS matrices
+Plan make_interact_plan(int B, int F, int d, int a, int H, int S, int NC,
+                        float scale) {
+  Plan p = plan_geometry(B, F, d, a, H, S, NC, scale, 0);
+  p.WS = row_stride(4 * p.ap);
+  p.QS = p.WS;
+  p.CS = row_stride(p.ap > p.dp ? p.ap : p.dp);
+  p.o_x = p.dp * p.WS;
+  p.o_qkv = p.o_x + p.RP * p.XS;
+  p.o_ctx = p.o_qkv + p.RP * p.QS;
+  p.o_scr = p.o_ctx + p.RP * p.CS;
+  p.total = p.o_scr + NC * 2 * F * p.FS;
+  return p;
+}
+
+bool choose_interact_plan(int B, int F, int d, int a, int H, float scale, Plan* out) {
+  return choose_plan_by(
+      H, [&](int s, int nc) { return make_interact_plan(B, F, d, a, H, s, nc, scale); },
+      out);
+}
+
+// part: (gridDim.x, dp * 4ap) f32, this block's dW4 partial in the padded
+// layout; x, g, w4 and dx in the compute type.
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads, 1)
+interact_bwd_kernel(const void* __restrict__ x_g, const void* __restrict__ g_g,
+                    const void* __restrict__ w_g, void* __restrict__ dx_g,
+                    float* __restrict__ part, const Plan p) {
+  using io = Io<BF16>;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int F = p.F, d = p.d, a = p.a, a4 = 4 * p.a, n4 = 4 * p.ap;
+  const int XS = p.XS, QS = p.QS, CS = p.CS, WS = p.WS, r3 = 3 * p.ap;
+  float* w = sm;
+  float* xs = sm + p.o_x;
+  float* qkv = sm + p.o_qkv;
+  float* ctx = sm + p.o_ctx;
+  float* scr = sm + p.o_scr + warp * 2 * F * p.FS;
+  float* dw = part + (size_t)blockIdx.x * p.dp * n4;
+
+  for (int i = tid; i < p.total; i += kThreads) sm[i] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < d * a4; i += kThreads) {
+    const int c = i / a4;
+    w[c * WS + qkv_col(p, i - c * a4)] = io::load(w_g, i);
+  }
+
+  const int tiles = (p.B + p.S - 1) / p.S;
+  const int mt = p.RP / 16;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int b0 = tile * p.S;
+    const int sv = min(p.S, p.B - b0);
+    const int R = sv * F;  // valid rows; rows R..RP-1 of dall4 stay 0
+    const size_t e0 = (size_t)b0 * F * d, o0 = (size_t)b0 * F * a;
+    load_rows(p.RP * d, R * d, d, XS, xs, [&](size_t i) { return io::load(x_g, e0 + i); });
+    __syncthreads();
+    // ---- [q|k|v|res] = x . w4
+    product<BF16>(
+        mt, n4 / 16, p.dp, [&](int m, int k) { return xs[m * XS + k]; },
+        [&](int k, int n) { return w[k * WS + n]; },
+        [](int, int) { return 0.f; },
+        [&](int r, int c, float v) { qkv[r * QS + c] = v; }, warp, g, t);
+    __syncthreads();
+    core<false>(p, qkv, ctx, scr, sv, warp, lane);
+    __syncthreads();
+    // ---- dres = g under the ReLU's mask, into res's place and over ctx
+    for (int i = tid; i < R * a; i += kThreads) {
+      const int r = i / a, c = head_row(p, i - r * a);
+      const float pre = ctx[r * CS + c] + qkv[r * QS + r3 + c];
+      const float gv = pre > 0.f ? io::load(g_g, o0 + i) : 0.f;
+      ctx[r * CS + c] = gv;
+      qkv[r * QS + r3 + c] = gv;
+    }
+    __syncthreads();
+    core<true>(p, qkv, ctx, scr, sv, warp, lane);
+    __syncthreads();
+    // ---- dW4 += x^T op(dall4) into the block's partial; dx = op(dall4) .
+    // w4^T over ctx
+    const bool first = tile == (int)blockIdx.x;
+    product<BF16>(
+        p.dp / 16, n4 / 16, p.RP, [&](int m, int k) { return xs[k * XS + m]; },
+        [&](int k, int n) { return qkv[k * QS + n]; },
+        [&](int r, int c) { return first ? 0.f : dw[r * n4 + c]; },
+        [&](int r, int c, float v) { dw[r * n4 + c] = v; }, warp, g, t);
+    product<BF16>(
+        mt, p.dp / 16, n4, [&](int m, int k) { return qkv[m * QS + k]; },
+        [&](int k, int n) { return w[n * WS + k]; },
+        [](int, int) { return 0.f; },
+        [&](int r, int c, float v) { ctx[r * CS + c] = v; }, warp, g, t);
+    __syncthreads();
+    for (int i = tid; i < R * d; i += kThreads) {
+      const int r = i / d;
+      io::store(dx_g, e0 + i, ctx[r * CS + (i - r * d)]);
+    }
+    // (the next tile writes ctx only after two barriers)
+  }
+}
+
+// out (d, 4a) real layout: out[i] = sum over blocks of the partials' padded
+// element, in block order.
+__global__ void interact_reduce_kernel(const float* __restrict__ part,
+                                       float* __restrict__ out, const Plan p,
+                                       const int blocks) {
+  const int a4 = 4 * p.a, n4 = 4 * p.ap;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.d * a4) return;
+  const int c = i / a4;
+  const size_t src = (size_t)c * n4 + qkv_col(p, i - c * a4);
+  const size_t stride = (size_t)p.dp * n4;
+  float v = 0.f;
+  for (int b = 0; b < blocks; ++b) v += part[b * stride + src];
+  out[i] = v;
+}
+
+template <bool BF16>
+cudaError_t interact_bwd(const void* x, const void* g, const void* w, void* dx,
+                         float* part, float* grads, const Plan& p, int grid,
+                         cudaStream_t stream) {
+  static int smem_set[kMaxDevices] = {};
+  const int smem = 4 * p.total;
+  cudaError_t err = ensure_smem(interact_bwd_kernel<BF16>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  interact_bwd_kernel<BF16><<<grid, kThreads, smem, stream>>>(x, g, w, dx, part, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = p.d * 4 * p.a;
+  interact_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(part, grads, p, grid);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes); every pointer is a device pointer
@@ -386,6 +562,38 @@ extern "C" int attention_bwd(const void* x, const float* g, const void* wqkv,
   const cudaError_t err =
       bf16 ? bwd<true>(x, g, wqkv, bqkv, wo, bo, ls, dx, part, grads, n_part, p, grid, st)
            : bwd<false>(x, g, wqkv, bqkv, wo, bo, ls, dx, part, grads, n_part, p, grid, st);
+  return (int)err;
+}
+
+// Plain C entry point of the interacting layer's backward; every pointer is
+// a device pointer on the current device. x and dx (B, F, d), g (B, F, a)
+// and w = [wq|wk|wv|wres] (d, 4a) in the compute type (bf16 selects bf16);
+// part (grid, dp * 4ap) f32 workspace (dp: d rounded up to 16; ap: a with
+// each head padded to 4 floats, rounded up to 16); grads (d, 4a) f32.
+// `samples`, `core_warps`, `grid` and `smem` are the wrapper's plan
+// (interacting_backward_plan), refused (cudaErrorInvalidValue) unless they
+// are this file's. Returns a cudaError_t, 0 on a successful launch; the
+// kernels run on `stream` and nothing here synchronises.
+extern "C" int interacting_bwd(const void* x, const void* g, const void* w,
+                               void* dx, float* part, float* grads, int n_part,
+                               int B, int F, int d, int a, int H, float scale,
+                               int bf16, int samples, int core_warps, int grid,
+                               int smem, void* stream) {
+  if (B < 1 || F < 1 || d < 1 || H < 1 || a < H || a % H != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Plan p;
+  if (!choose_interact_plan(B, F, d, a, H, scale, &p)) return (int)cudaErrorInvalidValue;
+  const int tiles = (B + p.S - 1) / p.S;
+  const int want_grid = tiles < kBlocks ? tiles : kBlocks;
+  if (p.S != samples || p.NC != core_warps || 4 * p.total != smem ||
+      grid != want_grid || n_part != p.dp * 4 * p.ap) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      bf16 ? interact_bwd<true>(x, g, w, dx, part, grads, p, grid, st)
+           : interact_bwd<false>(x, g, w, dx, part, grads, p, grid, st);
   return (int)err;
 }
 

@@ -1,8 +1,10 @@
 // Shared pieces of the field self-attention block's kernels for Hopper
 // (sm_90a): attention_block.cu (the forward) and attention_bwd.cu (the
-// backward, which recomputes the forward). Both walk tiles of S samples,
-// S*F consecutive rows padded to a multiple of 16, with the weights and the
-// tile's tensors in shared memory:
+// backward, which recomputes the forward), and of AutoInt's interacting
+// layer in the same two files (its scale a parameter, 1 for AutoInt's
+// unscaled scores; its Plan's strides set by its own layout). All walk
+// tiles of S samples, S*F consecutive rows padded to a multiple of 16, with
+// the weights and the tile's tensors in shared memory:
 //  * the tile geometry (Plan): heads padded to a multiple of 4 floats and
 //    the [q|k|v] sections and d to a multiple of 16 (zeros, so pads add
 //    exact zeros), and row strides that keep an mma fragment's 8 rows on

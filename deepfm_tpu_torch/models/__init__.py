@@ -3,7 +3,9 @@
 The port has every model of the JAX registry: DeepFM, xDeepFM and
 AttentionDeepFM, and the ablation baselines ``lr``, ``fm`` and ``dnn``
 (``models/baselines.py``), each trained by ``training/trainer.py`` and
-served by ``serving.py``.
+served by ``serving.py``; and one of its own, ``autoint``
+(``models/autoint.py``), trained by the same ``Trainer`` and scored by
+``Predictor``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from deepfm_tpu_torch.data.packing import PackedSchema, pack_schema
 from deepfm_tpu_torch.data.schema import DatasetSchema
 from deepfm_tpu_torch.device import resolve_device
 from deepfm_tpu_torch.models.attention_deepfm import AttentionDeepFM
+from deepfm_tpu_torch.models.autoint import AutoInt
 from deepfm_tpu_torch.models.base import CTRModel
 from deepfm_tpu_torch.models.baselines import DNNOnly, FM, LogisticRegression
 from deepfm_tpu_torch.models.deepfm import DeepFM
@@ -28,6 +31,8 @@ MODEL_REGISTRY: dict[str, type[CTRModel]] = {
     "lr": LogisticRegression,
     "fm": FM,
     "dnn": DNNOnly,
+    # the port's own (not in the JAX package)
+    "autoint": AutoInt,
 }
 
 
@@ -123,6 +128,7 @@ def create_model(
 
 __all__ = [
     "AttentionDeepFM",
+    "AutoInt",
     "CTRModel",
     "DNNOnly",
     "DeepFM",

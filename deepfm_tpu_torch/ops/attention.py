@@ -15,6 +15,18 @@ JAX package runs its XLA tower; the port runs the plain version on the CPU
 and refuses any other device, since there is no plain path on the card.
 The ``(F, d, B)`` transposes around the JAX stack are a TPU artifact: the
 port keeps ``(B, F, d)`` throughout.
+
+``InteractingStack`` is AutoInt's (Song et al., CIKM 2019, section 4.4;
+the port's own, not in the JAX package): N stacked interacting layers,
+each ``layer_{i}.wq``, ``wk``, ``wv`` (d_l, a) and ``wres`` (d_l, a) with no
+biases, ``out = ReLU(softmax(q k^T) v + x · wres)`` of width a, d_1 the
+embedding width and d_l = a after it. Each layer goes through
+``interacting_layer`` (``ops/kernels/attention.py``), on the same terms as
+a block.
+
+Tracing (``utils/tracing.py``): each stack's forward is the span
+``model.attention``, and each layer adds its B·F rows to the counter
+``attention.rows``.
 """
 
 from __future__ import annotations
@@ -23,7 +35,13 @@ import torch
 from torch import nn
 
 from deepfm_tpu_torch.ops.init import torch_linear_bound, uniform_
-from deepfm_tpu_torch.ops.kernels.attention import attention_block, param_names
+from deepfm_tpu_torch.ops.kernels.attention import (
+    INTERACT_NAMES,
+    attention_block,
+    interacting_layer,
+    param_names,
+)
+from deepfm_tpu_torch.utils import tracing
 
 
 class AttentionBlock(nn.Module):
@@ -73,13 +91,69 @@ class MultiHeadSelfAttention(nn.Module):
                 embed_dim, num_heads, attention_dim, use_residual, g))
 
     def forward(self, field_embeddings: torch.Tensor) -> torch.Tensor:
-        x = field_embeddings.to(self.compute_dtype)  # (B, F, d)
-        if not self.use_kernel and x.device.type != "cpu":
+        return _run_stack(self, "block", field_embeddings)
+
+
+def _run_stack(stack: nn.Module, layer: str,
+               field_embeddings: torch.Tensor) -> torch.Tensor:
+    """``stack``'s layers ``{layer}_0`` .. in order over the field
+    embeddings cast to its compute dtype."""
+    with tracing.span("model.attention"):
+        x = field_embeddings.to(stack.compute_dtype)  # (B, F, d)
+        if not stack.use_kernel and x.device.type != "cpu":
             raise ValueError(
                 "pallas.use_attention_kernel=false selects the plain "
                 "attention version, which runs only on the CPU; got a "
                 f"tensor on {x.device}"
             )
-        for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x)
+        for i in range(stack.num_layers):
+            tracing.count("attention.rows", x.shape[0] * x.shape[1])
+            x = getattr(stack, f"{layer}_{i}")(x)
         return x
+
+
+class InteractingLayer(nn.Module):
+    """One AutoInt interacting layer, (B, F, d_in) -> (B, F, a)."""
+
+    def __init__(self, in_dim: int, num_heads: int, attention_dim: int,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        g = generator if generator is not None else torch.Generator()
+        self.num_heads = num_heads
+        for name in INTERACT_NAMES:
+            self.register_parameter(name, nn.Parameter(uniform_(
+                torch.empty(in_dim, attention_dim), torch_linear_bound(in_dim),
+                g)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return interacting_layer(
+            x, {n: getattr(self, n) for n in INTERACT_NAMES}, self.num_heads)
+
+
+class InteractingStack(nn.Module):
+    """AutoInt's ``num_layers`` interacting layers over the field
+    embeddings: (B, F, embed_dim) -> (B, F, attention_dim) in the compute
+    dtype."""
+
+    def __init__(self, embed_dim: int, num_heads: int = 2,
+                 attention_dim: int = 64, num_layers: int = 3,
+                 compute_dtype: torch.dtype = torch.float32,
+                 use_kernel: bool = True,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        if attention_dim % num_heads != 0:
+            raise ValueError(
+                f"attention_dim ({attention_dim}) must be divisible by "
+                f"num_heads ({num_heads})"
+            )
+        g = generator if generator is not None else torch.Generator()
+        self.compute_dtype = compute_dtype
+        self.use_kernel = use_kernel
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            setattr(self, f"layer_{i}", InteractingLayer(
+                embed_dim if i == 0 else attention_dim, num_heads,
+                attention_dim, g))
+
+    def forward(self, field_embeddings: torch.Tensor) -> torch.Tensor:
+        return _run_stack(self, "layer", field_embeddings)

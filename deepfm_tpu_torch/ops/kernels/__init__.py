@@ -15,6 +15,8 @@ def kernel_wrappers() -> dict:
     from deepfm_tpu_torch.ops.kernels.attention import (
         attention_block_backward,
         attention_block_forward,
+        interacting_backward,
+        interacting_forward,
     )
     from deepfm_tpu_torch.ops.kernels.cin import cin_compress_layer
     from deepfm_tpu_torch.ops.kernels.cin_stack import (
@@ -40,6 +42,8 @@ def kernel_wrappers() -> dict:
             "cin_compress": cin_compress_layer,
             "attention_block_fwd": attention_block_forward,
             "attention_block_bwd": attention_block_backward,
+            "interacting_fwd": interacting_forward,
+            "interacting_bwd": interacting_backward,
             "densify_rows_grad": densify_rows_grad,
             "segment_sumsq": segment_sumsq,
             "sparse_table_adam": sparse_table_adam,

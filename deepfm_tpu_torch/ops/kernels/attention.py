@@ -30,6 +30,19 @@ bench.py's shape, operations (~20 GFLOP) for the backward, if every
 operation ran at the bf16 tensor-core rate; both run their projections on
 the tensor cores in bf16 and the attention core on the FP32 pipes, whose
 rate bounds them more (the mixed bound, see the .cu files).
+
+AutoInt's interacting layer (Song et al., CIKM 2019, section 4.4) is the
+second pair of kernels in the same sources (``interacting_fwd``,
+``interacting_bwd``): per sample, [q|k|v|res] = x · [wq|wk|wv|wres] with no
+biases, an unscaled softmax over the F key fields per head (``scale`` 1),
+``out = ReLU(ctx + res)`` of width a, in x's dtype. Rounding points: x and
+the weights in the compute type into the products; q/k/v/res, scores,
+softmax, context and the residual sum in f32; the output cast once; in the
+backward [dq|dk|dv|dres] cast to the compute type before its two products
+(dW and dx). Plans: ``interacting_forward_plan``,
+``interacting_backward_plan``; plain versions ``interacting_plain``,
+``interacting_backward_plain``; the autograd Function
+``InteractingLayerFn``.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ import functools
 import torch
 
 from deepfm_tpu_torch.ops.kernels import build
+from deepfm_tpu_torch.utils import tracing
 
 SOURCE = "attention_block.cu"
 BWD_SOURCE = "attention_bwd.cu"
@@ -58,12 +72,17 @@ PARAM_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
 LN_NAMES = ("ln_scale", "ln_bias")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+INTERACT_NAMES = ("wq", "wk", "wv", "wres")
+INTERACT_SCALE = 1.0  # AutoInt's scores: the unscaled inner product
 _SIGNATURES = {
     "attention_block_fwd": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 7 + [_P],
     "attention_block_fwd_attributes": [_I, _I, _P],
+    "interacting_fwd": [_P] * 3 + [_I] * 5 + [_F] + [_I] * 6 + [_P],
+    "interacting_fwd_attributes": [_I, _I, _P],
 }
 _BWD_SIGNATURES = {
     "attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
+    "interacting_bwd": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
 }
 
 
@@ -245,22 +264,28 @@ def _bwd_floats(f: int, d: int, a: int, h: int, samples: int,
     return weights + grads + tile + scratch
 
 
-def backward_plan(f: int, d: int, a: int, num_heads: int) -> BackwardPlan:
-    """The most core warps, then the most samples a tile, that fit one
-    block; raises ValueError where one sample and one warp do not."""
+def _choose_backward(floats, what: str, f: int, d: int, a: int,
+                     num_heads: int) -> BackwardPlan:
     for nc in range(WARPS, 0, -1):
         for s in range(MAX_SAMPLES, 0, -1):
             if nc > s * num_heads:
                 continue
-            smem = 4 * _bwd_floats(f, d, a, num_heads, s, nc)
+            smem = 4 * floats(f, d, a, num_heads, s, nc)
             if smem <= SMEM_PER_BLOCK:
                 return BackwardPlan(s, nc, _up(s * f, 16), smem)
-    smem = 4 * _bwd_floats(f, d, a, num_heads, 1, 1)
+    smem = 4 * floats(f, d, a, num_heads, 1, 1)
     raise ValueError(
-        f"attention block backward with F={f}, d={d}, a={a}, H={num_heads} "
+        f"{what} backward with F={f}, d={d}, a={a}, H={num_heads} "
         f"needs {smem} bytes of shared memory per block; the limit is "
         f"{SMEM_PER_BLOCK}"
     )
+
+
+def backward_plan(f: int, d: int, a: int, num_heads: int) -> BackwardPlan:
+    """The most core warps, then the most samples a tile, that fit one
+    block; raises ValueError where one sample and one warp do not."""
+    return _choose_backward(_bwd_floats, "attention block", f, d, a,
+                            num_heads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,21 +331,27 @@ def forward_plan(f: int, d: int, a: int, num_heads: int) -> ForwardPlan:
     memory; of the two, the one with more core warps an SM (two blocks on a
     tie). Raises ValueError where one sample and one warp do not fit one
     block."""
+    return _choose_forward(_fwd_floats, "attention block", f, d, a,
+                           num_heads)
+
+
+def _choose_forward(floats, what: str, f: int, d: int, a: int,
+                    num_heads: int) -> ForwardPlan:
     best = None
     for blocks in (2, 1):
         limit = min(SMEM_PER_BLOCK, SMEM_PER_SM // blocks - SMEM_RESERVED)
         fit = next(((nc, s, smem) for nc in range(WARPS, 0, -1)
                     for s in range(MAX_SAMPLES, 0, -1) if nc <= s * num_heads
-                    for smem in [4 * _fwd_floats(f, d, a, num_heads, s, nc)]
+                    for smem in [4 * floats(f, d, a, num_heads, s, nc)]
                     if smem <= limit), None)
         if fit and (best is None
                     or fit[0] * blocks > best.core_warps * best.blocks_per_sm):
             nc, s, smem = fit
             best = ForwardPlan(s, nc, _up(s * f, 16), smem, blocks)
     if best is None:
-        smem = 4 * _fwd_floats(f, d, a, num_heads, 1, 1)
+        smem = 4 * floats(f, d, a, num_heads, 1, 1)
         raise ValueError(
-            f"attention block forward with F={f}, d={d}, a={a}, "
+            f"{what} forward with F={f}, d={d}, a={a}, "
             f"H={num_heads} needs {smem} bytes of shared memory per block; "
             f"the limit is {SMEM_PER_BLOCK}"
         )
@@ -375,16 +406,19 @@ def _forward_cuda(x, p, num_heads, use_residual) -> torch.Tensor:
     return out
 
 
-def forward_attributes(x: torch.Tensor, fp: ForwardPlan) -> dict:
+def forward_attributes(x: torch.Tensor, fp: ForwardPlan,
+                       entry: str = "attention_block_fwd_attributes") -> dict:
     """The compiled forward kernel for x's dtype on x's card: registers and
     local memory (bytes) a thread, static shared memory (bytes), and the
-    blocks an SM holds at the plan's shared memory."""
+    blocks an SM holds at the plan's shared memory. ``entry`` names the
+    block's kernel or, ``interacting_fwd_attributes``, the interacting
+    layer's."""
     lib = build.bind(SOURCE, _SIGNATURES)
     out = (ctypes.c_int * 4)()
     with build.launch_device(x.device):
-        err = lib.attention_block_fwd_attributes(
+        err = getattr(lib, entry)(
             int(x.dtype == torch.bfloat16), fp.smem, ctypes.addressof(out))
-    build.check(lib, SOURCE, "attention_block_fwd_attributes", err)
+    build.check(lib, SOURCE, entry, err)
     return dict(zip(("registers", "local_bytes", "static_smem",
                      "blocks_per_sm"), out))
 
@@ -489,8 +523,9 @@ class AttentionBlockFn(torch.autograd.Function):
         num_heads, use_residual = ctx.cfg
         x, *params = ctx.saved_tensors
         names = param_names(use_residual)
-        dx, dp = attention_block_backward(
-            x, dict(zip(names, params)), g, num_heads, use_residual)
+        with tracing.span("model.attention_backward"):
+            dx, dp = attention_block_backward(
+                x, dict(zip(names, params)), g, num_heads, use_residual)
         return (dx, None, None, *(dp[n] for n in names))
 
 
@@ -506,6 +541,260 @@ def attention_block(x: torch.Tensor, p: dict, num_heads: int,
     return attention_block_forward(x, p, num_heads, use_residual)
 
 
+
+# ---- AutoInt's interacting layer ---------------------------------------
+
+
+def softmax_backward(w: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """The softmax's adjoint over the last axis: w * (dw - sum(dw * w))."""
+    return w * (dw - (dw * w).sum(dim=-1, keepdim=True))
+
+
+def _interact_check(x: torch.Tensor, p: dict, num_heads: int) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, F, d), got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    d, a = x.shape[2], p["wq"].shape[1]
+    if num_heads < 1 or a % num_heads != 0:
+        raise ValueError(
+            f"attention_dim ({a}) must be divisible by num_heads ({num_heads})"
+        )
+    for name in INTERACT_NAMES:
+        t = p[name]
+        if tuple(t.shape) != (d, a):
+            raise ValueError(
+                f"{name} has shape {tuple(t.shape)}, expected {(d, a)}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _interact_recompute(x: torch.Tensor, p: dict, num_heads: int):
+    """(xf, w4, q, k, v, w, ctx, pre) of the forward in f32: w4 the weights
+    [wq|wk|wv|wres] rounded to x's dtype, pre = ctx + res."""
+    bsz, f, _ = x.shape
+    a = p["wq"].shape[1]
+    hd = a // num_heads
+    xf = x.float()
+    w4 = torch.cat([p[n] for n in INTERACT_NAMES], dim=1).to(x.dtype).float()
+    proj = xf @ w4
+    q, k, v = (t.reshape(bsz, f, num_heads, hd)
+               for t in torch.split(proj[..., :3 * a], a, dim=2))
+    s = torch.einsum("bihe,bjhe->bhij", q, k) * INTERACT_SCALE
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True)
+    ctx = torch.einsum("bhij,bjhe->bihe", w, v).reshape(bsz, f, a)
+    return xf, w4, q, k, v, w, ctx, ctx + proj[..., 3 * a:]
+
+
+def interacting_plain(x: torch.Tensor, p: dict,
+                      num_heads: int) -> torch.Tensor:
+    """Plain version of the interacting layer's forward kernel: (B, F, d)
+    -> ReLU(ctx + x · wres) (B, F, a) in x's dtype, at the kernel's
+    rounding points."""
+    return torch.relu(_interact_recompute(x, p, num_heads)[-1]).to(x.dtype)
+
+
+def interacting_backward_plain(x: torch.Tensor, p: dict, g: torch.Tensor,
+                               num_heads: int, dall_round: bool = True):
+    """Plain version of the interacting layer's backward kernel: (dx in x's
+    dtype, {name: gradient in the parameter's dtype}) for the output
+    cotangent g (B, F, a).
+
+    ``dall_round=False`` leaves out the cast of [dq|dk|dv|dres] to the
+    compute type before its two products: a control that chip_smoke.py's
+    bf16 check must refuse."""
+    xf, w4, q, k, v, w, ctx, pre = _interact_recompute(x, p, num_heads)
+    bsz, f, _ = x.shape
+    a = p["wq"].shape[1]
+    dres = g.to(x.dtype).float() * (pre > 0)
+    dctx = dres.reshape(bsz, f, num_heads, a // num_heads)
+    ds = softmax_backward(
+        w, torch.einsum("bihe,bjhe->bhij", dctx, v)) * INTERACT_SCALE
+    dq = torch.einsum("bhij,bjhe->bihe", ds, k)
+    dk = torch.einsum("bhij,bihe->bjhe", ds, q)
+    dv = torch.einsum("bhij,bihe->bjhe", w, dctx)
+    dall = torch.cat([t.reshape(bsz, f, a) for t in (dq, dk, dv)]
+                     + [dres], dim=2)
+    if dall_round:
+        dall = dall.to(x.dtype).float()
+    dw4 = torch.einsum("bfc,bfj->cj", xf, dall)
+    dx = dall @ w4.t()
+    grads = dict(zip(INTERACT_NAMES, torch.split(dw4, a, dim=1)))
+    return dx.to(x.dtype), {n: t.to(p[n].dtype) for n, t in grads.items()}
+
+
+def _interact_floats(f: int, d: int, a: int, h: int, samples: int,
+                     core_warps: int, backward: bool) -> int:
+    hdp = _up(a // h, 4)
+    ap, dp = _up(h * hdp, 16), _up(d, 16)
+    rows = _up(samples * f, 16)
+    weights = dp * _row_stride(4 * ap)  # [wq|wk|wv|wres]
+    if backward:
+        # x, [q|k|v|res] (then dall4), ctx (then dx); two F x F a core warp
+        tile = rows * (_row_stride(dp) + _row_stride(4 * ap)
+                       + _row_stride(max(ap, dp)))
+        return weights + tile + core_warps * 2 * f * (f | 1)
+    tile = rows * (_row_stride(dp) + _row_stride(3 * ap) + _row_stride(ap))
+    return weights + tile + core_warps * f * (f | 1)
+
+
+@functools.lru_cache(maxsize=None)
+def interacting_forward_plan(f: int, d: int, a: int,
+                             num_heads: int) -> ForwardPlan:
+    """The interacting layer's forward plan (csrc/attention_block.cu's
+    make_interact_fwd_plan), chosen as ``forward_plan`` chooses the
+    block's."""
+    return _choose_forward(
+        lambda *s: _interact_floats(*s, backward=False), "interacting layer",
+        f, d, a, num_heads)
+
+
+@functools.lru_cache(maxsize=None)
+def interacting_backward_plan(f: int, d: int, a: int,
+                              num_heads: int) -> BackwardPlan:
+    """The interacting layer's backward plan (csrc/attention_bwd.cu's
+    make_interact_plan): the most core warps, then the most samples a tile,
+    that fit one block, with no gradient accumulator in shared memory."""
+    return _choose_backward(
+        lambda *s: _interact_floats(*s, backward=True), "interacting layer",
+        f, d, a, num_heads)
+
+
+def interacting_partial_floats(d: int, a: int, num_heads: int) -> int:
+    """Floats of one backward block's dW partial in device memory: d
+    rounded up to 16 rows of the 4 padded sections."""
+    return _up(d, 16) * 4 * _up(num_heads * _up(a // num_heads, 4), 16)
+
+
+def _interact_weights(x: torch.Tensor, p: dict) -> torch.Tensor:
+    return torch.cat([p[n] for n in INTERACT_NAMES], dim=1).to(
+        x.dtype).contiguous()
+
+
+def _interact_forward_cuda(x, p, num_heads) -> torch.Tensor:
+    _interact_check(x, p, num_heads)
+    bsz, f, d = x.shape
+    a = p["wq"].shape[1]
+    out = torch.empty(bsz, f, a, dtype=x.dtype, device=x.device)
+    if bsz == 0:
+        return out
+    fp = interacting_forward_plan(f, d, a, num_heads)
+    x = x.contiguous()
+    w4 = _interact_weights(x, p)
+    lib = build.bind(SOURCE, _SIGNATURES)
+    with build.launch_device(x.device):
+        err = lib.interacting_fwd(
+            x.data_ptr(), w4.data_ptr(), out.data_ptr(), bsz, f, d, a,
+            num_heads, INTERACT_SCALE, int(x.dtype == torch.bfloat16),
+            fp.samples, fp.core_warps, fp.blocks_per_sm,
+            fp.grid(bsz, build.sm_count(x)), fp.smem, build.stream_of(x),
+        )
+    build.check(lib, SOURCE, "interacting_fwd", err)
+    interacting_forward.launches += 1
+    return out
+
+
+def _interact_backward_cuda(x, p, g, num_heads):
+    _interact_check(x, p, num_heads)
+    bsz, f, d = x.shape
+    a = p["wq"].shape[1]
+    if tuple(g.shape) != (bsz, f, a) or g.device != x.device:
+        raise ValueError(
+            f"g {tuple(g.shape)} on {g.device} does not match the output "
+            f"{(bsz, f, a)} on {x.device}"
+        )
+    # the reduce kernel writes every element of flat
+    flat = torch.empty(d, 4 * a, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if bsz > 0:
+        bp = interacting_backward_plan(f, d, a, num_heads)
+        x = x.contiguous()
+        gg = g.to(x.dtype).contiguous()
+        w4 = _interact_weights(x, p)
+        grid = bp.grid(bsz)
+        n_part = interacting_partial_floats(d, a, num_heads)
+        part = torch.empty(grid, n_part, dtype=torch.float32, device=x.device)
+        lib = build.bind(BWD_SOURCE, _BWD_SIGNATURES)
+        with build.launch_device(x.device):
+            err = lib.interacting_bwd(
+                x.data_ptr(), gg.data_ptr(), w4.data_ptr(), dx.data_ptr(),
+                part.data_ptr(), flat.data_ptr(), n_part, bsz, f, d, a,
+                num_heads, INTERACT_SCALE, int(x.dtype == torch.bfloat16),
+                bp.samples, bp.core_warps, grid, bp.smem, build.stream_of(x),
+            )
+        build.check(lib, BWD_SOURCE, "interacting_bwd", err)
+        interacting_backward.launches += 1
+    else:
+        dx.zero_()
+        flat.zero_()
+    grads = dict(zip(INTERACT_NAMES, torch.split(flat, a, dim=1)))
+    return dx, {n: t.to(p[n].dtype) for n, t in grads.items()}
+
+
+def interacting_forward(x: torch.Tensor, p: dict,
+                        num_heads: int) -> torch.Tensor:
+    """One interacting layer, (B, F, d) -> (B, F, a), without an autograd
+    graph. A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (or raises)."""
+    if x.device.type == "cpu":
+        return interacting_plain(x, p, num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _interact_forward_cuda(x, p, num_heads)
+
+
+interacting_forward.launches = 0
+
+
+def interacting_backward(x: torch.Tensor, p: dict, g: torch.Tensor,
+                         num_heads: int):
+    """(dx in x's dtype, {name: gradient in the parameter's dtype}) of one
+    interacting layer for the output cotangent g. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernels (or raises)."""
+    if x.device.type == "cpu":
+        return interacting_backward_plain(x, p, g, num_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _interact_backward_cuda(x, p, g, num_heads)
+
+
+interacting_backward.launches = 0
+
+
+class InteractingLayerFn(torch.autograd.Function):
+    """One interacting layer with its backward kernel. Saves x and the
+    weights; the backward recomputes the forward.
+
+    apply(x, num_heads, wq, wk, wv, wres).
+    """
+
+    @staticmethod
+    def forward(ctx, x, num_heads, *params):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(x, *params)
+        return interacting_forward(x, dict(zip(INTERACT_NAMES, params)),
+                                   num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        with tracing.span("model.attention_backward"):
+            dx, dp = interacting_backward(
+                x, dict(zip(INTERACT_NAMES, params)), g, ctx.num_heads)
+        return (dx, None, *(dp[n] for n in INTERACT_NAMES))
+
+
+def interacting_layer(x: torch.Tensor, p: dict,
+                      num_heads: int) -> torch.Tensor:
+    """The layer, through ``InteractingLayerFn`` where a gradient is
+    needed."""
+    params = [p[n] for n in INTERACT_NAMES]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *params)):
+        return InteractingLayerFn.apply(x, num_heads, *params)
+    return interacting_forward(x, p, num_heads)
+
 __all__ = [
     "AttentionBlockFn",
     "BackwardPlan",
@@ -519,4 +808,12 @@ __all__ = [
     "forward_attributes",
     "forward_plan",
     "head_scale",
+    "interacting_backward",
+    "interacting_backward_plain",
+    "interacting_backward_plan",
+    "interacting_forward",
+    "interacting_forward_plan",
+    "interacting_layer",
+    "interacting_plain",
+    "InteractingLayerFn",
 ]

@@ -38,10 +38,18 @@ Spans (each ``deepfm.<name>`` in a trace):
 * ``score.forward``: each batch's ``model.predict`` in
   ``Predictor.predict``;
 * ``score.fetch``: each chunk's scores copied back to the host, which
-  waits for the chunk's forwards.
+  waits for the chunk's forwards;
+* ``model.attention``: each forward of an attention stack
+  (``ops/attention.py``: AttentionDeepFM's blocks, AutoInt's interacting
+  layers), in training (inside ``step.forward``) and in scoring (inside
+  ``score.forward``);
+* ``model.attention_backward``: each attention layer's autograd backward
+  (``AttentionBlockFn``, ``InteractingLayerFn``), once a layer a step,
+  inside ``step.backward``.
 
 Counters: ``train.stage_bytes`` and ``score.stage_bytes``, the host bytes
-each staging copies.
+each staging copies; ``attention.rows``, the B·F rows each attention layer
+takes in its forward.
 """
 
 from __future__ import annotations

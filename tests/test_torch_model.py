@@ -184,14 +184,18 @@ def test_paper_cin_leaves_carry_across_unchanged():
 
 
 def test_create_model_refuses_what_later_slices_bring():
-    """Every model of the JAX registry is ported (the baselines last), so
-    only a name outside it is refused."""
+    """Every model of the JAX registry is ported (the baselines last), and
+    the port has one of its own after them, ``autoint``, so only a name
+    outside both is refused."""
     from deepfm_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
     from deepfm_tpu_torch.models import MODEL_REGISTRY
 
     _, tconfig = _config()
     _, tpacked, _, _ = _batch(SYNTH_SPEC)
-    assert list(MODEL_REGISTRY) == list(JAX_REGISTRY)
+    assert list(MODEL_REGISTRY) == [*JAX_REGISTRY, "autoint"]
+    assert "autoint" not in JAX_REGISTRY
+    model = create_model("autoint", tpacked, tconfig, device="cpu")
+    assert type(model).__name__ == "AutoInt"
     for name in ("lr", "fm", "dnn"):
         model = create_model(name, tpacked, tconfig, device="cpu")
         assert type(model).__name__ == JAX_REGISTRY[name].__name__

@@ -216,3 +216,96 @@ def test_train_with_a_trace_dir_traces_the_spans_and_turns_them_off(
                                       "score.stage_bytes"}
     line = tracing.describe(epoch)
     assert "train.stage " in line and "GB/s" in line
+
+
+# ---- the attention stacks' spans (AttentionDeepFM's blocks, AutoInt's
+# interacting layers)
+
+ATTENTION_MODELS = {"attention_deepfm": 2, "autoint": 3}  # name -> layers
+
+
+def _attention_trainer(model: str):
+    """``model`` on ``_trainer``'s fields and batches, sparse-fused."""
+    schema = DatasetSchema(fields={
+        name: FieldSchema(name, FeatureType(kind), vocab, 4, "g")
+        for name, kind, vocab in FIELDS})
+    packed = pack_schema(schema)
+    config = config_from_dict({
+        "model_name": model, "device": "cpu",
+        "dnn": {"hidden_units": [8], "dropout": 0.0},
+        "attention": {"num_heads": 2, "attention_dim": 8,
+                      "num_layers": ATTENTION_MODELS[model]},
+        "training": {"batch_size": B, "scheduler": "none",
+                     "stage_budget_mb": 0, "num_epochs": 1}})
+    data = [_arrays(packed, B * BATCHES, seed) for seed in (1, 2, 3)]
+    return Trainer(create_model(model, packed, config, device="cpu"),
+                   packed, config, *data)
+
+
+@pytest.mark.parametrize("model", list(ATTENTION_MODELS))
+def test_attention_spans_count_a_stack_call_and_a_layer(model):
+    """A train step: one ``model.attention`` (the stack's forward), one
+    ``model.attention_backward`` a layer, B·F rows a layer; scoring: one
+    ``model.attention`` a batch and no backward. Each range lies inside
+    the step phase or the scoring span that runs it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    layers = ATTENTION_MODELS[model]
+    trainer = _attention_trainer(model)
+    fields = len(FIELDS)
+    before = tracing.snapshot()
+    tracing.enable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer._train_epoch()
+    snap = tracing.since(before)
+    spans = snap["spans"]
+    assert spans["model.attention"]["count"] == BATCHES
+    assert spans["model.attention_backward"]["count"] == BATCHES * layers
+    assert snap["counters"]["attention.rows"] == BATCHES * B * fields * layers
+    ranges: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith(tracing.PREFIX):
+            ranges.setdefault(e.name()[len(tracing.PREFIX):], []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    for name, parent in (("model.attention", "step.forward"),
+                         ("model.attention_backward", "step.backward")):
+        assert len(ranges[name]) == spans[name]["count"]
+        for s, t in ranges[name]:
+            assert any(ps <= s and t <= pt for ps, pt in ranges[parent]), \
+                (name, parent)
+    before = tracing.snapshot()
+    scores = trainer.predictor.predict(trainer.val_data)
+    snap = tracing.since(before)
+    forwards = snap["spans"]["score.forward"]["count"]
+    assert snap["spans"]["model.attention"]["count"] == forwards
+    assert "model.attention_backward" not in snap["spans"]
+    assert snap["counters"]["attention.rows"] == len(scores) * fields * layers
+    tracing.disable()
+    np.testing.assert_array_equal(trainer.predictor.predict(
+        trainer.val_data), scores)
+
+
+@pytest.mark.parametrize("model", list(ATTENTION_MODELS))
+def test_attention_spans_off_cost_nothing(model, monkeypatch):
+    """Tracing off, a train epoch and a scoring pass of an attention model
+    open no range, read no clock and record nothing."""
+    trainer = _attention_trainer(model)
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _raise)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", _raise)
+    monkeypatch.setattr(tracing, "_Range", _raise)
+    reads = []
+
+    class Clock:
+        @staticmethod
+        def perf_counter():
+            reads.append(1)
+            return time.perf_counter()
+
+    monkeypatch.setattr(tracing, "time", Clock)
+    before = tracing.snapshot()
+    loss, n = trainer._train_epoch()
+    assert np.isfinite(loss) and n == B * BATCHES
+    assert trainer.predictor.predict(trainer.val_data).shape == (B * BATCHES,)
+    assert reads == []
+    assert tracing.since(before) == {"spans": {}, "counters": {}}
