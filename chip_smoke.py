@@ -87,7 +87,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              bf16 and f32) the same way (INTERACT_TOL; both plans;
              scaled_dot_product_attention at scale 1 around the same four
              projections as the library; in bf16 the check must refuse the
-             plain backward without its [dq|dk|dv|dres] rounding);
+             plain backward without its [dq|dk|dv|dres] rounding; the
+             backward's plan tiled and both its launches on the tiled
+             core); last, the sha256 of every attention kernel's outputs at
+             these shapes (attention_hashes; `python3 chip_smoke.py
+             --attention-hashes TREE` prints another checkout's on the same
+             inputs, its package first on the path);
   densify_rows_grad, segment_sumsq, sparse_table_adam, fused_table_adam
              the four table-update kernels at bench.py's shape (a 10.4M x 17
              table, 425,984 (id, cotangent) pairs drawn as bench.py draws
@@ -178,7 +183,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              create_model and Trainer on the default sparse-fused path in
              bf16: the launches of its 13 steps, counted from 0, exactly
              one interacting_fwd and one interacting_bwd a layer a step,
+             every backward on the tiled core (39 interacting_bwd_tiled),
              no attention-block kernel, the table update's kernels run;
+             traced, the counters attention.rows and
+             attention.tiled_core_rows equal, B*F a layer a step;
   train_baselines  the ablation baselines lr, fm and dnn (DNN [512,256,128]
              with BatchNorm) at bench.py's full width and config on the
              sparse-fused path, each timed and profiled as train_models,
@@ -1662,6 +1670,73 @@ def interacting_bound(bsz, f, d, a, heads, bf16, backward):
     return 1e3 * t_bytes, "bytes", flops, mixed
 
 
+def attention_case(k: int, bsz: int, f: int, d: int, a: int, dtype: str):
+    """(p, x, g) of the attention phase's block shape ATTN_SHAPES[k]."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3000 + k)
+    dt = getattr(torch, dtype)
+    p = attn_params(gen, d, a)
+    x = torch.randn(bsz, f, d, generator=gen, device="cuda").to(dt)
+    g = torch.randn(bsz, f, d, generator=gen, device="cuda").to(dt)
+    return p, x, g
+
+
+def interacting_case(k: int, bsz: int, f: int, d: int, a: int, dtype: str):
+    """(p, x, g) of the attention phase's interacting shape
+    INTERACT_SHAPES[k]: scores and ReLU outputs of order 1
+    (portbench/models/autoint.py's scales): inputs of mean square ~0.1,
+    weights U(+-(3 / (sqrt(32) d 0.1))^0.5)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(4000 + k)
+    dt = getattr(torch, dtype)
+    bound = (3.0 / (32 ** 0.5 * d * 0.1)) ** 0.5
+    p = {n: (torch.rand(d, a, generator=gen, device="cuda") * 2 - 1) * bound
+         for n in ("wq", "wk", "wv", "wres")}
+    x = (torch.rand(bsz, f, d, generator=gen, device="cuda") * 0.55).to(dt)
+    g = (torch.randn(bsz, f, a, generator=gen, device="cuda") * 1e-3).to(dt)
+    return p, x, g
+
+
+def attention_hashes() -> dict:
+    """sha256 of every attention kernel's outputs at the attention phase's
+    shapes and inputs, by shape: AttentionDeepFM's block forward (out) and
+    backward (dx and each gradient) at ATTN_SHAPES, AutoInt's interacting
+    forward (out) and backward (dx and dW4's blocks wq, wk, wv, wres) at
+    INTERACT_SHAPES. ``--attention-hashes TREE`` gives another checkout's
+    (its own kernels, built in its own tree) on the same inputs."""
+    import hashlib
+
+    import torch
+
+    from deepfm_tpu_torch.ops.kernels.attention import (
+        attention_block_backward,
+        attention_block_forward,
+        interacting_backward,
+        interacting_forward,
+    )
+
+    def sha(t) -> str:
+        t = t.detach().contiguous().cpu()
+        return hashlib.sha256(t.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+    out = {}
+    for k, (name, bsz, f, d, a, heads, dtype) in enumerate(ATTN_SHAPES):
+        p, x, g = attention_case(k, bsz, f, d, a, dtype)
+        dx, dp = attention_block_backward(x, p, g, heads, True)
+        out[name] = {"out": sha(attention_block_forward(x, p, heads, True)),
+                     "dx": sha(dx), **{n: sha(dp[n]) for n in sorted(dp)}}
+    for k, (name, bsz, f, d, a, heads, dtype) in enumerate(INTERACT_SHAPES):
+        p, x, g = interacting_case(k, bsz, f, d, a, dtype)
+        dx, dp = interacting_backward(x, p, g, heads)
+        out[name] = {"out": sha(interacting_forward(x, p, heads)),
+                     "dx": sha(dx), **{n: sha(dp[n]) for n in sorted(dp)}}
+        del p, x, g, dx, dp
+        torch.cuda.empty_cache()
+    return out
+
+
 def attention_interacting(failures: list) -> dict:
     """The interacting layer's part of the attention phase: one record a
     shape of INTERACT_SHAPES; failures are appended to ``failures``."""
@@ -1681,18 +1756,9 @@ def attention_interacting(failures: list) -> dict:
     dev = torch.device("cuda", 0)
     results = {}
     for k, (name, bsz, f, d, a, heads, dtype) in enumerate(INTERACT_SHAPES):
-        gen = torch.Generator(device=dev).manual_seed(4000 + k)
-        dt = getattr(torch, dtype)
-        bf16 = dt == torch.bfloat16
+        bf16 = dtype == "bfloat16"
         tol = INTERACT_TOL[dtype]
-        # scores and ReLU outputs of order 1 (portbench/models/autoint.py's
-        # scales): inputs of mean square ~0.1, weights U(+-(3 / (sqrt(32) d
-        # 0.1))^0.5)
-        bound = (3.0 / (32 ** 0.5 * d * 0.1)) ** 0.5
-        p = {n: (torch.rand(d, a, generator=gen, device=dev) * 2 - 1) * bound
-             for n in INTERACT_NAMES}
-        x = (torch.rand(bsz, f, d, generator=gen, device=dev) * 0.55).to(dt)
-        g = (torch.randn(bsz, f, a, generator=gen, device=dev) * 1e-3).to(dt)
+        p, x, g = interacting_case(k, bsz, f, d, a, dtype)
 
         def fwd():
             return interacting_forward(x, p, heads)
@@ -1717,7 +1783,9 @@ def attention_interacting(failures: list) -> dict:
         out, out2 = fwd(), fwd()
         fcmp = grad_compare({"out": out},
                             {"out": interacting_plain(x, p, heads)}, tol, "out")
+        tiled0 = interacting_backward.tiled_launches
         (dx, dp), (dx2, dp2) = bwd(), bwd()
+        tiled_launches = interacting_backward.tiled_launches - tiled0
         got, again = {"dx": dx, **dp}, {"dx": dx2, **dp2}
         bcmp = grad_compare(got, bwd_plain(), tol, "dx")
         same_bits = torch.equal(out, out2) and all(
@@ -1735,6 +1803,9 @@ def attention_interacting(failures: list) -> dict:
                                 f"without the [dq|dk|dv|dres] rounding: {ctl}")
         fp = interacting_forward_plan(f, d, a, heads)
         bp = interacting_backward_plan(f, d, a, heads)
+        if not bp.tiled or tiled_launches != 2:
+            failures.append(f"{name}: the backward's plan {bp} took the tiled "
+                            f"core in {tiled_launches} of 2 launches")
         fattr = forward_attributes(x, fp, "interacting_fwd_attributes")
         if fattr["blocks_per_sm"] != fp.blocks_per_sm:
             failures.append(f"{name}: the compiled forward holds "
@@ -1748,7 +1819,9 @@ def attention_interacting(failures: list) -> dict:
                .float().mean().item(),
                "backward_plan": {"samples": bp.samples,
                                  "core_warps": bp.core_warps, "rows": bp.rows,
-                                 "smem_bytes": bp.smem, "grid": bp.grid(bsz)},
+                                 "smem_bytes": bp.smem, "grid": bp.grid(bsz),
+                                 "tiled": bp.tiled},
+               "backward_tiled_launches": tiled_launches,
                "forward_plan": {
                    "samples": fp.samples, "core_warps": fp.core_warps,
                    "rows": fp.rows, "smem_bytes": fp.smem,
@@ -1803,13 +1876,9 @@ def phase_attention() -> dict:
     dev = torch.device("cuda", 0)
     results, failures = {}, []
     for k, (name, bsz, f, d, a, heads, dtype) in enumerate(ATTN_SHAPES):
-        gen = torch.Generator(device=dev).manual_seed(3000 + k)
-        dt = getattr(torch, dtype)
-        bf16 = dt == torch.bfloat16
+        bf16 = dtype == "bfloat16"
         tol = ATTN_TOL[dtype]
-        p = attn_params(gen, d, a)
-        x = torch.randn(bsz, f, d, generator=gen, device=dev).to(dt)
-        g = torch.randn(bsz, f, d, generator=gen, device=dev).to(dt)
+        p, x, g = attention_case(k, bsz, f, d, a, dtype)
 
         def fwd():
             return attention_block_forward(x, p, heads, True)
@@ -1913,6 +1982,8 @@ def phase_attention() -> dict:
         del x, g, p
         torch.cuda.empty_cache()
     results.update(attention_interacting(failures))
+    results["sha256"] = attention_hashes()
+    emit({"phase": "attention", "sha256": results["sha256"]})
     if failures:
         fail("; ".join(failures))
     return results
@@ -3570,12 +3641,15 @@ def phase_train_autoint() -> dict:
     Trainer on the default sparse-fused path in bf16: the launches of its
     WARMUP_STEPS + TIMED_STEPS steps, counted from 0, must be exactly one
     interacting_fwd and one interacting_bwd a layer a step (the backward's
-    reduce kernel is part of its wrapper's call), and the table update's
-    kernels must run."""
+    reduce kernel is part of its wrapper's call), each backward on the
+    tiled core (interacting_bwd_tiled), and the table update's kernels must
+    run."""
     import torch
 
     from deepfm_tpu_torch.models import create_model
+    from deepfm_tpu_torch.ops.kernels.attention import interacting_backward
     from deepfm_tpu_torch.training.trainer import Trainer
+    from deepfm_tpu_torch.utils import tracing
 
     dev = torch.device(DEVICE)
     failures = []
@@ -3593,16 +3667,23 @@ def phase_train_autoint() -> dict:
 
     # --- the main path: counts start at 0 here ------------------------------
     reset_counts()
+    interacting_backward.tiled_launches = 0
     torch.cuda.reset_peak_memory_stats()
+    traced = tracing.snapshot()
+    tracing.enable()
     losses = [trainer._train_step(*batch).item() for _ in range(WARMUP_STEPS)]
     times = timed_steps(trainer, batch)
     torch.cuda.synchronize()
+    tracing.disable()
+    counters = tracing.since(traced)["counters"]
     counts = read_counts()
+    counts["interacting_bwd_tiled"] = interacting_backward.tiled_launches
     # --- end of the main path ------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = WARMUP_STEPS + TIMED_STEPS
     expected = {"interacting_fwd": steps * AUTOINT_LAYERS,
                 "interacting_bwd": steps * AUTOINT_LAYERS,
+                "interacting_bwd_tiled": steps * AUTOINT_LAYERS,
                 "attention_block_fwd": 0, "attention_block_bwd": 0}
     for kernel, n in expected.items():
         if counts[kernel] != n:
@@ -3611,6 +3692,11 @@ def phase_train_autoint() -> dict:
     for kernel in ("segment_sumsq", "sparse_table_adam"):
         if counts[kernel] < 1:
             failures.append(f"{kernel} was not launched")
+    rows = steps * AUTOINT_LAYERS * BENCH_BATCH * packed.num_fields
+    if not (counters.get("attention.rows") == rows
+            == counters.get("attention.tiled_core_rows")):
+        failures.append(f"attention counters {counters}, expected {rows} "
+                        "rows, every one on the tiled core")
     if not all(map(math.isfinite, losses)):
         failures.append(f"a loss is not finite: {losses}")
     del trainer, model, batch
@@ -3628,7 +3714,8 @@ def phase_train_autoint() -> dict:
         "step_ms_max": 1e3 * max(times),
         "examples_per_s": BENCH_BATCH / (step_ms / 1e3),
         "peak_memory_gb": peak_gb, "launches": counts,
-        "launches_expected": expected, "ok": not failures,
+        "launches_expected": expected, "attention_counters": counters,
+        "ok": not failures,
     }
     emit(out)
     if failures:
@@ -6708,4 +6795,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--attention-hashes"] and len(sys.argv) == 3:
+        # another checkout's attention kernels on the attention phase's
+        # inputs (its package first on the path; its kernels built there)
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        emit({"tree": sys.argv[2], "sha256": attention_hashes()})
+    else:
+        main()

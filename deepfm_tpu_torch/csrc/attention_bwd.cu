@@ -80,24 +80,58 @@
 // op casts to the compute type; q/k/v/res, scores, softmax, ctx and dall4
 // are f32 and every product accumulates in f32.
 // Design, where it departs from the block's:
-//  * Shared memory holds w4 and a tile's x, [q|k|v|res] (then dall4 over
-//    it), ctx (dctx, then dx over it) and the core warps' scratch, but no
-//    gradient accumulator: at d = a = 64 the block's layout (weights, dW
-//    accumulators and a 64-wide tile together) asks 243,968 B, over the
-//    limit. Each block's dW4 partial (d rounded up to 16 rows, 4a padded
-//    columns, f32) lives in device memory instead, where the block's first
-//    tile writes it and each later tile reads and adds to it: every element
-//    is owned by one lane of one warp (product's fixed order of tiles), so
-//    the sums run in tile order with no barrier and no atomics. The 64 KB
-//    partial of a block at d = 64 stays in L2 (132 blocks: 8.6 MB).
+//  * The attention core is the tiled core of attention_tile.cuh, on all 8
+//    warps: every (sample, head) pair of the tile at once, each thread a
+//    register tile of 5 rows by 4 or 8 columns of one pair's product (5 x 5
+//    of an F x F one), phase by phase with a barrier between: scores, the
+//    softmax (a thread a row, the row in registers up to 40 keys), ctx
+//    with the ReLU's mask; dw, the softmax's adjoint (a thread a row), dv
+//    and dq together, dk, dq into q's place. The lane-per-query core it
+//    replaces (one warp a pair, one lane a query, the other operand a
+//    float4 that every lane reads at once) paid a shared-memory wavefront
+//    an FMA, ran on 3-4 warps while the rest waited, and wrapped F = 39
+//    over 32 lanes: 6.93 of 9.19 ms at d = 64 (PERF.md). Each value a
+//    thread loads now feeds 5 to 8 FMAs.
+//  * ctx is not kept: each thread's ctx tile goes straight into the mask,
+//    dres = g where ctx + res > 0, over res (its g loaded before the
+//    tile's sums, and the whole tile's g asked into L2 as the tile
+//    starts). The backward keeps the recomputed forward's softmax in the
+//    scratch instead of recomputing the scores (6 products a pair, not 7)
+//    and reads dctx from dres's columns, so ctx's rows are free for dq
+//    while dv goes over v, and dk over k after both.
+//  * Bits: each sum runs in the lane-per-query core's order (the tile
+//    header says how), and the softmax and its adjoint are that core's
+//    steps, so the recomputed softmax, context and ReLU mask are the
+//    forward kernel's bits (interact_fwd_kernel keeps that core), and dx
+//    and dW4 the lane-per-query backward's.
+//  * Element loops (x's rows in, g's mask on the fallback, dq's copy, dx
+//    out) step a (row, head, column) walk: an integer division by a
+//    runtime width an element cost more than their loads.
+//  * Shared memory holds w4, a tile's [q|k|v|res] (then dall4 over it), ctx
+//    (dq, then dx over it) and one region that holds x's rows for the two
+//    products that read them and, between them, the pairs' F x F matrices
+//    (every pair's softmax W, then every pair's dw / ds, 48,672 B at the
+//    paper's 2 samples of 2 heads); x is loaded again after the core (the
+//    next tile's is asked into L2 as a tile starts). No gradient
+//    accumulator: at d = a = 64 the block's layout asks 243,968 B, over
+//    the limit. Each block's dW4 partial (d rounded up to 16 rows, 4a
+//    padded columns, f32) lives in device memory instead, where the
+//    block's first tile writes it and each later tile reads and adds to
+//    it: every element is owned by one lane of one warp (product's fixed
+//    order of tiles), so the sums run in tile order with no barrier and no
+//    atomics. The 64 KB partial of a block at d = 64 stays in L2 (132
+//    blocks: 8.6 MB).
 //  * dW4 and dx are the same two products over op(dall4) that the block
 //    takes over op([dq|dk|dv]), 4a wide; the block's LayerNorm, bias and
 //    output projection stages have no counterpart.
 //  * interact_reduce_kernel adds the partials in block order into the real
 //    (d, 4a) layout; the grid is the block's fixed 132. Two launches give
 //    the same bits.
-// Its plan (interacting_backward_plan) takes the most core warps, then the
-// most samples, that fit one block, as the block's does.
+// Its plan (interacting_backward_plan) takes the tiled layout with the
+// most samples a tile that fits one block; where none does (two F x F
+// matrices for every pair of even one sample outgrow x's rows, as at
+// F = 65-69, d = 64, 2 heads), the lane-per-query core's layout with the
+// most core warps, then samples, as the block's backward does.
 
 #include "attention_tile.cuh"
 
@@ -398,9 +432,10 @@ cudaError_t bwd(const void* x, const float* g, const void* wqkv,
 
 // ---- AutoInt's interacting layer
 
-// w4 (d rounded up to 16, 4a padded), x's rows, [q|k|v|res] and then dall4
-// over it, ctx (dctx, then dx: as wide as the wider of a and d), and each
-// core warp's two F x FS matrices
+// The lane-per-query layout (the fallback): w4 (d rounded up to 16, 4a
+// padded), x's rows, [q|k|v|res] and then dall4 over it, ctx (dctx, then
+// dx: as wide as the wider of a and d), and each core warp's two F x FS
+// matrices
 Plan make_interact_plan(int B, int F, int d, int a, int H, int S, int NC,
                         float scale) {
   Plan p = plan_geometry(B, F, d, a, H, S, NC, scale, 0);
@@ -415,15 +450,226 @@ Plan make_interact_plan(int B, int F, int d, int a, int H, int S, int NC,
   return p;
 }
 
-bool choose_interact_plan(int B, int F, int d, int a, int H, float scale, Plan* out) {
+// The tiled layout: w4, [q|k|v|res] (then dall4), ctx (dq, then dx), and
+// one region that holds x's rows for the
+// two products that read them and, between, the tiled core's every pair's
+// W and then every pair's D (x is read again after it). All 8 warps run
+// the core.
+Plan make_tiled_interact_plan(int B, int F, int d, int a, int H, int S,
+                              float scale) {
+  Plan p = plan_geometry(B, F, d, a, H, S, kWarps, scale, 0);
+  p.WS = row_stride(4 * p.ap);
+  p.QS = p.WS;
+  p.CS = row_stride(p.ap > p.dp ? p.ap : p.dp);
+  p.o_qkv = p.dp * p.WS;
+  p.o_ctx = p.o_qkv + p.RP * p.QS;
+  p.o_x = p.o_ctx + p.RP * p.CS;
+  p.o_scr = p.o_x;
+  const int rows = p.RP * p.XS, mats = S * H * F * p.FS;
+  p.o_d = p.o_scr + mats;
+  p.total = p.o_x + (rows > 2 * mats ? rows : 2 * mats);
+  return p;
+}
+
+// The tiled layout with the most samples a tile that fits one block, else
+// the lane-per-query layout as the block's backward chooses it; false where
+// neither fits. *tiled says which.
+bool choose_interact_plan(int B, int F, int d, int a, int H, float scale, Plan* out,
+                          bool* tiled) {
+  for (int s = kMaxSamples; s >= 1; --s) {
+    const Plan p = make_tiled_interact_plan(B, F, d, a, H, s, scale);
+    if (4LL * p.total <= kSmemMax) {
+      *out = p;
+      *tiled = true;
+      return true;
+    }
+  }
+  *tiled = false;
   return choose_plan_by(
       H, [&](int s, int nc) { return make_interact_plan(B, F, d, a, H, s, nc, scale); },
       out);
 }
 
-// part: (gridDim.x, dp * 4ap) f32, this block's dW4 partial in the padded
-// layout; x, g, w4 and dx in the compute type.
+// The elements i = threadIdx.x, + kThreads, ... of a row-major walk, each
+// i = (r * H + h) * n + c: r a row, h a head (H of them; 1 for plain rows),
+// c < n within it. next() steps to the thread's next element with no
+// division (an integer division by a runtime width cost more than these
+// loops' loads).
+struct Walk {
+  int r, h, c;     // where the thread is
+  int sr, sh, sc;  // kThreads in the same terms
+  int H, n;
+  __device__ Walk(int H_, int n_) : H(H_), n(n_) {
+    split(threadIdx.x, &r, &h, &c);
+    split(kThreads, &sr, &sh, &sc);
+  }
+  __device__ void split(int i, int* rr, int* hh, int* cc) const {
+    const int q = i / n;
+    *cc = i - q * n;
+    *rr = q / H;
+    *hh = q - *rr * H;
+  }
+  __device__ __forceinline__ void next() {
+    c += sc;
+    if (c >= n) {
+      c -= n;
+      ++h;
+    }
+    h += sh;
+    if (h >= H) {
+      h -= H;
+      ++r;
+    }
+    r += sr;
+  }
+};
+
+// x's rows of a tile into xs, every element of its RP x dp part written
+// (rows past R and columns past d 0: the tiled core's scratch lies over
+// them between the products), each thread's loads in flight together
 template <bool BF16>
+__device__ __forceinline__ void load_x(const Plan& p, const void* x_g, size_t e0, int R,
+                                       float* xs) {
+  using io = Io<BF16>;
+  constexpr int U = 8;
+  const int n = p.RP * p.dp;
+  Walk at(1, p.dp);
+  for (int base = threadIdx.x; base < n; base += U * kThreads) {
+    float v[U];
+    int o[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + u * kThreads;
+      o[u] = at.r * p.XS + at.c;
+      v[u] = i < n && at.r < R && at.c < p.d ? io::load(x_g, e0 + (size_t)at.r * p.d + at.c)
+                                             : 0.f;
+      at.next();
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (base + u * kThreads < n) xs[o[u]] = v[u];
+    }
+  }
+}
+
+// The tiled core's forward half for the sv valid samples and the ReLU's
+// mask: W (softmax) of every pair, then each thread's ctx tile goes
+// straight into the mask, dres = g where ctx + res > 0, over res (ctx is
+// not kept: the backward reads dctx = dres there). Its g is loaded before
+// the tile's sums, so that the loads land while they run.
+template <bool BF16, int M4>
+__device__ void tiled_forward(const Plan& p, int pairs, float* qkv, float* W, const void* g_g,
+                              size_t o0) {
+  const int F = p.F, QS = p.QS;
+  tiled_scores<M4, true>(p, pairs, qkv, 0, p.ap, W);
+  __syncthreads();
+  tiled_softmax(p, pairs, W);
+  __syncthreads();
+  each_tile<4>(pairs, F, p.hdp, [&](int pr, int r0, int c0) {
+    const int s = pr / p.H, h = pr - s * p.H;
+    float* res = qkv + s * F * QS + 3 * p.ap + h * p.hdp + c0;
+    const size_t gi = o0 + (size_t)s * F * p.a + h * p.hd + c0;
+    float gv[kTm][4];
+#pragma unroll
+    for (int u = 0; u < kTm; ++u) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gv[u][e] = r0 + u < F && c0 + e < p.hd
+                       ? Io<BF16>::load(g_g, gi + (size_t)(r0 + u) * p.a + e)
+                       : 0.f;
+      }
+    }
+    mix_tile<false, 4>(p, W + pr * F * p.FS, pair_at(p, qkv, QS, pr) + 2 * p.ap, QS, r0, c0,
+                       [&](int u, const float (&ctx)[4]) {
+#pragma unroll
+                         for (int e = 0; e < 4; ++e) {
+                           float* q = res + (r0 + u) * QS + e;
+                           *q = ctx[e] + *q > 0.f ? gv[u][e] : 0.f;
+                         }
+                       });
+  });
+}
+
+// dv and dq of every pair, dv over v and dq over the ctx rows: 2 * pairs
+// products, the first half dv
+template <int TN>
+__device__ __forceinline__ void tiled_dv_dq(const Plan& p, int pairs, float* qkv, float* ctx,
+                                            const float* W, const float* D) {
+  const int F = p.F, FS = p.FS, QS = p.QS, ap = p.ap;
+  each_tile<TN>(2 * pairs, F, p.hdp, [&](int vp, int r0, int c0) {
+    if (vp < pairs) {
+      float* rows = pair_at(p, qkv, QS, vp);
+      mix_tile<true, TN>(p, W + vp * F * FS, rows + 3 * ap, QS, r0, c0,
+                         ToRows<TN>{rows + 2 * ap, QS, r0, c0});
+    } else {
+      const int pr = vp - pairs;
+      mix_tile<false, TN>(p, D + pr * F * FS, pair_at(p, qkv, QS, pr) + ap, QS, r0, c0,
+                          ToRows<TN>{pair_at(p, ctx, p.CS, pr), p.CS, r0, c0});
+    }
+  });
+}
+
+// The tiled core's backward half, W of every pair in the scratch and
+// dctx = dres in the res columns: D = dw, then ds; dv over v, dq over the
+// ctx rows; dk over k; dq into q's place. Leaves the scratch free.
+template <int M4>
+__device__ void tiled_backward(const Plan& p, int pairs, float* qkv, float* ctx, float* W,
+                               float* D) {
+  const int F = p.F, FS = p.FS, QS = p.QS, ap = p.ap;
+  tiled_scores<M4, false>(p, pairs, qkv, 3 * ap, 2 * ap, D);
+  __syncthreads();
+  tiled_softmax_adjoint(p, pairs, W, D);
+  __syncthreads();
+  // dv_j = sum_i w_ij dctx_i (v last read by dw); dq_i = sum_j ds_ij k_j
+  if (p.hdp % 8 == 0) {
+    tiled_dv_dq<8>(p, pairs, qkv, ctx, W, D);
+  } else {
+    tiled_dv_dq<4>(p, pairs, qkv, ctx, W, D);
+  }
+  __syncthreads();
+  // dk_j = sum_i ds_ij q_i (k last read by dq)
+  each_tile<4>(pairs, F, p.hdp, [&](int pr, int r0, int c0) {
+    float* rows = pair_at(p, qkv, QS, pr);
+    mix_tile<true, 4>(p, D + pr * F * FS, rows, QS, r0, c0, ToRows<4>{rows + ap, QS, r0, c0});
+  });
+  __syncthreads();
+  // (row, head, float4 of the head) of the pairs' rows
+  Walk at(p.H, p.hdp / 4);
+  for (int u = threadIdx.x; u < pairs * F * (p.hdp / 4); u += kThreads, at.next()) {
+    const int c = at.h * p.hdp + 4 * at.c;
+    *reinterpret_cast<float4*>(qkv + at.r * QS + c) =
+        *reinterpret_cast<const float4*>(ctx + at.r * p.CS + c);
+  }
+}
+
+// The tiled core's forward half and mask, or its backward half, at the
+// chunk width M4 = p.m4
+template <bool BF16>
+__device__ void tiled_forward_at(const Plan& p, int pairs, float* qkv, float* W,
+                                 const void* g_g, size_t o0) {
+  switch (p.m4) {
+    case 4: tiled_forward<BF16, 4>(p, pairs, qkv, W, g_g, o0); break;
+    case 3: tiled_forward<BF16, 3>(p, pairs, qkv, W, g_g, o0); break;
+    case 2: tiled_forward<BF16, 2>(p, pairs, qkv, W, g_g, o0); break;
+    default: tiled_forward<BF16, 1>(p, pairs, qkv, W, g_g, o0); break;
+  }
+}
+
+__device__ void tiled_backward_at(const Plan& p, int pairs, float* qkv, float* ctx, float* W,
+                                  float* D) {
+  switch (p.m4) {
+    case 4: tiled_backward<4>(p, pairs, qkv, ctx, W, D); break;
+    case 3: tiled_backward<3>(p, pairs, qkv, ctx, W, D); break;
+    case 2: tiled_backward<2>(p, pairs, qkv, ctx, W, D); break;
+    default: tiled_backward<1>(p, pairs, qkv, ctx, W, D); break;
+  }
+}
+
+// part: (gridDim.x, dp * 4ap) f32, this block's dW4 partial in the padded
+// layout; x, g, w4 and dx in the compute type. Tiled: the tiled core on
+// all warps (make_tiled_interact_plan), else the lane-per-query core on
+// p.NC warps (make_interact_plan).
+template <bool BF16, bool Tiled>
 __global__ void __launch_bounds__(kThreads, 1)
 interact_bwd_kernel(const void* __restrict__ x_g, const void* __restrict__ g_g,
                     const void* __restrict__ w_g, void* __restrict__ dx_g,
@@ -438,7 +684,8 @@ interact_bwd_kernel(const void* __restrict__ x_g, const void* __restrict__ g_g,
   float* xs = sm + p.o_x;
   float* qkv = sm + p.o_qkv;
   float* ctx = sm + p.o_ctx;
-  float* scr = sm + p.o_scr + warp * 2 * F * p.FS;
+  float* scr = Tiled ? sm + p.o_scr : sm + p.o_scr + warp * 2 * F * p.FS;
+  float* D = sm + p.o_d;  // tiled: every pair's D
   float* dw = part + (size_t)blockIdx.x * p.dp * n4;
 
   for (int i = tid; i < p.total; i += kThreads) sm[i] = 0.f;
@@ -455,8 +702,19 @@ interact_bwd_kernel(const void* __restrict__ x_g, const void* __restrict__ g_g,
     const int sv = min(p.S, p.B - b0);
     const int R = sv * F;  // valid rows; rows R..RP-1 of dall4 stay 0
     const size_t e0 = (size_t)b0 * F * d, o0 = (size_t)b0 * F * a;
-    load_rows(p.RP * d, R * d, d, XS, xs, [&](size_t i) { return io::load(x_g, e0 + i); });
+    load_x<BF16>(p, x_g, e0, R, xs);
     __syncthreads();
+    if constexpr (Tiled) {
+      // into L2 while the tile's products run: its g (read by the mask)
+      // and the next tile's x
+      constexpr size_t es = BF16 ? 2 : 4;
+      prefetch_l2(static_cast<const char*>(g_g) + o0 * es, (size_t)R * a * es);
+      const int nt = tile + gridDim.x;
+      if (nt < tiles) {
+        prefetch_l2(static_cast<const char*>(x_g) + (size_t)nt * p.S * F * d * es,
+                    (size_t)min(p.S, p.B - nt * p.S) * F * d * es);
+      }
+    }
     // ---- [q|k|v|res] = x . w4
     product<BF16>(
         mt, n4 / 16, p.dp, [&](int m, int k) { return xs[m * XS + k]; },
@@ -464,18 +722,44 @@ interact_bwd_kernel(const void* __restrict__ x_g, const void* __restrict__ g_g,
         [](int, int) { return 0.f; },
         [&](int r, int c, float v) { qkv[r * QS + c] = v; }, warp, g, t);
     __syncthreads();
-    core<false>(p, qkv, ctx, scr, sv, warp, lane);
-    __syncthreads();
-    // ---- dres = g under the ReLU's mask, into res's place and over ctx
-    for (int i = tid; i < R * a; i += kThreads) {
-      const int r = i / a, c = head_row(p, i - r * a);
-      const float pre = ctx[r * CS + c] + qkv[r * QS + r3 + c];
-      const float gv = pre > 0.f ? io::load(g_g, o0 + i) : 0.f;
-      ctx[r * CS + c] = gv;
-      qkv[r * QS + r3 + c] = gv;
+    if constexpr (Tiled) {
+      tiled_forward_at<BF16>(p, sv * p.H, qkv, scr, g_g, o0);
+    } else {
+      core<false>(p, qkv, ctx, scr, sv, warp, lane);
+      __syncthreads();
+      // ---- dres = g under the ReLU's mask, over res and over ctx (where
+      // the lane-per-query core reads dctx); g's loads in flight together
+      constexpr int U = 8;
+      Walk at(p.H, p.hd);  // (row, head, element of the head) of g's rows
+      for (int base = tid; base < R * a; base += U * kThreads) {
+        float gv[U];
+        int r[U], c[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = base + u * kThreads;
+          gv[u] = i < R * a ? io::load(g_g, o0 + i) : 0.f;
+          r[u] = at.r;
+          c[u] = at.h * p.hdp + at.c;
+          at.next();
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (base + u * kThreads < R * a) {
+            const float pre = ctx[r[u] * CS + c[u]] + qkv[r[u] * QS + r3 + c[u]];
+            const float v = pre > 0.f ? gv[u] : 0.f;
+            ctx[r[u] * CS + c[u]] = v;
+            qkv[r[u] * QS + r3 + c[u]] = v;
+          }
+        }
+      }
     }
     __syncthreads();
-    core<true>(p, qkv, ctx, scr, sv, warp, lane);
+    if constexpr (Tiled) {
+      tiled_backward_at(p, sv * p.H, qkv, ctx, scr, D);
+      load_x<BF16>(p, x_g, e0, R, xs);  // the scratch's last readers are behind a barrier
+    } else {
+      core<true>(p, qkv, ctx, scr, sv, warp, lane);
+    }
     __syncthreads();
     // ---- dW4 += x^T op(dall4) into the block's partial; dx = op(dall4) .
     // w4^T over ctx
@@ -491,11 +775,12 @@ interact_bwd_kernel(const void* __restrict__ x_g, const void* __restrict__ g_g,
         [](int, int) { return 0.f; },
         [&](int r, int c, float v) { ctx[r * CS + c] = v; }, warp, g, t);
     __syncthreads();
-    for (int i = tid; i < R * d; i += kThreads) {
-      const int r = i / d;
-      io::store(dx_g, e0 + i, ctx[r * CS + (i - r * d)]);
+    Walk at_dx(1, d);
+    for (int i = tid; i < R * d; i += kThreads, at_dx.next()) {
+      io::store(dx_g, e0 + i, ctx[at_dx.r * CS + at_dx.c]);
     }
-    // (the next tile writes ctx only after two barriers)
+    // (the next tile writes ctx only after two barriers, and x's region
+    // after one: its last readers are above that barrier)
   }
 }
 
@@ -515,15 +800,15 @@ __global__ void interact_reduce_kernel(const float* __restrict__ part,
   out[i] = v;
 }
 
-template <bool BF16>
+template <bool BF16, bool Tiled>
 cudaError_t interact_bwd(const void* x, const void* g, const void* w, void* dx,
                          float* part, float* grads, const Plan& p, int grid,
                          cudaStream_t stream) {
   static int smem_set[kMaxDevices] = {};
   const int smem = 4 * p.total;
-  cudaError_t err = ensure_smem(interact_bwd_kernel<BF16>, smem, smem_set);
+  cudaError_t err = ensure_smem(interact_bwd_kernel<BF16, Tiled>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  interact_bwd_kernel<BF16><<<grid, kThreads, smem, stream>>>(x, g, w, dx, part, p);
+  interact_bwd_kernel<BF16, Tiled><<<grid, kThreads, smem, stream>>>(x, g, w, dx, part, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = p.d * 4 * p.a;
@@ -570,30 +855,38 @@ extern "C" int attention_bwd(const void* x, const float* g, const void* wqkv,
 // and w = [wq|wk|wv|wres] (d, 4a) in the compute type (bf16 selects bf16);
 // part (grid, dp * 4ap) f32 workspace (dp: d rounded up to 16; ap: a with
 // each head padded to 4 floats, rounded up to 16); grads (d, 4a) f32.
-// `samples`, `core_warps`, `grid` and `smem` are the wrapper's plan
-// (interacting_backward_plan), refused (cudaErrorInvalidValue) unless they
-// are this file's. Returns a cudaError_t, 0 on a successful launch; the
-// kernels run on `stream` and nothing here synchronises.
+// `samples`, `core_warps`, `tiled`, `grid` and `smem` are the wrapper's
+// plan (interacting_backward_plan), refused (cudaErrorInvalidValue) unless
+// they are this file's. Returns a cudaError_t, 0 on a successful launch;
+// the kernels run on `stream` and nothing here synchronises.
 extern "C" int interacting_bwd(const void* x, const void* g, const void* w,
                                void* dx, float* part, float* grads, int n_part,
                                int B, int F, int d, int a, int H, float scale,
-                               int bf16, int samples, int core_warps, int grid,
-                               int smem, void* stream) {
+                               int bf16, int samples, int core_warps, int tiled,
+                               int grid, int smem, void* stream) {
   if (B < 1 || F < 1 || d < 1 || H < 1 || a < H || a % H != 0) {
     return (int)cudaErrorInvalidValue;
   }
   Plan p;
-  if (!choose_interact_plan(B, F, d, a, H, scale, &p)) return (int)cudaErrorInvalidValue;
+  bool is_tiled = false;
+  if (!choose_interact_plan(B, F, d, a, H, scale, &p, &is_tiled)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int tiles = (B + p.S - 1) / p.S;
   const int want_grid = tiles < kBlocks ? tiles : kBlocks;
-  if (p.S != samples || p.NC != core_warps || 4 * p.total != smem ||
-      grid != want_grid || n_part != p.dp * 4 * p.ap) {
+  if (p.S != samples || p.NC != core_warps || (int)is_tiled != tiled ||
+      4 * p.total != smem || grid != want_grid || n_part != p.dp * 4 * p.ap) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? interact_bwd<true>(x, g, w, dx, part, grads, p, grid, st)
-           : interact_bwd<false>(x, g, w, dx, part, grads, p, grid, st);
+  cudaError_t err;
+  if (is_tiled) {
+    err = bf16 ? interact_bwd<true, true>(x, g, w, dx, part, grads, p, grid, st)
+               : interact_bwd<false, true>(x, g, w, dx, part, grads, p, grid, st);
+  } else {
+    err = bf16 ? interact_bwd<true, false>(x, g, w, dx, part, grads, p, grid, st)
+               : interact_bwd<false, false>(x, g, w, dx, part, grads, p, grid, st);
+  }
   return (int)err;
 }
 

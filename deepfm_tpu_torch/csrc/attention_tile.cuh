@@ -20,6 +20,11 @@
 //    one lane per field (lanes wrap for F > 32): scores_softmax, mix_rows,
 //    core_forward and core_backward (attention_bwd.cu's head note has the
 //    design);
+//  * the tiled core's pieces (each_tile, tiled_scores, mix_tile, ToRows,
+//    tiled_softmax, tiled_softmax_adjoint), which only the interacting
+//    layer's backward calls: every pair of a tile at once, a register tile
+//    of outputs a thread, each sum in the lane-per-query core's order;
+//  * prefetch_l2, a hint that brings device memory into L2 ahead of use;
 //  * load_rows, a tile's rows from device memory with each thread's loads
 //    in flight together.
 
@@ -80,7 +85,7 @@ struct Plan {
   // shared-memory regions, in floats from the start (each kernel sets
   // those it uses)
   int o_wo, o_bqkv, o_bo, o_ls, o_lb, o_dw, o_dwo, o_db, o_x, o_y, o_dout,
-      o_qkv, o_ctx, o_scr, o_stats, total;
+      o_qkv, o_ctx, o_scr, o_stats, o_d, total;
 };
 
 // The geometry of a tile of S samples with NC core warps.
@@ -398,6 +403,284 @@ __device__ void core(const Plan& p, float* qkv, float* ctx, float* W, int sv,
     case 2: core_pairs<Backward, 2>(p, qkv, ctx, W, sv, warp, lane); break;
     default: core_pairs<Backward, 1>(p, qkv, ctx, W, sv, warp, lane); break;
   }
+}
+
+// ---- the tiled core (AutoInt's interacting backward, attention_bwd.cu):
+// every (sample, head) pair of a tile at once over all the block's
+// threads, each thread a register tile of kTm rows by TN columns of one
+// pair's product, so each value it reads from shared memory feeds kTm or
+// TN FMAs where the lane-per-query core above feeds one. Each output's sum
+// runs in the order that core takes it: an F x F product (q_i . k_j or
+// dctx_i . v_j) as chunks of 4*M4 floats, each an fmaf chain from 0 in
+// order of e, the chunks added in order; an F x hdp product
+// (sum_t M[t, r] row_t) as an fmaf chain over t from 0. A pair's two F x F
+// matrices lie in two areas of the scratch, W (softmax) at W + pr*F*FS and
+// D (dw, then ds) at D + pr*F*FS, element (query i, key j) at j*FS + i.
+// Bounds of the paper's shape (F = 39, 4 pairs a tile):
+// a row block of 5 makes 8 blocks of 40 rows, 256 threads a product.
+
+constexpr int kTm = 5;
+
+// body(pair, r0, c0) for every (pair, kTm-row block, TN-column block) of
+// `pairs` R x C outputs, the block's threads taking them in turn: a
+// quarter-warp takes 8 row blocks of one column block
+template <int TN, class Body>
+__device__ __forceinline__ void each_tile(int pairs, int R, int C, const Body& body) {
+  const int tr = (R + kTm - 1) / kTm;
+  const int per = tr * ((C + TN - 1) / TN);
+  for (int u = threadIdx.x; u < pairs * per; u += kThreads) {
+    const int pr = u / per, w = u - pr * per, cb = w / tr;
+    body(pr, (w - cb * tr) * kTm, cb * TN);
+  }
+}
+
+// Pair pr = (sample s, head h): its head's columns in the tile's rows
+// (stride `stride`, first row of sample 0 at `base`)
+__device__ __forceinline__ float* pair_at(const Plan& p, float* base, int stride, int pr) {
+  const int s = pr / p.H;
+  return base + s * p.F * stride + (pr - s * p.H) * p.hdp;
+}
+
+// M[j*FS + i] = (sum_e a_i[e] b_j[e]) (* scale) for every pair, a_i at
+// row i of the pair's columns at `ao` in rows, b_j at `bo`; pair pr's M at
+// M + pr*F*FS
+template <int M4, bool Scale>
+__device__ __forceinline__ void tiled_scores(const Plan& p, int pairs, float* rows,
+                                             int ao, int bo, float* M) {
+  const int F = p.F, QS = p.QS, FS = p.FS, nch = p.hdp / 4;
+  each_tile<kTm>(pairs, F, F, [&](int pr, int i0, int j0) {
+    const float* base = pair_at(p, rows, QS, pr);
+    const float* a[kTm];
+    const float* b[kTm];
+#pragma unroll
+    for (int u = 0; u < kTm; ++u) {
+      a[u] = base + ao + min(i0 + u, F - 1) * QS;
+      b[u] = base + bo + min(j0 + u, F - 1) * QS;
+    }
+    float tot[kTm][kTm] = {};
+    for (int c4 = 0; c4 < nch; c4 += M4) {
+      float acc[kTm][kTm] = {};
+#pragma unroll
+      for (int w = 0; w < M4; ++w) {
+        float4 av[kTm], bv[kTm];
+#pragma unroll
+        for (int u = 0; u < kTm; ++u) {
+          av[u] = reinterpret_cast<const float4*>(a[u])[c4 + w];
+          bv[u] = reinterpret_cast<const float4*>(b[u])[c4 + w];
+        }
+#pragma unroll
+        for (int u = 0; u < kTm; ++u) {
+#pragma unroll
+          for (int v = 0; v < kTm; ++v) acc[u][v] = fmaf(av[u].x, bv[v].x, acc[u][v]);
+        }
+#pragma unroll
+        for (int u = 0; u < kTm; ++u) {
+#pragma unroll
+          for (int v = 0; v < kTm; ++v) acc[u][v] = fmaf(av[u].y, bv[v].y, acc[u][v]);
+        }
+#pragma unroll
+        for (int u = 0; u < kTm; ++u) {
+#pragma unroll
+          for (int v = 0; v < kTm; ++v) acc[u][v] = fmaf(av[u].z, bv[v].z, acc[u][v]);
+        }
+#pragma unroll
+        for (int u = 0; u < kTm; ++u) {
+#pragma unroll
+          for (int v = 0; v < kTm; ++v) acc[u][v] = fmaf(av[u].w, bv[v].w, acc[u][v]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTm; ++u) {
+#pragma unroll
+        for (int v = 0; v < kTm; ++v) tot[u][v] = c4 == 0 ? acc[u][v] : acc[u][v] + tot[u][v];
+      }
+    }
+    float* m = M + pr * F * FS;
+#pragma unroll
+    for (int u = 0; u < kTm; ++u) {
+#pragma unroll
+      for (int v = 0; v < kTm; ++v) {
+        if (i0 + u < F && j0 + v < F) {
+          m[(j0 + v) * FS + i0 + u] = Scale ? tot[u][v] * p.scale : tot[u][v];
+        }
+      }
+    }
+  });
+}
+
+// out_r = sum_t M[t*FS + r] src_t (M[r*FS + t] with ByKey) for kTm rows
+// from r0 and TN columns from c0 of one pair; out(u, v) takes row r0 + u's
+// TN sums (rows below F only)
+template <bool ByKey, int TN, class Out>
+__device__ __forceinline__ void mix_tile(const Plan& p, const float* M, const float* src,
+                                         int sstride, int r0, int c0, const Out& out) {
+  const int F = p.F, FS = p.FS, mt = ByKey ? 1 : FS;
+  int mr[kTm];
+#pragma unroll
+  for (int u = 0; u < kTm; ++u) {
+    const int r = min(r0 + u, F - 1);
+    mr[u] = ByKey ? r * FS : r;
+  }
+  float acc[kTm][TN] = {};
+  src += c0;
+#pragma unroll 2
+  for (int t = 0; t < F; ++t) {
+    float m[kTm], s[TN];
+#pragma unroll
+    for (int u = 0; u < kTm; ++u) m[u] = M[mr[u] + t * mt];
+#pragma unroll
+    for (int w = 0; w < TN / 4; ++w) {
+      const float4 v = reinterpret_cast<const float4*>(src + t * sstride)[w];
+      s[4 * w] = v.x; s[4 * w + 1] = v.y; s[4 * w + 2] = v.z; s[4 * w + 3] = v.w;
+    }
+#pragma unroll
+    for (int u = 0; u < kTm; ++u) {
+#pragma unroll
+      for (int e = 0; e < TN; ++e) acc[u][e] = fmaf(m[u], s[e], acc[u][e]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kTm; ++u) {
+    if (r0 + u < F) out(u, acc[u]);
+  }
+}
+
+// mix_tile's plain output: TN columns from c0 of rows from r0 of dst
+template <int TN>
+struct ToRows {
+  float* dst;
+  int stride, r0, c0;
+  __device__ __forceinline__ void operator()(int u, const float (&v)[TN]) const {
+#pragma unroll
+    for (int w = 0; w < TN / 4; ++w) {
+      reinterpret_cast<float4*>(dst + (r0 + u) * stride + c0)[w] =
+          make_float4(v[4 * w], v[4 * w + 1], v[4 * w + 2], v[4 * w + 3]);
+    }
+  }
+};
+
+// A thread's row of the F x F scratch is read kRow elements at a time, the
+// loads issued together (the row's stores would otherwise keep each load
+// behind the last store), and taken in order of j
+constexpr int kRow = 8;
+
+// Rows of up to kRowMax keys are read into registers once (all loads in
+// flight together); longer rows take three passes over the scratch
+constexpr int kRowMax = 40;
+
+// The softmax over the keys of every (pair, query) row of the pairs' W, in
+// place, a thread a row: scores_softmax's steps (the maximum, then exp of
+// the difference summed in order of j, then a multiply by 1 / sum)
+__device__ __forceinline__ void tiled_softmax(const Plan& p, int pairs, float* Wall) {
+  const int F = p.F, FS = p.FS;
+  if (F <= kRowMax) {
+    for (int r = threadIdx.x; r < pairs * F; r += kThreads) {
+      float* W = Wall + (r / F) * F * FS + r % F;
+      float e[kRowMax];
+      float mx = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+      for (int j = 0; j < kRowMax; ++j) e[j] = j < F ? W[j * FS] : mx;
+#pragma unroll
+      for (int j = 0; j < kRowMax; ++j) mx = fmaxf(mx, e[j]);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kRowMax; ++j) {
+        if (j < F) {
+          e[j] = __expf(e[j] - mx);
+          sum += e[j];
+        }
+      }
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int j = 0; j < kRowMax; ++j) {
+        if (j < F) W[j * FS] = e[j] * inv;
+      }
+    }
+    return;
+  }
+  for (int r = threadIdx.x; r < pairs * F; r += kThreads) {
+    float* W = Wall + (r / F) * F * FS + r % F;
+    float mx = __int_as_float(0xff800000);  // -inf
+    for (int j0 = 0; j0 < F; j0 += kRow) {
+      float e[kRow];
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) e[u] = j0 + u < F ? W[(j0 + u) * FS] : mx;
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) mx = fmaxf(mx, e[u]);
+    }
+    float sum = 0.f;
+    for (int j0 = 0; j0 < F; j0 += kRow) {
+      float e[kRow];
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) e[u] = j0 + u < F ? W[(j0 + u) * FS] : 0.f;
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) {
+        if (j0 + u < F) {
+          e[u] = __expf(e[u] - mx);
+          W[(j0 + u) * FS] = e[u];
+          sum += e[u];
+        }
+      }
+    }
+    const float inv = 1.f / sum;
+    for (int j0 = 0; j0 < F; j0 += kRow) {
+      float e[kRow];
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) e[u] = j0 + u < F ? W[(j0 + u) * FS] : 0.f;
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) {
+        if (j0 + u < F) W[(j0 + u) * FS] = e[u] * inv;
+      }
+    }
+  }
+}
+
+// The softmax's adjoint of every (pair, query) row, D = dw in, ds out, a
+// thread a row: core_backward's steps (sdot = sum_j dw * w in order of j,
+// then ds = w * (dw - sdot) * scale)
+__device__ __forceinline__ void tiled_softmax_adjoint(const Plan& p, int pairs,
+                                                      const float* Wall, float* Dall) {
+  const int F = p.F, FS = p.FS;
+  for (int r = threadIdx.x; r < pairs * F; r += kThreads) {
+    const int at = (r / F) * F * FS + r % F;
+    const float* W = Wall + at;
+    float* D = Dall + at;
+    float sdot = 0.f;
+    for (int j0 = 0; j0 < F; j0 += kRow) {
+      float dv[kRow], wv[kRow];
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) {
+        dv[u] = j0 + u < F ? D[(j0 + u) * FS] : 0.f;
+        wv[u] = j0 + u < F ? W[(j0 + u) * FS] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) {
+        if (j0 + u < F) sdot += dv[u] * wv[u];
+      }
+    }
+    for (int j0 = 0; j0 < F; j0 += kRow) {
+      float dv[kRow], wv[kRow];
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) {
+        dv[u] = j0 + u < F ? D[(j0 + u) * FS] : 0.f;
+        wv[u] = j0 + u < F ? W[(j0 + u) * FS] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) {
+        if (j0 + u < F) D[(j0 + u) * FS] = wv[u] * (dv[u] - sdot) * p.scale;
+      }
+    }
+  }
+}
+
+// Ask L2 for the 128-byte lines of `bytes` bytes from `ptr`, the block's
+// threads a line each (a hint: nothing waits for it)
+__device__ __forceinline__ void prefetch_l2(const void* ptr, size_t bytes) {
+  const char* c = static_cast<const char*>(ptr);
+  for (size_t o = threadIdx.x * 128; o < bytes; o += kThreads * 128) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(c + o));
+  }
+  if (threadIdx.x == 0 && bytes > 0) asm volatile("prefetch.global.L2 [%0];" ::"l"(c + bytes - 1));
 }
 
 // dst[r * stride + c] = ld(r * d + c) for the n = rows * d elements of a

@@ -26,7 +26,8 @@ a block.
 
 Tracing (``utils/tracing.py``): each stack's forward is the span
 ``model.attention``, and each layer adds its B·F rows to the counter
-``attention.rows``.
+``attention.rows`` (an interacting layer's backward adds them to
+``attention.tiled_core_rows`` where it takes the tiled core).
 """
 
 from __future__ import annotations

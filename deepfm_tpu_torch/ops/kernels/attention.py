@@ -40,9 +40,13 @@ the weights in the compute type into the products; q/k/v/res, scores,
 softmax, context and the residual sum in f32; the output cast once; in the
 backward [dq|dk|dv|dres] cast to the compute type before its two products
 (dW and dx). Plans: ``interacting_forward_plan``,
-``interacting_backward_plan``; plain versions ``interacting_plain``,
-``interacting_backward_plain``; the autograd Function
-``InteractingLayerFn``.
+``interacting_backward_plan`` (the backward's attention core is the tiled
+core of ``csrc/attention_tile.cuh`` on all warps where its layout fits,
+with the lane-per-query core's bits; ``interacting_backward.tiled_launches``
+counts those launches beside ``launches``, and the tracing counter
+``attention.tiled_core_rows`` their rows); plain versions
+``interacting_plain``, ``interacting_backward_plain``; the autograd
+Function ``InteractingLayerFn``.
 """
 
 from __future__ import annotations
@@ -82,7 +86,7 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
-    "interacting_bwd": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    "interacting_bwd": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
 }
 
 
@@ -236,12 +240,15 @@ class BackwardPlan:
     make_plan / choose_plan, which the launch recomputes and checks).
 
     samples: samples a tile (rows = samples * F, padded to 16); core_warps:
-    warps that run the attention core, one (sample, head) each at a time;
-    smem: dynamic shared memory in bytes; grid: blocks for batch ``bsz``."""
+    warps that run the attention core (the lane-per-query core: one
+    (sample, head) each at a time; the tiled core: all of them on every
+    pair); smem: dynamic shared memory in bytes; tiled: the interacting
+    backward's tiled core and layout; grid: blocks for batch ``bsz``."""
     samples: int
     core_warps: int
     rows: int
     smem: int
+    tiled: bool = False
 
     def grid(self, bsz: int) -> int:
         return min(-(-bsz // self.samples), BWD_BLOCKS)
@@ -650,12 +657,34 @@ def interacting_forward_plan(f: int, d: int, a: int,
         f, d, a, num_heads)
 
 
+def _interact_tiled_floats(f: int, d: int, a: int, h: int,
+                           samples: int) -> int:
+    """Floats of the interacting backward's tiled layout
+    (csrc/attention_bwd.cu's make_tiled_interact_plan)."""
+    hdp = _up(a // h, 4)
+    ap, dp = _up(h * hdp, 16), _up(d, 16)
+    rows = _up(samples * f, 16)
+    weights = dp * _row_stride(4 * ap)  # [wq|wk|wv|wres]
+    # [q|k|v|res] (then dall4), ctx (then dq, then dx)
+    tile = rows * (_row_stride(4 * ap) + _row_stride(max(ap, dp)))
+    # x's rows, or between the products every pair's W, then every pair's D
+    shared = max(rows * _row_stride(dp), samples * h * 2 * f * (f | 1))
+    return weights + tile + shared
+
+
 @functools.lru_cache(maxsize=None)
 def interacting_backward_plan(f: int, d: int, a: int,
                               num_heads: int) -> BackwardPlan:
     """The interacting layer's backward plan (csrc/attention_bwd.cu's
-    make_interact_plan): the most core warps, then the most samples a tile,
-    that fit one block, with no gradient accumulator in shared memory."""
+    choose_interact_plan): the tiled core's layout with the most samples a
+    tile that fits one block, its core on all warps; where none fits, the
+    lane-per-query core's (make_interact_plan): the most core warps, then
+    the most samples a tile, that fit one block, with no gradient
+    accumulator in shared memory."""
+    for s in range(MAX_SAMPLES, 0, -1):
+        smem = 4 * _interact_tiled_floats(f, d, a, num_heads, s)
+        if smem <= SMEM_PER_BLOCK:
+            return BackwardPlan(s, WARPS, _up(s * f, 16), smem, tiled=True)
     return _choose_backward(
         lambda *s: _interact_floats(*s, backward=True), "interacting layer",
         f, d, a, num_heads)
@@ -721,10 +750,14 @@ def _interact_backward_cuda(x, p, g, num_heads):
                 x.data_ptr(), gg.data_ptr(), w4.data_ptr(), dx.data_ptr(),
                 part.data_ptr(), flat.data_ptr(), n_part, bsz, f, d, a,
                 num_heads, INTERACT_SCALE, int(x.dtype == torch.bfloat16),
-                bp.samples, bp.core_warps, grid, bp.smem, build.stream_of(x),
+                bp.samples, bp.core_warps, int(bp.tiled), grid, bp.smem,
+                build.stream_of(x),
             )
         build.check(lib, BWD_SOURCE, "interacting_bwd", err)
         interacting_backward.launches += 1
+        if bp.tiled:
+            interacting_backward.tiled_launches += 1
+            tracing.count("attention.tiled_core_rows", bsz * f)
     else:
         dx.zero_()
         flat.zero_()
@@ -760,6 +793,8 @@ def interacting_backward(x: torch.Tensor, p: dict, g: torch.Tensor,
 
 
 interacting_backward.launches = 0
+# launches that took the tiled core (the rest took the lane-per-query core)
+interacting_backward.tiled_launches = 0
 
 
 class InteractingLayerFn(torch.autograd.Function):

@@ -49,7 +49,10 @@ Spans (each ``deepfm.<name>`` in a trace):
 
 Counters: ``train.stage_bytes`` and ``score.stage_bytes``, the host bytes
 each staging copies; ``attention.rows``, the B·F rows each attention layer
-takes in its forward.
+takes in its forward; ``attention.tiled_core_rows``, the B·F rows of each
+interacting layer's backward launch that took the tiled core
+(``ops/kernels/attention.py``; in a training epoch with no evaluation it
+equals ``attention.rows`` where every backward took it).
 """
 
 from __future__ import annotations

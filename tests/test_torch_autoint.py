@@ -267,20 +267,51 @@ def test_the_stack_reads_each_layers_width():
 @pytest.mark.parametrize("d,forward,backward", [
     (16, ForwardPlan(samples=3, core_warps=6, rows=128, smem=198_552,
                      blocks_per_sm=1),
-     BackwardPlan(samples=2, core_warps=4, rows=80, smem=176_672)),
+     BackwardPlan(samples=2, core_warps=8, rows=80, smem=170_272, tiled=True)),
     (64, ForwardPlan(samples=2, core_warps=4, rows=80, smem=197_136,
                      blocks_per_sm=1),
-     BackwardPlan(samples=2, core_warps=3, rows=80, smem=229_784)),
+     BackwardPlan(samples=2, core_warps=8, rows=80, smem=220_192, tiled=True)),
 ])
 def test_interacting_plans_at_the_paper_shapes(d, forward, backward):
     """Layer 1 (d = 16) and layers 2-3 (d = 64): both fit a block, where
-    the attention block's backward at d = 64 does not."""
+    the attention block's backward at d = 64 does not; the backward takes
+    the tiled core on all 8 warps, 2 samples (4 pairs) a tile."""
     assert interacting_forward_plan(39, d, 64, 2) == forward
     assert interacting_backward_plan(39, d, 64, 2) == backward
     assert backward.grid(16384) == 132 and backward.grid(3) == 2
     if d == 64:
         with pytest.raises(ValueError, match="243968 bytes"):
             backward_plan(39, 64, 64, 2)
+
+
+@pytest.mark.parametrize("f", [5, 33, 39, 40, 48])
+@pytest.mark.parametrize("d,a,heads", [(16, 64, 2), (64, 64, 2), (16, 24, 3),
+                                       (64, 24, 3)])
+def test_interacting_backward_plan_invariants(f, d, a, heads):
+    """The tiled layout at field counts on and off a 5-row register tile's
+    edge (5 and 40 on it, 33, 39 and 48 past it) and heads of 32 and of 8
+    (a = 24 of 3: 4 or 8 columns a thread, chunks of 8 floats): it fits a
+    block, its core gets every warp, it takes the most samples that fit,
+    and its grid is a block a tile up to the fixed 132."""
+    bp = interacting_backward_plan(f, d, a, heads)
+    assert bp.tiled and bp.core_warps == kattn.WARPS
+    assert bp.smem <= kattn.SMEM_PER_BLOCK == 232_448
+    assert bp.rows == -(-bp.samples * f // 16) * 16
+    assert bp.samples == kattn.MAX_SAMPLES or 4 * kattn._interact_tiled_floats(
+        f, d, a, heads, bp.samples + 1) > kattn.SMEM_PER_BLOCK
+    assert bp.grid(3) == -(-3 // bp.samples)
+    assert bp.grid(16384) == kattn.BWD_BLOCKS == 132
+
+
+def test_interacting_backward_plan_falls_back_to_the_lane_per_query_core():
+    """Where even one sample's pairs' two F x F matrices do not fit beside
+    the tile (F = 66, d = 64, 2 heads), the plan keeps the lane-per-query
+    core's layout, which still fits, rather than refusing the shape."""
+    bp = interacting_backward_plan(66, 64, 64, 2)
+    assert not bp.tiled
+    assert bp == BackwardPlan(samples=1, core_warps=1, rows=80, smem=228_656)
+    assert 4 * kattn._interact_tiled_floats(66, 64, 64, 2, 1) \
+        > kattn.SMEM_PER_BLOCK
 
 
 def test_interacting_plans_refuse_a_shape_no_block_holds():
@@ -317,7 +348,9 @@ def test_interacting_kernels_match_plain_on_cuda():
     """The interacting layer's forward and backward kernels against their
     plain versions on the card, f32 and bf16, at both layer widths, ragged
     batches and padded heads (a = 24 of 3 heads of 8 pads d to 16 and the
-    sections to 32); a second launch gives the same bits. Elements whose
+    sections to 32), F = 40 and 48 (on and past the tiled core's 5-row
+    edge) and F = 66 (the lane-per-query fallback); a second launch gives
+    the same bits, and the tiled launches are counted. Elements whose
     ReLU mask parts between the two (ctx + res within rounding of 0) are
     held by share: at most 1e-3 of dx outside one bf16 step."""
     if not torch.cuda.is_available():
@@ -330,17 +363,23 @@ def test_interacting_kernels_match_plain_on_cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     for b, f, d, a, heads in ((6, 7, 4, 8, 2), (1001, 39, 16, 64, 2),
                               (300, 39, 64, 64, 2), (33, 5, 12, 24, 3),
-                              (1, 39, 64, 64, 2), (3, 33, 16, 64, 2)):
+                              (1, 39, 64, 64, 2), (3, 33, 16, 64, 2),
+                              (257, 40, 16, 64, 2), (257, 40, 64, 64, 2),
+                              (129, 48, 16, 64, 2), (129, 48, 64, 64, 2),
+                              (100, 66, 64, 64, 2)):
         gen = torch.Generator().manual_seed(b + d)
         p = {n: ((torch.rand(d, a, generator=gen) * 2 - 1)
                  * (1.2 / d ** 0.5)).cuda() for n in INTERACT_NAMES}
         x = torch.rand(b, f, d, generator=gen).cuda() - 0.3
         g = torch.randn(b, f, a, generator=gen).cuda() * 1e-2
+        tiled = interacting_backward_plan(f, d, a, heads).tiled
         for dt in (torch.float32, torch.bfloat16):
             xx, gg = x.to(dt), g.to(dt)
             out, out2 = (interacting_forward(xx, p, heads) for _ in range(2))
+            before = interacting_backward.tiled_launches
             (dx, dp), (dx2, dp2) = (interacting_backward(xx, p, gg, heads)
                                     for _ in range(2))
+            assert interacting_backward.tiled_launches - before == 2 * tiled
             ref = interacting_plain(xx, p, heads)
             rdx, rdp = interacting_backward_plain(xx, p, gg, heads)
             torch.cuda.synchronize()
@@ -354,3 +393,38 @@ def test_interacting_kernels_match_plain_on_cuda():
             for n in INTERACT_NAMES:
                 assert torch.equal(dp[n], dp2[n]), (what, n)
                 assert _rel(dp[n], rdp[n]) <= 1e-2, (what, n)
+
+
+@pytest.mark.cuda
+def test_interacting_backward_masks_are_the_forward_kernels():
+    """The backward recomputes the forward, and its ReLU mask must be the
+    forward kernel's bit for bit. With x's rows one-hot (row i = e_i, F <=
+    d) and a cotangent of ones, dW_res[i, c] = dres[i, c], which is exactly
+    1 where the backward's ctx + res > 0 and 0 elsewhere, in either dtype:
+    it must be nonzero exactly where interacting_forward(x) > 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU launch")
+    from deepfm_tpu_torch.ops.kernels.attention import (
+        interacting_backward,
+        interacting_forward,
+    )
+
+    for f, d, a, heads in ((39, 64, 64, 2), (40, 64, 64, 2), (64, 64, 64, 2),
+                           (5, 16, 24, 3)):
+        for seed in range(4):
+            gen = torch.Generator().manual_seed(100 * f + seed)
+            p = {n: ((torch.rand(d, a, generator=gen) * 2 - 1) * 0.8).cuda()
+                 for n in INTERACT_NAMES}
+            x = torch.zeros(1, f, d)
+            x[0, torch.arange(f), torch.arange(f)] = 1.0
+            for dt in (torch.float32, torch.bfloat16):
+                xx = x.to(dt).cuda()
+                out = interacting_forward(xx, p, heads)[0]
+                _, dp = interacting_backward(
+                    xx, p, torch.ones(1, f, a, dtype=dt, device="cuda"), heads)
+                mask = dp["wres"][:f]
+                what = f"F={f} d={d} H={heads} seed {seed} {dt}"
+                assert 0.1 < (out > 0).float().mean().item() < 0.9, what
+                assert torch.equal(mask != 0, out > 0), what
+                assert torch.all((mask == 0) | (mask == 1)), what
+                assert torch.all(dp["wres"][f:] == 0), what

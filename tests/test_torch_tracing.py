@@ -262,6 +262,8 @@ def test_attention_spans_count_a_stack_call_and_a_layer(model):
     assert spans["model.attention"]["count"] == BATCHES
     assert spans["model.attention_backward"]["count"] == BATCHES * layers
     assert snap["counters"]["attention.rows"] == BATCHES * B * fields * layers
+    # the plain versions launch no kernel, so no row took the tiled core
+    assert "attention.tiled_core_rows" not in snap["counters"]
     ranges: dict[str, list] = {}
     for e in prof.profiler.kineto_results.events():
         if e.name().startswith(tracing.PREFIX):
